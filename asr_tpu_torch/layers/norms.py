@@ -1,0 +1,16 @@
+"""Normalization layers. Statistics always in float32."""
+
+from __future__ import annotations
+
+import torch
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Affine LayerNorm over the last axis in f32, biased variance
+    (counterpart of ``asr_tpu/layers/norms.py:layer_norm``)."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    y = (xf - mean) / torch.sqrt(var + eps)
+    y = y * scale.to(torch.float32) + bias.to(torch.float32)
+    return y.to(x.dtype)

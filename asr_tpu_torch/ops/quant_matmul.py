@@ -1,0 +1,185 @@
+"""Dequant-fused int8 matmul for weight-only-quantized linears.
+
+Counterpart of ``asr_tpu/ops/quant_matmul.py``. ``quant_dense`` computes
+``x @ ((q - zero) * scale)`` for a :class:`~asr_tpu_torch.quant.quantize.QuantizedLinear`
+leaf. On a CUDA tensor it launches the hand-written Hopper kernel
+``asr_tpu_torch/csrc/quant_matmul_int8.cu`` (built with ``nvcc`` for
+``sm_90a`` at first use, bound with ``ctypes``) or raises. On a CPU tensor it
+runs the plain PyTorch version, :func:`quant_dense_reference`.
+
+Matmul mode, as in the JAX package:
+  ``"f32"``:  the exact f32 product of x and the dequantized weight;
+  ``"bf16"``: x is rounded to bf16 (nearest even) first; weights and the
+              accumulation stay f32.
+Precedence: an explicit ``mm=`` argument, then ``set_quant_config(mm=...)``,
+then ``"bf16"``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from asr_tpu_torch.quant.quantize import dequantize_weight
+
+# Kernel launches since import (or since a caller reset it to 0).
+LAUNCHES = 0
+
+_CONFIG: dict = {"mm": None}
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "quant_matmul_int8.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def set_quant_config(mm: str | None = None) -> None:
+    """Process-wide matmul mode for quantized linears."""
+    if mm is not None:
+        _check_mm(mm)
+        _CONFIG["mm"] = mm
+
+
+def _check_mm(mm: str) -> str:
+    if mm not in ("bf16", "f32"):
+        raise ValueError(f"mm must be 'bf16' or 'f32', got {mm!r}")
+    return mm
+
+
+def _resolve_mm(mm: str | None) -> str:
+    if mm is None:
+        mm = _CONFIG["mm"] or "bf16"
+    return _check_mm(mm)
+
+
+def quant_dense_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                          zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: dequantize in f32, then ``x' @ w``."""
+    w = dequantize_weight({"q": q, "scale": scale, "zero": zero, "block": block})
+    if _check_mm(mm) == "bf16":
+        x = x.to(torch.bfloat16).to(torch.float32)
+    return x @ w
+
+
+def _find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernel once per source and flags; return (library, nvcc log).
+
+    The library name carries a hash of the source and the flags, so a stale
+    build is never loaded. A file lock serializes concurrent builders."""
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libquant_matmul_int8-{digest}.so"
+    log = lib.with_suffix(".log")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            log.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, lib)
+    return lib, log.read_text() if log.exists() else ""
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            lib.quant_matmul_int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.quant_matmul_int8.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K, N) int8) -> (M, N) f32."""
+    global LAUNCHES
+    mm = _check_mm(mm)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"quant_matmul_int8 needs CUDA tensors, got {dev}")
+    for name, t, dtype in (("x", x, torch.float32), ("q", q, torch.int8),
+                           ("scale", scale, torch.float32), ("zero", zero, torch.float32)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor, got shape {tuple(t.shape)}")
+    m, k = x.shape
+    n = q.shape[1]
+    if q.shape[0] != k or block <= 0 or k % block:
+        raise ValueError(f"bad shapes: x {tuple(x.shape)}, q {tuple(q.shape)}, block {block}")
+    if scale.shape != (k // block, n) or zero.shape != (k // block, n):
+        raise ValueError(f"scale/zero must be {(k // block, n)}, got "
+                         f"{tuple(scale.shape)} / {tuple(zero.shape)}")
+    if max(k, n) >= 2**31 or -(-m // 64) > 65535:  # int sizes; grid.y counts 64-row tiles
+        raise ValueError(f"shape too large for the kernel: {(m, k, n)}")
+    out = torch.empty((m, n), device=dev, dtype=torch.float32)
+    if m == 0 or n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.quant_matmul_int8(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                                    zero.data_ptr(), out.data_ptr(), m, k, n, int(block),
+                                    int(mm == "bf16"), stream)
+    if err != 0:
+        raise RuntimeError(f"quant_matmul_int8 launch failed: CUDA error {err}")
+    with _count_lock:
+        LAUNCHES += 1
+    return out
+
+
+def quant_dense(x: torch.Tensor, qleaf, mm: str | None = None) -> torch.Tensor:
+    """Batched dense through an unpacked int8 quantized weight: (..., K) -> (..., N)."""
+    packed = "packed" in qleaf and bool(qleaf["packed"])
+    dynamic = "dynamic" in qleaf and bool(qleaf["dynamic"])
+    if int(qleaf["bits"]) != 8 or packed or dynamic:
+        raise NotImplementedError("only unpacked static int8 weights have a kernel in the port")
+    mode = _resolve_mm(mm)
+    q, scale, zero, block = qleaf["q"], qleaf["scale"], qleaf["zero"], int(qleaf["block"])
+    k = x.shape[-1]
+    n = q.shape[1]
+    x2 = x.reshape(-1, k).contiguous()
+    if x2.device.type == "cpu":
+        out = quant_dense_reference(x2, q, scale, zero, block, mode)
+    else:
+        out = quant_matmul_int8(x2, q, scale, zero, block, mode)
+    return out.reshape(*x.shape[:-1], n)

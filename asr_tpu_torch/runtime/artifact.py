@@ -1,0 +1,178 @@
+"""Model artifact folders: ``weights.safetensors`` + ``metadata.json``.
+
+Counterpart of ``asr_tpu/runtime/artifact.py``, reading and writing the
+same folders: flattened keys joined with ``/`` (list items by index),
+quantized leaves as ``<path>/__quant__/{q,scale,zero,bits,block,packed,dynamic}``,
+and byte-identical tensors of at least 1 KiB stored once, with the other
+keys listed in ``metadata.extra["weight_aliases"]``.
+
+The safetensors format is parsed and written here with numpy: an 8-byte
+little-endian header length, a JSON header mapping each name to its dtype,
+shape and byte range, then the raw little-endian bytes.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from asr_tpu.runtime.metadata import ModelMetadata
+from asr_tpu_torch.quant.quantize import QuantizedLinear
+
+WEIGHTS_FILENAME = "weights.safetensors"
+
+_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U8": np.uint8, "BOOL": np.bool_,
+}
+_CODES = {np.dtype(v).str: k for k, v in _DTYPES.items()}
+
+
+def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
+    """Every tensor of a safetensors file as a writable numpy array."""
+    data = bytearray(Path(path).read_bytes())
+    (n,) = struct.unpack("<Q", data[:8])
+    header = json.loads(data[8 : 8 + n].decode("utf-8"))
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _DTYPES:
+            raise ValueError(f"{name}: dtype {info['dtype']} is not supported")
+        begin, end = info["data_offsets"]
+        dtype = np.dtype(_DTYPES[info["dtype"]]).newbyteorder("<")
+        arr = np.frombuffer(data, dtype=dtype, count=(end - begin) // dtype.itemsize, offset=base + begin)
+        out[name] = arr.reshape(info["shape"]).astype(dtype.newbyteorder("="), copy=False)
+    return out
+
+
+def write_safetensors(path: str | Path, tensors: dict[str, np.ndarray]) -> None:
+    header: dict[str, Any] = {}
+    chunks = []
+    offset = 0
+    for name, arr in tensors.items():
+        arr = np.ascontiguousarray(arr)
+        little = arr.dtype.newbyteorder("<")
+        code = _CODES.get(little.str)
+        if code is None:
+            raise ValueError(f"{name}: dtype {arr.dtype} is not supported")
+        raw = arr.astype(little, copy=False).tobytes()
+        header[name] = {"dtype": code, "shape": list(arr.shape), "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(blob)))
+        fh.write(blob)
+        for raw in chunks:
+            fh.write(raw)
+
+
+def flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    """Parameter tree -> ``{key: numpy array}`` with the JAX package's keys."""
+    out: dict[str, np.ndarray] = {}
+    if isinstance(tree, QuantizedLinear):
+        for k in ("q", "scale", "zero"):
+            out[f"{prefix}__quant__/{k}"] = tree[k].detach().cpu().numpy()
+        for k in ("bits", "block", "packed", "dynamic"):
+            out[f"{prefix}__quant__/{k}"] = np.asarray(int(tree[k]), np.int32)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_pytree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_pytree(v, f"{prefix}{i}/"))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix[:-1]] = tree.detach().cpu().numpy()
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def params_from_flat(flat: dict[str, np.ndarray], device) -> Any:
+    """Flat ``{key: numpy array}`` (from either package's ``flatten_pytree``
+    or an artifact) -> the port's parameter tree on ``device``. Arrays that
+    are the same numpy object become one device tensor."""
+    device = torch.device(device)
+    memo: dict[int, torch.Tensor] = {}
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        if id(a) not in memo:
+            memo[id(a)] = torch.from_numpy(np.array(a, copy=True)).to(device)
+        return memo[id(a)]
+
+    root: dict = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def build(node):
+        if not isinstance(node, dict):
+            return put(node)
+        if "__qembed__" in node:
+            raise NotImplementedError("QuantizedEmbedding leaves are not ported yet")
+        if "__quant__" in node and len(node) == 1:
+            q = node["__quant__"]
+            return QuantizedLinear(put(q["q"]), put(q["scale"]), put(q["zero"]),
+                                   int(q["bits"]), int(q["block"]),
+                                   packed=bool(int(q.get("packed", 0))),
+                                   dynamic=bool(int(q.get("dynamic", 0))))
+        keys = list(node.keys())
+        if keys and all(k.isdigit() for k in keys):
+            return [build(node[str(i)]) for i in range(len(keys))]
+        return {k: build(v) for k, v in node.items()}
+
+    return build(root)
+
+
+def dedup_flat(flat: dict[str, np.ndarray]) -> tuple[dict[str, np.ndarray], dict[str, str]]:
+    """Keep one copy of each byte-identical tensor of at least 1 KiB; the
+    rest become ``{alias_key: canonical_key}`` rows."""
+    by_sig: dict[tuple, str] = {}
+    kept: dict[str, np.ndarray] = {}
+    aliases: dict[str, str] = {}
+    for key, arr in flat.items():
+        if arr.nbytes < 1024:
+            kept[key] = arr
+            continue
+        raw = arr.tobytes()
+        sig = (arr.dtype.str, arr.shape, hash(raw))
+        canon = by_sig.get(sig)
+        if canon is not None and kept[canon].tobytes() == raw:
+            aliases[key] = canon
+        else:
+            by_sig[sig] = key
+            kept[key] = arr
+    return kept, aliases
+
+
+def save_model(folder: str | Path, params: Any, metadata: ModelMetadata) -> None:
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    flat, aliases = dedup_flat(flatten_pytree(params))
+    if aliases:
+        metadata.extra["weight_aliases"] = aliases
+    else:
+        metadata.extra.pop("weight_aliases", None)
+    write_safetensors(folder / WEIGHTS_FILENAME, flat)
+    metadata.save(folder)
+
+
+def load_model(folder: str | Path, device) -> tuple[Any, ModelMetadata]:
+    folder = Path(folder)
+    flat = read_safetensors(folder / WEIGHTS_FILENAME)
+    meta = ModelMetadata.load(folder)
+    for alias, canon in meta.extra.get("weight_aliases", {}).items():
+        flat[alias] = flat[canon]
+    return params_from_flat(flat, device), meta

@@ -1,0 +1,128 @@
+"""Inference sessions: file/array in -> tokens and text out, with RTF reporting.
+
+Counterpart of ``asr_tpu/runtime/session.py`` (``SenseVoiceSession``
+without the ``mesh=`` data-parallel runner): long audio is cut into fixed
+windows, the windows run as one padded batch in a single forward, and the
+per-window token ids are concatenated in order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from asr_tpu.runtime import audio as audio_io
+from asr_tpu.runtime.metadata import ModelMetadata, config_from_dict
+from asr_tpu_torch.models import sensevoice as sv
+from asr_tpu_torch.runtime.artifact import load_model
+
+
+@dataclasses.dataclass
+class TranscribeResult:
+    text: str
+    token_ids: list[int]
+    audio_seconds: float
+    elapsed_seconds: float   # wall-clock latency of the forward that produced this
+
+    @property
+    def rtf(self) -> float:
+        return self.elapsed_seconds / max(self.audio_seconds, 1e-9)
+
+
+def bucket_windows(num: int) -> int:
+    """Round a window count up to the next power of two, so a session sees
+    few distinct batch shapes. Padded windows carry valid=0."""
+    n = 1
+    while n < num:
+        n *= 2
+    return n
+
+
+def _params_device(params) -> torch.device:
+    return params["ctc"]["b"].device
+
+
+class SenseVoiceSession:
+    """Batched sliding-window SenseVoice inference on the parameters' device."""
+
+    # windowed-session protocol (used by parallel.http_server)
+    pcm_scale = 32768.0
+    sample_rate = 16000
+
+    def __init__(self, params, cfg: sv.SenseVoiceConfig, tokenizer=None,
+                 metadata: ModelMetadata | None = None, window_seconds: float = 8.0,
+                 window_stride_seconds: float | None = None):
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.metadata = metadata
+        self.window_samples = int(window_seconds * cfg.sample_rate)
+        self.stride_samples = (
+            int(window_stride_seconds * cfg.sample_rate)
+            if window_stride_seconds else self.window_samples
+        )
+        if not 0 < self.stride_samples <= self.window_samples:
+            raise ValueError("window stride must be in (0, window]")
+        self.params = params
+        self.device = _params_device(params)
+
+    def language_index(self, language: str) -> int:
+        for i, (code, desc, aliases, _tok) in enumerate(sv.LANGUAGE_PROFILES):
+            if language.lower() in (code, desc.lower(), *(a.lower() for a in aliases)):
+                return i
+        raise KeyError(f"unsupported language {language!r}")
+
+    def transcribe(self, audio: np.ndarray | str | Path, language: str = "auto") -> TranscribeResult:
+        if isinstance(audio, (str, Path)):
+            audio = audio_io.load_audio(audio, self.cfg.sample_rate)
+        audio = np.asarray(audio, dtype=np.float32)
+        n = len(audio)
+        w = self.window_samples
+        starts = audio_io.iter_windows(n, w, self.stride_samples)
+        num_windows = len(starts)
+        padded = bucket_windows(num_windows)
+        buf = np.zeros((padded, w), dtype=np.float32)
+        valid = np.zeros((padded,), dtype=np.int32)
+        for i, s in enumerate(starts):
+            chunk = audio[s : s + w]
+            buf[i, : len(chunk)] = chunk
+            valid[i] = len(chunk)
+
+        t0 = time.perf_counter()
+        toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
+                                     torch.from_numpy(valid).to(self.device), language)
+        toks = toks.cpu().numpy()  # waits for the device
+        counts = counts.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+
+        ids: list[int] = []
+        for i in range(num_windows):
+            ids.extend(int(t) for t in toks[i, : counts[i]])
+        text = self.tokenizer.decode(ids) if self.tokenizer is not None else ""
+        return TranscribeResult(text=text, token_ids=ids, audio_seconds=n / self.cfg.sample_rate,
+                                elapsed_seconds=elapsed)
+
+    def warmup(self) -> None:
+        self.transcribe(np.zeros(self.window_samples, dtype=np.float32))
+
+    def _forward(self, params, audio: torch.Tensor, valid: torch.Tensor, language: str = "auto"):
+        lang = torch.full((audio.shape[0],), self.language_index(language), dtype=torch.int64,
+                          device=audio.device)
+        with torch.inference_mode():
+            return sv.forward(params, self.cfg, audio, valid, lang)
+
+    def _postprocess(self, text: str) -> str:
+        return text
+
+
+def load_session(folder: str | Path, device, tokenizer=None, **session_kw) -> SenseVoiceSession:
+    """Artifact folder (``metadata.json`` family ``sensevoice``, its config
+    under ``extra["config"]``) -> a session on ``device``."""
+    params, meta = load_model(folder, device)
+    if meta.family != "sensevoice":
+        raise ValueError(f"expected a sensevoice artifact, got family {meta.family!r}")
+    cfg = config_from_dict(sv.SenseVoiceConfig, meta.extra.get("config", {}))
+    return SenseVoiceSession(params, cfg, tokenizer=tokenizer, metadata=meta, **session_kw)
