@@ -26,7 +26,11 @@ def attention_bias_from_lengths(valid: torch.Tensor, t: int) -> torch.Tensor:
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias: torch.Tensor | None = None, scale: float | None = None) -> torch.Tensor:
-    """q ``(B, Tq, H, D)``, k/v ``(B, Tk, H, D)`` -> ``(B, Tq, H, D)`` in q's dtype."""
+    """q ``(B, Tq, H, D)``, k/v ``(B, Tk, H, D)`` -> ``(B, Tq, H, D)`` in q's dtype.
+
+    k/v in another dtype (a bf16 cache under f32 compute) are promoted to
+    q's, as JAX's einsum promotes them."""
+    k, v = k.to(q.dtype), v.to(q.dtype)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale

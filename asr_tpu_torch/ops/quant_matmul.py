@@ -18,16 +18,12 @@ then ``"bf16"``.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from asr_tpu_torch.ops import nvcc_build
 from asr_tpu_torch.quant.quantize import dequantize_weight
 
 # Kernel launches since import (or since a caller reset it to 0).
@@ -35,13 +31,8 @@ LAUNCHES = 0
 
 _CONFIG: dict = {"mm": None}
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "quant_matmul_int8.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = nvcc_build.CSRC / "quant_matmul_int8.cu"
+NVCC_FLAGS = nvcc_build.NVCC_FLAGS
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -76,42 +67,9 @@ def quant_dense_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return x @ w
 
 
-def _find_nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
-    on_path = shutil.which("nvcc")
-    if on_path:
-        candidates.append(Path(on_path))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for c in candidates:
-        if c.is_file():
-            return str(c)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build() -> tuple[Path, str]:
-    """Compile the kernel once per source and flags; return (library, nvcc log).
-
-    The library name carries a hash of the source and the flags, so a stale
-    build is never loaded. A file lock serializes concurrent builders."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libquant_matmul_int8-{digest}.so"
-    log = lib.with_suffix(".log")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not lib.exists():
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib)
-    return lib, log.read_text() if log.exists() else ""
+    """Compile the kernel (once per source and flags); return (library, nvcc log)."""
+    return nvcc_build.build(SOURCE, NVCC_FLAGS)
 
 
 def _load():

@@ -9,8 +9,11 @@ K; each (block, column) pair has one f32 scale and zero point, and
 folders move between the two packages unchanged. When ``K % block != 0``
 the block becomes K (one block per column).
 
-Packed int4/int2 storage, the kquant and hqq objectives, dynamic int8 and
-``QuantizedEmbedding`` are not ported yet.
+``QuantizedEmbedding`` is the int8 gather-dequant table; its ``(D, V_pad)``
+tied-head copy runs the LM head through the int8 kernel
+(:func:`embedding_logits`). Packed int4/int2 storage (the packed int4 tied
+head included), the kquant and hqq objectives and dynamic int8 are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -103,6 +106,107 @@ def quantize_linear(w: torch.Tensor, bits: int = 8, block: int = 128,
     return QuantizedLinear(q, scale, zero, bits, block)
 
 
+class QuantizedEmbedding:
+    """Row-gatherable block-quantized embedding table with the JAX package's
+    fields: ``q`` (V, D) int8 centered, ``scale``/``zero`` (V, D // block),
+    quantized along D in ``block``-wide groups per row. ``emb[ids]`` gathers
+    and dequantizes only the touched rows. ``q_t``/``scale_t``/``zero_t`` are
+    the optional tied-head copy in QuantizedLinear orientation, ``(D, V_pad)``
+    with V zero-padded to a multiple of 512 (zero scale: pad logits are 0)."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                 bits: int, block: int, q_t: torch.Tensor | None = None,
+                 scale_t: torch.Tensor | None = None, zero_t: torch.Tensor | None = None,
+                 q_t_packed: bool = False):
+        self.q = q
+        self.scale = scale
+        self.zero = zero
+        self.bits = int(bits)
+        self.block = int(block)
+        self.q_t = q_t
+        self.scale_t = scale_t
+        self.zero_t = zero_t
+        self.q_t_packed = bool(q_t_packed)
+
+    def __getitem__(self, ids) -> torch.Tensor:
+        ids = torch.as_tensor(ids, device=self.q.device)
+        rows = self.q[ids].to(torch.float32)
+        s, z = self.scale[ids], self.zero[ids]
+        nb = self.scale.shape[1]
+        rows = rows.reshape(*rows.shape[:-1], nb, self.q.shape[1] // nb)
+        return ((rows - z[..., None]) * s[..., None]).reshape(*ids.shape, self.q.shape[1])
+
+    def dequant(self) -> torch.Tensor:
+        v, d = self.q.shape
+        nb = self.scale.shape[1]
+        rows = self.q.to(torch.float32).reshape(v, nb, d // nb)
+        return ((rows - self.zero[..., None]) * self.scale[..., None]).reshape(v, d)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.scale.dtype
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.q.shape)
+
+
+def embedding_logits(embed, y: torch.Tensor) -> torch.Tensor:
+    """Tied-head logits ``y @ embed.T`` for plain or quantized tables. A
+    quantized table with its tied copy goes through ``quant_dense`` (the
+    int8 kernel on CUDA), reading int8 bytes only."""
+    if isinstance(embed, QuantizedEmbedding):
+        if embed.q_t is not None:
+            from asr_tpu_torch.ops.quant_matmul import quant_dense
+
+            leaf = {"q": embed.q_t, "scale": embed.scale_t, "zero": embed.zero_t,
+                    "bits": embed.bits, "block": embed.block, "packed": embed.q_t_packed}
+            return quant_dense(y, leaf)[..., : embed.q.shape[0]]
+        # logits_v = sum_b s[v,b] (y_b . q[v,b]) - sum_b s[v,b] z[v,b] sum(y_b)
+        v, d = embed.q.shape
+        nb = embed.scale.shape[1]
+        yb = y.to(torch.float32).reshape(*y.shape[:-1], nb, d // nb)
+        qb = embed.q.to(torch.float32).reshape(v, nb, d // nb)
+        part = torch.einsum("...nk,vnk->...nv", yb, qb)
+        logits = torch.einsum("...nv,vn->...v", part, embed.scale)
+        logits = logits - torch.einsum("...n,vn->...v", yb.sum(-1), embed.scale * embed.zero)
+        return logits.to(y.dtype)
+    return y @ embed.T
+
+
+def tied_head_arrays(q_t: torch.Tensor, scale_t: torch.Tensor, zero_t: torch.Tensor,
+                     bits: int = 8, block: int | None = None):
+    """Pad the (D, V) tied-head copy's V axis to a multiple of 512 with zero
+    scale and zero point, so pad logits are exactly 0 (callers slice [:V]).
+
+    Returns (q_t, scale_t, zero_t, packed=False). The JAX package
+    nibble-packs 4-bit tables here; that layout is not ported."""
+    d, v = q_t.shape
+    if bits == 4 and block is not None and d % 2 == 0 and (d // 2) % block == 0:
+        raise NotImplementedError("the packed int4 tied head is not ported")
+    pad = (-v) % 512
+    if pad:
+        q_t = torch.nn.functional.pad(q_t, (0, pad))
+        scale_t = torch.nn.functional.pad(scale_t, (0, pad))
+        zero_t = torch.nn.functional.pad(zero_t, (0, pad))
+    return q_t.contiguous(), scale_t.contiguous(), zero_t.contiguous(), False
+
+
+def quantize_embedding(w: torch.Tensor, bits: int = 8, block: int = 128,
+                       tie_head: bool = True) -> QuantizedEmbedding:
+    """(V, D) table -> per-row block quantization along D (rtn), plus the
+    (D, V_pad) tied-head copy when ``tie_head``."""
+    v, d = w.shape
+    if d % block:
+        block = d
+    q, scale, zero = quantize_weight(w.T, bits, block, 0)  # blocks along D
+    q_t = scale_t = zero_t = None
+    if tie_head:
+        q_t, scale_t, zero_t, _ = tied_head_arrays(q, scale, zero, bits=bits, block=block)
+    return QuantizedEmbedding(q.T.contiguous(), scale.T.contiguous(), zero.T.contiguous(),
+                              bits, block, q_t=q_t, scale_t=scale_t, zero_t=zero_t)
+
+
 def quantize_pytree(
     params,
     bits: int = 8,
@@ -110,9 +214,12 @@ def quantize_pytree(
     refine_iters: int = 2,
     min_size: int = 1 << 16,
     predicate: Callable[[str, torch.Tensor], bool] | None = None,
+    quantize_embeddings: bool = False,
 ):
     """Quantize every 2-D ``w``/``w1``/``w2`` linear weight of at least
-    ``min_size`` elements, with the JAX package's defaults and walk."""
+    ``min_size`` elements, with the JAX package's defaults and walk;
+    ``quantize_embeddings`` also turns ``embed`` tables of that size into
+    :class:`QuantizedEmbedding` leaves."""
     # 2-D kernels under these parents are consumed elementwise, not by dense().
     non_matmul_parents = ("dw", "dw1", "dw2", "conv", "fusion")
 
@@ -131,6 +238,14 @@ def quantize_pytree(
                     and (predicate is None or predicate(p, value))
                 ):
                     out[key] = quantize_linear(value, bits, block, refine_iters)
+                elif (
+                    quantize_embeddings
+                    and key == "embed"
+                    and isinstance(value, torch.Tensor)
+                    and value.ndim == 2
+                    and value.numel() >= min_size
+                ):
+                    out[key] = quantize_embedding(value, bits, block)
                 else:
                     out[key] = walk(value, p)
             return out
@@ -143,9 +258,12 @@ def quantize_pytree(
 
 
 def dequantize_pytree(params):
-    """Every QuantizedLinear leaf -> its dense f32 weight (the plain-matmul twin)."""
+    """Every QuantizedLinear / QuantizedEmbedding leaf -> its dense f32
+    weight (the plain-matmul twin)."""
     if isinstance(params, QuantizedLinear):
         return dequantize_weight(params)
+    if isinstance(params, QuantizedEmbedding):
+        return params.dequant()
     if isinstance(params, dict):
         return {k: dequantize_pytree(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

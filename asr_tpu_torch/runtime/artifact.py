@@ -3,8 +3,10 @@
 Counterpart of ``asr_tpu/runtime/artifact.py``, reading and writing the
 same folders: flattened keys joined with ``/`` (list items by index),
 quantized leaves as ``<path>/__quant__/{q,scale,zero,bits,block,packed,dynamic}``,
-and byte-identical tensors of at least 1 KiB stored once, with the other
-keys listed in ``metadata.extra["weight_aliases"]``.
+quantized embedding tables as ``<path>/__qembed__/{q,scale,zero,bits,block,tied}``
+(the tied-head copy is derived on load, never stored), and byte-identical
+tensors of at least 1 KiB stored once, with the other keys listed in
+``metadata.extra["weight_aliases"]``.
 
 The safetensors format is parsed and written here with numpy: an 8-byte
 little-endian header length, a JSON header mapping each name to its dtype,
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from asr_tpu.runtime.metadata import ModelMetadata
-from asr_tpu_torch.quant.quantize import QuantizedLinear
+from asr_tpu_torch.quant.quantize import QuantizedEmbedding, QuantizedLinear, tied_head_arrays
 
 WEIGHTS_FILENAME = "weights.safetensors"
 
@@ -84,6 +86,12 @@ def flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
             out[f"{prefix}__quant__/{k}"] = tree[k].detach().cpu().numpy()
         for k in ("bits", "block", "packed", "dynamic"):
             out[f"{prefix}__quant__/{k}"] = np.asarray(int(tree[k]), np.int32)
+    elif isinstance(tree, QuantizedEmbedding):
+        for k in ("q", "scale", "zero"):
+            out[f"{prefix}__qembed__/{k}"] = getattr(tree, k).detach().cpu().numpy()
+        out[f"{prefix}__qembed__/bits"] = np.asarray(tree.bits, np.int32)
+        out[f"{prefix}__qembed__/block"] = np.asarray(tree.block, np.int32)
+        out[f"{prefix}__qembed__/tied"] = np.asarray(int(tree.q_t is not None), np.int32)
     elif isinstance(tree, dict):
         for k, v in tree.items():
             out.update(flatten_pytree(v, f"{prefix}{k}/"))
@@ -117,17 +125,26 @@ def params_from_flat(flat: dict[str, np.ndarray], device) -> Any:
             node = node.setdefault(p, {})
         node[parts[-1]] = value
 
+    def num(a) -> int:  # a stored scalar, 0-d or of shape (1,)
+        return int(np.asarray(a).reshape(-1)[0])
+
     def build(node):
         if not isinstance(node, dict):
             return put(node)
-        if "__qembed__" in node:
-            raise NotImplementedError("QuantizedEmbedding leaves are not ported yet")
+        if "__qembed__" in node and len(node) == 1:
+            q = node["__qembed__"]
+            bits, block = num(q["bits"]), num(q["block"])
+            emb = QuantizedEmbedding(put(q["q"]), put(q["scale"]), put(q["zero"]), bits, block)
+            if num(q.get("tied", 1)):
+                emb.q_t, emb.scale_t, emb.zero_t, emb.q_t_packed = tied_head_arrays(
+                    emb.q.T, emb.scale.T, emb.zero.T, bits=bits, block=block)
+            return emb
         if "__quant__" in node and len(node) == 1:
             q = node["__quant__"]
             return QuantizedLinear(put(q["q"]), put(q["scale"]), put(q["zero"]),
-                                   int(q["bits"]), int(q["block"]),
-                                   packed=bool(int(q.get("packed", 0))),
-                                   dynamic=bool(int(q.get("dynamic", 0))))
+                                   num(q["bits"]), num(q["block"]),
+                                   packed=bool(num(q.get("packed", 0))),
+                                   dynamic=bool(num(q.get("dynamic", 0))))
         keys = list(node.keys())
         if keys and all(k.isdigit() for k in keys):
             return [build(node[str(i)]) for i in range(len(keys))]

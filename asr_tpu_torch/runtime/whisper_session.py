@@ -1,0 +1,168 @@
+"""Whisper inference session: file/array -> token ids and text, 30 s windows.
+
+Counterpart of ``asr_tpu/runtime/whisper_session.py`` (without the
+``mesh=`` runner and the continuous-serving surface): 30-second
+zero-padded windows, a per-window [SOT] probe (language + no-speech),
+the prompt [SOT, lang, task, notimestamps], suppress / begin-suppress
+biasing, greedy / penalty / sampling decode, optional repeated-tail
+removal, and RTF reporting.
+
+When the parameters are on a CUDA card and quantized matmuls run in the
+``bf16`` mode, the session stacks the q8 decoder for the fused step
+kernel (``ops/fused_aed_step.py``); a single-window transcription then
+runs every decode step as one kernel call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from asr_tpu.runtime import audio as audio_io
+from asr_tpu.runtime.metadata import config_from_dict
+from asr_tpu_torch.decode.ar import DecodeConfig
+from asr_tpu_torch.models import whisper as wh
+from asr_tpu_torch.ops.fused_aed_step import stack_whisper_step_params
+from asr_tpu_torch.ops.quant_matmul import _resolve_mm
+from asr_tpu_torch.runtime.artifact import load_model
+from asr_tpu_torch.runtime.session import TranscribeResult, bucket_windows
+
+WINDOW_SECONDS = 30.0
+
+
+def remove_repeated_tail(ids: list[int], min_rep: int = 2, max_span: int = 20) -> list[int]:
+    """Drop a trailing immediate repetition of a span of up to ``max_span`` ids."""
+    n = len(ids)
+    for span in range(1, min(max_span, n // 2) + 1):
+        reps = 1
+        while (reps + 1) * span <= n and ids[n - (reps + 1) * span : n - reps * span] == ids[n - span :]:
+            reps += 1
+        if reps >= min_rep + 1:
+            return ids[: n - (reps - 1) * span]
+    return ids
+
+
+@dataclasses.dataclass
+class WhisperSessionConfig:
+    language: str | None = None          # None -> auto-detect per window
+    task: str = "transcribe"
+    max_new_tokens: int = 440
+    strategy: str = "greedy"
+    penalty: float = 1.0
+    penalty_range: int = 64
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    no_speech_threshold: float | None = 0.6
+    suppress_ids: tuple[int, ...] = ()
+    begin_suppress_ids: tuple[int, ...] = ()
+    remove_repeats: bool = False
+
+
+class WhisperSession:
+    pcm_scale = 1.0  # [-1, 1] PCM
+
+    def __init__(self, params, cfg: wh.WhisperConfig, tokenizer=None,
+                 session_cfg: WhisperSessionConfig | None = None,
+                 language_id_map: dict[str, int] | None = None,
+                 window_seconds: float = WINDOW_SECONDS):
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.scfg = session_cfg or WhisperSessionConfig()
+        self.window_samples = int(window_seconds * cfg.sample_rate)
+        self.language_id_map = language_id_map or {}
+        self.params = params
+        self.device = params["decoder"]["pos"].device
+        # The stacked copy duplicates the q8 decoder and the (D, V_pad) head:
+        # built only where the fused kernel runs (a CUDA card, bf16 mode).
+        self.stacked = None
+        if self.device.type == "cuda" and _resolve_mm(None) == "bf16":
+            self.stacked = stack_whisper_step_params(params, cfg)
+
+    @property
+    def sample_rate(self) -> int:
+        return self.cfg.sample_rate
+
+    @property
+    def decode_cfg(self) -> DecodeConfig:
+        s = self.scfg
+        return DecodeConfig(
+            max_new_tokens=s.max_new_tokens, eot_id=self.cfg.eot_id, suppress_ids=s.suppress_ids,
+            strategy=s.strategy, penalty=s.penalty, penalty_range=s.penalty_range,
+            temperature=s.temperature, top_k=s.top_k, top_p=s.top_p)
+
+    def _prompt(self, batch: int, language: str | None = None) -> np.ndarray:
+        cfg, s = self.cfg, self.scfg
+        language = language if language is not None else s.language
+        if language is None:
+            lang = -1  # auto-detect per window
+        elif language in self.language_id_map:
+            lang = self.language_id_map[language]
+        else:
+            raise KeyError(
+                f"language {language!r} not in this artifact's language_id_map "
+                f"({sorted(self.language_id_map) or 'empty'}); omit it for auto-detection")
+        task = cfg.transcribe_id if s.task == "transcribe" else cfg.translate_id
+        row = [cfg.sot_id, lang, task, cfg.no_timestamps_id]
+        return np.tile(np.asarray(row, np.int64), (batch, 1))
+
+    def transcribe(self, audio: np.ndarray | str | Path, language: str | None = None,
+                   generator: torch.Generator | None = None) -> TranscribeResult:
+        if isinstance(audio, (str, Path)):
+            audio = audio_io.load_audio(audio, self.cfg.sample_rate, pcm_scale=1.0)
+        audio = np.asarray(audio, np.float32)
+        n = len(audio)
+        w = self.window_samples
+        starts = audio_io.iter_windows(n, w, w)
+        num_windows = len(starts)
+        padded = bucket_windows(num_windows)
+        buf = np.zeros((padded, w), np.float32)
+        for i, s in enumerate(starts):
+            chunk = audio[s : s + w]
+            buf[i, : len(chunk)] = chunk
+
+        t0 = time.perf_counter()
+        prompt = torch.from_numpy(self._prompt(padded, language)).to(self.device)
+        with torch.inference_mode():
+            mel = wh.mel_for_audio(self.cfg, torch.from_numpy(buf).to(self.device))
+            out = wh.transcribe_window(
+                self.params, self.cfg, mel, prompt, self.decode_cfg,
+                begin_suppress_ids=self.scfg.begin_suppress_ids, generator=generator,
+                stacked=self.stacked if padded == 1 else None)
+            tokens = out["tokens"].cpu().numpy()  # waits for the device
+            counts = out["counts"].cpu().numpy()
+            nsp = out["no_speech_prob"].cpu().numpy()
+        elapsed = time.perf_counter() - t0
+
+        p_len = prompt.shape[1]
+        ids: list[int] = []
+        for i in range(num_windows):
+            if self.scfg.no_speech_threshold is not None and nsp[i] > self.scfg.no_speech_threshold:
+                continue
+            win_ids = [int(t) for t in tokens[i, p_len : p_len + counts[i]] if t != self.cfg.eot_id]
+            ids.extend(remove_repeated_tail(win_ids) if self.scfg.remove_repeats else win_ids)
+        text = self.tokenizer.decode(ids) if self.tokenizer is not None else ""
+        return TranscribeResult(text=text, token_ids=ids, audio_seconds=n / self.cfg.sample_rate,
+                                elapsed_seconds=elapsed)
+
+
+def load_whisper_session(folder: str | Path, device, tokenizer=None,
+                         **session_kw) -> WhisperSession:
+    """Artifact folder (``metadata.json`` family ``whisper``, config under
+    ``extra["config"]``) -> a session on ``device``, with the suppress lists
+    and the language map read from the metadata."""
+    params, meta = load_model(folder, device)
+    if meta.family != "whisper":
+        raise ValueError(f"expected a whisper artifact, got family {meta.family!r}")
+    cfg = config_from_dict(wh.WhisperConfig, meta.extra.get("config", {}))
+    scfg = WhisperSessionConfig(
+        suppress_ids=tuple(meta.extra.get("suppress_tokens", [])),
+        begin_suppress_ids=tuple(meta.extra.get("begin_suppress_tokens", [])))
+    lang_map = {p.code: p.prompt_token_id for p in meta.supported_languages
+                if p.prompt_token_id is not None}
+    return WhisperSession(params, cfg, tokenizer=tokenizer, session_cfg=scfg,
+                          language_id_map=lang_map, **session_kw)

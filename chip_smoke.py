@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch / CUDA port's main paths on one CUDA card and check them.
 
 Run from the repository root, with one card visible:
 
     python3 chip_smoke.py
 
-Phases: (1) the card; (2) build the int8 dequant-matmul kernel from
-``asr_tpu_torch/csrc`` with nvcc; (3) the kernel against its plain PyTorch
-version at every SenseVoiceSmall q8 shape, timed in turns; (4) SenseVoiceSmall
-at its full published geometry with random weights from a seed, quantized to
-q8, saved as an artifact folder and loaded back, transcribing 20 s of audio
-through ``SenseVoiceSession``; (5) the same session behind the HTTP
-micro-batching server; (6) RTF and peak memory at batch 8 x 8 s; then the
-logits of the q8 forward against the same forward on the dequantized weights
-with plain matmuls. The kernel's launch count is reset just before phase 4
-and read after phase 5: every q8 forward of the main path must launch it
-281 times (70 blocks x 4 linears + the CTC head).
+Phases: (1) the card; (2) build both kernels from ``asr_tpu_torch/csrc``
+with nvcc, one process per source, at once; (3) the int8 dequant-matmul
+kernel against its plain PyTorch version at every SenseVoiceSmall q8
+shape, timed in turns; (4) SenseVoiceSmall at its full published geometry
+with random weights from a seed, quantized to q8, saved as an artifact
+folder and loaded back, transcribing 20 s of audio through
+``SenseVoiceSession``; (5) the same session behind the HTTP micro-batching
+server; (6) RTF and peak memory at batch 8 x 8 s, then the q8 logits
+against the same forward on the dequantized weights with plain matmuls;
+(8) the fused AED decode-step kernel against its plain version at the
+Whisper-Large-v3-Turbo decoder geometry (f32 and bf16 caches, three
+positions, two cross lengths), timed in turns; (9) Whisper-Large-v3-Turbo
+q8 at its full geometry through an artifact folder and
+``load_whisper_session``: 20 s of audio (one window, the fused route), a
+teacher-forced replay of its ids through the per-weight step, and 45 s
+(two windows, the per-weight route); (10) encoder time, decode time per
+token on both routes, the host sync's share, RTF of one 30 s window and
+peak memory.
+
+Each path's launch counts are reset just before it and read just after:
+every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
+x 4 linears + the CTC head); one Whisper window launches it for the
+encoder, the cross-KV and the two prefills, and the fused kernel once per
+decode step.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -98,14 +111,22 @@ def phase_device(torch) -> str:
     return card
 
 
-def phase_build(qm) -> None:
-    t0 = time.perf_counter()
-    lib, log = qm.build()
-    print(f"[2 build] {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {' '.join(qm.NVCC_FLAGS)})")
-    for line in log.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
-            print(f"[2 build] ptxas: {line.strip()}")
+def phase_build(kernels) -> None:
+    """Build every kernel's library at once, one nvcc per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        lib, log = mod.build()
+        return lib, log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        built = list(pool.map(timed, kernels))
+    for mod, (lib, log, secs) in zip(kernels, built):
+        print(f"[2 build] {lib.relative_to(ROOT)} in {secs:.2f} s (nvcc {' '.join(mod.NVCC_FLAGS)})")
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
+                print(f"[2 build] ptxas: {line.strip()}")
 
 
 def phase_kernel_vs_plain(torch, qm, quantize_linear, card: str) -> dict:
@@ -148,6 +169,292 @@ def logits_margin(logits):
     return top2[..., 0] - top2[..., 1]
 
 
+# ── Whisper-Large-v3-Turbo q8 and the fused decode-step kernel ──────────────
+FUSED_POS = (3, 200, 447)
+FUSED_TC = (1500, 750)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# The plain version rounds every matvec input to bf16, as the kernel does. A
+# last-bit f32 difference from another summation order can flip one such
+# rounding (2^-9 relative), and a flip moves every later layer a little, so
+# after four layers the two agree to a bf16 step, not to f32 rounding. The
+# first layer's k/v row sits behind one rounding only (its LayerNorm output):
+# at most one flipped input moves it by 2^-8 x |y| x |w| < 1e-3 of max|row|,
+# and a bf16 cache adds its own rounding, 2^-8 of the value.
+FUSED_LOGIT_TOL = 1e-2
+ROW0_TOL = {"float32": 1e-3, "bfloat16": 1e-3 + 2.0**-8}
+TEACHER_TOL = 3e-2  # tests/test_fused_aed_step.py: fused step vs per-weight step
+
+
+def int8_per_window(cfg) -> int:
+    """int8-kernel calls of one window's encoder (6 linears a layer), the
+    cross-KV (2 a decoder layer) of the probe and the prompt, and the two
+    prefills (8 linears a decoder layer + the tied head)."""
+    return 6 * cfg.encoder_layers + 2 * 2 * cfg.decoder_layers + 2 * int8_per_step(cfg)
+
+
+def int8_per_step(cfg) -> int:
+    """int8-kernel calls of one per-weight decode step."""
+    return 8 * cfg.decoder_layers + 1
+
+
+def step_bytes(stacked: dict, nl: int, d: int, pos: int, tc_valid: int, itemsize: int) -> int:
+    """Bytes one step must read: weights, scales, biases, the attended cache rows."""
+    weights = sum(t.numel() * t.element_size() for t in stacked.values())
+    return weights + 2 * nl * (tc_valid + pos) * d * itemsize
+
+
+def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
+    """The fused-step kernel against its plain version at turbo geometry."""
+    cfg = wh.WhisperConfig(encoder_layers=0)  # the decoder at full width
+    g = torch.Generator(device=DEV).manual_seed(7)
+    params = quantize_pytree(wh.init_params(cfg, g), bits=8, block=128, quantize_embeddings=True)
+    stacked = fs.stack_whisper_step_params(params, cfg)
+    check(stacked is not None, "turbo q8 decoder did not stack")
+    # Random biases and LayerNorm parameters (the init has zeros and ones), so
+    # that each of them reaches the comparison.
+    for key in ("ba", "bb", "ln1_b", "lnc_b", "ln2_b", "lnf_b"):
+        stacked[key] = 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
+    for key in ("ln1_s", "lnc_s", "ln2_s", "lnf_s"):
+        stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, tc, v = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, \
+        cfg.max_source_positions, cfg.vocab_size
+    dec = params["decoder"]
+    rows, worst, times = [], 0.0, {}
+    for cdt in (torch.float32, torch.bfloat16):
+        ks = torch.randn((nl, t, d), generator=g, device=DEV).to(cdt)
+        vs = torch.randn((nl, t, d), generator=g, device=DEV).to(cdt)
+        ck = torch.randn((nl, tc, d), generator=g, device=DEV).to(cdt)
+        cv = torch.randn((nl, tc, d), generator=g, device=DEV).to(cdt)
+        for pos in FUSED_POS:
+            x = (dec["embed"][torch.tensor([1000 + pos], device=DEV)] + dec["pos"][pos : pos + 1]).float()
+            for tcv in FUSED_TC:
+                kk, vk, kp, vp = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+                got, _, _ = fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv)
+                torch.cuda.synchronize()
+                want, _, _ = fs.fused_aed_step_reference(stacked, geom, x, kp, vp, ck, cv, pos, tcv)
+                err = (got[:, :v] - want[:, :v]).abs().max().item()
+                ref = want[:, :v].abs().max().item()
+                check(bool(torch.isfinite(got).all()), f"non-finite logits at pos {pos}")
+                check(bool((got[:, v:] == 0).all()), "pad logits are not exactly 0")
+                others = torch.arange(t, device=DEV) != pos
+                check(torch.equal(kk[:, others], ks[:, others]) and torch.equal(vk[:, others], vs[:, others]),
+                      f"rows other than pos {pos} changed")
+                row_err = max((kk[:, pos].float() - kp[:, pos].float()).abs().max().item(),
+                              (vk[:, pos].float() - vp[:, pos].float()).abs().max().item())
+                row_ref = max(kp[:, pos].float().abs().max().item(), vp[:, pos].float().abs().max().item())
+                row0 = max((kk[0, pos].float() - kp[0, pos].float()).abs().max().item(),
+                           (vk[0, pos].float() - vp[0, pos].float()).abs().max().item())
+                rows.append({"cache": str(cdt).split(".")[-1], "pos": pos, "tc_valid": tcv,
+                             "max_abs_err": err, "max_abs_plain": ref, "row_err": row_err,
+                             "row0_err": row0})
+                print(f"[8 fused] cache={rows[-1]['cache']:8s} pos={pos:3d} tc_valid={tcv:4d}: "
+                      f"logits err {err:.3e} (max|plain| {ref:.3e}, {err / ref:.2e} of it); "
+                      f"written row err {row_err:.3e} (layer 0: {row0:.3e}, max|row| {row_ref:.3e})")
+                worst = max(worst, err)
+                check(err <= FUSED_LOGIT_TOL * ref, f"fused logits vs plain: {err} > {FUSED_LOGIT_TOL} * {ref}")
+                tol0 = ROW0_TOL[rows[-1]["cache"]]
+                check(row0 <= tol0 * row_ref, f"layer-0 row vs plain: {row0} > {tol0} * {row_ref}")
+        pos, tcv = FUSED_POS[-1], FUSED_TC[0]
+        # The plain version on the host CPU against the plain version on the
+        # card: the same rounding points, other summation orders. How far
+        # they drift apart is what bf16 rounding alone allows.
+        host = {k: a.cpu() for k, a in stacked.items()}
+        on_host, _, _ = fs.fused_aed_step_reference(host, geom, x.cpu(), ks.cpu(), vs.cpu(), ck.cpu(),
+                                                    cv.cpu(), pos, tcv)
+        kk, vk = ks.clone(), vs.clone()
+        on_card, _, _ = fs.fused_aed_step_reference(stacked, geom, x, kk, vk, ck, cv, pos, tcv)
+        drift = (on_host[:, :v] - on_card[:, :v].cpu()).abs().max().item()
+        rows[-1]["plain_host_vs_card"] = drift
+        print(f"[8 fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: plain version on the host "
+              f"vs on the card: {drift:.3e} ({drift / on_card.abs().max().item():.2e} of max|logit|)")
+        del host, on_host
+        k_ms, p_ms = in_turns(
+            lambda: fs.fused_aed_step_reference(stacked, geom, x, kk, vk, ck, cv, pos, tcv),
+            lambda: fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv))
+        nbytes = step_bytes(stacked, nl, d, pos, tcv, ks.element_size())
+        rate = nbytes / (k_ms * 1e-3)
+        times[rows[-1]["cache"]] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bytes_per_s": rate}
+        print(f"[8 fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms; {nbytes / 1e6:.1f} MB per step, {rate / 1e9:.0f} GB/s, "
+              f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s  [{card}]")
+    del params, stacked
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": worst, "times": times}
+
+
+def synced(torch, fn):
+    """(result, seconds) of fn() on the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_whisper(torch, np, qm, fs, card: str) -> dict:
+    """Whisper-Large-v3-Turbo q8 through an artifact folder and WhisperSession."""
+    from asr_tpu_torch.decode.ar import select_token
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime.artifact import ModelMetadata, save_model
+    from asr_tpu_torch.runtime.whisper_session import load_whisper_session
+
+    qm.set_quant_config(mm="bf16")  # the serving mode; the session stacks for the fused step
+    cfg = wh.WhisperConfig()
+    t0 = time.perf_counter()
+    q8 = quantize_pytree(wh.init_params(cfg, torch.Generator(device=DEV).manual_seed(0)),
+                         bits=8, block=128, quantize_embeddings=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_model(tmp, q8, ModelMetadata(family="whisper", extra={"config": dataclasses.asdict(cfg)}))
+        size_mb = (Path(tmp) / "weights.safetensors").stat().st_size / 1e6
+        del q8
+        session = load_whisper_session(tmp, DEV)
+    params = session.params
+    check(session.stacked is not None, "the session did not stack the q8 decoder for the fused step")
+    print(f"[9 whisper] Whisper-Large-v3-Turbo q8: init + quantize + artifact ({size_mb:.1f} MB) "
+          f"round trip in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(1)
+    audio20 = (rng.standard_normal(20 * 16000) * 0.1).astype(np.float32)
+    session.transcribe(audio20[: 16000])  # warm-up: cuBLAS, the kernels' first launches
+    torch.cuda.synchronize()
+
+    qm.LAUNCHES = fs.LAUNCHES = 0  # the Whisper path starts here
+    res = session.transcribe(audio20)
+    int8, fused = qm.LAUNCHES, fs.LAUNCHES  # and ends here
+    ids = res.token_ids
+    max_new = session.scfg.max_new_tokens
+    counts = len(ids) if len(ids) == max_new + 1 else len(ids) + 1  # + the EOT the session drops
+    check(fused == counts - 1 and fused > 0, f"{fused} fused launches for {counts} generated tokens")
+    check(int8 == int8_per_window(cfg), f"{int8} int8 launches, not {int8_per_window(cfg)} "
+          "(encoder, cross-KV and prefill of one window)")
+    print(f"[9 whisper] 20 s (1 window) -> {len(ids)} tokens in {res.elapsed_seconds * 1e3:.1f} ms; "
+          f"fused-step launches {fused} (= counts - 1), int8 launches {int8}  [{card}]")
+
+    # Teacher-forced: replay the generated ids through the per-weight step.
+    w = session.window_samples
+    buf = np.zeros((1, w), np.float32)
+    buf[0, : len(audio20)] = audio20
+    prompt = torch.from_numpy(session._prompt(1)).to(DEV)
+    dcfg = session.decode_cfg
+    with torch.inference_mode():
+        mel = wh.mel_for_audio(cfg, torch.from_numpy(buf).to(DEV))
+        pre = wh.prefill_window(params, cfg, mel, prompt, dcfg)
+        state, p_len = pre["state"], prompt.shape[1]
+        check(int(select_token(pre["logits0"], prompt, p_len, dcfg)[0]) == ids[0],
+              "the first token differs from the session's")
+        layers = state["layers"]
+        d, t_max, tc = cfg.d_model, cfg.max_target_positions, layers[0]["cross_k"].shape[1]
+        kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers])
+        vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers])
+        ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers])
+        cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers])
+        dec = params["decoder"]
+        worst_rel, under, same_as_run = 0.0, 0, 0
+        for i, tok in enumerate(ids[:-1]):
+            pos = p_len + i
+            t = torch.tensor([[tok]], device=DEV)
+            want, state = wh.step(params, cfg, state, t, pos)
+            x = (dec["embed"][t[:, 0]] + dec["pos"][pos : pos + 1]).float()
+            got, _, _ = fs.fused_whisper_step(session.stacked, cfg, x, kc, vc, ck, cv, pos, tc_valid=tc)
+            got = got[:, : cfg.vocab_size]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            worst_rel = max(worst_rel, err / scale)
+            check(err <= TEACHER_TOL * scale, f"step {i}: fused vs per-weight {err} > {TEACHER_TOL} * {scale}")
+            if logits_margin(want).item() > TEACHER_TOL * scale:
+                check(int(got.argmax()) == int(want.argmax()), f"step {i}: argmax differs above the margin")
+            else:
+                under += 1
+            same_as_run += int(got.argmax()) == ids[i + 1]
+    steps = len(ids) - 1
+    print(f"[9 whisper] teacher-forced over {steps} steps: fused vs per-weight max err "
+          f"{worst_rel:.3e} of max|logit| (bound {TEACHER_TOL}); {under} steps under the top-2 margin; "
+          f"fused argmax = generated id at {same_as_run}/{steps} steps")
+
+    # Two windows: batched per-weight decode through the int8 kernel only.
+    audio45 = (rng.standard_normal(45 * 16000) * 0.1).astype(np.float32)
+    before_q, before_f = qm.LAUNCHES, fs.LAUNCHES
+    res45 = session.transcribe(audio45)
+    dq = qm.LAUNCHES - before_q
+    check(fs.LAUNCHES == before_f, "the 2-window run launched the fused kernel")
+    per_win, per_step = int8_per_window(cfg), int8_per_step(cfg)
+    check(dq > per_win and (dq - per_win) % per_step == 0,
+          f"2-window run: {dq} int8 launches is not {per_win} + {per_step} per step")
+    print(f"[9 whisper] 45 s (2 windows) -> {len(res45.token_ids)} tokens in "
+          f"{res45.elapsed_seconds * 1e3:.1f} ms; int8 launches {dq} "
+          f"({(dq - per_win) // per_step} per-weight steps), fused launches 0  [{card}]")
+    return {"int8": int8, "fused": fused, "session": session, "params": params, "mel": mel,
+            "prompt": prompt}
+
+
+def phase_whisper_numbers(torch, np, qm, fs, wh_run: dict, card: str) -> dict:
+    """Encoder time, decode time per token on both routes, the host sync's
+    share, RTF of one 30 s window and peak memory."""
+    from asr_tpu_torch.decode.ar import select_token
+    from asr_tpu_torch.models import whisper as wh
+
+    session, params, mel, prompt = (wh_run[k] for k in ("session", "params", "mel", "prompt"))
+    cfg, dcfg = session.cfg, session.decode_cfg
+    out = {}
+    with torch.inference_mode():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        wh.encode(params, cfg, mel)
+        start.record()
+        for _ in range(3):
+            wh.encode(params, cfg, mel)
+        end.record()
+        torch.cuda.synchronize()
+        out["encoder_ms"] = start.elapsed_time(end) / 3
+        _, t_pre = synced(torch, lambda: wh.prefill_window(params, cfg, mel, prompt, dcfg))
+        for route, stacked in (("fused", session.stacked), ("per-weight", None)):
+            res, t_all = synced(torch, lambda: wh.transcribe_window(params, cfg, mel, prompt, dcfg,
+                                                                     stacked=stacked))
+            steps = int(res["counts"].max()) - 1
+            out[f"{route}_ms_per_token"] = (t_all - t_pre) * 1e3 / max(steps, 1)
+            out[f"{route}_steps"] = steps
+        # The host sync: the same fused steps with and without a stop test each step.
+        pre = wh.prefill_window(params, cfg, mel, prompt, dcfg)
+        layers = pre["state"]["layers"]
+        d, t_max, tc = cfg.d_model, cfg.max_target_positions, layers[0]["cross_k"].shape[1]
+        kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers])
+        vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers])
+        ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers])
+        cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers])
+        dec, p_len = params["decoder"], prompt.shape[1]
+        n = min(128, t_max - p_len)
+
+        def loop(sync: bool):
+            tok = torch.full((1, 1), cfg.sot_id, device=DEV)
+            for i in range(n):
+                pos = p_len + i
+                x = (dec["embed"][tok[:, 0]] + dec["pos"][pos : pos + 1]).float()
+                lg, _, _ = fs.fused_whisper_step(session.stacked, cfg, x, kc, vc, ck, cv, pos, tc_valid=tc)
+                tok = select_token(lg[:, : cfg.vocab_size], prompt, p_len, dcfg)[:, None]
+                if sync:
+                    bool((tok == cfg.eot_id).all())
+
+        loop(False)
+        t_sync = min(synced(torch, lambda: loop(True))[1] for _ in range(2))
+        t_free = min(synced(torch, lambda: loop(False))[1] for _ in range(2))
+    out["sync_share"] = (t_sync - t_free) / t_sync
+    out["fused_loop_ms_per_token"] = t_sync * 1e3 / n
+    audio30 = (np.random.default_rng(2).standard_normal(30 * 16000) * 0.1).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    res = session.transcribe(audio30)
+    out["rtf_30s"] = res.rtf
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[10 numbers] encoder ({cfg.encoder_layers} layers, one 30 s window): {out['encoder_ms']:.2f} ms  [{card}]")
+    for route in ("fused", "per-weight"):
+        print(f"[10 numbers] decode {route} route (mm=bf16): {out[route + '_ms_per_token']:.3f} ms per token "
+              f"over {out[route + '_steps']} steps  [{card}]")
+    print(f"[10 numbers] host sync per step (finished.all()): {out['sync_share']:.1%} of the fused "
+          f"route's {out['fused_loop_ms_per_token']:.3f} ms per token  [{card}]")
+    print(f"[10 numbers] RTF one 30 s window: {out['rtf_30s']:.5f} ({res.elapsed_seconds * 1e3:.1f} ms, "
+          f"{len(res.token_ids)} tokens), peak memory {out['peak_mib']:.0f} MiB  [{card}]")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -163,6 +470,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.ops import fused_aed_step as fs
     from asr_tpu_torch.ops import quant_matmul as qm
     from asr_tpu_torch.parallel.http_server import start_background
     from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_linear, quantize_pytree
@@ -171,7 +480,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build(qm)
+    phase_build((qm, fs))
     kern = phase_kernel_vs_plain(torch, qm, quantize_linear, card)
 
     # ── 4. model: full geometry, q8, artifact round trip, session ─────────
@@ -325,20 +634,40 @@ def main() -> int:
     print(f"[4 check] q8 mm=f32 logits vs plain f32: max diff {diff:.3e} (max|logit| {scale:.3e}), "
           f"argmax equal on {int(sure.sum())} frames, {under} frames under the {MARGIN} margin")
 
+    del dense, lq, lp, session, params, params32
+    torch.cuda.empty_cache()
+
+    # ── 8-10. Whisper-Large-v3-Turbo q8, the fused decode-step kernel ─────
+    fused = phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card)
+    wrun = phase_whisper(torch, np, qm, fs, card)
+    phase_whisper_numbers(torch, np, qm, fs, wrun, card)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     worst = max(r["max_abs_err"] for r in kern["rows"])
     k_ms, p_ms = kern["per_forward"]["bf16"]
+    f_t = fused["times"]["float32"]
     print(json.dumps({"kernels": [{
         "name": "quant_matmul_int8",
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int8.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:115",
-        "launches": launches,
+        "launches": launches + wrun["int8"],
+        "launches_by_path": {"sensevoice": launches, "whisper": wrun["int8"]},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
         "timing": "sum over one batch-8 x 8 s forward's 281 calls (M=1096), mm=bf16, CUDA events",
+    }, {
+        "name": "fused_aed_step",
+        "route": "cuda",
+        "source": "asr_tpu_torch/csrc/fused_aed_step.cu",
+        "replaces": "asr_tpu/ops/fused_aed_step.py:302",
+        "launches": wrun["fused"],
+        "max_abs_err": fused["max_abs_err"],
+        "ms": f_t["ms"],
+        "plain_ms": f_t["plain_ms"],
+        "timing": "one turbo q8 step, f32 caches, pos 447, 1500 cross rows, CUDA events",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

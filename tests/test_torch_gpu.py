@@ -1,6 +1,9 @@
 """PyTorch port on a CUDA card: the int8 dequant-matmul kernel against its
 plain version at the SenseVoiceSmall q8 shapes, and the kernel launch count
-of one full-geometry forward. Each test skips where no card is present.
+of one full-geometry forward; the fused AED decode-step kernel against its
+plain version at a small and at the Whisper-Large-v3-Turbo geometry, its
+wrapper's checks, and its launch count in a one-window transcription. Each
+test skips where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -74,3 +77,118 @@ def test_q8_forward_launches_kernel_once_per_linear():
     torch.cuda.synchronize()
     assert qm.LAUNCHES - before == 4 * cfg.num_blocks + 1 == 281
     assert toks.shape[0] == 2 and counts.shape == (2,)
+
+
+# ── the fused AED decode step (Whisper) ──────────────────────────────────
+# Tolerances as in chip_smoke.py: both versions round every matvec input to
+# bf16, and a flipped rounding moves every later layer, so logits agree to a
+# bf16 step (1e-2 of max|logit|), the first layer's written row to one
+# flipped input (1e-3 of max|row|, plus 2^-8 in a bf16 cache).
+SMALL_WHISPER = dict(vocab_size=300, d_model=256, encoder_layers=1, decoder_layers=2, num_heads=4,
+                     ffn_dim=1024, n_mels=16, max_source_positions=24, max_target_positions=16,
+                     sot_id=1, eot_id=0, no_speech_id=2, first_language_id=8, num_languages=4,
+                     no_timestamps_id=7, transcribe_id=6, translate_id=5)
+
+
+def _fused_setup(cfg_kw, seed=0):
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.ops import fused_aed_step as fs
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+
+    cfg = wh.WhisperConfig(**cfg_kw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = quantize_pytree(wh.init_params(cfg, g), bits=8, block=128, min_size=0,
+                             quantize_embeddings=True)
+    stacked = fs.stack_whisper_step_params(params, cfg)
+    assert stacked is not None
+    for key in ("ba", "bb", "ln1_b", "lnc_b", "ln2_b", "lnf_b"):
+        stacked[key] = 0.1 * torch.randn(stacked[key].shape, generator=g, device="cuda")
+    for key in ("ln1_s", "lnc_s", "ln2_s", "lnf_s"):
+        stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device="cuda")
+    return fs, cfg, params, stacked, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("turbo", [False, True])
+def test_fused_step_kernel_matches_plain_version(turbo, cache):
+    _need_card()
+    fs, cfg, params, stacked, g = _fused_setup({"encoder_layers": 0} if turbo else SMALL_WHISPER)
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, v = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, cfg.vocab_size
+    tc = cfg.max_source_positions
+    ks, vs = (torch.randn((nl, t, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    ck, cv = (torch.randn((nl, tc, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    for pos in (0, 3, t - 1):
+        x = torch.randn((1, d), generator=g, device="cuda") * 0.05
+        for tc_valid in (tc, tc // 2):
+            kk, vk, kp, vp = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+            before = fs.LAUNCHES
+            got, _, _ = fs.fused_aed_step(stacked, geom, x, kk, vk, ck, cv, pos, tc_valid)
+            torch.cuda.synchronize()
+            assert fs.LAUNCHES == before + 1
+            want, _, _ = fs.fused_aed_step_reference(stacked, geom, x, kp, vp, ck, cv, pos, tc_valid)
+            assert (got[:, :v] - want[:, :v]).abs().max().item() <= 1e-2 * want.abs().max().item()
+            assert (got[:, v:] == 0).all()
+            keep = torch.arange(t, device="cuda") != pos
+            assert torch.equal(kk[:, keep], ks[:, keep]) and torch.equal(vk[:, keep], vs[:, keep])
+            bound = 1e-3 + (2.0**-8 if cache == torch.bfloat16 else 0.0)
+            for have, ref in ((kk, kp), (vk, vp)):
+                err = (have[0, pos].float() - ref[0, pos].float()).abs().max().item()
+                assert err <= bound * ref[0, pos].float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    fs, cfg, params, stacked, g = _fused_setup(SMALL_WHISPER)
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d = cfg.decoder_layers, cfg.d_model
+    x = torch.zeros((1, d), device="cuda")
+    kc, vc = torch.zeros((nl, 16, d), device="cuda"), torch.zeros((nl, 16, d), device="cuda")
+    ck, cv = torch.zeros((nl, 24, d), device="cuda"), torch.zeros((nl, 24, d), device="cuda")
+    fs.fused_aed_step(stacked, geom, x, kc, vc, ck, cv, 2)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        fs.fused_aed_step(stacked, geom, x, kc.cpu(), vc, ck, cv, 2)
+    with pytest.raises(TypeError):  # caches of another dtype
+        fs.fused_aed_step(stacked, geom, x, kc.half(), vc.half(), ck.half(), cv.half(), 2)
+    with pytest.raises(TypeError):  # self and cross caches of different dtypes
+        fs.fused_aed_step(stacked, geom, x, kc, vc, ck.bfloat16(), cv.bfloat16(), 2)
+    with pytest.raises(ValueError):  # wrong shape
+        fs.fused_aed_step(stacked, geom, x, kc[:1], vc, ck, cv, 2)
+    with pytest.raises(ValueError):  # pos outside the cache
+        fs.fused_aed_step(stacked, geom, x, kc, vc, ck, cv, 16)
+    with pytest.raises(ValueError):  # a head width other than 64
+        fs.fused_aed_step(stacked, fs.AedGeom(d, cfg.ffn_dim, 8), x, kc, vc, ck, cv, 2)
+    with pytest.raises(ValueError):  # not contiguous
+        fs.fused_aed_step(stacked, geom, x, kc.transpose(1, 2).contiguous().transpose(1, 2), vc,
+                          ck, cv, 2)
+    with pytest.raises(ValueError):  # fused_aed_step_cuda refuses the CPU
+        fs.fused_aed_step_cuda(stacked, geom, x.cpu(), kc.cpu(), vc.cpu(), ck.cpu(), cv.cpu(), 2)
+
+
+@pytest.mark.gpu
+def test_one_window_transcribe_launches_fused_kernel_once_per_step():
+    _need_card()
+    import numpy as np
+
+    from asr_tpu_torch.runtime.whisper_session import WhisperSession, WhisperSessionConfig
+
+    fs, cfg, params, stacked, g = _fused_setup(SMALL_WHISPER, seed=1)
+    mm = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="bf16")  # the session stacks for the fused step in this mode only
+    try:
+        sess = WhisperSession(params, cfg, session_cfg=WhisperSessionConfig(
+            max_new_tokens=10, no_speech_threshold=None), window_seconds=0.48)
+    finally:
+        qm._CONFIG["mm"] = mm
+    assert sess.stacked is not None
+    audio = np.random.default_rng(0).standard_normal(5000).astype(np.float32) * 0.1
+    before_f, before_q = fs.LAUNCHES, qm.LAUNCHES
+    res = sess.transcribe(audio)
+    steps = fs.LAUNCHES - before_f
+    assert 0 < steps <= 10 and len(res.token_ids) in (steps, steps + 1)
+    assert qm.LAUNCHES - before_q == 6 + 2 * 2 * 2 + 2 * (2 * 8 + 1)  # encoder, cross-KV, prefills
+    before_f = fs.LAUNCHES
+    sess.transcribe(np.concatenate([audio, audio]))  # 2 windows: the per-weight route
+    assert fs.LAUNCHES == before_f
