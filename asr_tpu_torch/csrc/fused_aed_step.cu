@@ -45,60 +45,17 @@
 //     probabilities to bf16 and leaves the chunk's P.V, which the o-proj
 //     matvec sums as it reads its input. The self variant also writes the
 //     fresh k/v row and adds its score and p*v in f32.
+// The device helpers (tile dot, head-row dots, reductions) live in
+// aed_common.cuh, shared with the multi-slot step (fused_aed_multi.cu).
 // Left for later: a persistent single launch or a CUDA graph (launch gaps:
-// about 70 us of a step), TMA / cp.async pipelining, a multi-block
-// LayerNorm epilogue, and a slot axis for the multi-slot step
-// (asr_tpu/ops/fused_aed_multi.py).
+// about 70 us of a step), TMA / cp.async pipelining, and a multi-block
+// LayerNorm epilogue.
 
-#include <algorithm>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "aed_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;  // quantization block and matvec column slab
-constexpr int kHd = 64;      // head width
-constexpr int kMaxSplits = 8;  // row chunks per head in an attention
-constexpr int kMvThreads = 128;  // matvec block: 4 warps, one 128 x 128 int8 tile
-constexpr int kAttnThreads = 256;
-constexpr int kLnThreads = 1024;
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Sum (or max) over the block; every thread gets the result. `red` holds
-// one float per warp. Ends with a barrier, so `red` may be reused.
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = lane < nwarps ? red[lane] : (kMax ? -INFINITY : 0.f);
-  r = kMax ? warp_max(r) : warp_sum(r);
-  __syncthreads();
-  return r;
-}
+using namespace aed;
 
 // part[b, n] = s[b, n] * sum_{k in block b} bf16(x[k]) q[k, n]
 //              - zs[b, n] * sum_{k in block b} bf16(x[k])
@@ -122,37 +79,12 @@ q8_matvec_partial(const float* __restrict__ xs, int nx, int ldx, const int8_t* _
     xb[tid] = bf16r(v);
   }
   __syncthreads();
-  // Warp w takes rows [32 w, 32 w + 32); lane (rl, cl) reads the 16 columns
-  // [16 cl, 16 cl + 16) of rows 32 w + rl + 4 i: 8 loads of 16 bytes, all
-  // issued before the first is used.
   const int cl = lane & 7, rl = lane >> 3;
   const int r0 = warp * 32 + rl;
-  const int8_t* wp = w + (size_t)(b * kBlock + r0) * ldw + slab + cl * 16;
   int4 q[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) q[i] = __ldg(reinterpret_cast<const int4*>(wp + (size_t)(4 * i) * ldw));
+  load_tile(w, ldw, b * kBlock, slab, r0, q);
   float acc[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float xv = xb[r0 + 4 * i];
-    const int words[4] = {q[i].x, q[i].y, q[i].z, q[i].w};
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        // byte u, sign-extended
-        const float qv = (float)((int)((unsigned)words[t] << (24 - 8 * u)) >> 24);
-        acc[4 * t + u] = fmaf(xv, qv, acc[4 * t + u]);
-      }
-  }
-  // Sum the four row phases (lanes 8 apart), then the four warps.
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 8);
-    acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 16);
-  }
+  tile_dot(q, xb, r0, acc);
   if (rl == 0) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) wsum[warp][cl * 16 + j] = acc[j];
@@ -217,57 +149,6 @@ __global__ void head_reduce(const float* __restrict__ part, int nb, float* __res
   float a = 0.f;
   for (int b = 0; b < nb; ++b) a += part[(size_t)b * n + i];
   logits[i] = a;
-}
-
-// bf16(q_s) . bf16(row) over one 64-wide head row, loaded 16 bytes at a time.
-__device__ __forceinline__ float row_dot(const float* row, const float* qs) {
-  float a = 0.f;
-#pragma unroll
-  for (int c = 0; c < kHd / 4; ++c) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(row) + c);
-    a = fmaf(qs[4 * c], bf16r(v.x), a);
-    a = fmaf(qs[4 * c + 1], bf16r(v.y), a);
-    a = fmaf(qs[4 * c + 2], bf16r(v.z), a);
-    a = fmaf(qs[4 * c + 3], bf16r(v.w), a);
-  }
-  return a;
-}
-
-__device__ __forceinline__ float row_dot(const __nv_bfloat16* row, const float* qs) {
-  float a = 0.f;
-#pragma unroll
-  for (int c = 0; c < kHd / 8; ++c) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row) + c);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float2 v = __bfloat1622float2(p[t]);
-      a = fmaf(qs[8 * c + 2 * t], v.x, a);
-      a = fmaf(qs[8 * c + 2 * t + 1], v.y, a);
-    }
-  }
-  return a;
-}
-
-// Four consecutive values of a row, rounded to bf16.
-__device__ __forceinline__ float4 load4(const float* p) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  return make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// The rows a chunk of an attention takes: [r0, r1) of `rows`, in `splits`
-// chunks of ceil(rows / splits).
-__device__ __forceinline__ void chunk_rows(int rows, int splits, int c, int* r0, int* r1) {
-  const int len = (rows + splits - 1) / splits;
-  *r0 = min(rows, c * len);
-  *r1 = min(rows, *r0 + len);
 }
 
 // q (and for self k, v) of head h: sum_b part[b, seg + h*64 + :] + bias.
@@ -395,9 +276,6 @@ attn_pv(const float* __restrict__ part, int nb, int ld_part, const float* __rest
     ctx[(size_t)c * d + col + tid] = a;
   }
 }
-
-// Row chunks per head: at least 64 rows a chunk, at most kMaxSplits chunks.
-int splits_for(int rows) { return std::max(1, std::min(kMaxSplits, (rows + 63) / 64)); }
 
 void matvec(const float* x, int nx, const int8_t* w, int ldw, const float* s, const float* zs,
             int k, int n, float* part, cudaStream_t st) {

@@ -18,28 +18,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import torch
 
-import asr_tpu
-from asr_tpu_torch.frontend import framing
+from asr_tpu_torch.frontend import framing, mel_banks
 
 _F32_EPS = float(np.finfo(np.float32).eps)
-
-
-@functools.cache
-def _mel_banks_module():
-    """``asr_tpu/frontend/mel_banks.py`` (numpy only), loaded from its file:
-    importing it by name would run ``asr_tpu/frontend/__init__.py``, which
-    imports the JAX front ends."""
-    path = Path(asr_tpu.__file__).resolve().parent / "frontend" / "mel_banks.py"
-    spec = importlib.util.spec_from_file_location("asr_tpu_torch.frontend._mel_banks", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def hamming_window(win: int) -> np.ndarray:
@@ -110,7 +95,6 @@ def _kaldi_constants(cfg: KaldiFbankConfig) -> tuple[np.ndarray, np.ndarray]:
     k = -(-win // cfg.hop_length)
     basis = np.zeros((k * cfg.hop_length, 2 * n_bins), dtype=np.float32)
     basis[:win] = kernel.T  # zero rows past win make the matmul ignore frame scratch
-    mel_banks = _mel_banks_module()
     banks = mel_banks.htk_mel_banks if cfg.mel_style == "htk" else mel_banks.kaldi_mel_banks
     mel = banks(cfg.n_mels, n_fft, cfg.sample_rate, cfg.low_freq)
     return basis, np.asarray(mel, np.float32)

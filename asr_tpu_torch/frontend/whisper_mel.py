@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from asr_tpu_torch.frontend import framing
-from asr_tpu_torch.frontend.kaldi_fbank import _mel_banks_module
+from asr_tpu_torch.frontend.mel_banks import slaney_mel_banks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +59,7 @@ def _whisper_constants(cfg: WhisperMelConfig) -> tuple[np.ndarray, np.ndarray]:
     k = -(-cfg.n_fft // cfg.hop_length)
     basis = np.zeros((k * cfg.hop_length, 2 * cfg.n_bins), dtype=np.float32)
     basis[: cfg.n_fft] = kernel.T
-    mel = _mel_banks_module().slaney_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sample_rate)
+    mel = slaney_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sample_rate)
     return basis, np.asarray(mel, np.float32)
 
 

@@ -2,9 +2,10 @@
 
 Each kernel source under ``asr_tpu_torch/csrc`` has a plain C interface and
 is compiled at first use (``sm_90a``) into ``asr_tpu_torch/_build/``, then
-loaded with ``ctypes``. The library name carries a hash of the source and
-the flags, so a stale build is never loaded; a file lock serializes
-concurrent builders.
+loaded with ``ctypes``. The library name carries a hash of the source, the
+headers beside it (``csrc/*.cuh``, which the sources include) and the flags,
+so a stale build is never loaded; a file lock serializes concurrent
+builds.
 """
 
 from __future__ import annotations
@@ -39,8 +40,13 @@ def find_nvcc() -> str:
 
 
 def build(source: Path, flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, str]:
-    """Compile ``source`` once per content and flags; return (library, nvcc log)."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    """Compile ``source`` once per content (its headers too) and flags; return
+    (library, nvcc log)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}-{digest}.so"
     log = lib.with_suffix(".log")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,408 @@
+"""Continuous batching for the AED encoder-decoder families.
+
+Counterpart of ``asr_tpu/parallel/aed_batcher.py`` (the Whisper half: the
+``"learned"`` input math). Requests join and leave a running decode batch
+mid-flight:
+
+- Decode state lives on the device at fixed shapes: per-slot self-KV and
+  per-slot cross-KV (each request's own encoder output), with per-slot
+  ``pos`` / ``tc_valid`` / ``count`` / ``active`` tensors. One step advances
+  every active slot by one token; parked slots write nowhere and their
+  finite garbage is discarded.
+- A new request prefills alone through the family's solo path (the
+  session's ``continuous_prefill``: encoder, probe, prompt prefill), then
+  its KV rows and cross planes are copied into a free slot; it decodes on
+  the very next step.
+- A finished slot (EOT or budget) frees as soon as the host sees it.
+
+With stacked q8 weights (``ops.fused_aed_step.stack_aed_step_params``) the
+state is ``(NL, n_slots, T, D)`` self planes and ``(NL, n_slots, Tc, D)``
+cross planes, head-major as the multi-slot kernel reads them, and each step
+is one call of ``ops.fused_aed_multi.fused_aed_step_multi`` (the
+hand-written kernel on a card). Otherwise the state is the solo
+``make_state`` layout with a slot axis and each step runs
+:func:`aed_decoder_step_rowwise`, whose linears go through ``dense`` (the
+int8 kernel on a card for q8 weights). Both layouts are updated in place.
+
+A tick runs ``steps_per_tick`` steps with no host synchronisation between
+them, then fetches one ``(3, K, n_slots)`` event tensor (active, token,
+finished). Per-slot output equals the request run alone: greedy and penalty
+bitwise up to the batch's summation order, sampling by construction -- each
+request draws its noise from its own ``torch.Generator``, seeded from
+(base seed, request seed) with automatic seeds kept apart from explicit
+ones, so its tokens depend only on its seed and its own step index.
+
+Thread model: every method from one thread (the server's decode thread),
+as in the JAX package; only the free-slot list is locked.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from asr_tpu_torch.decode.ar import DecodeConfig, select_token
+from asr_tpu_torch.decode.strategies import suppress_tokens, uniform_noise
+from asr_tpu_torch.layers.attention import NEG_INF, mha
+from asr_tpu_torch.layers.norms import layer_norm
+from asr_tpu_torch.layers.transformer import dense, merge_heads, split_heads
+from asr_tpu_torch.ops.fused_aed_multi import fused_aed_step_multi, kernel_takes
+from asr_tpu_torch.ops.fused_aed_step import AedGeom
+from asr_tpu_torch.quant.quantize import embedding_logits
+
+# noise(request seed, draw index, shape, device) -> uniform f32 draw in
+# [1e-20, 1); draw 0 picks the first token, draw k the k-th step's.
+SlotNoise = Callable[[int | None, int, tuple, torch.device], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AedEngineSpec:
+    """Decoder geometry + input-math convention."""
+
+    d_model: int
+    ffn_dim: int
+    num_heads: int
+    vocab_size: int
+    t_max: int                 # self-cache length == solo max_target_positions
+    tc_max: int                # cross length (fixed window -> fixed encoder len)
+    embed: str                 # "learned" (Whisper) | "scaled_relpos" (FireRed/Dolphin)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+
+def spec_for_whisper(cfg) -> AedEngineSpec:
+    return AedEngineSpec(
+        d_model=cfg.d_model, ffn_dim=cfg.ffn_dim, num_heads=cfg.num_heads,
+        vocab_size=cfg.vocab_size, t_max=cfg.max_target_positions,
+        tc_max=cfg.max_source_positions, embed="learned")
+
+
+def _embed_rows(dec: dict, spec: AedEngineSpec, tokens: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+    """Family input math for one token per slot -> (B, D) f32 rows:
+    ``embed[token] + pos_table[pos]`` (Whisper)."""
+    if spec.embed != "learned":
+        raise NotImplementedError(
+            f"input math {spec.embed!r} (FireRed / Dolphin) comes with the port's "
+            "FireRed and Dolphin slice")
+    logical = torch.clamp(pos, 0, spec.t_max - 1).to(torch.int64)
+    return (dec["embed"][tokens] + dec["pos"][logical]).to(torch.float32)
+
+
+def aed_decoder_step_rowwise(dec: dict, spec: AedEngineSpec, x: torch.Tensor, state: dict,
+                             pos: torch.Tensor, tc_valid: torch.Tensor,
+                             active: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One decode token through all AED decoder blocks with per-row cache
+    positions; per row the math of ``layers/transformer.decoder_block`` run
+    alone (same padded cache length, masked slots at exactly zero
+    probability).
+
+    Args:
+      x: (B, 1, D) current-token rows (family input math applied).
+      state: ``{"layers": ({"self_k"/"self_v" (B, T, H, hd), "cross_k"/
+        "cross_v" (B, Tc, H, hd)}, ...)}``; row ``pos[b]`` of an active slot's
+        self caches is written in place.
+      pos: (B,) cache slot each row writes; tc_valid: (B,) valid cross rows;
+      active: (B,) bool, parked rows write nowhere.
+
+    Returns (hidden (B, 1, D) final-normalized, state).
+    """
+    t_max = state["layers"][0]["self_k"].shape[1]
+    tc = state["layers"][0]["cross_k"].shape[1]
+    dev = x.device
+    bidx = torch.arange(x.shape[0], device=dev)
+    logical = torch.clamp(pos, 0, t_max - 1).to(torch.int64)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    kpos = torch.arange(t_max, device=dev)[None, :]
+    self_bias = torch.where(kpos <= logical[:, None], zero, NEG_INF)[:, None, None]
+    cpos = torch.arange(tc, device=dev)[None, :]
+    cross_bias = torch.where(cpos < tc_valid[:, None], zero, NEG_INF)[:, None, None]
+    keep = active[:, None, None]
+    h = spec.num_heads
+    for p, ls in zip(dec["blocks"], state["layers"]):
+        y = layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
+        q = split_heads(dense(y, p["attn"]["q"]), h)
+        k = split_heads(dense(y, p["attn"]["k"]), h)
+        v = split_heads(dense(y, p["attn"]["v"]), h)
+        for cache, new in ((ls["self_k"], k), (ls["self_v"], v)):
+            cache[bidx, logical] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                               cache[bidx, logical])
+        attn = mha(q, ls["self_k"], ls["self_v"], bias=self_bias)
+        x = x + dense(merge_heads(attn), p["attn"]["o"])
+
+        y = layer_norm(x, p["ln_cross"]["scale"], p["ln_cross"]["bias"])
+        qc = split_heads(dense(y, p["cross"]["q"]), h)
+        xc = mha(qc, ls["cross_k"], ls["cross_v"], bias=cross_bias)
+        x = x + dense(merge_heads(xc), p["cross"]["o"])
+
+        y = layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
+        hh = F.gelu(dense(y, p["mlp"]["fc1"]), approximate="none")
+        x = x + dense(hh, p["mlp"]["fc2"])
+    return layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"]), state
+
+
+def _request_seed(base: int, explicit: bool, seed: int) -> int:
+    """The generator seed of one request: (base seed, explicit or automatic,
+    request seed) mixed, so an explicit seed N never meets the Nth automatic
+    one."""
+    words = np.random.SeedSequence([base, int(explicit), seed]).generate_state(2, np.uint32)
+    return int(words[0]) << 31 ^ int(words[1])
+
+
+class ContinuousAedBatcher:
+    """Slot-based continuous decode over one AED decoder.
+
+    The engine API (``try_submit`` / ``step`` / ``step_tick`` /
+    ``take_result`` / ``cancel`` / ``is_active`` / ``snapshot`` /
+    ``n_active`` / ``last_tick_substeps``) is the JAX package's.
+
+    Args:
+      params: the family's params (``params["decoder"]`` holds the
+        ``layers/transformer.decoder_block`` blocks + embed/pos/ln[/out]).
+      spec: :class:`AedEngineSpec`.
+      decode_cfg: strategy/penalty/sampling + ``max_new_tokens``, the solo
+        ``ar_decode`` loop's semantics.
+      n_slots: concurrent requests riding one step.
+      seed: base seed of the requests' sampling generators.
+      kv_dtype: self/cross cache storage dtype.
+      stacked: stacked q8 weights; with them (and a geometry and slot count
+        the multi-slot kernel takes) each step is one
+        ``fused_aed_step_multi`` call.
+      steps_per_tick: decode steps per host fetch.
+      noise: optional :data:`SlotNoise` hook replacing the generators' draws
+        (tests feed the JAX package's own per-slot draws through it).
+    """
+
+    @torch.inference_mode()
+    def __init__(self, params: dict, spec: AedEngineSpec, decode_cfg: DecodeConfig,
+                 n_slots: int = 8, seed: int = 0, kv_dtype: torch.dtype = torch.float32,
+                 stacked: dict | None = None, steps_per_tick: int = 1,
+                 noise: SlotNoise | None = None):
+        self.dec = params["decoder"]
+        self.spec = spec
+        self.dc = decode_cfg
+        self.n_slots = int(n_slots)
+        if self.n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        self.kv_dtype = kv_dtype
+        self.gen_cap = decode_cfg.max_new_tokens + 1
+        self.device = self.dec["pos"].device
+        self._geom = AedGeom(spec.d_model, spec.ffn_dim, spec.num_heads)
+        self.stacked = (stacked if stacked is not None and kernel_takes(self._geom, self.n_slots)
+                        else None)
+        n, t, d, dev = self.n_slots, spec.t_max, spec.d_model, self.device
+
+        def zeros(*shape, dtype=kv_dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        nl = len(self.dec["blocks"])
+        if self.stacked is not None:
+            self.state = {"k": zeros(nl, n, t, d), "v": zeros(nl, n, t, d),
+                          "ck": zeros(nl, n, spec.tc_max, d), "cv": zeros(nl, n, spec.tc_max, d)}
+        else:
+            h, hd = spec.num_heads, spec.head_dim
+            self.state = {"layers": tuple(
+                {"self_k": zeros(n, t, h, hd), "self_v": zeros(n, t, h, hd),
+                 "cross_k": zeros(n, spec.tc_max, h, hd), "cross_v": zeros(n, spec.tc_max, h, hd)}
+                for _ in range(nl))}
+        self.gen_buf = zeros(n, self.gen_cap, dtype=torch.int64)
+        self.pos = zeros(n, dtype=torch.int32)       # p_len + count
+        self.tc_valid = zeros(n, dtype=torch.int32)
+        self.last = zeros(n, dtype=torch.int64)
+        self.count = zeros(n, dtype=torch.int64)
+        self.active = zeros(n, dtype=torch.bool)
+        self._base_seed = int(seed)
+        self._noise = noise
+        self._seed_counter = 0  # automatic request seeds (try_submit)
+        self._req_seed: list[int | None] = [None] * n
+        self._gens: list[torch.Generator | None] = [None] * n
+        self._draws = [0] * n
+        self._free = list(range(n))
+        self._active_host = np.zeros(n, bool)
+        self._gen_host: list[list[int]] = [[] for _ in range(n)]
+        self._lock = threading.Lock()
+        self.steps_per_tick = max(int(steps_per_tick), 1)
+        self.last_tick_substeps = 0
+
+    # ── sampling noise ───────────────────────────────────────────────────
+    def _noise_row(self, slot: int, shape: tuple) -> torch.Tensor:
+        k = self._draws[slot]
+        self._draws[slot] += 1
+        if self._noise is not None:
+            return self._noise(self._req_seed[slot], k, shape, self.device)
+        return uniform_noise(shape, self.device, self._gens[slot])
+
+    def _step_noise(self) -> torch.Tensor | None:
+        """(n_slots, V) draws for one step: a row from each live slot's own
+        stream, a constant for the others (their tokens are discarded)."""
+        if self.dc.strategy != "sampling":
+            return None
+        shape = (1, self.spec.vocab_size)
+        return torch.cat([self._noise_row(i, shape) if self._active_host[i]
+                          else torch.full(shape, 0.5, device=self.device)
+                          for i in range(self.n_slots)])
+
+    # ── one device step (no host sync) ───────────────────────────────────
+    def _step_body(self, noise: torch.Tensor | None) -> torch.Tensor:
+        spec, dc = self.spec, self.dc
+        x = _embed_rows(self.dec, spec, self.last, self.pos)
+        if self.stacked is not None:
+            st = self.state
+            posf = torch.where(self.active, self.pos, -1)  # parked slots write nowhere
+            lg, _, _ = fused_aed_step_multi(self.stacked, self._geom, x, st["k"], st["v"],
+                                            st["ck"], st["cv"], posf, self.tc_valid)
+            logits = lg[:, : spec.vocab_size]
+        else:
+            hidden, _ = aed_decoder_step_rowwise(self.dec, spec, x[:, None], self.state,
+                                                 self.pos, self.tc_valid, self.active)
+            head = self.dec["out"] if "out" in self.dec else self.dec["embed"]
+            logits = embedding_logits(head, hidden[:, -1])
+        logits = suppress_tokens(logits.to(torch.float32), dc.suppress_ids)
+        tok = select_token(logits, self.gen_buf, self.count, dc, history_start=0,
+                           noise=None if noise is None else lambda shape, dev: noise)
+        act = self.active.clone()
+        tok = torch.where(act, tok, dc.eot_id)
+        col = torch.clamp(self.count, max=self.gen_cap - 1)[:, None]
+        self.gen_buf.scatter_(1, col, torch.where(act[:, None], tok[:, None],
+                                                  self.gen_buf.gather(1, col)))
+        self.count += act
+        self.pos += act.to(torch.int32)
+        still = act & (tok != dc.eot_id) & (self.count < self.gen_cap) & (self.pos < spec.t_max)
+        self.last.copy_(tok)
+        self.active.copy_(still)
+        return torch.stack([act.to(torch.int64), tok, (act & ~still).to(torch.int64)])
+
+    # ── engine API ───────────────────────────────────────────────────────
+    @torch.inference_mode()
+    def try_submit(self, small_state: dict, p_len: int, logits0: torch.Tensor,
+                   tc_valid: int, seed: int | None = None) -> int | None:
+        """Insert one prefilled request into a free slot.
+
+        Args:
+          small_state: batch-1 state from the family's ``make_state`` + prompt
+            prefill (solo layout: per-layer self/cross KV); its cross length
+            is at most ``spec.tc_max``.
+          p_len: prompt length (the prompt occupies self-cache [0, p_len)).
+          logits0: (1, V) prefill logits, already suppressed (and
+            begin-suppressed for Whisper).
+          tc_valid: number of real cross rows.
+          seed: optional request seed for sampling; automatic seeds (a
+            counter) never collide with explicit ones.
+
+        Returns the slot id, or None when all slots are busy.
+        """
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop(0)
+            explicit = seed is not None
+            seed_i = int(seed) if explicit else self._seed_counter
+            self._seed_counter += not explicit
+        if p_len + self.gen_cap > self.spec.t_max:
+            with self._lock:
+                self._free.insert(0, slot)
+            raise ValueError(f"prompt {p_len} + budget {self.gen_cap} exceeds t_max "
+                             f"{self.spec.t_max}")
+        self._req_seed[slot] = seed_i if explicit else None
+        self._draws[slot] = 0
+        self._gens[slot] = None
+        dc = self.dc
+        if dc.strategy == "sampling" and self._noise is None:
+            self._gens[slot] = torch.Generator(device=self.device).manual_seed(
+                _request_seed(self._base_seed, explicit, seed_i))
+        first = select_token(logits0.to(torch.float32),
+                             torch.zeros((1, self.gen_cap), dtype=torch.int64, device=self.device),
+                             0, dc, history_start=0,
+                             noise=lambda shape, dev: self._noise_row(slot, shape))[0]
+        d = self.spec.d_model
+        layers = small_state["layers"]
+        tc = layers[0]["cross_k"].shape[1]
+        if self.stacked is not None:
+            st = self.state
+            for l, ls in enumerate(layers):
+                st["k"][l, slot] = ls["self_k"][0].reshape(-1, d)
+                st["v"][l, slot] = ls["self_v"][0].reshape(-1, d)
+                st["ck"][l, slot, :tc] = ls["cross_k"][0].reshape(tc, d)
+                st["cv"][l, slot, :tc] = ls["cross_v"][0].reshape(tc, d)
+        else:
+            for big, sm in zip(self.state["layers"], layers):
+                for key, t in sm.items():
+                    big[key][slot, : t.shape[1]] = t[0]
+        self.gen_buf[slot] = 0
+        self.gen_buf[slot, 0] = first
+        self.pos[slot] = p_len
+        self.tc_valid[slot] = tc_valid
+        self.last[slot] = first
+        self.count[slot] = 1
+        first_h = int(first)
+        live = first_h != dc.eot_id and self.gen_cap > 1
+        self.active[slot] = live
+        self._active_host[slot] = live
+        self._gen_host[slot] = [first_h]
+        return slot
+
+    @torch.inference_mode()
+    def step(self) -> list[tuple[int, int, bool]]:
+        was_active = self._active_host.copy()
+        if not was_active.any():
+            self.last_tick_substeps = 0
+            return []
+        self.last_tick_substeps = 1
+        _, tok_h, fin_h = self._step_body(self._step_noise()).cpu().numpy()  # ONE fetch
+        fin_h = fin_h.astype(bool)
+        self._active_host = was_active & ~fin_h
+        events = [(i, int(tok_h[i]), bool(fin_h[i])) for i in range(self.n_slots) if was_active[i]]
+        for i, t, _f in events:
+            self._gen_host[i].append(t)
+        return events
+
+    @torch.inference_mode()
+    def step_tick(self) -> list[tuple[int, int, bool]]:
+        if self.steps_per_tick == 1:
+            return self.step()
+        if not self._active_host.any():
+            self.last_tick_substeps = 0
+            return []
+        outs = [self._step_body(self._step_noise()) for _ in range(self.steps_per_tick)]
+        act_h, tok_h, fin_h = torch.stack(outs, dim=1).cpu().numpy()  # ONE fetch: (3, K, n)
+        act_h = act_h.astype(bool)
+        fin_h = fin_h.astype(bool)
+        self.last_tick_substeps = int(act_h.any(axis=1).sum())
+        self._active_host = act_h[-1] & ~fin_h[-1]
+        events = [(i, int(tok_h[s, i]), bool(fin_h[s, i]))
+                  for s in range(act_h.shape[0]) for i in range(self.n_slots) if act_h[s, i]]
+        for i, t, _f in events:
+            self._gen_host[i].append(t)
+        return events
+
+    def take_result(self, slot: int) -> list[int]:
+        ids = list(self._gen_host[slot])
+        with self._lock:
+            if slot not in self._free:
+                self._free.append(slot)
+        return ids
+
+    @torch.inference_mode()
+    def cancel(self, slot: int) -> None:
+        self.active[slot] = False
+        self._active_host[slot] = False
+        with self._lock:
+            if slot not in self._free:
+                self._free.append(slot)
+
+    def is_active(self, slot: int) -> bool:
+        return bool(self._active_host[slot])
+
+    def snapshot(self, slot: int) -> list[int]:
+        return list(self._gen_host[slot])
+
+    @property
+    def n_active(self) -> int:
+        return int(self._active_host.sum())

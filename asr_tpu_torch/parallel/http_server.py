@@ -26,8 +26,23 @@ from urllib.parse import parse_qs, urlsplit
 import numpy as np
 import torch
 
-from asr_tpu.runtime import audio as audio_io
 from asr_tpu_torch.parallel.server import MicroBatcher
+from asr_tpu_torch.runtime import audio as audio_io
+
+
+def _join_window_texts(texts: list[str]) -> str:
+    """Join per-window transcripts of a long request: a space only where both
+    sides of the boundary are word characters of a space-delimited script
+    (below U+2E80), so CJK text gets no spurious separators."""
+    out = ""
+    for t in texts:
+        if not t:
+            continue
+        if out and (out[-1].isalnum() and ord(out[-1]) < 0x2E80
+                    and t[0].isalnum() and ord(t[0]) < 0x2E80):
+            out += " "
+        out += t
+    return out
 
 
 def decode_audio_bytes(data: bytes, target_rate: int) -> np.ndarray:
@@ -36,11 +51,11 @@ def decode_audio_bytes(data: bytes, target_rate: int) -> np.ndarray:
     if data[:4] == b"RIFF":
         return decode_wav_bytes(data, target_rate)
     if data[:4] == b"fLaC":
-        from asr_tpu.runtime.flac import read_flac_bytes
+        from asr_tpu_torch.runtime.flac import read_flac_bytes
 
         samples, rate = read_flac_bytes(data)
     elif data[:4] == b"OggS":
-        from asr_tpu.runtime.ogg import read_ogg
+        from asr_tpu_torch.runtime.ogg import read_ogg
 
         with tempfile.NamedTemporaryFile(suffix=".ogg") as f:
             f.write(data)
@@ -48,7 +63,7 @@ def decode_audio_bytes(data: bytes, target_rate: int) -> np.ndarray:
             ch_samples, rate = read_ogg(f.name)
         samples = ch_samples.T  # (n, channels) for the shared downmix below
     elif data[:3] == b"ID3" or (len(data) > 2 and data[0] == 0xFF and (data[1] & 0xE0) == 0xE0):
-        from asr_tpu.runtime.mp3 import read_mp3
+        from asr_tpu_torch.runtime.mp3 import read_mp3
 
         with tempfile.NamedTemporaryFile(suffix=".mp3") as f:
             f.write(data)

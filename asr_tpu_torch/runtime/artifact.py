@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from asr_tpu.runtime.metadata import ModelMetadata
+from asr_tpu_torch.runtime.metadata import ModelMetadata
 from asr_tpu_torch.quant.quantize import QuantizedEmbedding, QuantizedLinear, tied_head_arrays
 
 WEIGHTS_FILENAME = "weights.safetensors"
@@ -186,7 +186,7 @@ def save_model(folder: str | Path, params: Any, metadata: ModelMetadata) -> None
     metadata.save(folder)
 
 
-def load_model(folder: str | Path, device) -> tuple[Any, ModelMetadata]:
+def load_model(folder: str | Path, device="cuda") -> tuple[Any, ModelMetadata]:
     folder = Path(folder)
     flat = read_safetensors(folder / WEIGHTS_FILENAME)
     meta = ModelMetadata.load(folder)

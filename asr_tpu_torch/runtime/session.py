@@ -15,10 +15,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from asr_tpu.runtime import audio as audio_io
-from asr_tpu.runtime.metadata import ModelMetadata, config_from_dict
 from asr_tpu_torch.models import sensevoice as sv
+from asr_tpu_torch.runtime import audio as audio_io
 from asr_tpu_torch.runtime.artifact import load_model
+from asr_tpu_torch.runtime.metadata import ModelMetadata, config_from_dict
 
 
 @dataclasses.dataclass
@@ -118,7 +118,7 @@ class SenseVoiceSession:
         return text
 
 
-def load_session(folder: str | Path, device, tokenizer=None, **session_kw) -> SenseVoiceSession:
+def load_session(folder: str | Path, device="cuda", tokenizer=None, **session_kw) -> SenseVoiceSession:
     """Artifact folder (``metadata.json`` family ``sensevoice``, its config
     under ``extra["config"]``) -> a session on ``device``."""
     params, meta = load_model(folder, device)

@@ -1,7 +1,7 @@
 """Whisper inference session: file/array -> token ids and text, 30 s windows.
 
 Counterpart of ``asr_tpu/runtime/whisper_session.py`` (without the
-``mesh=`` runner and the continuous-serving surface): 30-second
+``mesh=`` runner): 30-second
 zero-padded windows, a per-window [SOT] probe (language + no-speech),
 the prompt [SOT, lang, task, notimestamps], suppress / begin-suppress
 biasing, greedy / penalty / sampling decode, optional repeated-tail
@@ -11,6 +11,11 @@ When the parameters are on a CUDA card and quantized matmuls run in the
 ``bf16`` mode, the session stacks the q8 decoder for the fused step
 kernel (``ops/fused_aed_step.py``); a single-window transcription then
 runs every decode step as one kernel call.
+
+The continuous-serving surface (``aed_engine_spec``, ``continuous_prefill``)
+feeds ``parallel/llm_server.ContinuousSessionServer``, whose batcher steps
+every slot through the multi-slot kernel (``ops/fused_aed_multi.py``) with
+the same stacked weights.
 """
 
 from __future__ import annotations
@@ -22,13 +27,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from asr_tpu.runtime import audio as audio_io
-from asr_tpu.runtime.metadata import config_from_dict
 from asr_tpu_torch.decode.ar import DecodeConfig
 from asr_tpu_torch.models import whisper as wh
 from asr_tpu_torch.ops.fused_aed_step import stack_whisper_step_params
 from asr_tpu_torch.ops.quant_matmul import _resolve_mm
+from asr_tpu_torch.runtime import audio as audio_io
 from asr_tpu_torch.runtime.artifact import load_model
+from asr_tpu_torch.runtime.metadata import config_from_dict
 from asr_tpu_torch.runtime.session import TranscribeResult, bucket_windows
 
 WINDOW_SECONDS = 30.0
@@ -95,6 +100,33 @@ class WhisperSession:
             strategy=s.strategy, penalty=s.penalty, penalty_range=s.penalty_range,
             temperature=s.temperature, top_k=s.top_k, top_p=s.top_p)
 
+    # ---- continuous-batching serving surface (parallel/llm_server.py) ----
+
+    def aed_engine_spec(self):
+        from asr_tpu_torch.parallel.aed_batcher import spec_for_whisper
+
+        return spec_for_whisper(self.cfg)
+
+    @torch.inference_mode()
+    def continuous_prefill(self, samples: np.ndarray, language: str | None = None) -> dict:
+        """One request's prefilled decode state for the continuous AED
+        engine: encoder + [SOT] probe + prompt prefill of one window
+        (``models/whisper.prefill_window``). ``skip=True`` marks a no-speech
+        window: the server returns empty ids without admitting it (the solo
+        path decodes, then discards; skipping gives the same output)."""
+        s = np.asarray(samples, np.float32)[: self.window_samples]
+        buf = np.zeros((1, self.window_samples), np.float32)
+        buf[0, : len(s)] = s
+        prompt = torch.from_numpy(self._prompt(1, language)).to(self.device)
+        mel = wh.mel_for_audio(self.cfg, torch.from_numpy(buf).to(self.device))
+        pre = wh.prefill_window(self.params, self.cfg, mel, prompt, self.decode_cfg,
+                                begin_suppress_ids=self.scfg.begin_suppress_ids)
+        thresh = self.scfg.no_speech_threshold
+        skip = thresh is not None and float(pre["no_speech_prob"][0]) > thresh
+        tc = pre["state"]["layers"][0]["cross_k"].shape[1]
+        return {"state": pre["state"], "p_len": prompt.shape[1], "logits0": pre["logits0"],
+                "tc_valid": tc, "skip": skip}
+
     def _prompt(self, batch: int, language: str | None = None) -> np.ndarray:
         cfg, s = self.cfg, self.scfg
         language = language if language is not None else s.language
@@ -150,7 +182,7 @@ class WhisperSession:
                                 elapsed_seconds=elapsed)
 
 
-def load_whisper_session(folder: str | Path, device, tokenizer=None,
+def load_whisper_session(folder: str | Path, device="cuda", tokenizer=None,
                          **session_kw) -> WhisperSession:
     """Artifact folder (``metadata.json`` family ``whisper``, config under
     ``extra["config"]``) -> a session on ``device``, with the suppress lists

@@ -5,10 +5,10 @@ Run from the repository root, with one card visible:
 
     python3 chip_smoke.py
 
-Phases: (1) the card; (2) build both kernels from ``asr_tpu_torch/csrc``
-with nvcc, one process per source, at once; (3) the int8 dequant-matmul
-kernel against its plain PyTorch version at every SenseVoiceSmall q8
-shape, timed in turns; (4) SenseVoiceSmall at its full published geometry
+Phases: (1) the card; (2) build the three kernels from
+``asr_tpu_torch/csrc`` with nvcc, one process per source, at once; (3)
+the int8 dequant-matmul kernel against its plain PyTorch version at every
+SenseVoiceSmall q8 shape, timed in turns; (4) SenseVoiceSmall at its full published geometry
 with random weights from a seed, quantized to q8, saved as an artifact
 folder and loaded back, transcribing 20 s of audio through
 ``SenseVoiceSession``; (5) the same session behind the HTTP micro-batching
@@ -22,13 +22,22 @@ q8 at its full geometry through an artifact folder and
 teacher-forced replay of its ids through the per-weight step, and 45 s
 (two windows, the per-weight route); (10) encoder time, decode time per
 token on both routes, the host sync's share, RTF of one 30 s window and
-peak memory.
+peak memory; (11) the multi-slot AED decode-step kernel against its plain
+version and, slot by slot, against the batch-1 kernel at turbo geometry
+(B = 2 and 8, f32 and bf16 caches, mixed positions with one parked slot,
+mixed cross lengths); (12) its time at B = 2, 4, 8 against the plain
+version's, in turns, with its bound and a profile at B = 8; (13)
+continuous serving of phase 9's artifact over HTTP: 17 concurrent
+requests (18 windows) with staggered starts on 8 slots, every decode step
+through the multi-slot kernel, the ids against ``session.transcribe``, the
+serving numbers, and two requests on the rowwise route.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
 x 4 linears + the CTC head); one Whisper window launches it for the
 encoder, the cross-KV and the two prefills, and the fused kernel once per
-decode step.
+decode step; continuous serving launches the multi-slot kernel once per
+decode step and never the batch-1 kernel.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -79,12 +88,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel) -> tuple[float, float]:
+def in_turns(plain, kernel, plain_iters: int = 20) -> tuple[float, float]:
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
-    p1 = time_ms(plain)
+    p1 = time_ms(plain, plain_iters, min(3, plain_iters))
     k1 = time_ms(kernel)
     k2 = time_ms(kernel)
-    p2 = time_ms(plain)
+    p2 = time_ms(plain, plain_iters, min(3, plain_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -274,7 +283,8 @@ def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
             lambda: fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv))
         nbytes = step_bytes(stacked, nl, d, pos, tcv, ks.element_size())
         rate = nbytes / (k_ms * 1e-3)
-        times[rows[-1]["cache"]] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bytes_per_s": rate}
+        times[rows[-1]["cache"]] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bytes_per_s": rate,
+                                    "flops": step_flops(stacked, nl, d, [(pos, tcv)])}
         print(f"[8 fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms; {nbytes / 1e6:.1f} MB per step, {rate / 1e9:.0f} GB/s, "
               f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s  [{card}]")
@@ -292,8 +302,9 @@ def synced(torch, fn):
     return out, time.perf_counter() - t
 
 
-def phase_whisper(torch, np, qm, fs, card: str) -> dict:
-    """Whisper-Large-v3-Turbo q8 through an artifact folder and WhisperSession."""
+def phase_whisper(torch, np, qm, fs, folder: str, card: str) -> dict:
+    """Whisper-Large-v3-Turbo q8 through an artifact folder (saved into
+    ``folder``, which phase 13 loads again) and WhisperSession."""
     from asr_tpu_torch.decode.ar import select_token
     from asr_tpu_torch.models import whisper as wh
     from asr_tpu_torch.quant.quantize import quantize_pytree
@@ -305,11 +316,10 @@ def phase_whisper(torch, np, qm, fs, card: str) -> dict:
     t0 = time.perf_counter()
     q8 = quantize_pytree(wh.init_params(cfg, torch.Generator(device=DEV).manual_seed(0)),
                          bits=8, block=128, quantize_embeddings=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        save_model(tmp, q8, ModelMetadata(family="whisper", extra={"config": dataclasses.asdict(cfg)}))
-        size_mb = (Path(tmp) / "weights.safetensors").stat().st_size / 1e6
-        del q8
-        session = load_whisper_session(tmp, DEV)
+    save_model(folder, q8, ModelMetadata(family="whisper", extra={"config": dataclasses.asdict(cfg)}))
+    size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
+    del q8
+    session = load_whisper_session(folder, DEV)
     params = session.params
     check(session.stacked is not None, "the session did not stack the q8 decoder for the fused step")
     print(f"[9 whisper] Whisper-Large-v3-Turbo q8: init + quantize + artifact ({size_mb:.1f} MB) "
@@ -455,6 +465,381 @@ def phase_whisper_numbers(torch, np, qm, fs, wh_run: dict, card: str) -> dict:
     return out
 
 
+# ── 11-13. the multi-slot AED decode-step kernel, continuous serving ────────
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+MULTI_B = (2, 8)
+MULTI_TIMED_B = (2, 4, 8)
+SERVE_SLOTS = 8
+SERVE_SECONDS = (5.0, 30.0)  # 16 requests of one window each, lengths drawn from this range
+SERVE_LONG = 45.0  # and one of two windows
+ROWWISE_BUDGET = 64  # new tokens a window on the rowwise route
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the bytes over the
+    HBM rate against the operations over the bf16 tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def step_flops(stacked: dict, nl: int, d: int, slots: list) -> float:
+    """Operations of one step: 2 per int8 weight element and slot, and the
+    attention's scores and P.V over each slot's (pos, tc_valid) rows."""
+    weights = sum(stacked[k].numel() for k in ("wa_all", "wb_all", "wh"))
+    return float(sum(2 * weights + 4 * nl * (p + tc) * d for p, tc in slots))
+
+
+def int8_forward_bound() -> tuple[float, str, float, float]:
+    """The int8 kernel's bound over one batch-8 SenseVoiceSmall forward (281
+    calls at M = 1096): each call's bytes (x f32 read, the int8 weight, its
+    f32 scales and zeros, the f32 output written) and operations (2 M K N at
+    the bf16 peak), each call's larger time, summed."""
+    m = BATCH * ROWS
+    total, nbytes, flops = 0.0, 0.0, 0.0
+    for (k, n, block), count in SLICE_SHAPES.items():
+        b = 4 * m * k + k * n + 2 * 4 * (k // block) * n + 4 * m * n
+        f = 2.0 * m * k * n
+        total += count * bound(b, f)[0]
+        nbytes += count * b
+        flops += count * f
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
+    return total, by, nbytes, flops
+
+
+def profile_steps(torch, fn, steps: int = 20) -> tuple[float, float, dict]:
+    """torch.profiler over ``steps`` calls of ``fn``: (host ms a step, kernel
+    ms a step, {kernel name: ms a step})."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        # "void (anonymous namespace)::attn_pv_multi<float, false>(...)" -> "attn_pv_multi"
+        name = re.sub(r"^void ", "", e.key.replace("(anonymous namespace)::", ""))
+        name = re.sub(r"[(<].*", "", name).split("::")[-1].strip()
+        by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3 / steps
+    return wall * 1e3 / steps, sum(by_name.values()), by_name
+
+
+def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> dict:
+    """[11] The multi-slot kernel against its plain version and against the
+    batch-1 kernel slot by slot, at turbo geometry; [12] its time against
+    the plain version's, in turns, at B in {2, 4, 8}."""
+    cfg = wh.WhisperConfig(encoder_layers=0)  # the decoder at full width
+    g = torch.Generator(device=DEV).manual_seed(11)
+    params = quantize_pytree(wh.init_params(cfg, g), bits=8, block=128, quantize_embeddings=True)
+    stacked = fs.stack_whisper_step_params(params, cfg)
+    check(stacked is not None, "turbo q8 decoder did not stack")
+    for key in ("ba", "bb", "ln1_b", "lnc_b", "ln2_b", "lnf_b"):
+        stacked[key] = 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
+    for key in ("ln1_s", "lnc_s", "ln2_s", "lnf_s"):
+        stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, tc, v = (cfg.decoder_layers, cfg.d_model, cfg.max_target_positions,
+                       cfg.max_source_positions, cfg.vocab_size)
+    dec = params["decoder"]
+    worst, rows = 0.0, []
+
+    def planes(bs, cdt):
+        return [torch.randn((nl, bs, n, d), generator=g, device=DEV).to(cdt) for n in (t, t, tc, tc)]
+
+    for bs in MULTI_B:
+        pos_l = [FUSED_POS[i % 3] for i in range(bs)]
+        pos_l[bs // 2] = -1  # one parked slot
+        tc_l = [FUSED_TC[i % 2] for i in range(bs)]
+        toks = torch.tensor([(1000 + 7 * i) % v for i in range(bs)], device=DEV)
+        x = (dec["embed"][toks] + dec["pos"][torch.tensor([max(p, 0) for p in pos_l], device=DEV)]).float()
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=DEV)
+        tcv = torch.tensor(tc_l, dtype=torch.int32, device=DEV)
+        for cdt in (torch.float32, torch.bfloat16):
+            cache = str(cdt).split(".")[-1]
+            ks, vs, ck, cv = planes(bs, cdt)
+            kk, vk, kp, vp = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+            got, _, _ = fm.fused_aed_step_multi_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv)
+            torch.cuda.synchronize()
+            want, _, _ = fm.fused_aed_step_multi_reference(stacked, geom, x, kp, vp, ck, cv, pos, tcv)
+            check(bool(torch.isfinite(got).all()), f"B={bs} {cache}: non-finite logits")
+            check(bool((got[:, v:] == 0).all()), f"B={bs} {cache}: pad logits are not exactly 0")
+            err = (got[:, :v] - want[:, :v]).abs().max().item()
+            ref = want[:, :v].abs().max().item()
+            check(err <= FUSED_LOGIT_TOL * ref, f"B={bs} {cache}: multi vs plain {err} > "
+                  f"{FUSED_LOGIT_TOL} * {ref}")
+            worst = max(worst, err)
+            row0, vs1 = 0.0, 0.0
+            for b, p in enumerate(pos_l):
+                others = torch.arange(t, device=DEV) != p
+                check(torch.equal(kk[:, b, others], ks[:, b, others])
+                      and torch.equal(vk[:, b, others], vs[:, b, others]),
+                      f"B={bs} {cache}: slot {b} rows other than pos {p} changed")
+                if p < 0:
+                    continue
+                r_err = max((kk[0, b, p].float() - kp[0, b, p].float()).abs().max().item(),
+                            (vk[0, b, p].float() - vp[0, b, p].float()).abs().max().item())
+                r_ref = max(kp[0, b, p].float().abs().max().item(), vp[0, b, p].float().abs().max().item())
+                tol0 = ROW0_TOL[cache]
+                check(r_err <= tol0 * r_ref, f"B={bs} {cache}: slot {b} layer-0 row {r_err} > {tol0} * {r_ref}")
+                row0 = max(row0, r_err / r_ref)
+                one, _, _ = fs.fused_aed_step_cuda(
+                    stacked, geom, x[b : b + 1], *(c[:, b].clone(memory_format=torch.contiguous_format)
+                                                   for c in (ks, vs, ck, cv)), p, tc_l[b])
+                s_err = (got[b, :v] - one[0, :v]).abs().max().item()
+                s_ref = one[0, :v].abs().max().item()
+                check(s_err <= FUSED_LOGIT_TOL * s_ref, f"B={bs} {cache}: slot {b} vs the batch-1 kernel "
+                      f"{s_err} > {FUSED_LOGIT_TOL} * {s_ref}")
+                vs1 = max(vs1, s_err / s_ref)
+            rows.append({"b": bs, "cache": cache, "max_abs_err": err, "max_abs_plain": ref,
+                         "row0_rel": row0, "vs_batch1_rel": vs1})
+            print(f"[11 multi] B={bs} cache={cache:8s} pos={pos_l} tc_valid={tc_l}: logits err "
+                  f"{err:.3e} ({err / ref:.2e} of max|plain|); layer-0 rows within {row0:.2e} of "
+                  f"max|row|; slots vs the batch-1 kernel within {vs1:.2e} of max|logit|; other "
+                  f"rows and the parked slot bitwise unchanged")
+    torch.cuda.synchronize()
+
+    times = {}
+    pos_t, tc_t = FUSED_POS[-1], FUSED_TC[0]
+    for cdt in (torch.float32, torch.bfloat16):
+        cache = str(cdt).split(".")[-1]
+        one_ms = fused["times"][cache]["ms"]
+        for bs in MULTI_TIMED_B:
+            ks, vs, ck, cv = planes(bs, cdt)
+            x = torch.randn((bs, d), generator=g, device=DEV) * 0.05
+            pos = torch.full((bs,), pos_t, dtype=torch.int32, device=DEV)
+            tcv = torch.full((bs,), tc_t, dtype=torch.int32, device=DEV)
+            k_ms, p_ms = in_turns(
+                lambda: fm.fused_aed_step_multi_reference(stacked, geom, x, ks, vs, ck, cv, pos, tcv),
+                lambda: fm.fused_aed_step_multi_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tcv),
+                plain_iters=3)
+            weights = sum(a.numel() * a.element_size() for a in stacked.values())
+            nbytes = weights + bs * 2 * nl * (tc_t + pos_t) * d * ks.element_size()
+            b_ms, b_by = bound(nbytes, step_flops(stacked, nl, d, [(pos_t, tc_t)] * bs))
+            rate = nbytes / (k_ms * 1e-3)
+            times[(bs, cache)] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bound_ms": b_ms,
+                                  "bound_by": b_by, "batch1_ms": one_ms}
+            print(f"[12 multi] B={bs} cache={cache:8s} pos={pos_t} tc_valid={tc_t}: kernel {k_ms:.4f} ms a "
+                  f"step, {k_ms * 1e3 / bs:.1f} us a token (B x batch-1 kernel: {bs * one_ms:.4f} ms); "
+                  f"plain {p_ms:.2f} ms; {nbytes / 1e6:.1f} MB a step, {rate / 1e9:.0f} GB/s, "
+                  f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound {b_ms:.4f} ms ({b_by})  [{card}]")
+            if bs == MULTI_TIMED_B[-1]:
+                host_ms, dev_ms, by_name = profile_steps(
+                    torch, lambda: fm.fused_aed_step_multi_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tcv))
+                parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
+                print(f"[12 profile] B={bs} cache={cache}: {dev_ms * 1e3:.1f} us of kernels in a "
+                      f"{host_ms * 1e3:.1f} us step (idle share {1 - dev_ms / host_ms:.3f}); us a step: "
+                      f"{parts}  [{card}]")
+    del params, stacked
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": worst, "times": times}
+
+
+def post_clip(base: str, clip, delay: float, out: list, i: int) -> None:
+    """POST one clip after ``delay`` seconds; out[i] = (status, reply, seconds)."""
+    time.sleep(delay)
+    req = urllib.request.Request(base + "/transcribe", data=wav_bytes(clip), method="POST")
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        out[i] = (resp.status, json.loads(resp.read()), time.perf_counter() - t)
+
+
+def replay_window(torch, fs, fm, wh, session, chunk, ids: list, acc: dict, label: str) -> int:
+    """Teacher-force one window's server ids (``ids`` starts at its first
+    token) through the per-weight step and the multi-slot kernel (this
+    window in slot 0, slot 1 parked), step by step: logits within
+    TEACHER_TOL of max|logit|, argmax equal above the top-2 margin. The
+    window ends where the kernel picks EOT (the server drops it) or at the
+    budget. Returns how many of ``ids`` the window holds."""
+    from asr_tpu_torch.decode.ar import select_token
+
+    cfg, params, dcfg = session.cfg, session.params, session.decode_cfg
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    dec = params["decoder"]
+    with torch.inference_mode():
+        pre = session.continuous_prefill(chunk)
+        state, p_len = pre["state"], pre["p_len"]
+        first = int(select_token(pre["logits0"], torch.zeros((1, 1), dtype=torch.int64, device=DEV),
+                                 0, dcfg)[0])
+        if first == cfg.eot_id:  # an empty window
+            return 0
+        check(bool(ids) and ids[0] == first, f"{label}: the first token differs")
+        layers = state["layers"]
+        d, t_max, tc = cfg.d_model, cfg.max_target_positions, layers[0]["cross_k"].shape[1]
+        kc, vc = (torch.zeros((cfg.decoder_layers, 2, t_max, d), device=DEV) for _ in range(2))
+        ck, cv = (torch.zeros((cfg.decoder_layers, 2, tc, d), device=DEV) for _ in range(2))
+        for l, ls in enumerate(layers):
+            for plane, key in ((kc, "self_k"), (vc, "self_v"), (ck, "cross_k"), (cv, "cross_v")):
+                plane[l, 0] = ls[key][0].reshape(-1, d)
+        tcv = torch.tensor([tc, tc], dtype=torch.int32, device=DEV)
+        j, ended = 0, False
+        while j < dcfg.max_new_tokens and not ended:
+            pos = p_len + j
+            tok = torch.tensor([[ids[j]]], device=DEV)
+            want, state = wh.step(params, cfg, state, tok, pos)
+            x = torch.zeros((2, d), device=DEV)
+            x[0] = (dec["embed"][tok[0]] + dec["pos"][pos : pos + 1])[0].float()
+            got, _, _ = fm.fused_aed_step_multi(session.stacked, geom, x, kc, vc, ck, cv,
+                                                torch.tensor([pos, -1], dtype=torch.int32, device=DEV),
+                                                tcv)
+            got = got[:1, : cfg.vocab_size]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            acc["worst_rel"] = max(acc["worst_rel"], err / scale)
+            check(err <= TEACHER_TOL * scale, f"{label} step {j}: multi vs per-weight {err} > "
+                  f"{TEACHER_TOL} * {scale}")
+            if logits_margin(want).item() > TEACHER_TOL * scale:
+                check(int(got.argmax()) == int(want.argmax()), f"{label} step {j}: argmax differs "
+                      "above the margin")
+            else:
+                acc["under"] += 1
+            acc["steps"] += 1
+            nxt = int(got.argmax())
+            j += 1
+            ended = nxt == cfg.eot_id  # the server drops the EOT
+            if not ended:
+                check(j < len(ids), f"{label}: the server's ids end before the kernel's EOT")
+                acc["same"] += ids[j] == nxt
+    return j if ended else j + 1  # at the budget the window holds max_new + 1 ids
+
+
+def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: str) -> dict:
+    """[13] Continuous Whisper-Large-v3-Turbo q8 serving over HTTP, every
+    decode step through the multi-slot kernel."""
+    import copy
+
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer, start_background_continuous
+    from asr_tpu_torch.runtime.audio import iter_windows
+    from asr_tpu_torch.runtime.whisper_session import load_whisper_session
+
+    session = load_whisper_session(folder, DEV)  # phase 9's artifact
+    check(session.stacked is not None, "the session did not stack the q8 decoder")
+    cfg, params = session.cfg, session.params
+    rng = np.random.default_rng(13)
+    seconds = list(rng.uniform(*SERVE_SECONDS, size=16)) + [SERVE_LONG]
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16) for s in seconds]
+    delays = rng.uniform(0.0, 0.2, size=len(clips))
+    w = session.window_samples
+    windows = sum(len(iter_windows(len(c), w, w)) for c in clips)
+    httpd, srv, thread = start_background_continuous(session, n_slots=SERVE_SLOTS, kv_dtype="f32")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: list = [None] * len(clips)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qm.LAUNCHES = fs.LAUNCHES = fm.LAUNCHES = 0  # the serving path starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_clip, args=(base, c, float(delays[i]), results, i))
+                   for i, c in enumerate(clips)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        int8, fused, multi = qm.LAUNCHES, fs.LAUNCHES, fm.LAUNCHES  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        thread.join(timeout=60)
+    check(health["ok"] and health["step_kernel"] == "fused", f"healthz: {health}")
+    check(health["requests_served"] == windows, f"served {health['requests_served']} windows, "
+          f"not {windows}")
+    check(health["slots_active"] == 0 and health["queue_depth"] == 0, f"healthz: {health}")
+    check(multi == health["decode_steps"] > 0, f"{multi} multi-slot launches for "
+          f"{health['decode_steps']} decode steps")
+    check(fused == 0, f"the batch-1 kernel was launched {fused} times")
+    check(int8 == windows * int8_per_window(cfg), f"{int8} int8 launches, not {windows} windows x "
+          f"{int8_per_window(cfg)}")
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"request {i}: {r}")
+    lat = np.array([r[2] for r in results])
+
+    # Each request's ids against session.transcribe on the same audio.
+    equal, replayed = 0, []
+    for i, clip in enumerate(clips):
+        got = results[i][1]["token_ids"]
+        res = session.transcribe(clip.astype(np.float32) / 32768.0)
+        if got == res.token_ids:
+            equal += 1
+        else:
+            replayed.append(i)
+    # Where they differ, replay the server's ids teacher-forced, window by
+    # window, through the per-weight step and the multi-slot kernel.
+    replay = {"steps": 0, "worst_rel": 0.0, "under": 0, "same": 0}
+    for i in replayed:
+        audio = clips[i].astype(np.float32) / 32768.0
+        ids, start = results[i][1]["token_ids"], 0
+        for s0 in iter_windows(len(audio), w, w):
+            start += replay_window(torch, fs, fm, wh, session, audio[s0 : s0 + w], ids[start:],
+                                   replay, f"request {i}")
+        check(start == len(ids), f"request {i}: the replay consumed {start} of {len(ids)} ids")
+    print(f"[13 serve] {len(clips)} requests ({windows} windows, {SERVE_SLOTS} slots, f32 caches, "
+          f"starts staggered 0-200 ms) in {wall:.2f} s; healthz {json.dumps(health)}")
+    print(f"[13 serve] launches: multi-slot {multi} (= decode_steps {health['decode_steps']}), "
+          f"batch-1 {fused}, int8 {int8} ({windows} windows x {int8_per_window(cfg)})")
+    print(f"[13 serve] ids equal to session.transcribe (batch-1 kernel; per-weight for 2 windows) "
+          f"for {equal}/{len(clips)} requests; replayed {len(replayed)} teacher-forced over "
+          f"{replay['steps']} steps: multi vs per-weight within {replay['worst_rel']:.3e} of "
+          f"max|logit| (bound {TEACHER_TOL}), {replay['under']} steps under the top-2 margin, "
+          f"multi argmax = server id at {replay['same']}/{replay['steps']}")
+    toks = health["tokens_generated"]
+    step_s = health["step_latency_avg_s"]
+    agg = toks / (health["decode_steps"] * step_s) if step_s else 0.0
+    one = 1e3 / numbers["fused_ms_per_token"]
+    p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
+    out = {"launches": multi, "int8": int8, "tokens": toks, "agg_tok_s": agg, "e2e_tok_s": toks / wall,
+           "batch1_tok_s": one, "step_ms": step_s * 1e3, "p50_s": p50, "p95_s": p95,
+           "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak, "equal": equal}
+    print(f"[13 numbers] decode {toks} tokens: {agg:.0f} tokens/s over step time ({toks / wall:.0f} "
+          f"end to end) vs {one:.0f} tokens/s on the batch-1 fused route (phase 10); average step "
+          f"{step_s * 1e3:.3f} ms; completion p50 {p50:.2f} s, p95 {p95:.2f} s (client side); "
+          f"average queue wait {health['queue_wait_avg_s']:.3f} s; peak memory {peak:.0f} MiB  [{card}]")
+
+    # Two requests on the rowwise route: a session without stacked weights.
+    rows_sess = copy.copy(session)
+    rows_sess.stacked = None
+    rows_sess.scfg = dataclasses.replace(session.scfg, max_new_tokens=ROWWISE_BUDGET)
+    srv2 = ContinuousSessionServer(rows_sess, n_slots=SERVE_SLOTS, kv_dtype="f32")
+    try:
+        before_m = fm.LAUNCHES
+        pair = clips[:2]
+        outs: list = [None, None]
+        ths = [threading.Thread(target=lambda i=i: outs.__setitem__(i, srv2.transcribe_bytes(
+            wav_bytes(pair[i])))) for i in range(2)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+        st2 = srv2.stats()
+    finally:
+        srv2.close()
+    check(st2["step_kernel"] == "rowwise" and fm.LAUNCHES == before_m,
+          "the rowwise route launched the multi-slot kernel")
+    for i in range(2):
+        solo = rows_sess.transcribe(pair[i].astype(np.float32) / 32768.0).token_ids
+        check(outs[i] is not None and outs[i]["token_ids"] == solo,
+              f"rowwise request {i}: ids differ from the per-weight solo path")
+    print(f"[13 serve] rowwise route (no stacked weights, {ROWWISE_BUDGET}-token budget): 2 requests, "
+          f"ids equal to the per-weight solo path, {st2['decode_steps']} steps at "
+          f"{st2['step_latency_avg_s'] * 1e3:.2f} ms, no multi-slot launch  [{card}]")
+    del session, rows_sess, srv, srv2
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -471,6 +856,7 @@ def main() -> int:
 
     from asr_tpu_torch.models import sensevoice as sv
     from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.ops import fused_aed_multi as fm
     from asr_tpu_torch.ops import fused_aed_step as fs
     from asr_tpu_torch.ops import quant_matmul as qm
     from asr_tpu_torch.parallel.http_server import start_background
@@ -480,7 +866,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build((qm, fs))
+    phase_build((qm, fs, fm))
     kern = phase_kernel_vs_plain(torch, qm, quantize_linear, card)
 
     # ── 4. model: full geometry, q8, artifact round trip, session ─────────
@@ -639,35 +1025,65 @@ def main() -> int:
 
     # ── 8-10. Whisper-Large-v3-Turbo q8, the fused decode-step kernel ─────
     fused = phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card)
-    wrun = phase_whisper(torch, np, qm, fs, card)
-    phase_whisper_numbers(torch, np, qm, fs, wrun, card)
+    with tempfile.TemporaryDirectory() as whisper_dir:
+        wrun = phase_whisper(torch, np, qm, fs, whisper_dir, card)
+        wnum = phase_whisper_numbers(torch, np, qm, fs, wrun, card)
+        wrun_int8, wrun_fused = wrun["int8"], wrun["fused"]
+        del wrun
+        torch.cuda.empty_cache()
+        # ── 11-13. the multi-slot decode-step kernel, continuous serving ──
+        multi = phase_multi(torch, fs, fm, wh, quantize_pytree, fused, card)
+        serve = phase_continuous(torch, np, qm, fs, fm, whisper_dir, wnum, card)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     worst = max(r["max_abs_err"] for r in kern["rows"])
     k_ms, p_ms = kern["per_forward"]["bf16"]
+    i_bound, i_by, _, _ = int8_forward_bound()
     f_t = fused["times"]["float32"]
+    f_bound, f_by = bound(f_t["bytes"], f_t["flops"])
+    m_t = multi["times"][(MULTI_TIMED_B[-1], "float32")]
     print(json.dumps({"kernels": [{
         "name": "quant_matmul_int8",
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int8.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:115",
-        "launches": launches + wrun["int8"],
-        "launches_by_path": {"sensevoice": launches, "whisper": wrun["int8"]},
+        "launches": launches + wrun_int8 + serve["int8"],
+        "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"]},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": i_bound,
+        "bound_by": i_by,
+        "library_ms": None,
         "timing": "sum over one batch-8 x 8 s forward's 281 calls (M=1096), mm=bf16, CUDA events",
     }, {
         "name": "fused_aed_step",
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_aed_step.cu",
         "replaces": "asr_tpu/ops/fused_aed_step.py:302",
-        "launches": wrun["fused"],
+        "launches": wrun_fused,
         "max_abs_err": fused["max_abs_err"],
         "ms": f_t["ms"],
         "plain_ms": f_t["plain_ms"],
+        "bound_ms": f_bound,
+        "bound_by": f_by,
+        "library_ms": None,
         "timing": "one turbo q8 step, f32 caches, pos 447, 1500 cross rows, CUDA events",
+    }, {
+        "name": "fused_aed_multi",
+        "route": "cuda",
+        "source": "asr_tpu_torch/csrc/fused_aed_multi.cu",
+        "replaces": "asr_tpu/ops/fused_aed_multi.py:90",
+        "launches": serve["launches"],
+        "max_abs_err": multi["max_abs_err"],
+        "ms": m_t["ms"],
+        "plain_ms": m_t["plain_ms"],
+        "bound_ms": m_t["bound_ms"],
+        "bound_by": m_t["bound_by"],
+        "library_ms": None,
+        "timing": f"one turbo q8 step of {MULTI_TIMED_B[-1]} slots, f32 caches, pos 447, 1500 cross "
+                  "rows, CUDA events",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

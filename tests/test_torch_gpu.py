@@ -2,8 +2,9 @@
 plain version at the SenseVoiceSmall q8 shapes, and the kernel launch count
 of one full-geometry forward; the fused AED decode-step kernel against its
 plain version at a small and at the Whisper-Large-v3-Turbo geometry, its
-wrapper's checks, and its launch count in a one-window transcription. Each
-test skips where no card is present.
+wrapper's checks, and its launch count in a one-window transcription; the
+multi-slot AED decode-step kernel likewise, and its launch count in a
+continuous-serving run. Each test skips where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -191,4 +192,126 @@ def test_one_window_transcribe_launches_fused_kernel_once_per_step():
     assert qm.LAUNCHES - before_q == 6 + 2 * 2 * 2 + 2 * (2 * 8 + 1)  # encoder, cross-KV, prefills
     before_f = fs.LAUNCHES
     sess.transcribe(np.concatenate([audio, audio]))  # 2 windows: the per-weight route
+    assert fs.LAUNCHES == before_f
+
+
+# ── the multi-slot AED decode step (continuous Whisper serving) ─────────
+# Tolerances as for the batch-1 step above; a slot of the multi-slot step
+# rounds and sums as the batch-1 kernel does for it alone.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("turbo", [False, True])
+def test_multi_step_kernel_matches_plain_version(turbo, cache):
+    _need_card()
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+
+    fs, cfg, params, stacked, g = _fused_setup({"encoder_layers": 0} if turbo else SMALL_WHISPER)
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, v = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, cfg.vocab_size
+    tc = cfg.max_source_positions
+    pos_l, tc_l = [3, -1, t - 1, 0], [tc, tc, tc // 2, 1]
+    bs = len(pos_l)
+    ks, vs = (torch.randn((nl, bs, t, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    ck, cv = (torch.randn((nl, bs, tc, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    x = torch.randn((bs, d), generator=g, device="cuda") * 0.05
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    tcv = torch.tensor(tc_l, dtype=torch.int32, device="cuda")
+    kk, vk, kp, vp = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+    before = fm.LAUNCHES
+    got, _, _ = fm.fused_aed_step_multi(stacked, geom, x, kk, vk, ck, cv, pos, tcv)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == before + 1
+    want, _, _ = fm.fused_aed_step_multi_reference(stacked, geom, x, kp, vp, ck, cv, pos, tcv)
+    assert torch.isfinite(got).all() and (got[:, v:] == 0).all()
+    assert (got[:, :v] - want[:, :v]).abs().max().item() <= 1e-2 * want[:, :v].abs().max().item()
+    bound = 1e-3 + (2.0**-8 if cache == torch.bfloat16 else 0.0)
+    for b, p in enumerate(pos_l):
+        keep = torch.arange(t, device="cuda") != p
+        assert torch.equal(kk[:, b, keep], ks[:, b, keep]) and torch.equal(vk[:, b, keep], vs[:, b, keep])
+        if p < 0:
+            assert torch.equal(kk[:, b], ks[:, b]) and torch.equal(vk[:, b], vs[:, b])
+            continue
+        for have, ref in ((kk, kp), (vk, vp)):
+            err = (have[0, b, p].float() - ref[0, b, p].float()).abs().max().item()
+            assert err <= bound * ref[0, b, p].float().abs().max().item()
+        one, _, _ = fs.fused_aed_step(stacked, geom, x[b : b + 1],
+                                      *(c[:, b].clone(memory_format=torch.contiguous_format)
+                                        for c in (ks, vs)),
+                                      ck[:, b].contiguous(), cv[:, b].contiguous(), p, tc_l[b])
+        assert (got[b, :v] - one[0, :v]).abs().max().item() <= 1e-2 * one[0, :v].abs().max().item()
+
+
+@pytest.mark.gpu
+def test_multi_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+
+    fs, cfg, params, stacked, g = _fused_setup(SMALL_WHISPER)
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d = cfg.decoder_layers, cfg.d_model
+    x = torch.zeros((2, d), device="cuda")
+    kc, vc = torch.zeros((nl, 2, 16, d), device="cuda"), torch.zeros((nl, 2, 16, d), device="cuda")
+    ck, cv = torch.zeros((nl, 2, 24, d), device="cuda"), torch.zeros((nl, 2, 24, d), device="cuda")
+    pos = torch.tensor([2, -1], dtype=torch.int32, device="cuda")
+    tcv = torch.tensor([24, 24], dtype=torch.int32, device="cuda")
+    fm.fused_aed_step_multi(stacked, geom, x, kc, vc, ck, cv, pos, tcv)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        fm.fused_aed_step_multi(stacked, geom, x, kc.cpu(), vc, ck, cv, pos, tcv)
+    with pytest.raises(ValueError):  # positions on the host
+        fm.fused_aed_step_multi(stacked, geom, x, kc, vc, ck, cv, pos.cpu(), tcv)
+    with pytest.raises(TypeError):  # int64 positions
+        fm.fused_aed_step_multi(stacked, geom, x, kc, vc, ck, cv, pos.long(), tcv)
+    with pytest.raises(TypeError):  # caches of another dtype
+        fm.fused_aed_step_multi(stacked, geom, x, kc.half(), vc.half(), ck.half(), cv.half(), pos, tcv)
+    with pytest.raises(ValueError):  # wrong shape
+        fm.fused_aed_step_multi(stacked, geom, x, kc[:1], vc, ck, cv, pos, tcv)
+    with pytest.raises(ValueError):  # batch 1 is the batch-1 kernel's
+        fm.fused_aed_step_multi(stacked, geom, x[:1], kc[:, :1].contiguous(), vc[:, :1].contiguous(),
+                                ck[:, :1].contiguous(), cv[:, :1].contiguous(), pos[:1], tcv[:1])
+    with pytest.raises(ValueError):  # a head width other than 64
+        fm.fused_aed_step_multi(stacked, fs.AedGeom(d, cfg.ffn_dim, 8), x, kc, vc, ck, cv, pos, tcv)
+    with pytest.raises(ValueError):  # not contiguous
+        fm.fused_aed_step_multi(stacked, geom, x, kc.transpose(2, 3).contiguous().transpose(2, 3), vc,
+                                ck, cv, pos, tcv)
+
+
+@pytest.mark.gpu
+def test_continuous_run_launches_multi_kernel_once_per_step():
+    _need_card()
+    import io
+    import wave
+
+    import numpy as np
+
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+    from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer
+    from asr_tpu_torch.runtime.whisper_session import WhisperSession, WhisperSessionConfig
+
+    fs, cfg, params, stacked, g = _fused_setup(SMALL_WHISPER, seed=1)
+    mm = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="bf16")  # the session stacks for the fused steps in this mode only
+    try:
+        sess = WhisperSession(params, cfg, session_cfg=WhisperSessionConfig(
+            max_new_tokens=10, no_speech_threshold=None), window_seconds=0.48)
+        srv = ContinuousSessionServer(sess, n_slots=2)
+        try:
+            before_m, before_f = fm.LAUNCHES, fs.LAUNCHES
+            rng = np.random.default_rng(0)
+            for n in (5000, 3000, 7000):
+                buf = io.BytesIO()
+                with wave.open(buf, "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(16000)
+                    w.writeframes((rng.standard_normal(n) * 900).astype(np.int16).tobytes())
+                srv.transcribe_bytes(buf.getvalue())
+            st = srv.stats()
+        finally:
+            srv.close()
+    finally:
+        qm._CONFIG["mm"] = mm
+    assert st["step_kernel"] == "fused" and st["requests_served"] == 3
+    assert fm.LAUNCHES - before_m == st["decode_steps"] > 0
     assert fs.LAUNCHES == before_f

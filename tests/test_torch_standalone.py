@@ -1,0 +1,205 @@
+"""The port stands alone: no module of ``asr_tpu_torch`` and neither
+``chip_smoke.py`` nor ``chip_ab_step.py`` imports JAX or anything of the JAX
+package ``asr_tpu``; the host modules the port keeps its own copies of (metadata, audio ingest, the
+FLAC decoder, mel banks, window-text joining) agree with the originals on
+the same inputs; the loaders run on the card unless the caller asks for the
+CPU.
+
+The JAX package's audio and FLAC paths prefer its native C++ layer; the
+port's copies keep only the pure-Python paths, so those comparisons turn the
+native layer off in the JAX package (``native.available`` -> False).
+"""
+
+import ast
+import dataclasses
+import inspect
+import subprocess
+import sys
+import wave
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from asr_tpu import native
+from asr_tpu.frontend import mel_banks as jmb
+from asr_tpu.parallel import http_server as jhttp
+from asr_tpu.runtime import audio as jaudio
+from asr_tpu.runtime import flac as jflac
+from asr_tpu.runtime import metadata as jmeta
+from asr_tpu_torch.frontend import mel_banks as tmb
+from asr_tpu_torch.parallel import http_server as thttp
+from asr_tpu_torch.runtime import audio as taudio
+from asr_tpu_torch.runtime import flac as tflac
+from asr_tpu_torch.runtime import metadata as tmeta
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    files = [REPO / "chip_smoke.py", REPO / "chip_ab_step.py",
+             *sorted((REPO / "asr_tpu_torch").rglob("*.py"))]
+    assert len(files) > 30
+    for f in files:
+        bad = _imported_roots(f) & {"asr_tpu", "jax", "jaxlib"}
+        assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
+
+
+_STANDALONE = """
+import importlib, io, pkgutil, sys, wave
+import numpy as np, torch
+import asr_tpu_torch
+for mod in pkgutil.walk_packages(asr_tpu_torch.__path__, "asr_tpu_torch."):
+    importlib.import_module(mod.name)
+from asr_tpu_torch.models import sensevoice as sv, whisper as wh
+from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer
+from asr_tpu_torch.quant.quantize import quantize_pytree
+from asr_tpu_torch.runtime.whisper_session import WhisperSession, WhisperSessionConfig
+cfg = sv.SenseVoiceConfig(vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
+                          num_encoders0=1, num_encoders=1, num_tp_encoders=1, fsmn_kernel=5)
+params = quantize_pytree(sv.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), min_size=1024)
+sv.forward(params, cfg, torch.zeros(1, 8000), torch.tensor([8000]), torch.tensor([0]))
+wcfg = wh.WhisperConfig(vocab_size=64, d_model=256, encoder_layers=1, decoder_layers=1, num_heads=4,
+                        ffn_dim=256, n_mels=16, max_source_positions=24, max_target_positions=16,
+                        sot_id=1, eot_id=0, no_speech_id=2, first_language_id=8, num_languages=4,
+                        no_timestamps_id=7, transcribe_id=6, translate_id=5)
+wp = quantize_pytree(wh.init_params(wcfg, torch.Generator().manual_seed(0), "cpu"), min_size=0,
+                     quantize_embeddings=True)
+sess = WhisperSession(wp, wcfg, session_cfg=WhisperSessionConfig(max_new_tokens=4,
+                      no_speech_threshold=None), window_seconds=0.48)
+sess.transcribe(np.zeros(4000, np.float32))
+srv = ContinuousSessionServer(sess, n_slots=2)
+buf = io.BytesIO()
+with wave.open(buf, "wb") as w:
+    w.setnchannels(1); w.setsampwidth(2); w.setframerate(16000)
+    w.writeframes((np.random.default_rng(0).standard_normal(5000) * 900).astype(np.int16).tobytes())
+out = srv.transcribe_bytes(buf.getvalue())
+srv.close()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
+assert not leaked, leaked
+print("STANDALONE_OK", len(out["token_ids"]))
+"""
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    """Every module imported, the SenseVoice forward, a Whisper
+    transcription and the continuous server, in a fresh process."""
+    proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "STANDALONE_OK" in proc.stdout
+
+
+def test_loaders_default_to_the_card():
+    from asr_tpu_torch.runtime.artifact import load_model
+    from asr_tpu_torch.runtime.session import load_session
+    from asr_tpu_torch.runtime.whisper_session import load_whisper_session
+
+    for fn in (load_model, load_session, load_whisper_session):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
+def _meta(mod):
+    return mod.ModelMetadata(
+        family="whisper", sample_rate=16000, audio_pcm_scale=1.0,
+        special_token_ids={"eot": 2}, max_seq_len=448, tokenizer={"kind": "bpe", "file": "t.json"},
+        supported_languages=[mod.LanguageProfile("en", "English", ("eng",), 50259, 0)],
+        extra={"config": {"d_model": 32, "n_mels": 16}})
+
+
+@pytest.mark.parametrize("writer,reader", [(jmeta, tmeta), (tmeta, jmeta)])
+def test_metadata_round_trip_both_ways(tmp_path, writer, reader):
+    _meta(writer).save(tmp_path)
+    back = reader.ModelMetadata.load(tmp_path)
+    assert dataclasses.asdict(back) == dataclasses.asdict(_meta(reader))
+    assert back.resolve_language("ENG").code == "en"
+
+    @dataclasses.dataclass(frozen=True)
+    class Cfg:
+        d_model: int = 8
+        n_mels: int = 80
+        ids: tuple = (1, 2)
+
+    payload = {"d_model": 32, "ids": [3, 4], "unknown": 1}
+    assert reader.config_from_dict(Cfg, payload) == writer.config_from_dict(Cfg, payload)
+
+
+def test_iter_windows_matches():
+    for n in (0, 1, 479, 480, 481, 1000, 4800, 12345):
+        for window, stride in ((480, 480), (480, 160), (1000, 333)):
+            assert taudio.iter_windows(n, window, stride) == jaudio.iter_windows(n, window, stride)
+
+
+@pytest.mark.parametrize("width,channels", [(1, 1), (2, 2), (3, 1), (4, 2)])
+def test_read_wav_matches(tmp_path, width, channels):
+    rng = np.random.default_rng(width)
+    raw = rng.integers(0, 256, size=300 * width * channels, dtype=np.uint8).tobytes()
+    p = tmp_path / "a.wav"
+    with wave.open(str(p), "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(width)
+        w.setframerate(8000)
+        w.writeframes(raw)
+    got, rate = taudio.read_wav(p)
+    want, jrate = jaudio.read_wav(p)
+    assert rate == jrate == 8000 and got.shape == want.shape == (channels, 300)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("src,dst", [(8000, 16000), (44100, 16000), (16000, 16000)])
+def test_scipy_resample_matches(monkeypatch, src, dst):
+    monkeypatch.setattr(native, "available", lambda: False)
+    x = np.random.default_rng(src).standard_normal(3000).astype(np.float32) * 1000
+    got, want = taudio.resample(x, src, dst), jaudio.resample(x, src, dst)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_flac_decoding_matches(tmp_path, monkeypatch):
+    from test_flac import _encode  # the JAX package's in-test FLAC encoder
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    rng = np.random.default_rng(0)
+    a = rng.integers(-3000, 3000, 64).astype(np.int64)
+    b = np.cumsum(rng.integers(-40, 40, 64)).astype(np.int64) + 100
+    c = np.full(64, -777, np.int64)
+    mono = _encode([[("verbatim", a, 16)], [("fixed2", b, 16)], [("constant", c, 16)]])
+    left, right = rng.integers(-2000, 2000, 48), rng.integers(-2000, 2000, 48)
+    stereo = _encode([[("verbatim", left, 16), ("verbatim", left - right, 17)]], channels=2,
+                     chan_code=8)
+    for blob in (mono, stereo):
+        p = tmp_path / "x.flac"
+        p.write_bytes(blob)
+        got, rate = tflac.read_flac(p)
+        want, jrate = jflac.read_flac(p)
+        assert rate == jrate == 16000
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, 1], right.astype(np.float32))
+    np.testing.assert_array_equal(thttp.decode_audio_bytes(mono, 16000),
+                                  np.concatenate([a, b, c]).astype(np.float32))
+    with pytest.raises(ValueError, match="fLaC"):
+        tflac.read_flac_bytes(b"NOPE" + b"\x00" * 64)
+
+
+def test_mel_banks_match():
+    for fn in ("kaldi_mel_banks", "slaney_mel_banks", "htk_mel_banks"):
+        for n_mels, n_fft in ((80, 400), (128, 400), (16, 512)):
+            np.testing.assert_array_equal(getattr(tmb, fn)(n_mels, n_fft, 16000),
+                                          getattr(jmb, fn)(n_mels, n_fft, 16000))
+
+
+def test_join_window_texts_matches():
+    cases = [[], ["a"], ["today", "The"], ["end.", "Next"], ["你好", "世界"], ["x", "", "y"],
+             ["abc", "中文"], ["1", "2"]]
+    for texts in cases:
+        assert thttp._join_window_texts(texts) == jhttp._join_window_texts(texts)
