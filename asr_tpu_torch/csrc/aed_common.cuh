@@ -1,10 +1,11 @@
 // Device helpers shared by the AED decode-step kernels (fused_aed_step.cu,
-// batch 1, and fused_aed_multi.cu, B slots): bf16 rounding, warp and block
-// reductions, the 128 x 128 int8 tile dot of the q8 matvec, the 64-wide
-// head-row dot products and loads of the attention kernels, and the row
-// chunking of an attention. Both kernels round and sum in the same order
-// through these, so one slot of the multi-slot step computes what the
-// batch-1 step computes for it.
+// batch 1, and fused_aed_multi.cu, B slots) and the Qwen3 step
+// (fused_decode.cu): bf16 rounding, warp and block reductions, the 128 x 128
+// int8 tile load and dot of the q8 matvec, the 64-wide head-row dot products
+// and loads of the attention kernels, the row chunking of an attention and
+// the split-K sum of the tied head. Both AED kernels round and sum in the
+// same order through these, so one slot of the multi-slot step computes what
+// the batch-1 step computes for it.
 #pragma once
 
 #include <algorithm>
@@ -152,6 +153,16 @@ __device__ __forceinline__ void chunk_rows(int rows, int splits, int c, int* r0,
   const int len = (rows + splits - 1) / splits;
   *r0 = min(rows, c * len);
   *r1 = min(rows, *r0 + len);
+}
+
+// logits = sum_b part[b, :]: the tied head's split-K partials summed.
+__global__ void head_reduce(const float* __restrict__ part, int nb, float* __restrict__ logits,
+                            int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float a = 0.f;
+  for (int b = 0; b < nb; ++b) a += part[(size_t)b * n + i];
+  logits[i] = a;
 }
 
 }  // namespace aed

@@ -141,16 +141,6 @@ __global__ void gelu_bias(const float* __restrict__ part, int nb, const float* _
   h[i] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// logits = sum_b part[b, :].
-__global__ void head_reduce(const float* __restrict__ part, int nb, float* __restrict__ logits,
-                            int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float a = 0.f;
-  for (int b = 0; b < nb; ++b) a += part[(size_t)b * n + i];
-  logits[i] = a;
-}
-
 // q (and for self k, v) of head h: sum_b part[b, seg + h*64 + :] + bias.
 // Threads [0, 64) fill qs = bf16(q * scale), qf = q, kf = k, vf = v.
 template <bool kSelf>

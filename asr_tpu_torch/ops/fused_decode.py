@@ -1,0 +1,348 @@
+"""One batch-1 Qwen3 decode step: all layers, the final RMSNorm and the
+optional packed-int4 tied head.
+
+Counterpart of ``asr_tpu/ops/fused_decode.py``. Per layer: RMSNorm, the
+packed-int4 q|k|v matvec, per-head q/k RMSNorm and NeoX RoPE, the fresh k/v
+row written into the caches at ``pos`` in place, GQA attention over the
+cached rows ``[shift, pos)`` plus the fresh row, the o-projection and
+residual, RMSNorm, gate|up, SiLU(gate) * up, down and residual. Then the
+final RMSNorm (the returned hidden is final-normalized) and, when the
+stacked weights carry it, the nibble-packed tied head.
+
+:func:`fused_decode_step` runs it on a CUDA tensor through the hand-written
+Hopper kernel ``asr_tpu_torch/csrc/fused_decode.cu`` (nvcc, ``sm_90a``,
+bound with ``ctypes``) or raises; on a CPU tensor it runs the plain PyTorch
+version :func:`fused_decode_step_reference`. Both round where the TPU
+kernel rounds:
+
+- every matvec input is rounded to bf16; the nibbles are exact; each
+  128-row quantization block accumulates in f32 and applies its affine as
+  ``(x.q)*s - sum(x)*(z*s)``;
+- cached rows ``[shift, pos)`` score as ``bf16(q * 128**-0.5) . bf16(k)``;
+  the fresh row scores in f32 from the unrounded q and k and adds
+  ``p_new * v_new`` in f32; the other probabilities are rounded to bf16 for
+  ``P.V``;
+- the RMSNorms (q/k per 128-wide head), softmax, SiLU gate and residuals
+  are f32.
+
+Stacked weights (:func:`stack_decode_params`) keep the JAX keys: packed
+``wq`` (NL, H/2, (nh + 2 nkv) 128), ``wo``, ``wgu``, ``wd``, their scales and
+zero*scale in the nibble-plane-major layout ``(NL, 2, NB/2, N)`` (plane 0 =
+the low nibble = unpacked rows ``[0, K/2)``), the norm scales, and the head
+``wh`` (H/2, V_pad) with ``h_s`` / ``h_zs`` (1, 2, NB/2, V_pad). The TPU
+strip plan and its VMEM fit test are not needed here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from asr_tpu_torch.ops import nvcc_build
+from asr_tpu_torch.quant.quantize import QuantizedEmbedding, QuantizedLinear
+
+# Kernel launches since import (or since a caller reset it to 0): one per step.
+LAUNCHES = 0
+
+SOURCE = nvcc_build.CSRC / "fused_decode.cu"
+NVCC_FLAGS = nvcc_build.NVCC_FLAGS
+BLOCK = 128      # quantization block the kernel takes
+HEAD_DIM = 128   # head width the kernel takes
+GROUPS = 2      # q heads per kv head the kernel takes (Qwen3-ASR's 16 / 8)
+
+_lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def stack_decode_params(params: dict, cfg) -> dict | None:
+    """Fused q4-packed Qwen3 params -> stacked arrays for the step kernel.
+
+    Needs every layer to carry packed 4-bit ``qkv``/``o``/``gateup``/``down``
+    QuantizedLinear leaves of block 128 without biases, q/k RMSNorm, head
+    width 128 and a final norm. Returns None otherwise (callers keep the
+    per-weight path). The head arrays are included when ``params["embed"]``
+    is a 4-bit QuantizedEmbedding with its nibble-packed tied copy."""
+    if not isinstance(params, dict):
+        return None
+    if cfg.head_dim != HEAD_DIM or not cfg.qk_norm or cfg.attention_bias:
+        return None
+    if cfg.num_heads != GROUPS * cfg.num_kv_heads:
+        return None
+    layers = params.get("layers")
+    final = params.get("final_norm")
+    if not layers or not (isinstance(final, dict) and "scale" in final):
+        return None
+
+    def leaf(p, *keys):
+        for k in keys:
+            if not isinstance(p, dict) or k not in p:
+                return None
+            p = p[k]
+        if not isinstance(p, dict) or "b" in p:
+            return None
+        w = p.get("w")
+        if (isinstance(w, QuantizedLinear) and w.packed and w.bits == 4 and not w.dynamic
+                and w.block == BLOCK):
+            return w
+        return None
+
+    h, f = cfg.hidden, cfg.ffn_dim
+    qn = (cfg.num_heads + 2 * cfg.num_kv_heads) * HEAD_DIM
+    shapes = {"qkv": (h // 2, qn), "o": (cfg.num_heads * HEAD_DIM // 2, h),
+              "gu": (h // 2, 2 * f), "dn": (f // 2, h)}
+    if h % (2 * BLOCK) or f % (2 * BLOCK):
+        return None
+    rows: dict[str, list] = {k: [] for k in shapes}
+    norms: dict[str, list] = {"in_s": [], "post_s": [], "qn_s": [], "kn_s": []}
+    for p in layers:
+        ws = {"qkv": leaf(p, "attn", "qkv"), "o": leaf(p, "attn", "o"),
+              "gu": leaf(p, "mlp", "gateup"), "dn": leaf(p, "mlp", "down")}
+        if any(w is None or tuple(w.q.shape) != shapes[k] for k, w in ws.items()):
+            return None
+        for k, w in ws.items():
+            rows[k].append(w)
+        norms["in_s"].append(p["input_norm"]["scale"])
+        norms["post_s"].append(p["post_norm"]["scale"])
+        norms["qn_s"].append(p["attn"]["q_norm"]["scale"])
+        norms["kn_s"].append(p["attn"]["k_norm"]["scale"])
+
+    def sz(ws):
+        s = torch.stack([w.scale.to(torch.float32) for w in ws])
+        z = torch.stack([(w.zero * w.scale).to(torch.float32) for w in ws])
+        nl, nb, n = s.shape
+        return (s.reshape(nl, 2, nb // 2, n).contiguous(),
+                z.reshape(nl, 2, nb // 2, n).contiguous())
+
+    out = {}
+    for key, src in (("wq", "qkv"), ("wo", "o"), ("wgu", "gu"), ("wd", "dn")):
+        out[key] = torch.stack([w.q for w in rows[src]]).contiguous()
+    out["qkv_s"], out["qkv_zs"] = sz(rows["qkv"])
+    out["o_s"], out["o_zs"] = sz(rows["o"])
+    out["gu_s"], out["gu_zs"] = sz(rows["gu"])
+    out["dn_s"], out["dn_zs"] = sz(rows["dn"])
+    for key, vals in norms.items():
+        out[key] = torch.stack([v.to(torch.float32) for v in vals]).contiguous()
+    out["fn_s"] = final["scale"].to(torch.float32)[None].contiguous()
+
+    emb = params.get("embed")
+    if (isinstance(emb, QuantizedEmbedding) and emb.q_t is not None and emb.q_t_packed
+            and emb.bits == 4 and emb.block == BLOCK and emb.q_t.shape[0] == h // 2
+            and emb.q_t.shape[1] % BLOCK == 0):
+        nbh, vpad = emb.scale_t.shape
+        out["wh"] = emb.q_t.contiguous()
+        out["h_s"] = emb.scale_t.to(torch.float32).reshape(1, 2, nbh // 2, vpad).contiguous()
+        out["h_zs"] = (emb.zero_t * emb.scale_t).to(torch.float32).reshape(
+            1, 2, nbh // 2, vpad).contiguous()
+    return out
+
+
+# ── plain PyTorch version ───────────────────────────────────────────────
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _matvec(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
+    """(1, K) f32 @ packed int4 (K/2, N) -> (1, N): per 128-row block
+    (bf16(x).u)*s - sum(bf16(x))*zs, scales in the (2, NB/2, N) layout."""
+    k2, n = q.shape
+    u = q.view(torch.uint8)
+    vals = torch.cat([u & 0xF, u >> 4], dim=0).to(torch.float32)  # (K, N)
+    nb = 2 * k2 // BLOCK
+    xb = _bf16(x).reshape(nb, BLOCK)
+    part = torch.einsum("bk,bkn->bn", xb, vals.reshape(nb, BLOCK, n))
+    s, zs = s.reshape(nb, n), zs.reshape(nb, n)
+    return (part * s - xb.sum(dim=1, keepdim=True) * zs).sum(dim=0, keepdim=True)
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps) * w
+
+
+def _rot_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def fused_decode_step_reference(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, pos: int, shift: int,
+                                cos: torch.Tensor, sin: torch.Tensor):
+    """Plain PyTorch version of the kernel, same arguments and results as
+    :func:`fused_decode_step` (the caches take row ``pos`` in place)."""
+    st = stacked
+    nh, nkv, hd, f = cfg.num_heads, cfg.num_kv_heads, HEAD_DIM, cfg.ffn_dim
+    g = nh // nkv
+    eps = cfg.rms_eps
+    pos, shift = int(pos), int(shift)
+    qd, kvw = nh * hd, nkv * hd
+    cos, sin = cos.reshape(1, hd).to(torch.float32), sin.reshape(1, hd).to(torch.float32)
+    x = x.to(torch.float32).reshape(1, cfg.hidden)
+    for l in range(k_cache.shape[0]):
+        y = _rms(x, st["in_s"][l], eps)
+        qkv = _matvec(y, st["wq"][l], st["qkv_s"][l], st["qkv_zs"][l])
+        q = _rms(qkv[0, :qd].reshape(nh, hd), st["qn_s"][l], eps)
+        k = _rms(qkv[0, qd : qd + kvw].reshape(nkv, hd), st["kn_s"][l], eps)
+        v = qkv[0, qd + kvw :].reshape(nkv, hd)
+        q = q * cos + _rot_half(q) * sin
+        k = k * cos + _rot_half(k) * sin
+        kc = _bf16(k_cache[l, shift:pos]).reshape(pos - shift, nkv, hd)
+        vc = _bf16(v_cache[l, shift:pos]).reshape(pos - shift, nkv, hd)
+        k_cache[l, pos] = k.reshape(kvw).to(k_cache.dtype)
+        v_cache[l, pos] = v.reshape(kvw).to(v_cache.dtype)
+        qs32 = (q * hd ** -0.5).reshape(nkv, g, hd)
+        sc = torch.einsum("hgd,thd->hgt", _bf16(qs32), kc)
+        snew = (qs32 * k[:, None, :]).sum(dim=-1, keepdim=True)
+        allsc = torch.cat([sc, snew], dim=-1)
+        e = torch.exp(allsc - allsc.amax(dim=-1, keepdim=True))
+        pr = e / e.sum(dim=-1, keepdim=True)
+        ctx = torch.einsum("hgt,thd->hgd", _bf16(pr[..., :-1]), vc) + pr[..., -1:] * v[:, None, :]
+        x = x + _matvec(ctx.reshape(1, qd), st["wo"][l], st["o_s"][l], st["o_zs"][l])
+        y = _rms(x, st["post_s"][l], eps)
+        gu = _matvec(y, st["wgu"][l], st["gu_s"][l], st["gu_zs"][l])
+        hact = torch.nn.functional.silu(gu[:, :f]) * gu[:, f:]
+        x = x + _matvec(hact, st["wd"][l], st["dn_s"][l], st["dn_zs"][l])
+    hidden = _rms(x, st["fn_s"], eps)
+    logits = None
+    if "wh" in st:
+        logits = _matvec(hidden, st["wh"], st["h_s"][0], st["h_zs"][0])
+    return hidden, logits, k_cache, v_cache
+
+
+# ── the CUDA kernel ─────────────────────────────────────────────────────
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernel (once per source and flags); return (library, nvcc log)."""
+    return nvcc_build.build(SOURCE, NVCC_FLAGS)
+
+
+_ORDER = ("in_s", "post_s", "qn_s", "kn_s", "fn_s", "wq", "qkv_s", "qkv_zs", "wo", "o_s", "o_zs",
+          "wgu", "gu_s", "gu_zs", "wd", "dn_s", "dn_zs")
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            # x, cos, sin, 17 stacked arrays, wh, h_s, h_zs, k, v, hidden, logits, scratch
+            lib.fused_decode.argtypes = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 10
+                                         + [ctypes.c_float, ctypes.c_void_p])
+            lib.fused_decode.restype = ctypes.c_int
+            lib.fused_decode_scratch_floats.argtypes = [ctypes.c_int] * 6
+            lib.fused_decode_scratch_floats.restype = ctypes.c_longlong
+            _lib = lib
+    return _lib
+
+
+def _stacked_shapes(nl: int, h: int, nh: int, nkv: int, f: int) -> dict:
+    qn, qd = (nh + 2 * nkv) * HEAD_DIM, nh * HEAD_DIM
+    return {"in_s": (nl, h), "post_s": (nl, h), "qn_s": (nl, HEAD_DIM), "kn_s": (nl, HEAD_DIM),
+            "fn_s": (1, h),
+            "wq": (nl, h // 2, qn), "qkv_s": (nl, 2, h // 256, qn), "qkv_zs": (nl, 2, h // 256, qn),
+            "wo": (nl, qd // 2, h), "o_s": (nl, 2, qd // 256, h), "o_zs": (nl, 2, qd // 256, h),
+            "wgu": (nl, h // 2, 2 * f), "gu_s": (nl, 2, h // 256, 2 * f),
+            "gu_zs": (nl, 2, h // 256, 2 * f),
+            "wd": (nl, f // 2, h), "dn_s": (nl, 2, f // 256, h), "dn_zs": (nl, 2, f // 256, h)}
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtypes, dev: torch.device) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def fused_decode_step_cuda(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: int, shift: int,
+                           cos: torch.Tensor, sin: torch.Tensor):
+    """Launch the CUDA kernel; checks every argument and raises on what the
+    kernel does not take (head width 128, 2 q heads a kv head, H and F
+    multiples of 256, block-128 packed weights, f32 or bf16 caches of
+    one dtype, ``0 <= shift <= pos < T``)."""
+    global LAUNCHES
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_decode_step_cuda needs CUDA tensors, got {dev}")
+    h, nh, nkv, f = cfg.hidden, cfg.num_heads, cfg.num_kv_heads, cfg.ffn_dim
+    if cfg.head_dim != HEAD_DIM or nh != GROUPS * nkv or h % 256 or f % 256:
+        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, {GROUPS} q heads a kv head and "
+                         f"H, F multiples of 256; got {cfg}")
+    nl, t = k_cache.shape[0], k_cache.shape[1]
+    for key, shape in _stacked_shapes(nl, h, nh, nkv, f).items():
+        dtypes = (torch.int8,) if key.startswith("w") else (torch.float32,)
+        _check(key, stacked[key], shape, dtypes, dev)
+    head = "wh" in stacked
+    vp = stacked["wh"].shape[1] if head else 0
+    if head:
+        if vp % BLOCK:
+            raise ValueError(f"wh must be (H/2, V_pad) with V_pad a multiple of {BLOCK}, got {vp}")
+        _check("wh", stacked["wh"], (h // 2, vp), (torch.int8,), dev)
+        for key in ("h_s", "h_zs"):
+            _check(key, stacked[key], (1, 2, h // 256, vp), (torch.float32,), dev)
+    _check("x", x, (1, h), (torch.float32,), dev)
+    for name, a in (("cos", cos), ("sin", sin)):
+        _check(name, a, (1, HEAD_DIM), (torch.float32,), dev)
+    cdt = k_cache.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"caches must be float32 or bfloat16, got {cdt}")
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _check(name, c, (nl, t, nkv * HEAD_DIM), (cdt,), dev)
+    pos, shift = int(pos), int(shift)
+    if not 0 <= shift <= pos < t:
+        raise ValueError(f"need 0 <= shift <= pos < {t}, got shift {shift}, pos {pos}")
+    lib = _load()
+    scratch = torch.empty((lib.fused_decode_scratch_floats(h, nh, nkv, f, t, vp),),
+                          device=dev, dtype=torch.float32)
+    hidden = torch.empty((1, h), device=dev, dtype=torch.float32)
+    logits = torch.empty((1, vp), device=dev, dtype=torch.float32) if head else None
+    null = ctypes.c_void_p(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_decode(
+            x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            *(stacked[k].data_ptr() for k in _ORDER),
+            *((stacked[k].data_ptr() for k in ("wh", "h_s", "h_zs")) if head else (null,) * 3),
+            k_cache.data_ptr(), v_cache.data_ptr(), hidden.data_ptr(),
+            logits.data_ptr() if head else null, scratch.data_ptr(),
+            nl, h, nh, nkv, f, t, vp, pos, shift, int(cdt == torch.bfloat16),
+            cfg.rms_eps, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_decode launch failed: CUDA error {err}")
+    with _count_lock:
+        LAUNCHES += 1
+    return hidden, logits, k_cache, v_cache
+
+
+def fused_decode_step(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, pos: int, shift: int,
+                      cos: torch.Tensor, sin: torch.Tensor):
+    """One batch-1 Qwen3 decode step.
+
+    Args:
+      stacked: from :func:`stack_decode_params`.
+      x: (1, H) f32 input embedding row.
+      k_cache/v_cache: (NL, T, n_kv * 128) head-major rows, f32 or bf16; row
+        ``pos`` is written in place, every other row is left as it was.
+      pos: this token's cache slot; shift: the left-pad width (cached rows
+        below it are masked).
+      cos/sin: (1, 128) f32 RoPE rows of the logical position.
+
+    Returns ``(hidden, logits, k_cache, v_cache)``: ``hidden`` (1, H) f32 is
+    final-normalized; ``logits`` (1, V_pad) f32 when the stacked weights
+    carry the head (pad columns exactly 0), else None. On a CPU tensor this
+    is the plain version; on a CUDA tensor the kernel.
+    """
+    if x.device.type == "cpu":
+        return fused_decode_step_reference(stacked, cfg, x, k_cache, v_cache, pos, shift, cos, sin)
+    return fused_decode_step_cuda(stacked, cfg, x, k_cache, v_cache, pos, shift, cos, sin)

@@ -1,11 +1,14 @@
-"""Dequant-fused int8 matmul for weight-only-quantized linears.
+"""Dequant-fused int8 and packed-int4 matmuls for weight-only-quantized linears.
 
 Counterpart of ``asr_tpu/ops/quant_matmul.py``. ``quant_dense`` computes
 ``x @ ((q - zero) * scale)`` for a :class:`~asr_tpu_torch.quant.quantize.QuantizedLinear`
-leaf. On a CUDA tensor it launches the hand-written Hopper kernel
-``asr_tpu_torch/csrc/quant_matmul_int8.cu`` (built with ``nvcc`` for
-``sm_90a`` at first use, bound with ``ctypes``) or raises. On a CPU tensor it
-runs the plain PyTorch version, :func:`quant_dense_reference`.
+leaf. On a CUDA tensor it launches a hand-written Hopper kernel (built with
+``nvcc`` for ``sm_90a`` at first use, bound with ``ctypes``) or raises:
+``asr_tpu_torch/csrc/quant_matmul_int8.cu`` for unpacked int8 leaves,
+``asr_tpu_torch/csrc/quant_matmul_int4.cu`` for packed 4-bit leaves (low
+nibble = rows ``[0, K/2)``, high nibble = rows ``[K/2, K)``). On a CPU
+tensor it runs the plain PyTorch versions, :func:`quant_dense_reference`
+and :func:`quant_dense_p4_reference`.
 
 Matmul mode, as in the JAX package:
   ``"f32"``:  the exact f32 product of x and the dequantized weight;
@@ -26,15 +29,19 @@ import torch
 from asr_tpu_torch.ops import nvcc_build
 from asr_tpu_torch.quant.quantize import dequantize_weight
 
-# Kernel launches since import (or since a caller reset it to 0).
-LAUNCHES = 0
+# Kernel launches since import (or since a caller reset them to 0).
+LAUNCHES = 0       # the int8 kernel
+LAUNCHES_INT4 = 0  # the packed-int4 kernel
 
 _CONFIG: dict = {"mm": None}
 
 SOURCE = nvcc_build.CSRC / "quant_matmul_int8.cu"
+SOURCE_INT4 = nvcc_build.CSRC / "quant_matmul_int4.cu"
 NVCC_FLAGS = nvcc_build.NVCC_FLAGS
+INT4_BK = 32  # packed rows the int4 kernel stages per step; K/2 must be a multiple
 
 _lib = None
+_lib4 = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -67,6 +74,17 @@ def quant_dense_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return x @ w
 
 
+def quant_dense_p4_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                             zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Plain PyTorch version of the int4 kernel: unpack the nibble halves,
+    dequantize in f32 (unsigned zero), then ``x' @ w``."""
+    w = dequantize_weight({"q": q, "scale": scale, "zero": zero, "block": block,
+                           "bits": 4, "packed": True})
+    if _check_mm(mm) == "bf16":
+        x = x.to(torch.bfloat16).to(torch.float32)
+    return x @ w
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernel (once per source and flags); return (library, nvcc log)."""
     return nvcc_build.build(SOURCE, NVCC_FLAGS)
@@ -84,22 +102,72 @@ def _load():
     return _lib
 
 
+def _load_int4():
+    global _lib4
+    with _lib_lock:
+        if _lib4 is None:
+            path, _ = nvcc_build.build(SOURCE_INT4, NVCC_FLAGS)
+            lib = ctypes.CDLL(str(path))
+            lib.quant_matmul_int4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.quant_matmul_int4.restype = ctypes.c_int
+            _lib4 = lib
+    return _lib4
+
+
+def _check_operands(name: str, x, q, scale, zero) -> None:
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    for arg, t, dtype in (("x", x, torch.float32), ("q", q, torch.int8),
+                          ("scale", scale, torch.float32), ("zero", zero, torch.float32)):
+        if t.device != dev:
+            raise ValueError(f"{arg} is on {t.device}, x on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{arg} must be {dtype}, got {t.dtype}")
+        if t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(f"{arg} must be a contiguous 2-D tensor, got shape {tuple(t.shape)}")
+
+
+def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K/2, N) packed int4,
+    scale / unsigned zero (K / block, N)) -> (M, N) f32."""
+    global LAUNCHES_INT4
+    mm = _check_mm(mm)
+    _check_operands("quant_matmul_int4", x, q, scale, zero)
+    m, k = x.shape
+    k2, n = q.shape
+    if k != 2 * k2 or block <= 0 or k2 % block or k2 % INT4_BK:
+        raise ValueError(f"bad shapes: x {tuple(x.shape)}, packed q {tuple(q.shape)}, block {block} "
+                         f"(K/2 must be a multiple of the block and of {INT4_BK})")
+    if scale.shape != (k // block, n) or zero.shape != (k // block, n):
+        raise ValueError(f"scale/zero must be {(k // block, n)}, got "
+                         f"{tuple(scale.shape)} / {tuple(zero.shape)}")
+    if max(k, n) >= 2**31 or m > 64 * 65535:  # int sizes; grid.y counts row tiles
+        raise ValueError(f"shape too large for the kernel: {(m, k, n)}")
+    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    if m == 0 or n == 0:
+        return out
+    lib = _load_int4()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.quant_matmul_int4(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                                    zero.data_ptr(), out.data_ptr(), m, k, n, int(block),
+                                    int(mm == "bf16"), stream)
+    if err != 0:
+        raise RuntimeError(f"quant_matmul_int4 launch failed: CUDA error {err}")
+    with _count_lock:
+        LAUNCHES_INT4 += 1
+    return out
+
+
 def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                       zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
     """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K, N) int8) -> (M, N) f32."""
     global LAUNCHES
     mm = _check_mm(mm)
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"quant_matmul_int8 needs CUDA tensors, got {dev}")
-    for name, t, dtype in (("x", x, torch.float32), ("q", q, torch.int8),
-                           ("scale", scale, torch.float32), ("zero", zero, torch.float32)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.ndim != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor, got shape {tuple(t.shape)}")
+    _check_operands("quant_matmul_int8", x, q, scale, zero)
     m, k = x.shape
     n = q.shape[1]
     if q.shape[0] != k or block <= 0 or k % block:
@@ -126,18 +194,23 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 def quant_dense(x: torch.Tensor, qleaf, mm: str | None = None) -> torch.Tensor:
-    """Batched dense through an unpacked int8 quantized weight: (..., K) -> (..., N)."""
+    """Batched dense through an unpacked static int8 or a packed 4-bit
+    quantized weight: (..., K) -> (..., N)."""
     packed = "packed" in qleaf and bool(qleaf["packed"])
     dynamic = "dynamic" in qleaf and bool(qleaf["dynamic"])
-    if int(qleaf["bits"]) != 8 or packed or dynamic:
-        raise NotImplementedError("only unpacked static int8 weights have a kernel in the port")
+    bits = int(qleaf["bits"])
+    if dynamic or (packed and bits != 4) or (not packed and bits != 8):
+        raise NotImplementedError("only unpacked static int8 and packed int4 weights have a "
+                                  "kernel in the port")
     mode = _resolve_mm(mm)
     q, scale, zero, block = qleaf["q"], qleaf["scale"], qleaf["zero"], int(qleaf["block"])
     k = x.shape[-1]
     n = q.shape[1]
     x2 = x.reshape(-1, k).contiguous()
     if x2.device.type == "cpu":
-        out = quant_dense_reference(x2, q, scale, zero, block, mode)
+        ref = quant_dense_p4_reference if packed else quant_dense_reference
+        out = ref(x2, q, scale, zero, block, mode)
     else:
-        out = quant_matmul_int8(x2, q, scale, zero, block, mode)
+        launch = quant_matmul_int4 if packed else quant_matmul_int8
+        out = launch(x2, q, scale, zero, block, mode)
     return out.reshape(*x.shape[:-1], n)

@@ -102,8 +102,9 @@ def decode_wav_bytes(data: bytes, target_rate: int) -> np.ndarray:
 
 
 class SessionServer:
-    """Wraps a windowed session's batch forward in a MicroBatcher. Long
-    requests window-split into the batcher as extra rows."""
+    """Wraps a session's batch forward (the windowed families, and
+    Qwen3-ASR's batched left-padded lockstep decode) in a MicroBatcher.
+    Long requests window-split into the batcher as extra rows."""
 
     def __init__(self, session, max_batch: int = 8, max_wait_ms: float = 5.0,
                  warmup: bool = True, language: str | None = None):
@@ -152,12 +153,23 @@ class SessionServer:
         starts = audio_io.iter_windows(n, w, stride)
         futures = [self.batcher.submit(np.ascontiguousarray(samples[s : s + w])) for s in starts]
         ids: list[int] = []
+        texts: list[str] = []
+        tok = self.session.tokenizer
+        # LLM sessions mark postprocess_per_window: each window carries its own
+        # "language X<asr_text>" prefix, which _postprocess strips, so decode
+        # and strip run per window. Every other family decodes the joined ids
+        # once, as session.transcribe does.
+        per_window = bool(getattr(self.session, "postprocess_per_window", False))
         for fut in futures:
             out = fut.result()
-            ids.extend(int(t) for t in out["tokens"][: int(out["counts"])])
-        tok = self.session.tokenizer
-        text = self.session._postprocess(tok.decode(ids)) if tok else ""
-        resp = {"text": text, "token_ids": ids, "audio_seconds": n / self.sample_rate}
+            win_ids = [int(t) for t in out["tokens"][: int(out["counts"])]]
+            ids.extend(win_ids)
+            if tok and per_window:
+                texts.append(self.session._postprocess(tok.decode(win_ids)))
+        if tok and not per_window:
+            texts = [self.session._postprocess(tok.decode(ids))]
+        resp = {"text": _join_window_texts(texts), "token_ids": ids,
+                "audio_seconds": n / self.sample_rate}
         if len(starts) > 1:
             resp["windows"] = len(starts)
         return resp

@@ -4,16 +4,23 @@ Counterpart of ``asr_tpu/quant/quantize.py``: round-to-nearest range fit
 plus the optional least-squares refinement of scale and zero point, and the
 same storage. A ``(K, N)`` weight is cut into blocks of ``block`` rows along
 K; each (block, column) pair has one f32 scale and zero point, and
-``w ~ (q - zero) * scale``. Storage is CENTERED: ``q - 128`` as int8 and
-``zero - 128`` as f32, exactly as the JAX package writes it, so artifact
-folders move between the two packages unchanged. When ``K % block != 0``
-the block becomes K (one block per column).
+``w ~ (q - zero) * scale``. Unpacked storage is CENTERED: ``q - 128`` as
+int8 and ``zero - 128`` as f32, exactly as the JAX package writes it, so
+artifact folders move between the two packages unchanged. When
+``K % block != 0`` the block becomes K (one block per column).
 
-``QuantizedEmbedding`` is the int8 gather-dequant table; its ``(D, V_pad)``
-tied-head copy runs the LM head through the int8 kernel
-(:func:`embedding_logits`). Packed int4/int2 storage (the packed int4 tied
-head included), the kquant and hqq objectives and dynamic int8 are not
-ported yet.
+Packed 4-bit storage (``quantize_linear(bits=4, pack=True)``) keeps raw
+unsigned nibbles in a ``(K/2, N)`` int8 array: the low nibble holds rows
+``[0, K/2)`` and the high nibble rows ``[K/2, K)`` (two contiguous halves,
+not interleaved), with an UNSIGNED zero point; it runs through the int4
+kernel.
+
+``QuantizedEmbedding`` is the gather-dequant table; its ``(D, V_pad)``
+tied-head copy runs the LM head through the quantized kernels
+(:func:`embedding_logits`): int8 with V padded to a 512 multiple, or, for
+4-bit tables, nibble-packed to ``(D/2, V_pad)`` with V padded to a 2048
+multiple. Packed int2 storage, the kquant and hqq objectives and dynamic
+int8 are not ported yet.
 """
 
 from __future__ import annotations
@@ -64,9 +71,9 @@ def quantize_weight(w: torch.Tensor, bits: int = 8, block: int = 128, refine_ite
 class QuantizedLinear:
     """Block-quantized linear weight with the JAX package's fields.
 
-    Dict-style access (``leaf["q"]``) mirrors the JAX class; ``packed`` and
-    ``dynamic`` are kept so artifact leaves round-trip, but the port only
-    computes with unpacked static int8 leaves."""
+    Dict-style access (``leaf["q"]``) mirrors the JAX class. The port
+    computes with unpacked static int8 leaves and packed 4-bit leaves;
+    ``dynamic`` is kept so artifact leaves round-trip."""
 
     FIELDS = ("q", "scale", "zero", "bits", "block", "packed", "dynamic")
 
@@ -87,9 +94,33 @@ class QuantizedLinear:
         return key in self.FIELDS
 
 
+def pack4_halves(q_unsigned: torch.Tensor) -> torch.Tensor:
+    """(K, N) values in [0, 16) -> (K/2, N) int8: low nibble = rows [0, K/2),
+    high nibble = rows [K/2, K)."""
+    k = q_unsigned.shape[0]
+    lo = q_unsigned[: k // 2].to(torch.uint8)
+    hi = q_unsigned[k // 2 :].to(torch.uint8)
+    return (lo | (hi << 4)).view(torch.int8)
+
+
+def unpack4_halves(packed: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) int8 -> (K, N) float32 unsigned nibble values."""
+    u = packed.contiguous().view(torch.uint8)
+    return torch.cat([(u & 0xF), (u >> 4) & 0xF], dim=0).to(torch.float32)
+
+
 def dequantize_weight(qleaf) -> torch.Tensor:
-    """Unpacked quantized leaf (or equivalent dict) -> dense f32 (K, N) weight."""
-    q = qleaf["q"].to(torch.float32)
+    """Quantized leaf (or equivalent dict) -> dense f32 (K, N) weight.
+
+    Unpacked storage is centered (q - 128, zero - 128); packed 4-bit storage
+    keeps raw unsigned nibbles with an unsigned zero. Both give
+    ``w = (q - zero) * scale`` per block."""
+    if "packed" in qleaf and bool(qleaf["packed"]):
+        if int(qleaf["bits"]) != 4:
+            raise NotImplementedError("only packed 4-bit weights are ported")
+        q = unpack4_halves(qleaf["q"])
+    else:
+        q = qleaf["q"].to(torch.float32)
     k, n = q.shape
     block = int(qleaf["block"])
     blocks = q.reshape(k // block, block, n)
@@ -98,11 +129,18 @@ def dequantize_weight(qleaf) -> torch.Tensor:
 
 
 def quantize_linear(w: torch.Tensor, bits: int = 8, block: int = 128,
-                    refine_iters: int = 0) -> QuantizedLinear:
-    """(K, N) weight -> QuantizedLinear; the block becomes K when it does not divide K."""
-    if w.shape[0] % block:
-        block = w.shape[0]
+                    refine_iters: int = 0, pack: bool = False) -> QuantizedLinear:
+    """(K, N) weight -> QuantizedLinear; the block becomes K when it does not
+    divide K. ``pack`` nibble-packs 4-bit weights whose halves stay
+    block-aligned (raw unsigned nibbles, unsigned zero)."""
+    k = w.shape[0]
+    if k % block:
+        block = k
     q, scale, zero = quantize_weight(w, bits, block, refine_iters)
+    if pack and bits == 4 and k % 2 == 0 and (k // 2) % block == 0:
+        q_unsigned = (q.to(torch.int32) + 128).to(torch.uint8)
+        return QuantizedLinear(pack4_halves(q_unsigned), scale, zero + 128.0, 4, block,
+                               packed=True)
     return QuantizedLinear(q, scale, zero, bits, block)
 
 
@@ -154,7 +192,8 @@ class QuantizedEmbedding:
 def embedding_logits(embed, y: torch.Tensor) -> torch.Tensor:
     """Tied-head logits ``y @ embed.T`` for plain or quantized tables. A
     quantized table with its tied copy goes through ``quant_dense`` (the
-    int8 kernel on CUDA), reading int8 bytes only."""
+    int8 kernel, or the int4 kernel for a nibble-packed copy, on CUDA),
+    reading the quantized bytes only."""
     if isinstance(embed, QuantizedEmbedding):
         if embed.q_t is not None:
             from asr_tpu_torch.ops.quant_matmul import quant_dense
@@ -176,20 +215,26 @@ def embedding_logits(embed, y: torch.Tensor) -> torch.Tensor:
 
 def tied_head_arrays(q_t: torch.Tensor, scale_t: torch.Tensor, zero_t: torch.Tensor,
                      bits: int = 8, block: int | None = None):
-    """Pad the (D, V) tied-head copy's V axis to a multiple of 512 with zero
-    scale and zero point, so pad logits are exactly 0 (callers slice [:V]).
+    """Pad the (D, V) tied-head copy's V axis with zero scale and zero point,
+    so pad logits are exactly 0 (callers slice [:V]).
 
-    Returns (q_t, scale_t, zero_t, packed=False). The JAX package
-    nibble-packs 4-bit tables here; that layout is not ported."""
+    4-bit tables whose halves stay block-aligned are nibble-packed to
+    ``(D/2, V_pad)`` with an unsigned zero and V padded to a multiple of
+    2048; every other table stays centered int8 with V padded to a multiple
+    of 512 (the JAX package's layout, so pad widths match).
+
+    Returns (q_t, scale_t, zero_t, packed)."""
     d, v = q_t.shape
-    if bits == 4 and block is not None and d % 2 == 0 and (d // 2) % block == 0:
-        raise NotImplementedError("the packed int4 tied head is not ported")
-    pad = (-v) % 512
+    pack = bits == 4 and block is not None and d % 2 == 0 and (d // 2) % block == 0
+    pad = (-v) % (2048 if pack else 512)
     if pad:
         q_t = torch.nn.functional.pad(q_t, (0, pad))
         scale_t = torch.nn.functional.pad(scale_t, (0, pad))
         zero_t = torch.nn.functional.pad(zero_t, (0, pad))
-    return q_t.contiguous(), scale_t.contiguous(), zero_t.contiguous(), False
+    if pack:
+        q_t = pack4_halves((q_t.to(torch.int32) + 128).to(torch.uint8))
+        zero_t = zero_t + 128.0
+    return q_t.contiguous(), scale_t.contiguous(), zero_t.contiguous(), pack
 
 
 def quantize_embedding(w: torch.Tensor, bits: int = 8, block: int = 128,
@@ -201,10 +246,12 @@ def quantize_embedding(w: torch.Tensor, bits: int = 8, block: int = 128,
         block = d
     q, scale, zero = quantize_weight(w.T, bits, block, 0)  # blocks along D
     q_t = scale_t = zero_t = None
+    packed = False
     if tie_head:
-        q_t, scale_t, zero_t, _ = tied_head_arrays(q, scale, zero, bits=bits, block=block)
+        q_t, scale_t, zero_t, packed = tied_head_arrays(q, scale, zero, bits=bits, block=block)
     return QuantizedEmbedding(q.T.contiguous(), scale.T.contiguous(), zero.T.contiguous(),
-                              bits, block, q_t=q_t, scale_t=scale_t, zero_t=zero_t)
+                              bits, block, q_t=q_t, scale_t=scale_t, zero_t=zero_t,
+                              q_t_packed=packed)
 
 
 def quantize_pytree(
@@ -214,12 +261,14 @@ def quantize_pytree(
     refine_iters: int = 2,
     min_size: int = 1 << 16,
     predicate: Callable[[str, torch.Tensor], bool] | None = None,
+    pack: bool = False,
     quantize_embeddings: bool = False,
 ):
     """Quantize every 2-D ``w``/``w1``/``w2`` linear weight of at least
     ``min_size`` elements, with the JAX package's defaults and walk;
-    ``quantize_embeddings`` also turns ``embed`` tables of that size into
-    :class:`QuantizedEmbedding` leaves."""
+    ``pack`` nibble-packs 4-bit linears; ``quantize_embeddings`` also turns
+    ``embed`` tables of that size into :class:`QuantizedEmbedding` leaves
+    (4-bit tables carry the nibble-packed tied head)."""
     # 2-D kernels under these parents are consumed elementwise, not by dense().
     non_matmul_parents = ("dw", "dw1", "dw2", "conv", "fusion")
 
@@ -237,7 +286,7 @@ def quantize_pytree(
                     and value.numel() >= min_size
                     and (predicate is None or predicate(p, value))
                 ):
-                    out[key] = quantize_linear(value, bits, block, refine_iters)
+                    out[key] = quantize_linear(value, bits, block, refine_iters, pack=pack)
                 elif (
                     quantize_embeddings
                     and key == "embed"

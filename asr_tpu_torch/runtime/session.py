@@ -27,6 +27,7 @@ class TranscribeResult:
     token_ids: list[int]
     audio_seconds: float
     elapsed_seconds: float   # wall-clock latency of the forward that produced this
+    batch_size: int = 1      # items sharing that forward (batched calls: the whole batch's latency)
 
     @property
     def rtf(self) -> float:

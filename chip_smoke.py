@@ -5,7 +5,7 @@ Run from the repository root, with one card visible:
 
     python3 chip_smoke.py
 
-Phases: (1) the card; (2) build the three kernels from
+Phases: (1) the card; (2) build the five kernels from
 ``asr_tpu_torch/csrc`` with nvcc, one process per source, at once; (3)
 the int8 dequant-matmul kernel against its plain PyTorch version at every
 SenseVoiceSmall q8 shape, timed in turns; (4) SenseVoiceSmall at its full published geometry
@@ -30,14 +30,30 @@ version's, in turns, with its bound and a profile at B = 8; (13)
 continuous serving of phase 9's artifact over HTTP: 17 concurrent
 requests (18 windows) with staggered starts on 8 slots, every decode step
 through the multi-slot kernel, the ids against ``session.transcribe``, the
-serving numbers, and two requests on the rowwise route.
+serving numbers, and two requests on the rowwise route; (14) the
+packed-int4 kernel against its plain version at every Qwen3-ASR-0.6B q4
+shape (q|k|v, o, gate|up, down, the tied head) at M = 1, 8 and a 30 s
+prefill's rows, both modes, timed in turns; (15) the fused Qwen3 decode
+step against its plain version at full width (f32 and bf16 caches, three
+positions with a left shift, the head in the kernel and separate), its time
+at pos 440 in turns and a profile; (16) Qwen3-ASR-0.6B (q8 tower, q4 LLM
+and packed tied head) through an artifact folder and ``load_qwen_session``:
+20 s on the fused route, a teacher-forced replay through the per-weight
+step, one 30 s window's tower, prefill and per-token times, RTF and peak
+memory, and the q4 logits against plain matmuls on dequantized weights;
+(17) the same session behind the HTTP micro-batcher, 5 concurrent requests
+in batches of 4 (the per-weight route, int4 kernel at M = 4), each
+request's ids against the per-weight route alone.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
 x 4 linears + the CTC head); one Whisper window launches it for the
 encoder, the cross-KV and the two prefills, and the fused kernel once per
 decode step; continuous serving launches the multi-slot kernel once per
-decode step and never the batch-1 kernel.
+decode step and never the batch-1 kernel; one Qwen3-ASR window launches
+the int8 kernel 195 times (the tower), the int4 kernel 113 times (the
+prefill's 28 x 4 linears and the first logits) and the fused Qwen3 step
+once per decode step.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -120,19 +136,21 @@ def phase_device(torch) -> str:
     return card
 
 
-def phase_build(kernels) -> None:
+def phase_build(sources) -> None:
     """Build every kernel's library at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def timed(mod):
+    from asr_tpu_torch.ops import nvcc_build
+
+    def timed(source):
         t0 = time.perf_counter()
-        lib, log = mod.build()
+        lib, log = nvcc_build.build(source)
         return lib, log, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        built = list(pool.map(timed, kernels))
-    for mod, (lib, log, secs) in zip(kernels, built):
-        print(f"[2 build] {lib.relative_to(ROOT)} in {secs:.2f} s (nvcc {' '.join(mod.NVCC_FLAGS)})")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(timed, sources))
+    for lib, log, secs in built:
+        print(f"[2 build] {lib.relative_to(ROOT)} in {secs:.2f} s (nvcc {' '.join(nvcc_build.NVCC_FLAGS)})")
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"[2 build] ptxas: {line.strip()}")
@@ -840,6 +858,553 @@ def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: st
     return out
 
 
+# ── 14-17. Qwen3-ASR-0.6B q4: the packed-int4 matmul, the fused Qwen3 step ──
+# Every distinct (K, N) of the q4 LLM and how many of one prefill's 113
+# calls have it: q|k|v, o, gate|up and down in each of the 28 layers, and the
+# packed tied head once (the first logits, at M = 1).
+QWEN_P4_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1024): 28,
+                  (1024, 153600): 1}
+QWEN_HEAD = (9, 1, 6)  # prompt ids before the audio, between, after (chat-template sized)
+QWEN_DECODE_POS = ((5, 0), (200, 3), (440, 17))  # (pos, shift) of the step checks
+QWEN_SERVE_SECONDS = (5.0, 20.0)
+QWEN_SERVE_REQUESTS = 5
+QWEN_SERVE_BATCH = 4
+QWEN_SERVE_BUDGET = 96  # new tokens a window on the served, per-weight route
+# The step rounds every matvec input to bf16, and a last-bit difference can
+# flip one such rounding. One layer of the kernel agrees with its plain
+# version to a bf16 step (QWEN_ONE_LAYER_TOL). Over the 28 random layers the
+# flips add up. The run measures that noise as the plain version's spread
+# under last-bit changes: host vs card, and the card run again with every
+# input element moved by one f32 ulp (QWEN_ULP_DRAWS draws). The full-depth
+# step is held to twice that spread, or to QWEN_STEP_TOL where that is
+# larger; planted faults that the one-layer check cannot see (layers 1-27
+# reading the previous layer's weights, or its caches) must land beyond that
+# bound in the same run. The first layer's written row sits behind one
+# rounding only.
+QWEN_ONE_LAYER_TOL = 1e-2
+QWEN_STEP_TOL = 3e-2
+QWEN_ULP_DRAWS = 3
+# Teacher-forced, the fused route and the per-weight step (f32 caches and
+# attention) differ by up to 5.4e-3 of max|logit| (NVIDIA H100 80GB HBM3,
+# 700 W), so a top-2 margin below twice that may flip without a fault.
+QWEN_REPLAY_MARGIN = 1e-2
+QWEN_ROW0_TOL = {"float32": 1e-3, "bfloat16": 1e-3 + 2.0**-8}
+
+
+def qwen_prefill_rows(cfg) -> int:
+    """Rows of one 30 s window's prefill: the prompt ids and the audio
+    tokens of the padded tower windows (assemble_prompt's static buffer)."""
+    frames = 30 * cfg.sample_rate // cfg.mel_config().hop_length
+    per_window = cfg.chunk_frames * cfg.chunks_per_window
+    windows = -(-frames // per_window)
+    return sum(QWEN_HEAD) + windows * cfg.tokens_per_window
+
+
+def p4_cost(m: int, k: int, n: int) -> tuple[int, float]:
+    """Bytes (x read, packed weight, f32 scale and zero, output written) and
+    operations (2 M K N) of one int4 call."""
+    return 4 * m * k + k * n // 2 + 2 * 4 * (k // 128) * n + 4 * m * n, 2.0 * m * k * n
+
+
+def phase_p4(torch, qm, quantize_linear, m_prefill: int, card: str) -> dict:
+    """[14] The packed-int4 kernel against its plain version at every shape
+    of the q4 path, M = 1, 8 and the prefill's rows, both modes, in turns."""
+    g = torch.Generator(device=DEV).manual_seed(14)
+    rows, worst = [], 0.0
+    for (k, n), _count in QWEN_P4_SHAPES.items():
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 4, 128,
+                               pack=True)
+        check(leaf.packed, f"K={k} N={n} did not pack")
+        for m in (1, 8, m_prefill):
+            x = torch.randn((m, k), generator=g, device=DEV)
+            for mm in ("f32", "bf16"):
+                args = (x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+                got = qm.quant_matmul_int4(*args)
+                torch.cuda.synchronize()
+                want = qm.quant_dense_p4_reference(*args)
+                err = (got - want).abs().max().item()
+                ref = want.abs().max().item()
+                check(err <= 1e-4 * ref, f"int4 kernel vs plain at M={m} K={k} N={n} {mm}: "
+                      f"{err} > 1e-4 * {ref}")
+                worst = max(worst, err)
+                k_ms, p_ms = in_turns(lambda: qm.quant_dense_p4_reference(*args),
+                                      lambda: qm.quant_matmul_int4(*args), plain_iters=5)
+                nbytes, ops = p4_cost(m, k, n)
+                b_ms, b_by = bound(nbytes, ops)
+                rows.append({"m": m, "k": k, "n": n, "mm": mm, "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+                             "max_abs_err": err})
+                print(f"[14 int4] M={m:4d} K={k:4d} N={n:6d} mm={mm:4s} kernel {k_ms:.4f} ms "
+                      f"({2 * m * k * n / (k_ms * 1e6):.0f} GFLOP/s)  plain {p_ms:.4f} ms  bound "
+                      f"{b_ms:.4f} ms ({b_by})  err {err:.3e} (max|plain| {ref:.3e})  [{card}]")
+    per_prefill = {}
+    for mm in ("bf16", "f32"):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+        for r in rows:
+            count = QWEN_P4_SHAPES[(r["k"], r["n"])]
+            # the linears run at the prefill's M, the head once at M = 1
+            if r["mm"] == mm and r["m"] == (1 if r["n"] == 153600 else m_prefill):
+                for key in tot:
+                    tot[key] += count * r[key]
+        tot["bound_by"] = bound(tot["bytes"], tot["ops"])[1]
+        per_prefill[mm] = tot
+        print(f"[14 int4] one prefill's 113 calls (M={m_prefill}, the head at M=1), mm={mm}: kernel "
+              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms  "
+              f"[{card}]")
+    return {"rows": rows, "max_abs_err": worst, "per_prefill": per_prefill}
+
+
+def qwen_step_bytes(stacked: dict, nl: int, kvw: int, rows: int, itemsize: int) -> tuple[int, float]:
+    """(bytes, operations) of one step: every stacked array read once, the
+    attended cache rows of k and v, the written row; 2 operations per int4
+    weight and the attention's scores and P.V over the rows."""
+    weights = sum(t.numel() * t.element_size() for t in stacked.values())
+    nibbles = 2 * sum(stacked[k].numel() for k in ("wq", "wo", "wgu", "wd", "wh") if k in stacked)
+    nbytes = weights + 2 * nl * (rows + 1) * kvw * itemsize
+    return nbytes, 2.0 * nibbles + 2 * 2 * nl * (rows + 1) * 2 * kvw
+
+
+def phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card: str) -> dict:
+    """[15] The fused Qwen3 step against its plain version at full width:
+    f32 and bf16 caches, three positions with shift > 0, the head in the
+    kernel and separate, the first layer alone and all 28; the plain
+    version's own host/card drift; its time at pos 440 in turns."""
+    from asr_tpu_torch.layers.rope import rope_tables
+
+    cfg = qwen3.Qwen3Config()
+    g = torch.Generator(device=DEV).manual_seed(15)
+    params = qwen3.fuse_params(quantize_pytree(qwen3.init_params(cfg, g), bits=4, pack=True,
+                                               refine_iters=0, quantize_embeddings=True), cfg)
+    stacked = fd.stack_decode_params(params, cfg)
+    check(stacked is not None and "wh" in stacked, "the q4 LLM did not stack with its head")
+    del params
+    for key in ("in_s", "post_s", "qn_s", "kn_s", "fn_s"):  # the init has ones
+        stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
+    nl, kvw, v, t = cfg.num_layers, cfg.num_kv_heads * 128, cfg.vocab_size, 464
+    one_cfg = dataclasses.replace(cfg, num_layers=1)
+    one = {k: (a[:1].contiguous() if a.shape[0] == nl and k != "fn_s" else a) for k, a in stacked.items()}
+    host = {k: a.cpu() for k, a in stacked.items()}
+    cs = torch.from_numpy(rope_tables(t, 128, cfg.rope_theta)).to(DEV)
+    x = torch.randn((1, cfg.hidden), generator=g, device=DEV) * 0.05
+    g_ulp = torch.Generator(device=DEV).manual_seed(151)
+    inf = torch.tensor(float("inf"), device=DEV)
+    layered = [k for k, a in stacked.items() if a.shape[0] == nl and k != "fn_s"]
+    rows, worst, times, failures, controls = [], 0.0, {}, [], {}
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    for cdt in (torch.float32, torch.bfloat16):
+        cache = str(cdt).split(".")[-1]
+        # rows of unit RMS, as RMSNorm + RoPE leave k
+        kc = torch.randn((nl, t, kvw), generator=g, device=DEV).to(cdt)
+        vc = torch.randn((nl, t, kvw), generator=g, device=DEV).to(cdt)
+        for pos, shift in QWEN_DECODE_POS:
+            cos, sin = cs[0, pos - shift][None], cs[1, pos - shift][None]
+            hh, lh, _, _ = fd.fused_decode_step_reference(host, cfg, x.cpu(), kc.cpu(), vc.cpu(), pos,
+                                                          shift, cos.cpu(), sin.cpu())
+            hc, lc, _, _ = fd.fused_decode_step_reference(stacked, cfg, x, kc.clone(), vc.clone(), pos,
+                                                          shift, cos, sin)
+            drift = max(rel(lh[:, :v], lc[:, :v].cpu()), rel(hh, hc.cpu()))
+            for _ in range(QWEN_ULP_DRAWS):
+                away = torch.where(torch.rand(x.shape, generator=g_ulp, device=DEV) < 0.5, -inf, inf)
+                hu, lu, _, _ = fd.fused_decode_step_reference(stacked, cfg, torch.nextafter(x, away),
+                                                              kc.clone(), vc.clone(), pos, shift, cos, sin)
+                drift = max(drift, rel(lu[:, :v], lc[:, :v]), rel(hu, hc))
+            tol = max(QWEN_STEP_TOL, 2 * drift)
+            for head in ("in", "separate"):
+                sel = (lambda d: d) if head == "in" else (
+                    lambda d: {k: a for k, a in d.items() if k not in ("wh", "h_s", "h_zs")})
+                errs = {}
+                for depth, c, stk in (("one", one_cfg, sel(one)), ("all", cfg, sel(stacked))):
+                    n = c.num_layers
+                    kk, vk, kp, vp = (a[:n].clone() for a in (kc, vc, kc, vc))
+                    h, lg, _, _ = fd.fused_decode_step_cuda(stk, c, x, kk, vk, pos, shift, cos, sin)
+                    torch.cuda.synchronize()
+                    hr, lr, _, _ = fd.fused_decode_step_reference(stk, c, x, kp, vp, pos, shift, cos, sin)
+                    check(bool(torch.isfinite(h).all()), f"non-finite hidden at pos {pos}")
+                    e = rel(h, hr)
+                    if head == "in":
+                        check(bool((lg[:, v:] == 0).all()), "pad logits are not exactly 0")
+                        e = max(e, rel(lg[:, :v], lr[:, :v]))
+                        if depth == "all":
+                            worst = max(worst, (lg[:, :v] - lr[:, :v]).abs().max().item())
+                    else:
+                        check(lg is None and lr is None, "a head-less step returned logits")
+                    errs[depth] = e
+                    others = torch.arange(t, device=DEV) != pos
+                    check(torch.equal(kk[:, others], kc[:n, others]) and torch.equal(vk[:, others], vc[:n, others]),
+                          f"rows other than pos {pos} changed")
+                    row0 = max((kk[0, pos].float() - kp[0, pos].float()).abs().max().item(),
+                               (vk[0, pos].float() - vp[0, pos].float()).abs().max().item())
+                    row_ref = max(kp[0, pos].float().abs().max().item(), vp[0, pos].float().abs().max().item())
+                    check(row0 <= QWEN_ROW0_TOL[cache] * row_ref, f"layer-0 row vs plain: {row0} > "
+                          f"{QWEN_ROW0_TOL[cache]} * {row_ref}")
+                rows.append({"cache": cache, "pos": pos, "shift": shift, "head": head,
+                             "one_layer_rel": errs["one"], "all_layers_rel": errs["all"],
+                             "plain_drift": drift, "row0_rel": row0 / row_ref})
+                print(f"[15 decode] cache={cache:8s} pos={pos:3d} shift={shift:2d} head={head:8s}: kernel vs "
+                      f"plain, max of hidden and logits, one layer {errs['one']:.2e}, {nl} layers "
+                      f"{errs['all']:.2e} (plain's own spread {drift:.2e}, bound {tol:.2e}); layer-0 row "
+                      f"{row0 / row_ref:.2e} of max|row|; other rows bitwise unchanged")
+                if errs["one"] > QWEN_ONE_LAYER_TOL:
+                    failures.append(f"one layer, {cache} pos {pos} head {head}: {errs['one']}")
+                if errs["all"] > tol:
+                    failures.append(f"{nl} layers, {cache} pos {pos} head {head}: {errs['all']} > {tol}")
+        pos, shift = QWEN_DECODE_POS[-1]
+        cos, sin = cs[0, pos - shift][None], cs[1, pos - shift][None]
+        controls[cache] = planted_faults(torch, fd, cfg, stacked, one, layered, x, kc, vc, pos, shift,
+                                         cos, sin, tol, failures)
+        kk, vk = kc.clone(), vc.clone()
+        k_ms, p_ms = in_turns(
+            lambda: fd.fused_decode_step_reference(stacked, cfg, x, kk, vk, pos, shift, cos, sin),
+            lambda: fd.fused_decode_step_cuda(stacked, cfg, x, kk, vk, pos, shift, cos, sin),
+            plain_iters=3)
+        nbytes, ops = qwen_step_bytes(stacked, nl, kvw, pos - shift, kc.element_size())
+        b_ms, b_by = bound(nbytes, ops)
+        times[cache] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[15 decode] cache={cache} pos={pos} shift={shift}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; "
+              f"{nbytes / 1e6:.1f} MB a step, {nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s; bound "
+              f"{b_ms:.4f} ms ({b_by})  [{card}]")
+        if cache == "bfloat16":
+            host_ms, dev_ms, by_name = profile_steps(
+                torch, lambda: fd.fused_decode_step_cuda(stacked, cfg, x, kk, vk, pos, shift, cos, sin))
+            parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
+            times[cache]["profile"] = {"host_ms": host_ms, "kernel_ms": dev_ms, "by_name": by_name}
+            print(f"[15 profile] cache={cache}: {dev_ms * 1e3:.1f} us of kernels in a {host_ms * 1e3:.1f} us "
+                  f"step (idle share {1 - dev_ms / host_ms:.3f}); us a step: {parts}  [{card}]")
+    check(not failures, "fused step vs plain: " + "; ".join(failures))
+    del stacked, one, host
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": worst, "times": times, "controls": controls}
+
+
+def planted_faults(torch, fd, cfg, stacked, one, layered, x, kc, vc, pos, shift, cos, sin,
+                   tol, failures) -> dict:
+    """How far from the plain version a faulty kernel lands, at one layer
+    and all 28. Two faults are run in the kernel: layers 1-27 read the
+    previous layer's weights, or its caches; each must exceed the full-depth
+    bound ``tol``. Two are planted in the plain version and only reported:
+    the left shift off by one, and every bf16 rounding left out."""
+    nl, v = cfg.num_layers, cfg.vocab_size
+    one_cfg = dataclasses.replace(cfg, num_layers=1)
+
+    def prev(a):
+        return torch.cat([a[:1], a[:-1]])
+
+    def dist(h, lg, hr, lr):
+        return max(((h - hr).abs().max() / hr.abs().max()).item(),
+                   ((lg[:, :v] - lr[:, :v]).abs().max() / lr[:, :v].abs().max()).item())
+
+    def plain(stk, c, sh=shift):
+        n = c.num_layers
+        return fd.fused_decode_step_reference(stk, c, x, kc[:n].clone(), vc[:n].clone(), pos, sh, cos, sin)
+
+    out = {}
+    hr, lr, _, _ = plain(stacked, cfg)
+    for name, stk, kf, vf in (
+            ("weights of layer l-1", {k: prev(a) if k in layered else a for k, a in stacked.items()},
+             kc.clone(), vc.clone()),
+            ("caches of layer l-1", stacked, prev(kc), prev(vc))):
+        h, lg, _, _ = fd.fused_decode_step_cuda(stk, cfg, x, kf, vf, pos, shift, cos, sin)
+        out[name] = {"all": dist(h, lg, hr, lr)}
+        if out[name]["all"] <= tol:
+            failures.append(f"the planted fault '{name}' lands within the bound: {out[name]['all']} <= {tol}")
+    kernel = {c.num_layers: fd.fused_decode_step_cuda(stk, c, x, kc[:c.num_layers].clone(),
+                                                      vc[:c.num_layers].clone(), pos, shift, cos, sin)[:2]
+              for c, stk in ((one_cfg, one), (cfg, stacked))}
+    bf16 = fd._bf16
+    for name in ("shift + 1", "no bf16 rounding"):
+        out[name] = {}
+        try:
+            if name == "no bf16 rounding":
+                fd._bf16 = lambda t: t.float()
+            for depth, c, stk in (("one", one_cfg, one), ("all", cfg, stacked)):
+                hp, lp, _, _ = plain(stk, c, shift + 1 if name == "shift + 1" else shift)
+                out[name][depth] = dist(*kernel[c.num_layers], hp, lp)
+        finally:
+            fd._bf16 = bf16
+    cache = str(kc.dtype).split(".")[-1]
+    print(f"[15 control] cache={cache} pos={pos}: kernel vs plain, max of hidden and logits, with a "
+          f"planted fault (bound {tol:.2e} at {nl} layers, {QWEN_ONE_LAYER_TOL:.0e} at one): "
+          + "; ".join(f"{k}: " + ", ".join(f"{d} {e:.2e}" for d, e in r.items()) for k, r in out.items()))
+    return out
+
+
+def qwen_counts(session, ids: list) -> int:
+    """Generated tokens of one window, the EOT the session drops included."""
+    return len(ids) if len(ids) == session.decode_cfg.max_new_tokens + 1 else len(ids) + 1
+
+
+def qwen_prefill(torch, session, audio):
+    """The prefill of one utterance, as transcribe_embeds runs it:
+    (state, shift, lf, t_max, first-token logits)."""
+    from asr_tpu_torch.models import qwen_asr as qa
+
+    buf = torch.zeros((1, session.window_samples), device=DEV)
+    buf[0, : len(audio)] = torch.from_numpy(audio).to(DEV)
+    ids = session._batch_ids(session._prompt_ids(""), 1)
+    embeds, valid = qa.prompt_embeds(session.tower_params, session.llm_params, session.cfg, buf,
+                                     torch.tensor([len(audio)], device=DEV), ids)
+    state, shift, t_max, logits = qa.left_prefill(session.llm_params, session.cfg, embeds, valid,
+                                                  session.decode_cfg.max_new_tokens)
+    return state, shift, embeds.shape[1], t_max, logits
+
+
+def phase_qwen(torch, np, qm, fd, folder: str, card: str) -> dict:
+    """[16] Qwen3-ASR-0.6B (q8 tower, q4 LLM and tied head) through an
+    artifact folder and load_qwen_session: 20 s on the fused route, a
+    teacher-forced replay through the per-weight step, one 30 s window's
+    numbers, and the q4 logits against plain matmuls on dequantized weights."""
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.layers.rope import rope_tables
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+    from asr_tpu_torch.runtime.artifact import ModelMetadata, save_model
+    from asr_tpu_torch.runtime.qwen_session import load_qwen_session
+
+    qm.set_quant_config(mm="bf16")  # the serving mode; the session stacks for the fused step
+    cfg = qa.QwenAsrConfig()
+    lcfg = cfg.llm
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(16)
+    tower = quantize_pytree(qa.init_tower_params(cfg, g), bits=8)
+    llm = quantize_pytree(qwen3.init_params(lcfg, g), bits=4, pack=True, quantize_embeddings=True)
+    head, suffix, tail = QWEN_HEAD
+    special = lcfg.vocab_size - 292  # <|im_start|> = 151644 in the 151936-token vocab
+    meta = ModelMetadata(family="qwen_asr", audio_pcm_scale=1.0, extra={
+        "config": dataclasses.asdict(cfg), "prompt_head_ids": list(range(special, special + head)),
+        "prompt_suffix_ids": list(range(special + 25, special + 25 + suffix)),
+        "prompt_tail_ids": list(range(special + 26, special + 26 + tail)),
+        "language_prompt_ids": {"en": [special - 100, special - 99]}})
+    save_model(folder, {"tower": tower, "llm": llm}, meta)
+    size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
+    del tower, llm
+    torch.cuda.empty_cache()
+    session = load_qwen_session(folder, DEV)
+    check(session.stacked is not None and "wh" in session.stacked,
+          "the session did not stack the q4 LLM and its head for the fused step")
+    print(f"[16 qwen] Qwen3-ASR-0.6B (q8 tower, q4 LLM + packed tied head): init + quantize + artifact "
+          f"({size_mb:.1f} MB) round trip in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(16)
+    audio20 = (rng.standard_normal(20 * 16000) * 0.1).astype(np.float32)
+    session.transcribe(audio20[:16000])  # warm-up: cuBLAS, cuDNN, the kernels' first launches
+    torch.cuda.synchronize()
+
+    qm.LAUNCHES = qm.LAUNCHES_INT4 = fd.LAUNCHES = 0  # the Qwen path starts here
+    res = session.transcribe(audio20)
+    int8, int4, fused = qm.LAUNCHES, qm.LAUNCHES_INT4, fd.LAUNCHES  # and ends here
+    ids = res.token_ids
+    counts = qwen_counts(session, ids)
+    n_tower = 6 * cfg.tower_layers + 3
+    check(fused == counts - 1 and fused > 0, f"{fused} fused launches for {counts} generated tokens")
+    check(int4 == 4 * lcfg.num_layers + 1, f"{int4} int4 launches, not {4 * lcfg.num_layers + 1} "
+          "(the prefill's linears and the first logits)")
+    check(int8 == n_tower, f"{int8} int8 launches, not the tower's {n_tower}")
+    print(f"[16 qwen] 20 s -> {len(ids)} tokens in {res.elapsed_seconds * 1e3:.1f} ms; fused launches "
+          f"{fused} (= counts - 1), int4 {int4} ({lcfg.num_layers} x 4 + the first logits), int8 {int8} (the tower)  "
+          f"[{card}]")
+
+    # Teacher-forced: the generated ids through the per-weight step and the kernel.
+    dcfg = session.decode_cfg
+    with torch.inference_mode():
+        state, shift, lf, t_max, logits0 = qwen_prefill(torch, session, audio20)
+        check(int(logits0[:, : lcfg.vocab_size].argmax()) == ids[0], "the first token differs from the session's")
+        kvw = lcfg.num_kv_heads * lcfg.head_dim
+        kc = torch.stack([ls["k"][0].reshape(t_max, kvw) for ls in state["layers"]]).to(torch.bfloat16)
+        vc = torch.stack([ls["v"][0].reshape(t_max, kvw) for ls in state["layers"]]).to(torch.bfloat16)
+        cs = torch.from_numpy(rope_tables(t_max, lcfg.head_dim, lcfg.rope_theta)).to(DEV)
+        sh0 = int(shift[0])
+        embed = session.llm_params["embed"]
+        worst_rel, under, same, flips, flips_1e3, over = 0.0, 0, 0, 0, 0, []
+        for i, tok in enumerate(ids[:-1]):
+            pos = lf + i
+            tk = torch.tensor([[tok]], device=DEV)
+            h, state = qwen3.decoder_pass(session.llm_params, lcfg, embed[tk], state, pos,
+                                          qwen3.left_step_bias(shift, pos, t_max), pos_offset=shift)
+            want = qwen3.logits_from_hidden(session.llm_params, lcfg, h[:, -1])
+            logical = pos - sh0
+            _, got, _, _ = fd.fused_decode_step(session.stacked, lcfg, embed[tk[:, 0]].float(), kc, vc,
+                                                pos, sh0, cs[0, logical][None], cs[1, logical][None])
+            got = got[:, : lcfg.vocab_size]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            worst_rel = max(worst_rel, err / scale)
+            if err > TEACHER_TOL * scale:
+                over.append(i)
+            margin, differ = logits_margin(want).item(), int(got.argmax()) != int(want.argmax())
+            if margin > QWEN_REPLAY_MARGIN * scale:
+                flips += differ
+            else:
+                under += 1
+            flips_1e3 += differ and margin > MARGIN * scale
+            same += int(got.argmax()) == ids[i + 1]
+        del state
+    steps = len(ids) - 1
+    print(f"[16 qwen] teacher-forced over {steps} steps: fused vs per-weight max err {worst_rel:.3e} of "
+          f"max|logit| (bound {TEACHER_TOL}, {len(over)} steps over it); {under} steps under the "
+          f"{QWEN_REPLAY_MARGIN} top-2 margin, {flips} argmax differences above it ({flips_1e3} above a "
+          f"{MARGIN} margin); fused argmax = generated id at {same}/{steps} steps")
+    check(not over, f"fused vs per-weight above {TEACHER_TOL} of max|logit| at steps {over[:10]}")
+    check(flips == 0, f"{flips} argmax differences above the {QWEN_REPLAY_MARGIN} top-2 margin")
+    # The session and this replay ran the same kernel on the same caches.
+    check(same == steps, f"the fused argmax is the session's id at only {same}/{steps} steps")
+
+    # One 30 s window: tower, prefill, ms per token, RTF, peak memory.
+    out = {"int8": int8, "int4": int4, "fused": fused, "steps": steps}
+    audio30 = (np.random.default_rng(17).standard_normal(30 * 16000) * 0.1).astype(np.float32)
+    a30 = torch.from_numpy(audio30).to(DEV)[None]
+    v30 = torch.tensor([len(audio30)], device=DEV)
+    with torch.inference_mode():
+        mel = qa.log_mel_spectrogram(a30, cfg.mel_config())
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, (-mel.shape[1]) % 800))
+        vf = torch.div(v30, 160, rounding_mode="floor")
+        qa.encode_audio(session.tower_params, cfg, mel, vf)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            qa.encode_audio(session.tower_params, cfg, mel, vf)
+        end.record()
+        torch.cuda.synchronize()
+        out["tower_ms"] = start.elapsed_time(end) / 3
+        _, t_pre = synced(torch, lambda: qwen_prefill(torch, session, audio30))
+        out["prefill_ms"] = t_pre * 1e3 - out["tower_ms"]
+    torch.cuda.reset_peak_memory_stats()
+    res30 = session.transcribe(audio30)
+    out["rtf_30s"] = res30.rtf
+    out["window_ms"] = res30.elapsed_seconds * 1e3
+    out["steps_30s"] = qwen_counts(session, res30.token_ids) - 1
+    out["ms_per_token"] = (res30.elapsed_seconds * 1e3 - t_pre * 1e3) / max(out["steps_30s"], 1)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[16 numbers] one 30 s window: {out['window_ms']:.1f} ms, RTF {out['rtf_30s']:.5f}; tower "
+          f"{out['tower_ms']:.2f} ms ({cfg.tower_layers} layers, {mel.shape[1] // 100 * 13} audio rows), "
+          f"prefill {out['prefill_ms']:.2f} ms ({qwen_prefill_rows(cfg)} rows), {out['steps_30s']} decode "
+          f"steps at {out['ms_per_token']:.3f} ms per token (fused route, host wall); peak memory "
+          f"{out['peak_mib']:.0f} MiB  [{card}]")
+
+    # The q4 logits (mm=f32) against plain matmuls on the dequantized weights.
+    qm.set_quant_config(mm="f32")
+    a = torch.from_numpy(audio20[: 8 * 16000]).to(DEV)[None]
+    va = torch.tensor([8 * 16000], device=DEV)
+    pids = session._batch_ids(session._prompt_ids(""), 1)
+    dense_tower, dense_llm = dequantize_pytree(session.tower_params), dequantize_pytree(session.llm_params)
+
+    def prefill_logits(tower_p, llm_p):
+        embeds, valid = qa.prompt_embeds(tower_p, llm_p, cfg, a, va, pids)
+        lf = embeds.shape[1]
+        t_m = -(-(lf + 1) // 8) * 8
+        st = qwen3.make_kv_state(lcfg, 1, t_m, torch.float32, DEV)
+        h, _ = qwen3.decoder_pass(llm_p, lcfg, embeds, st, 0,
+                                  qwen3.causal_prefill_bias(valid, lf, t_m))
+        return qwen3.logits_from_hidden(llm_p, lcfg, h[:, int(valid[0]) - 1])
+
+    with torch.inference_mode():
+        lq = prefill_logits(session.tower_params, session.llm_params)
+        lp = prefill_logits(dense_tower, dense_llm)
+    del dense_tower, dense_llm
+    diff, scale = (lq - lp).abs().max().item(), lp.abs().max().item()
+    check(bool(torch.isfinite(lq).all()), "non-finite q4 logits")
+    check(diff <= 1e-3 * scale, f"q4 logits vs plain: {diff} > 1e-3 * {scale}")
+    print(f"[16 check] q4 mm=f32 prefill logits (8 s) vs plain f32 matmuls on the dequantized weights: "
+          f"max diff {diff:.3e} (max|logit| {scale:.3e}, {diff / scale:.2e} of it)")
+    qm.set_quant_config(mm="bf16")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str) -> dict:
+    """[17] The Qwen session behind the micro-batched HTTP server: 5
+    concurrent requests of 5-20 s in batches of 4 (p4 at M = 4 on the
+    per-weight route); each request's ids against the per-weight route for
+    that request alone, with a teacher-forced replay where they differ."""
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.parallel.http_server import start_background
+    from asr_tpu_torch.runtime.qwen_session import load_qwen_session
+
+    qm.set_quant_config(mm="bf16")
+    session = load_qwen_session(folder, DEV, max_new_tokens=QWEN_SERVE_BUDGET)
+    cfg, lcfg, dcfg = session.cfg, session.cfg.llm, session.decode_cfg
+    rng = np.random.default_rng(17)
+    seconds = rng.uniform(*QWEN_SERVE_SECONDS, size=QWEN_SERVE_REQUESTS)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16) for s in seconds]
+    httpd, srv, thread = start_background(session, max_batch=QWEN_SERVE_BATCH, max_wait_ms=200.0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: list = [None] * len(clips)
+    try:
+        torch.cuda.synchronize()
+        qm.LAUNCHES = qm.LAUNCHES_INT4 = fd.LAUNCHES = 0  # the serving path starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_clip, args=(base, c, 0.0, results, i))
+                   for i, c in enumerate(clips)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        int8, int4, fused = qm.LAUNCHES, qm.LAUNCHES_INT4, fd.LAUNCHES  # and ends here
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        thread.join(timeout=60)
+    batches = health["batches_dispatched"] - 1  # the warm-up batch came before the counts
+    per_step = 4 * lcfg.num_layers + 1
+    check(health["requests_served"] == 1 + len(clips), f"healthz: {health}")
+    check(fused == 0, f"the batch-{QWEN_SERVE_BATCH} route launched the fused kernel {fused} times")
+    check(int8 == batches * (6 * cfg.tower_layers + 3), f"{int8} int8 launches for {batches} batches")
+    check(int4 > 0 and int4 % per_step == 0, f"{int4} int4 launches is not a multiple of {per_step}")
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"request {i}: {r}")
+
+    # Each request alone on the per-weight route (batch 1, no stacked weights).
+    equal, replay = 0, {"steps": 0, "worst_gap": 0.0}
+    for i, clip in enumerate(clips):
+        audio = clip.astype(np.float32) / 32768.0
+        got = results[i][1]["token_ids"]
+        with torch.inference_mode():
+            buf = torch.zeros((1, session.window_samples), device=DEV)
+            buf[0, : len(audio)] = torch.from_numpy(audio).to(DEV)
+            tokens, counts, starts = qa.forward(session.tower_params, session.llm_params, cfg, buf,
+                                                torch.tensor([len(audio)], device=DEV),
+                                                session._batch_ids(session._prompt_ids(""), 1), dcfg)
+        v, c = int(starts[0]), int(counts[0])
+        alone = [int(t) for t in tokens[0, v : v + c].tolist() if t != cfg.eot_id]
+        if alone == got:
+            equal += 1
+            continue
+        # A rounding flip: every server id must be within 1e-3 of max|logit| of
+        # the best logit of the per-weight step teacher-forced on the server's ids.
+        with torch.inference_mode():
+            state, shift, lf, t_max, logits = qwen_prefill(torch, session, audio)
+            embed = session.llm_params["embed"]
+            for j, tok in enumerate(got):
+                lg = logits[0, : lcfg.vocab_size]
+                gap = (lg.max() - lg[tok]).item() / lg.abs().max().item()
+                replay["worst_gap"] = max(replay["worst_gap"], gap)
+                replay["steps"] += 1
+                check(gap <= MARGIN, f"request {i} token {j}: the server's id is {gap:.2e} of "
+                      f"max|logit| below the per-weight step's best")
+                pos = lf + j
+                tk = torch.tensor([[tok]], device=DEV)
+                h, state = qwen3.decoder_pass(session.llm_params, lcfg, embed[tk], state, pos,
+                                              qwen3.left_step_bias(shift, pos, t_max), pos_offset=shift)
+                logits = qwen3.logits_from_hidden(session.llm_params, lcfg, h[:, -1])
+    print(f"[17 serve] {len(clips)} requests ({', '.join(f'{s:.1f}' for s in seconds)} s) in batches of "
+          f"{QWEN_SERVE_BATCH} ({batches} batches, {QWEN_SERVE_BUDGET}-token budget) in {wall:.2f} s; "
+          f"healthz {json.dumps(health)}")
+    print(f"[17 serve] launches: int4 {int4} ({int4 // per_step} x {per_step}: prefills + per-weight "
+          f"steps at M = {QWEN_SERVE_BATCH}), int8 {int8}, fused {fused}; ids equal to the per-weight "
+          f"route alone for {equal}/{len(clips)} requests, {replay['steps']} replayed ids within "
+          f"{replay['worst_gap']:.2e} of max|logit| of the best  [{card}]")
+    del session
+    torch.cuda.empty_cache()
+    return {"int8": int8, "int4": int4, "wall_s": wall, "equal": equal}
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -854,10 +1419,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from asr_tpu_torch.layers import qwen3
     from asr_tpu_torch.models import sensevoice as sv
     from asr_tpu_torch.models import whisper as wh
     from asr_tpu_torch.ops import fused_aed_multi as fm
     from asr_tpu_torch.ops import fused_aed_step as fs
+    from asr_tpu_torch.ops import fused_decode as fd
     from asr_tpu_torch.ops import quant_matmul as qm
     from asr_tpu_torch.parallel.http_server import start_background
     from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_linear, quantize_pytree
@@ -866,7 +1433,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build((qm, fs, fm))
+    phase_build([qm.SOURCE, fs.SOURCE, fm.SOURCE, qm.SOURCE_INT4, fd.SOURCE])
     kern = phase_kernel_vs_plain(torch, qm, quantize_linear, card)
 
     # ── 4. model: full geometry, q8, artifact round trip, session ─────────
@@ -1035,6 +1602,15 @@ def main() -> int:
         multi = phase_multi(torch, fs, fm, wh, quantize_pytree, fused, card)
         serve = phase_continuous(torch, np, qm, fs, fm, whisper_dir, wnum, card)
 
+    # ── 14-17. Qwen3-ASR-0.6B q4, the int4 kernel, the fused Qwen3 step ────
+    from asr_tpu_torch.models.qwen_asr import QwenAsrConfig
+
+    p4 = phase_p4(torch, qm, quantize_linear, qwen_prefill_rows(QwenAsrConfig()), card)
+    dec = phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card)
+    with tempfile.TemporaryDirectory() as qwen_dir:
+        qrun = phase_qwen(torch, np, qm, fd, qwen_dir, card)
+        qserve = phase_qwen_serve(torch, np, qm, fd, qwen_dir, card)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     worst = max(r["max_abs_err"] for r in kern["rows"])
@@ -1048,8 +1624,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int8.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:115",
-        "launches": launches + wrun_int8 + serve["int8"],
-        "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"]},
+        "launches": launches + wrun_int8 + serve["int8"] + qrun["int8"] + qserve["int8"],
+        "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
+                             "qwen": qrun["int8"], "qwen_serve": qserve["int8"]},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1084,6 +1661,36 @@ def main() -> int:
         "library_ms": None,
         "timing": f"one turbo q8 step of {MULTI_TIMED_B[-1]} slots, f32 caches, pos 447, 1500 cross "
                   "rows, CUDA events",
+    }, {
+        "name": "quant_matmul_int4",
+        "route": "cuda",
+        "source": "asr_tpu_torch/csrc/quant_matmul_int4.cu",
+        "replaces": "asr_tpu/ops/quant_matmul.py:493",
+        "launches": qrun["int4"] + qserve["int4"],
+        "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"]},
+        "max_abs_err": p4["max_abs_err"],
+        "ms": p4["per_prefill"]["bf16"]["ms"],
+        "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
+        "bound_ms": p4["per_prefill"]["bf16"]["bound_ms"],
+        "bound_by": p4["per_prefill"]["bf16"]["bound_by"],
+        "library_ms": None,
+        "timing": f"sum over one 30 s prefill's 113 calls (112 at M={qwen_prefill_rows(QwenAsrConfig())}, "
+                  "the tied head at M=1), mm=bf16, CUDA events; bound summed per call",
+    }, {
+        "name": "fused_decode",
+        "route": "cuda",
+        "source": "asr_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "asr_tpu/ops/fused_decode.py:310",
+        "launches": qrun["fused"],
+        "launches_by_path": {"qwen": qrun["fused"], "qwen_serve": 0},
+        "max_abs_err": dec["max_abs_err"],
+        "ms": dec["times"]["bfloat16"]["ms"],
+        "plain_ms": dec["times"]["bfloat16"]["plain_ms"],
+        "bound_ms": dec["times"]["bfloat16"]["bound_ms"],
+        "bound_by": dec["times"]["bfloat16"]["bound_by"],
+        "library_ms": None,
+        "timing": "one Qwen3-0.6B q4 step with the packed tied head, bf16 caches, pos 440, shift 17, "
+                  "CUDA events",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,7 +4,11 @@ of one full-geometry forward; the fused AED decode-step kernel against its
 plain version at a small and at the Whisper-Large-v3-Turbo geometry, its
 wrapper's checks, and its launch count in a one-window transcription; the
 multi-slot AED decode-step kernel likewise, and its launch count in a
-continuous-serving run. Each test skips where no card is present.
+continuous-serving run; the packed-int4 matmul at the Qwen3-ASR-0.6B shapes
+(and a row alone against the same row in a batch), the fused Qwen3 decode
+step at a small and at the full geometry, their wrappers' checks, and the
+launch counts of a batch-1 Qwen3-ASR transcription. Each test skips where
+no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -315,3 +319,166 @@ def test_continuous_run_launches_multi_kernel_once_per_step():
     assert st["step_kernel"] == "fused" and st["requests_served"] == 3
     assert fm.LAUNCHES - before_m == st["decode_steps"] > 0
     assert fs.LAUNCHES == before_f
+
+
+# ── the packed-int4 matmul and the fused Qwen3 decode step ──────────────
+# Every distinct (K, N) of the Qwen3-ASR-0.6B q4 path: q|k|v, o, gate|up,
+# down and the packed tied head (V padded to 153600).
+QWEN_P4_SHAPES = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 153600)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n", QWEN_P4_SHAPES)
+def test_int4_kernel_matches_plain_version(k, n, mm):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 4, 128,
+                           pack=True)
+    assert leaf.packed and tuple(leaf.q.shape) == (k // 2, n)
+    for m in (1, 8, 430):
+        x = torch.randn((m, k), generator=g, device="cuda")
+        before = qm.LAUNCHES_INT4
+        got = qm.quant_matmul_int4(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+        torch.cuda.synchronize()
+        assert qm.LAUNCHES_INT4 == before + 1
+        want = qm.quant_dense_p4_reference(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        # each row sums in the same order at every M: a row alone is bitwise the same
+        one = qm.quant_matmul_int4(x[m // 2 : m // 2 + 1].contiguous(), leaf.q, leaf.scale,
+                                   leaf.zero, 128, mm)
+        assert torch.equal(one[0], got[m // 2])
+
+
+@pytest.mark.gpu
+def test_int4_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    leaf = quantize_linear(torch.randn((256, 128), device="cuda"), 4, 128, pack=True)
+    x = torch.randn((4, 256), device="cuda")
+    with pytest.raises(TypeError):
+        qm.quant_matmul_int4(x.double(), leaf.q, leaf.scale, leaf.zero, 128, "f32")
+    with pytest.raises(ValueError):
+        qm.quant_matmul_int4(x[:, :128].contiguous(), leaf.q, leaf.scale, leaf.zero, 128, "f32")
+    with pytest.raises(ValueError):
+        qm.quant_matmul_int4(x, leaf.q, leaf.scale, leaf.zero, 96, "f32")
+    with pytest.raises(ValueError):
+        qm.quant_matmul_int4(x, leaf.q.cpu(), leaf.scale, leaf.zero, 128, "f32")
+
+
+def _qwen_stacked(cfg, seed):
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.ops import fused_decode as fd
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+
+    p = qwen3.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    p = qwen3.fuse_params(quantize_pytree(p, bits=4, pack=True, refine_iters=0, min_size=0,
+                                          quantize_embeddings=True), cfg)
+    st = fd.stack_decode_params(p, cfg)
+    assert st is not None and "wh" in st
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for key in ("in_s", "post_s", "qn_s", "kn_s", "fn_s"):  # the init has ones
+        st[key] = 1 + 0.1 * torch.randn(st[key].shape, generator=g, device="cuda")
+    return p, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("full", [False, True])
+def test_fused_decode_kernel_matches_plain_version(full, cache):
+    _need_card()
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.ops import fused_decode as fd
+
+    # Full width at two layers: every bf16 rounding of a matvec input can flip
+    # between the two versions, and over the 28 random layers the flips add up
+    # to the plain version's own host/card drift (~2e-2, chip_smoke phase 15);
+    # at two layers they stay within a bf16 step.
+    cfg = qwen3.Qwen3Config(num_layers=2) if full else qwen3.Qwen3Config(
+        vocab_size=3000, hidden=512, num_layers=3, num_heads=4, num_kv_heads=2, ffn_dim=1024)
+    _, st = _qwen_stacked(cfg, 5)
+    nl, t, kvw, v = cfg.num_layers, 456, cfg.num_kv_heads * 128, cfg.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(6)
+    kc = torch.randn((nl, t, kvw), generator=g, device="cuda").to(cache)
+    vc = torch.randn((nl, t, kvw), generator=g, device="cuda").to(cache)
+    x = torch.randn((1, cfg.hidden), generator=g, device="cuda") * 0.05
+    ang = torch.rand((1, 128), generator=g, device="cuda") * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    for pos, shift in ((0, 0), (7, 3), (440, 17)):
+        for head in (True, False):
+            stk = st if head else {k: a for k, a in st.items() if k not in ("wh", "h_s", "h_zs")}
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            before = fd.LAUNCHES
+            h, lg, _, _ = fd.fused_decode_step_cuda(stk, cfg, x, k1, v1, pos, shift, cos, sin)
+            torch.cuda.synchronize()
+            assert fd.LAUNCHES == before + 1
+            hr, lr, _, _ = fd.fused_decode_step_reference(stk, cfg, x, k2, v2, pos, shift, cos, sin)
+            assert (h - hr).abs().max().item() <= 1e-2 * hr.abs().max().item()
+            if head:
+                assert (lg[:, :v] - lr[:, :v]).abs().max().item() <= 1e-2 * lr.abs().max().item()
+                assert bool((lg[:, v:] == 0).all())
+            else:
+                assert lg is None and lr is None
+            tol0 = 1e-3 + (2.0**-8 if cache == torch.bfloat16 else 0.0)
+            for a, b in ((k1, k2), (v1, v2)):
+                assert (a[0, pos].float() - b[0, pos].float()).abs().max().item() <= \
+                    tol0 * b[0, pos].float().abs().max().item()
+            others = torch.arange(t, device="cuda") != pos
+            assert torch.equal(k1[:, others], kc[:, others]) and torch.equal(v1[:, others], vc[:, others])
+
+
+@pytest.mark.gpu
+def test_fused_decode_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.ops import fused_decode as fd
+
+    cfg = qwen3.Qwen3Config(vocab_size=300, hidden=256, num_layers=1, num_heads=2, num_kv_heads=1,
+                            ffn_dim=512)
+    _, st = _qwen_stacked(cfg, 7)
+    kc = torch.zeros((1, 16, 128), device="cuda")
+    x = torch.zeros((1, 256), device="cuda")
+    cs = torch.zeros((1, 128), device="cuda")
+    with pytest.raises(ValueError):
+        fd.fused_decode_step_cuda(st, cfg, x, kc, kc.clone(), 16, 0, cs, cs)  # pos past the cache
+    with pytest.raises(ValueError):
+        fd.fused_decode_step_cuda(st, cfg, x, kc, kc.clone(), 3, 4, cs, cs)  # shift past pos
+    with pytest.raises(TypeError):
+        fd.fused_decode_step_cuda(st, cfg, x, kc, kc.to(torch.bfloat16), 3, 0, cs, cs)
+    with pytest.raises(ValueError):
+        fd.fused_decode_step_cuda(st, cfg, x[:, :128].contiguous(), kc, kc.clone(), 3, 0, cs, cs)
+    with pytest.raises(ValueError):
+        fd.fused_decode_step_cuda(st, cfg, x, kc, kc.clone(), 3, 0, cs.cpu(), cs)
+
+
+@pytest.mark.gpu
+def test_qwen_transcribe_launches_fused_kernel_once_per_step():
+    _need_card()
+    import numpy as np
+
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.ops import fused_decode as fd
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+
+    lcfg = qwen3.Qwen3Config(vocab_size=3000, hidden=512, num_layers=3, num_heads=4,
+                             num_kv_heads=2, ffn_dim=1024)
+    cfg = qa.QwenAsrConfig(tower_dim=256, tower_layers=2, tower_heads=4, tower_ffn=512,
+                           output_dim=512, llm=lcfg, eot_id=-1)
+    tower = quantize_pytree(qa.init_tower_params(cfg, torch.Generator(device="cuda").manual_seed(0)),
+                            bits=8, min_size=0)
+    llm, _ = _qwen_stacked(lcfg, 1)
+    prev = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="bf16")
+    try:
+        sess = QwenAsrSession(tower, llm, cfg, template=QwenPromptTemplate((1, 2), (3,), (4, 5)),
+                              max_new_tokens=12, max_seconds=4.0)
+        assert sess.stacked is not None
+        audio = (np.random.default_rng(0).standard_normal(3 * 16000) * 0.1).astype(np.float32)
+        before_f, before_4 = fd.LAUNCHES, qm.LAUNCHES_INT4
+        res = sess.transcribe(audio)
+        assert fd.LAUNCHES - before_f == len(res.token_ids) - 1 == 12
+        # the prefill's linears and the first logits; the steps' head runs in the fused kernel
+        assert qm.LAUNCHES_INT4 - before_4 == 4 * lcfg.num_layers + 1
+    finally:
+        qm._CONFIG["mm"] = prev

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``asr_tpu_torch`` and neither
 ``chip_smoke.py`` nor ``chip_ab_step.py`` imports JAX or anything of the JAX
 package ``asr_tpu``; the host modules the port keeps its own copies of (metadata, audio ingest, the
-FLAC decoder, mel banks, window-text joining) agree with the originals on
-the same inputs; the loaders run on the card unless the caller asks for the
-CPU.
+FLAC decoder, mel banks, window-text joining, RoPE tables, Qwen output
+parsing) agree with the originals on the same inputs; the loaders run on
+the card unless the caller asks for the CPU.
 
 The JAX package's audio and FLAC paths prefer its native C++ layer; the
 port's copies keep only the pure-Python paths, so those comparisons turn the
@@ -85,6 +85,23 @@ with wave.open(buf, "wb") as w:
     w.writeframes((np.random.default_rng(0).standard_normal(5000) * 900).astype(np.int16).tobytes())
 out = srv.transcribe_bytes(buf.getvalue())
 srv.close()
+from asr_tpu_torch.layers import qwen3
+from asr_tpu_torch.models import qwen_asr as qa
+from asr_tpu_torch.ops import quant_matmul as qm
+from asr_tpu_torch.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+qm.set_quant_config(mm="bf16")
+lcfg = qwen3.Qwen3Config(vocab_size=300, hidden=256, num_layers=1, num_heads=2, num_kv_heads=1,
+                         ffn_dim=512)
+qcfg = qa.QwenAsrConfig(n_mels=16, tower_dim=64, tower_layers=1, tower_heads=4, tower_ffn=128,
+                        downsample_hidden=8, chunks_per_window=2, output_dim=256, llm=lcfg, eot_id=-1)
+g = torch.Generator().manual_seed(0)
+qtower = quantize_pytree(qa.init_tower_params(qcfg, g, "cpu"), min_size=0)
+qllm = quantize_pytree(qwen3.init_params(lcfg, g, "cpu"), bits=4, pack=True, min_size=0,
+                       quantize_embeddings=True)
+qsess = QwenAsrSession(qtower, qllm, qcfg, template=QwenPromptTemplate((1, 2), (3,), (4,)),
+                       max_new_tokens=3, max_seconds=1.0)
+qout = qsess.transcribe(np.zeros(8000, np.float32))
+assert len(qout.token_ids) == 4, qout
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
 assert not leaked, leaked
 print("STANDALONE_OK", len(out["token_ids"]))
@@ -93,7 +110,8 @@ print("STANDALONE_OK", len(out["token_ids"]))
 
 def test_port_runs_without_jax_or_the_jax_package():
     """Every module imported, the SenseVoice forward, a Whisper
-    transcription and the continuous server, in a fresh process."""
+    transcription, the continuous server and a q4 Qwen3-ASR transcription,
+    in a fresh process."""
     proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -102,10 +120,11 @@ def test_port_runs_without_jax_or_the_jax_package():
 
 def test_loaders_default_to_the_card():
     from asr_tpu_torch.runtime.artifact import load_model
+    from asr_tpu_torch.runtime.qwen_session import load_qwen_session
     from asr_tpu_torch.runtime.session import load_session
     from asr_tpu_torch.runtime.whisper_session import load_whisper_session
 
-    for fn in (load_model, load_session, load_whisper_session):
+    for fn in (load_model, load_session, load_whisper_session, load_qwen_session):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
@@ -203,3 +222,17 @@ def test_join_window_texts_matches():
              ["abc", "中文"], ["1", "2"]]
     for texts in cases:
         assert thttp._join_window_texts(texts) == jhttp._join_window_texts(texts)
+
+
+def test_rope_tables_and_asr_output_parsing_match():
+    from asr_tpu.layers import rope as jrope
+    from asr_tpu.runtime import qwen_session as jqs
+    from asr_tpu_torch.layers import rope as trope
+    from asr_tpu_torch.runtime import qwen_session as tqs
+
+    for args in ((8, 128, 5e6), (2048, 128, 5e6), (33, 64, 1e4)):
+        np.testing.assert_array_equal(trope.rope_tables(*args), jrope.rope_tables(*args))
+    for raw in ("language English<asr_text>hi there", "language <asr_text>x", "no tag", "",
+                "LANGUAGE chinese<asr_text> 你好 "):
+        for lang in (None, "en"):
+            assert tqs.parse_asr_output(raw, lang) == jqs.parse_asr_output(raw, lang)

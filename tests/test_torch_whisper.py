@@ -312,9 +312,18 @@ def test_quantize_pytree_embeddings_match_jax():
     for k in want:
         if "__qembed__" in k:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tied_head_arrays(torch.zeros((256, 64), dtype=torch.int8), torch.ones((2, 64)),
-                         torch.zeros((2, 64)), bits=4, block=64)
+    # the 4-bit tied head is nibble-packed, as the JAX package packs it
+    from asr_tpu.quant.quantize import tied_head_arrays as jtied_head_arrays
+
+    q = np.random.default_rng(8).integers(-128, -112, (256, 64)).astype(np.int8)
+    s = np.random.default_rng(9).random((4, 64)).astype(np.float32)
+    z = np.random.default_rng(10).integers(-128, -112, (4, 64)).astype(np.float32)
+    got = tied_head_arrays(torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(z),
+                           bits=4, block=64)
+    want = jtied_head_arrays(jnp.asarray(q), jnp.asarray(s), jnp.asarray(z), bits=4, block=64)
+    assert got[3] is True and want[3] is True
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_remove_repeated_tail_matches_jax():
