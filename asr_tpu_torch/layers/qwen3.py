@@ -122,6 +122,42 @@ def _rope_rows(cfg: Qwen3Config, t_max: int, pos: int, s: int, pos_offset, devic
     return cs[0][logical], cs[1][logical]
 
 
+def _layer(p: dict, cfg: Qwen3Config, x: torch.Tensor, ls: dict, cos: torch.Tensor,
+           sin: torch.Tensor, bias: torch.Tensor, write) -> torch.Tensor:
+    """One decoder layer on x (B, S, H): ``write(cache, rows)`` puts the
+    fresh k or v rows (B, S, Hkv, D) into the layer's cache before the
+    attention reads it."""
+    b, s = x.shape[0], x.shape[1]
+    qd = cfg.num_heads * cfg.head_dim
+    kd = cfg.num_kv_heads * cfg.head_dim
+    y = rms_norm(x, p["input_norm"]["scale"], cfg.rms_eps)
+    if "qkv" in p["attn"]:
+        qkv = dense(y, p["attn"]["qkv"])
+        q = qkv[..., :qd].reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = qkv[..., qd : qd + kd].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = qkv[..., qd + kd :].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    else:
+        q = dense(y, p["attn"]["q"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = dense(y, p["attn"]["k"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = dense(y, p["attn"]["v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["attn"]["q_norm"]["scale"], cfg.rms_eps)
+        k = rms_norm(k, p["attn"]["k_norm"]["scale"], cfg.rms_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    write(ls["k"], k)
+    write(ls["v"], v)
+    attn = _attention(q, ls["k"], ls["v"], bias, cfg.num_heads // cfg.num_kv_heads)
+    x = x + dense(attn, p["attn"]["o"])
+    y = rms_norm(x, p["post_norm"]["scale"], cfg.rms_eps)
+    if "gateup" in p["mlp"]:
+        gu = dense(y, p["mlp"]["gateup"])
+        h = F.silu(gu[..., : cfg.ffn_dim]) * gu[..., cfg.ffn_dim :]
+    else:
+        h = F.silu(dense(y, p["mlp"]["gate"])) * dense(y, p["mlp"]["up"])
+    return x + dense(h, p["mlp"]["down"])
+
+
 def decoder_pass(params: dict, cfg: Qwen3Config, x: torch.Tensor, state: dict, pos: int,
                  bias: torch.Tensor, pos_offset=None) -> tuple[torch.Tensor, dict]:
     """Run S embeddings through all layers, writing the KV caches at ``pos``.
@@ -138,38 +174,52 @@ def decoder_pass(params: dict, cfg: Qwen3Config, x: torch.Tensor, state: dict, p
     Returns (hidden (B, S, H), state).
     """
     t_max = state["layers"][0]["k"].shape[1]
-    b, s = x.shape[0], x.shape[1]
-    cos, sin = _rope_rows(cfg, t_max, int(pos), s, pos_offset, x.device)
-    groups = cfg.num_heads // cfg.num_kv_heads
-    qd = cfg.num_heads * cfg.head_dim
-    kd = cfg.num_kv_heads * cfg.head_dim
+    pos, s = int(pos), x.shape[1]
+    cos, sin = _rope_rows(cfg, t_max, pos, s, pos_offset, x.device)
+
+    def write(cache, rows):
+        cache[:, pos : pos + s] = rows.to(cache.dtype)
+
     for p, ls in zip(params["layers"], state["layers"]):
-        y = rms_norm(x, p["input_norm"]["scale"], cfg.rms_eps)
-        if "qkv" in p["attn"]:
-            qkv = dense(y, p["attn"]["qkv"])
-            q = qkv[..., :qd].reshape(b, s, cfg.num_heads, cfg.head_dim)
-            k = qkv[..., qd : qd + kd].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-            v = qkv[..., qd + kd :].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        else:
-            q = dense(y, p["attn"]["q"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-            k = dense(y, p["attn"]["k"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-            v = dense(y, p["attn"]["v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:
-            q = rms_norm(q, p["attn"]["q_norm"]["scale"], cfg.rms_eps)
-            k = rms_norm(k, p["attn"]["k_norm"]["scale"], cfg.rms_eps)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        ls["k"][:, pos : pos + s] = k.to(ls["k"].dtype)
-        ls["v"][:, pos : pos + s] = v.to(ls["v"].dtype)
-        attn = _attention(q, ls["k"], ls["v"], bias, groups)
-        x = x + dense(attn, p["attn"]["o"])
-        y = rms_norm(x, p["post_norm"]["scale"], cfg.rms_eps)
-        if "gateup" in p["mlp"]:
-            gu = dense(y, p["mlp"]["gateup"])
-            h = F.silu(gu[..., : cfg.ffn_dim]) * gu[..., cfg.ffn_dim :]
-        else:
-            h = F.silu(dense(y, p["mlp"]["gate"])) * dense(y, p["mlp"]["up"])
-        x = x + dense(h, p["mlp"]["down"])
+        x = _layer(p, cfg, x, ls, cos, sin, bias, write)
+    return x, state
+
+
+def decoder_step_rowwise(params: dict, cfg: Qwen3Config, x: torch.Tensor, state: dict,
+                         pos: torch.Tensor, active: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, dict]:
+    """One decode token through all layers with a cache position per row
+    (continuous batching: row b's prompt occupies its compact cache
+    ``[0, L_b)`` and generation goes on at ``pos[b]``, so the cache slot is
+    the logical position). Per row the math of :func:`decoder_pass` run
+    alone; keys past ``pos[b]`` are masked (:func:`rowwise_step_bias`).
+
+    Args:
+      x: (B, 1, H) current-token embeddings.
+      state: KV caches (B, T_max, Hkv, D) per layer; row ``pos[b]`` of an
+        active row is written in place.
+      pos: (B,) int cache slot each row writes.
+      active: optional (B,) bool; inactive rows write nowhere (their hidden
+        is garbage the caller discards).
+
+    Returns (hidden (B, 1, H), state).
+    """
+    t_max = state["layers"][0]["k"].shape[1]
+    dev = x.device
+    cs = torch.from_numpy(rope_tables(t_max, cfg.head_dim, cfg.rope_theta)).to(dev)
+    logical = pos.to(torch.int64).clamp(0, t_max - 1)
+    cos, sin = cs[0][logical][:, None], cs[1][logical][:, None]  # (B, 1, D)
+    bias = rowwise_step_bias(pos, t_max)
+    bidx = torch.arange(x.shape[0], device=dev)
+
+    def write(cache, rows):
+        new = rows[:, 0].to(cache.dtype)
+        if active is not None:
+            new = torch.where(active[:, None, None], new, cache[bidx, logical])
+        cache[bidx, logical] = new
+
+    for p, ls in zip(params["layers"], state["layers"]):
+        x = _layer(p, cfg, x, ls, cos, sin, bias, write)
     return x, state
 
 
@@ -288,3 +338,10 @@ def left_step_bias(shift: torch.Tensor, pos, t_max: int) -> torch.Tensor:
     kpos = torch.arange(t_max, device=shift.device)[None, :]
     keep = (kpos >= shift[:, None]) & (kpos <= pos)
     return _bias(keep)[:, None, None]
+
+
+def rowwise_step_bias(pos: torch.Tensor, t_max: int) -> torch.Tensor:
+    """(B, 1, 1, T_max) step bias for compact per-row caches (every row's
+    prompt starts at slot 0): key slot t is kept iff ``t <= pos[b]``."""
+    kpos = torch.arange(t_max, device=pos.device)[None, :]
+    return _bias(kpos <= pos[:, None])[:, None, None]

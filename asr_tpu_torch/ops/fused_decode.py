@@ -147,17 +147,26 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def _matvec(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
-    """(1, K) f32 @ packed int4 (K/2, N) -> (1, N): per 128-row block
-    (bf16(x).u)*s - sum(bf16(x))*zs, scales in the (2, NB/2, N) layout."""
-    k2, n = q.shape
+def _nibbles(q: torch.Tensor) -> torch.Tensor:
+    """Packed int4 (K/2, N) -> its (K, N) nibble values as f32 (low nibble =
+    rows [0, K/2))."""
     u = q.view(torch.uint8)
-    vals = torch.cat([u & 0xF, u >> 4], dim=0).to(torch.float32)  # (K, N)
-    nb = 2 * k2 // BLOCK
+    return torch.cat([u & 0xF, u >> 4], dim=0).to(torch.float32)
+
+
+def _dot(x: torch.Tensor, vals: torch.Tensor, s: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
+    """(1, K) f32 @ nibble values (K, N) -> (1, N): per 128-row block
+    (bf16(x).u)*s - sum(bf16(x))*zs, scales in the (2, NB/2, N) layout."""
+    k, n = vals.shape
+    nb = k // BLOCK
     xb = _bf16(x).reshape(nb, BLOCK)
     part = torch.einsum("bk,bkn->bn", xb, vals.reshape(nb, BLOCK, n))
     s, zs = s.reshape(nb, n), zs.reshape(nb, n)
     return (part * s - xb.sum(dim=1, keepdim=True) * zs).sum(dim=0, keepdim=True)
+
+
+def _matvec(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
+    return _dot(x, _nibbles(q), s, zs)
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -169,44 +178,59 @@ def _rot_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+_MATVECS = (("wq", "qkv"), ("wo", "o"), ("wgu", "gu"), ("wd", "dn"))
+
+
+def _layer_weights(st: dict, l: int) -> dict:
+    """Layer l's four matvecs as (nibble values, scales, zero*scales)."""
+    return {w: (_nibbles(st[w][l]), st[f"{k}_s"][l], st[f"{k}_zs"][l]) for w, k in _MATVECS}
+
+
+def _layer(st: dict, l: int, mats: dict, cfg, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+           pos: int, shift: int, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Layer l of the step on x (1, H) over this layer's (T, kvw) caches,
+    whose row ``pos`` it writes in place; ``mats`` from :func:`_layer_weights`."""
+    nh, nkv, hd, f = cfg.num_heads, cfg.num_kv_heads, HEAD_DIM, cfg.ffn_dim
+    g, eps = nh // nkv, cfg.rms_eps
+    qd, kvw = nh * hd, nkv * hd
+    y = _rms(x, st["in_s"][l], eps)
+    qkv = _dot(y, *mats["wq"])
+    q = _rms(qkv[0, :qd].reshape(nh, hd), st["qn_s"][l], eps)
+    k = _rms(qkv[0, qd : qd + kvw].reshape(nkv, hd), st["kn_s"][l], eps)
+    v = qkv[0, qd + kvw :].reshape(nkv, hd)
+    q = q * cos + _rot_half(q) * sin
+    k = k * cos + _rot_half(k) * sin
+    kr = _bf16(kc[shift:pos]).reshape(pos - shift, nkv, hd)
+    vr = _bf16(vc[shift:pos]).reshape(pos - shift, nkv, hd)
+    kc[pos] = k.reshape(kvw).to(kc.dtype)
+    vc[pos] = v.reshape(kvw).to(vc.dtype)
+    qs32 = (q * hd ** -0.5).reshape(nkv, g, hd)
+    sc = torch.einsum("hgd,thd->hgt", _bf16(qs32), kr)
+    snew = (qs32 * k[:, None, :]).sum(dim=-1, keepdim=True)
+    allsc = torch.cat([sc, snew], dim=-1)
+    e = torch.exp(allsc - allsc.amax(dim=-1, keepdim=True))
+    pr = e / e.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("hgt,thd->hgd", _bf16(pr[..., :-1]), vr) + pr[..., -1:] * v[:, None, :]
+    x = x + _dot(ctx.reshape(1, qd), *mats["wo"])
+    y = _rms(x, st["post_s"][l], eps)
+    gu = _dot(y, *mats["wgu"])
+    hact = torch.nn.functional.silu(gu[:, :f]) * gu[:, f:]
+    return x + _dot(hact, *mats["wd"])
+
+
 def fused_decode_step_reference(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,
                                 v_cache: torch.Tensor, pos: int, shift: int,
                                 cos: torch.Tensor, sin: torch.Tensor):
     """Plain PyTorch version of the kernel, same arguments and results as
     :func:`fused_decode_step` (the caches take row ``pos`` in place)."""
     st = stacked
-    nh, nkv, hd, f = cfg.num_heads, cfg.num_kv_heads, HEAD_DIM, cfg.ffn_dim
-    g = nh // nkv
-    eps = cfg.rms_eps
     pos, shift = int(pos), int(shift)
-    qd, kvw = nh * hd, nkv * hd
-    cos, sin = cos.reshape(1, hd).to(torch.float32), sin.reshape(1, hd).to(torch.float32)
+    cos, sin = cos.reshape(1, HEAD_DIM).to(torch.float32), sin.reshape(1, HEAD_DIM).to(torch.float32)
     x = x.to(torch.float32).reshape(1, cfg.hidden)
     for l in range(k_cache.shape[0]):
-        y = _rms(x, st["in_s"][l], eps)
-        qkv = _matvec(y, st["wq"][l], st["qkv_s"][l], st["qkv_zs"][l])
-        q = _rms(qkv[0, :qd].reshape(nh, hd), st["qn_s"][l], eps)
-        k = _rms(qkv[0, qd : qd + kvw].reshape(nkv, hd), st["kn_s"][l], eps)
-        v = qkv[0, qd + kvw :].reshape(nkv, hd)
-        q = q * cos + _rot_half(q) * sin
-        k = k * cos + _rot_half(k) * sin
-        kc = _bf16(k_cache[l, shift:pos]).reshape(pos - shift, nkv, hd)
-        vc = _bf16(v_cache[l, shift:pos]).reshape(pos - shift, nkv, hd)
-        k_cache[l, pos] = k.reshape(kvw).to(k_cache.dtype)
-        v_cache[l, pos] = v.reshape(kvw).to(v_cache.dtype)
-        qs32 = (q * hd ** -0.5).reshape(nkv, g, hd)
-        sc = torch.einsum("hgd,thd->hgt", _bf16(qs32), kc)
-        snew = (qs32 * k[:, None, :]).sum(dim=-1, keepdim=True)
-        allsc = torch.cat([sc, snew], dim=-1)
-        e = torch.exp(allsc - allsc.amax(dim=-1, keepdim=True))
-        pr = e / e.sum(dim=-1, keepdim=True)
-        ctx = torch.einsum("hgt,thd->hgd", _bf16(pr[..., :-1]), vc) + pr[..., -1:] * v[:, None, :]
-        x = x + _matvec(ctx.reshape(1, qd), st["wo"][l], st["o_s"][l], st["o_zs"][l])
-        y = _rms(x, st["post_s"][l], eps)
-        gu = _matvec(y, st["wgu"][l], st["gu_s"][l], st["gu_zs"][l])
-        hact = torch.nn.functional.silu(gu[:, :f]) * gu[:, f:]
-        x = x + _matvec(hact, st["wd"][l], st["dn_s"][l], st["dn_zs"][l])
-    hidden = _rms(x, st["fn_s"], eps)
+        x = _layer(st, l, _layer_weights(st, l), cfg, x, k_cache[l], v_cache[l], pos, shift, cos,
+                   sin)
+    hidden = _rms(x, st["fn_s"], cfg.rms_eps)
     logits = None
     if "wh" in st:
         logits = _matvec(hidden, st["wh"], st["h_s"][0], st["h_zs"][0])

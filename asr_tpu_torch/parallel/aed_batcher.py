@@ -24,40 +24,27 @@ hand-written kernel on a card). Otherwise the state is the solo
 :func:`aed_decoder_step_rowwise`, whose linears go through ``dense`` (the
 int8 kernel on a card for q8 weights). Both layouts are updated in place.
 
-A tick runs ``steps_per_tick`` steps with no host synchronisation between
-them, then fetches one ``(3, K, n_slots)`` event tensor (active, token,
-finished). Per-slot output equals the request run alone: greedy and penalty
-bitwise up to the batch's summation order, sampling by construction -- each
-request draws its noise from its own ``torch.Generator``, seeded from
-(base seed, request seed) with automatic seeds kept apart from explicit
-ones, so its tokens depend only on its seed and its own step index.
-
-Thread model: every method from one thread (the server's decode thread),
-as in the JAX package; only the free-slot list is locked.
+The slot bookkeeping, sampling streams, ticks and the rest of the engine
+API are ``slot_engine.SlotEngine``'s. Per-slot output equals the request run
+alone: greedy and penalty bitwise up to the batch's summation order,
+sampling by construction (each request's own noise stream).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
-from typing import Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from asr_tpu_torch.decode.ar import DecodeConfig, select_token
-from asr_tpu_torch.decode.strategies import suppress_tokens, uniform_noise
+from asr_tpu_torch.decode.ar import DecodeConfig
 from asr_tpu_torch.layers.attention import NEG_INF, mha
 from asr_tpu_torch.layers.norms import layer_norm
 from asr_tpu_torch.layers.transformer import dense, merge_heads, split_heads
 from asr_tpu_torch.ops.fused_aed_multi import fused_aed_step_multi, kernel_takes
 from asr_tpu_torch.ops.fused_aed_step import AedGeom
+from asr_tpu_torch.parallel.slot_engine import SlotEngine, SlotNoise
 from asr_tpu_torch.quant.quantize import embedding_logits
-
-# noise(request seed, draw index, shape, device) -> uniform f32 draw in
-# [1e-20, 1); draw 0 picks the first token, draw k the k-th step's.
-SlotNoise = Callable[[int | None, int, tuple, torch.device], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,15 +135,7 @@ def aed_decoder_step_rowwise(dec: dict, spec: AedEngineSpec, x: torch.Tensor, st
     return layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"]), state
 
 
-def _request_seed(base: int, explicit: bool, seed: int) -> int:
-    """The generator seed of one request: (base seed, explicit or automatic,
-    request seed) mixed, so an explicit seed N never meets the Nth automatic
-    one."""
-    words = np.random.SeedSequence([base, int(explicit), seed]).generate_state(2, np.uint32)
-    return int(words[0]) << 31 ^ int(words[1])
-
-
-class ContinuousAedBatcher:
+class ContinuousAedBatcher(SlotEngine):
     """Slot-based continuous decode over one AED decoder.
 
     The engine API (``try_submit`` / ``step`` / ``step_tick`` /
@@ -187,13 +166,9 @@ class ContinuousAedBatcher:
                  noise: SlotNoise | None = None):
         self.dec = params["decoder"]
         self.spec = spec
-        self.dc = decode_cfg
-        self.n_slots = int(n_slots)
-        if self.n_slots < 1:
-            raise ValueError("n_slots must be >= 1")
         self.kv_dtype = kv_dtype
-        self.gen_cap = decode_cfg.max_new_tokens + 1
-        self.device = self.dec["pos"].device
+        self._init_slots(n_slots, decode_cfg, spec.t_max, spec.vocab_size, self.dec["pos"].device,
+                         seed, steps_per_tick, noise)
         self._geom = AedGeom(spec.d_model, spec.ffn_dim, spec.num_heads)
         self.stacked = (stacked if stacked is not None and kernel_takes(self._geom, self.n_slots)
                         else None)
@@ -212,74 +187,22 @@ class ContinuousAedBatcher:
                 {"self_k": zeros(n, t, h, hd), "self_v": zeros(n, t, h, hd),
                  "cross_k": zeros(n, spec.tc_max, h, hd), "cross_v": zeros(n, spec.tc_max, h, hd)}
                 for _ in range(nl))}
-        self.gen_buf = zeros(n, self.gen_cap, dtype=torch.int64)
-        self.pos = zeros(n, dtype=torch.int32)       # p_len + count
         self.tc_valid = zeros(n, dtype=torch.int32)
-        self.last = zeros(n, dtype=torch.int64)
-        self.count = zeros(n, dtype=torch.int64)
-        self.active = zeros(n, dtype=torch.bool)
-        self._base_seed = int(seed)
-        self._noise = noise
-        self._seed_counter = 0  # automatic request seeds (try_submit)
-        self._req_seed: list[int | None] = [None] * n
-        self._gens: list[torch.Generator | None] = [None] * n
-        self._draws = [0] * n
-        self._free = list(range(n))
-        self._active_host = np.zeros(n, bool)
-        self._gen_host: list[list[int]] = [[] for _ in range(n)]
-        self._lock = threading.Lock()
-        self.steps_per_tick = max(int(steps_per_tick), 1)
-        self.last_tick_substeps = 0
 
-    # ── sampling noise ───────────────────────────────────────────────────
-    def _noise_row(self, slot: int, shape: tuple) -> torch.Tensor:
-        k = self._draws[slot]
-        self._draws[slot] += 1
-        if self._noise is not None:
-            return self._noise(self._req_seed[slot], k, shape, self.device)
-        return uniform_noise(shape, self.device, self._gens[slot])
-
-    def _step_noise(self) -> torch.Tensor | None:
-        """(n_slots, V) draws for one step: a row from each live slot's own
-        stream, a constant for the others (their tokens are discarded)."""
-        if self.dc.strategy != "sampling":
-            return None
-        shape = (1, self.spec.vocab_size)
-        return torch.cat([self._noise_row(i, shape) if self._active_host[i]
-                          else torch.full(shape, 0.5, device=self.device)
-                          for i in range(self.n_slots)])
-
-    # ── one device step (no host sync) ───────────────────────────────────
-    def _step_body(self, noise: torch.Tensor | None) -> torch.Tensor:
-        spec, dc = self.spec, self.dc
+    def _logits(self) -> torch.Tensor:
+        spec = self.spec
         x = _embed_rows(self.dec, spec, self.last, self.pos)
         if self.stacked is not None:
             st = self.state
             posf = torch.where(self.active, self.pos, -1)  # parked slots write nowhere
             lg, _, _ = fused_aed_step_multi(self.stacked, self._geom, x, st["k"], st["v"],
                                             st["ck"], st["cv"], posf, self.tc_valid)
-            logits = lg[:, : spec.vocab_size]
-        else:
-            hidden, _ = aed_decoder_step_rowwise(self.dec, spec, x[:, None], self.state,
-                                                 self.pos, self.tc_valid, self.active)
-            head = self.dec["out"] if "out" in self.dec else self.dec["embed"]
-            logits = embedding_logits(head, hidden[:, -1])
-        logits = suppress_tokens(logits.to(torch.float32), dc.suppress_ids)
-        tok = select_token(logits, self.gen_buf, self.count, dc, history_start=0,
-                           noise=None if noise is None else lambda shape, dev: noise)
-        act = self.active.clone()
-        tok = torch.where(act, tok, dc.eot_id)
-        col = torch.clamp(self.count, max=self.gen_cap - 1)[:, None]
-        self.gen_buf.scatter_(1, col, torch.where(act[:, None], tok[:, None],
-                                                  self.gen_buf.gather(1, col)))
-        self.count += act
-        self.pos += act.to(torch.int32)
-        still = act & (tok != dc.eot_id) & (self.count < self.gen_cap) & (self.pos < spec.t_max)
-        self.last.copy_(tok)
-        self.active.copy_(still)
-        return torch.stack([act.to(torch.int64), tok, (act & ~still).to(torch.int64)])
+            return lg[:, : spec.vocab_size]
+        hidden, _ = aed_decoder_step_rowwise(self.dec, spec, x[:, None], self.state, self.pos,
+                                             self.tc_valid, self.active)
+        head = self.dec["out"] if "out" in self.dec else self.dec["embed"]
+        return embedding_logits(head, hidden[:, -1])
 
-    # ── engine API ───────────────────────────────────────────────────────
     @torch.inference_mode()
     def try_submit(self, small_state: dict, p_len: int, logits0: torch.Tensor,
                    tc_valid: int, seed: int | None = None) -> int | None:
@@ -298,29 +221,15 @@ class ContinuousAedBatcher:
 
         Returns the slot id, or None when all slots are busy.
         """
-        with self._lock:
-            if not self._free:
-                return None
-            slot = self._free.pop(0)
-            explicit = seed is not None
-            seed_i = int(seed) if explicit else self._seed_counter
-            self._seed_counter += not explicit
+        claim = self._claim(seed)
+        if claim is None:
+            return None
+        slot, explicit, seed_i = claim
         if p_len + self.gen_cap > self.spec.t_max:
-            with self._lock:
-                self._free.insert(0, slot)
+            self._unclaim(slot)
             raise ValueError(f"prompt {p_len} + budget {self.gen_cap} exceeds t_max "
                              f"{self.spec.t_max}")
-        self._req_seed[slot] = seed_i if explicit else None
-        self._draws[slot] = 0
-        self._gens[slot] = None
-        dc = self.dc
-        if dc.strategy == "sampling" and self._noise is None:
-            self._gens[slot] = torch.Generator(device=self.device).manual_seed(
-                _request_seed(self._base_seed, explicit, seed_i))
-        first = select_token(logits0.to(torch.float32),
-                             torch.zeros((1, self.gen_cap), dtype=torch.int64, device=self.device),
-                             0, dc, history_start=0,
-                             noise=lambda shape, dev: self._noise_row(slot, shape))[0]
+        first = self._first_token(slot, explicit, seed_i, logits0)
         d = self.spec.d_model
         layers = small_state["layers"]
         tc = layers[0]["cross_k"].shape[1]
@@ -335,74 +244,6 @@ class ContinuousAedBatcher:
             for big, sm in zip(self.state["layers"], layers):
                 for key, t in sm.items():
                     big[key][slot, : t.shape[1]] = t[0]
-        self.gen_buf[slot] = 0
-        self.gen_buf[slot, 0] = first
-        self.pos[slot] = p_len
         self.tc_valid[slot] = tc_valid
-        self.last[slot] = first
-        self.count[slot] = 1
-        first_h = int(first)
-        live = first_h != dc.eot_id and self.gen_cap > 1
-        self.active[slot] = live
-        self._active_host[slot] = live
-        self._gen_host[slot] = [first_h]
+        self._start(slot, first, p_len)
         return slot
-
-    @torch.inference_mode()
-    def step(self) -> list[tuple[int, int, bool]]:
-        was_active = self._active_host.copy()
-        if not was_active.any():
-            self.last_tick_substeps = 0
-            return []
-        self.last_tick_substeps = 1
-        _, tok_h, fin_h = self._step_body(self._step_noise()).cpu().numpy()  # ONE fetch
-        fin_h = fin_h.astype(bool)
-        self._active_host = was_active & ~fin_h
-        events = [(i, int(tok_h[i]), bool(fin_h[i])) for i in range(self.n_slots) if was_active[i]]
-        for i, t, _f in events:
-            self._gen_host[i].append(t)
-        return events
-
-    @torch.inference_mode()
-    def step_tick(self) -> list[tuple[int, int, bool]]:
-        if self.steps_per_tick == 1:
-            return self.step()
-        if not self._active_host.any():
-            self.last_tick_substeps = 0
-            return []
-        outs = [self._step_body(self._step_noise()) for _ in range(self.steps_per_tick)]
-        act_h, tok_h, fin_h = torch.stack(outs, dim=1).cpu().numpy()  # ONE fetch: (3, K, n)
-        act_h = act_h.astype(bool)
-        fin_h = fin_h.astype(bool)
-        self.last_tick_substeps = int(act_h.any(axis=1).sum())
-        self._active_host = act_h[-1] & ~fin_h[-1]
-        events = [(i, int(tok_h[s, i]), bool(fin_h[s, i]))
-                  for s in range(act_h.shape[0]) for i in range(self.n_slots) if act_h[s, i]]
-        for i, t, _f in events:
-            self._gen_host[i].append(t)
-        return events
-
-    def take_result(self, slot: int) -> list[int]:
-        ids = list(self._gen_host[slot])
-        with self._lock:
-            if slot not in self._free:
-                self._free.append(slot)
-        return ids
-
-    @torch.inference_mode()
-    def cancel(self, slot: int) -> None:
-        self.active[slot] = False
-        self._active_host[slot] = False
-        with self._lock:
-            if slot not in self._free:
-                self._free.append(slot)
-
-    def is_active(self, slot: int) -> bool:
-        return bool(self._active_host[slot])
-
-    def snapshot(self, slot: int) -> list[int]:
-        return list(self._gen_host[slot])
-
-    @property
-    def n_active(self) -> int:
-        return int(self._active_host.sum())

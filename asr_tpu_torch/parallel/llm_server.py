@@ -1,22 +1,26 @@
-"""Continuous-batching HTTP serving (the AED families: Whisper).
+"""Continuous-batching HTTP serving (the LLM families: Qwen3-ASR; the AED
+families: Whisper).
 
-Counterpart of ``asr_tpu/parallel/llm_server.py`` (its AED branch). The
-micro-batched ``SessionServer`` (``http_server.py``) runs each batch to its
-end before the next starts; this server keeps one
-:class:`~asr_tpu_torch.parallel.aed_batcher.ContinuousAedBatcher` running
-and lets requests join and leave it mid-flight: every admitted request
-starts decoding on the very next step, and a finished slot frees at once.
+Counterpart of ``asr_tpu/parallel/llm_server.py``. The micro-batched
+``SessionServer`` (``http_server.py``) runs each batch to its end before the
+next starts; this server keeps one continuous batcher running and lets
+requests join and leave it mid-flight: every admitted request starts
+decoding on the very next step, and a finished slot frees at once. An LLM
+session (``prompt_embeds``) runs on
+:class:`~asr_tpu_torch.parallel.llm_batcher.ContinuousLlmBatcher`, an AED
+session (``continuous_prefill``) on
+:class:`~asr_tpu_torch.parallel.aed_batcher.ContinuousAedBatcher`.
 
-All device work (each request's ``continuous_prefill``, the slot insert,
-the decode steps) happens on one decode thread, which enters
+All device work (each request's prompt embeddings or prefill, the slot
+insert, the decode steps) happens on one decode thread, which enters
 ``torch.inference_mode`` itself; HTTP handler threads only enqueue requests
 and wait on per-request events.
 
 Endpoints are those of ``http_server.py`` (``POST /transcribe`` with a
 WAV/FLAC/OGG/MP3 body, ``GET /healthz``); ``/healthz`` adds slot occupancy,
-decode steps and step latency. Left out: the LLM families' engine
-(``prompt_embeds`` sessions, which come with the LLM slice) and replicas
-across cards (``data_parallel`` > 1, ``tensor_parallel`` > 1).
+decode steps and step latency. Left out: replicas across cards
+(``data_parallel`` > 1) and the tensor-parallel engine (``tensor_parallel``
+> 1); both raise.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from asr_tpu_torch.parallel.aed_batcher import ContinuousAedBatcher
+from asr_tpu_torch.parallel.llm_batcher import ContinuousLlmBatcher, _bucket
 from asr_tpu_torch.parallel.http_server import (
     _join_window_texts,
     decode_audio_bytes,
@@ -55,41 +60,54 @@ class _Req:
 class ContinuousSessionServer:
     """Continuous decode batches behind an HTTP front end.
 
-    ``session`` must expose the AED continuous surface
-    (``continuous_prefill``, ``aed_engine_spec``, ``params``, ``stacked``,
-    ``decode_cfg``, ``window_samples``), as ``WhisperSession`` does. With
-    the session's stacked q8 weights every decode step is one multi-slot
-    kernel call (``step_kernel`` "fused" in ``/healthz``), else the rowwise
-    step ("rowwise").
+    ``session`` exposes the LLM continuous surface (``prompt_embeds``,
+    ``llm_params``, ``llm_cfg``, ``decode_cfg``, ``window_samples``), as
+    ``QwenAsrSession`` does, or the AED one (``continuous_prefill``,
+    ``aed_engine_spec``, ``params``, ``decode_cfg``, ``window_samples``), as
+    ``WhisperSession`` does. With the session's stacked weights (q4 for the
+    LLM, q8 for AED) every decode step is one multi-slot kernel call
+    (``step_kernel`` "fused" in ``/healthz``), else the rowwise step
+    ("rowwise"). An LLM engine's caches hold one prefill bucket of the
+    session's (fixed) prompt length plus the token budget.
     """
 
     def __init__(self, session, n_slots: int = 8, language: str | None = None,
                  context: str = "", warmup: bool = True, kv_dtype: str = "f32",
                  data_parallel: int = 1, steps_per_tick: int = 1, tensor_parallel: int = 1):
-        if not hasattr(session, "continuous_prefill"):
-            if hasattr(session, "prompt_embeds"):
-                raise TypeError(
-                    f"{type(session).__name__} is an LLM-decoder session: its continuous "
-                    "engine comes with the port's LLM slice")
+        self._aed = hasattr(session, "continuous_prefill")
+        if not self._aed and not hasattr(session, "prompt_embeds"):
             raise TypeError(
                 f"{type(session).__name__} has no continuous serving surface; continuous "
-                "batching serves the AED families (whisper)")
+                "batching serves the LLM families (qwen_asr) and the AED families (whisper)")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be f32 or bf16, got {kv_dtype!r}")
         if int(tensor_parallel) > 1:
-            raise ValueError("--tensor-parallel does not compose with the AED continuous engine")
+            raise ValueError("--tensor-parallel does not compose with the AED continuous engine"
+                             if self._aed else
+                             "tensor_parallel > 1 (the tensor-parallel LLM engine) is not in the "
+                             "port yet")
         if int(data_parallel) > 1:
             raise ValueError("data_parallel > 1 (one replica per card) is not in the port yet")
-        del context  # the LLM engines' prompt text; the AED engine takes none
         self.session = session
         self._language = language
+        self._context = context
         self.sample_rate = getattr(session, "sample_rate", 16000)
         self.pcm_scale = getattr(session, "pcm_scale", 32768.0)
         self.window = session.window_samples
-        self.batcher = ContinuousAedBatcher(
-            session.params, session.aed_engine_spec(), session.decode_cfg, n_slots=n_slots,
-            kv_dtype=KV_DTYPES[kv_dtype], stacked=getattr(session, "stacked", None),
-            steps_per_tick=steps_per_tick)
+        dc, kvd, stacked = session.decode_cfg, KV_DTYPES[kv_dtype], getattr(session, "stacked", None)
+        if self._aed:
+            self.batcher = ContinuousAedBatcher(
+                session.params, session.aed_engine_spec(), dc, n_slots=n_slots, kv_dtype=kvd,
+                stacked=stacked, steps_per_tick=steps_per_tick)
+        else:
+            # The prompt length is the same for every request (the audio pads
+            # to the window): the caches hold its bucket and the budget.
+            self._probe, _ = session.prompt_embeds(np.zeros(16, np.float32), context=context,
+                                                   language=language)
+            self.batcher = ContinuousLlmBatcher(
+                session.llm_params, session.llm_cfg, dc, n_slots=n_slots,
+                t_max=_bucket(int(self._probe.shape[0])) + dc.max_new_tokens + 1, kv_dtype=kvd,
+                stacked=stacked, steps_per_tick=steps_per_tick)
         self._slot_req: dict[int, _Req] = {}
         self._cv = threading.Condition()
         self._pending: collections.deque[_Req] = collections.deque()
@@ -112,9 +130,12 @@ class ContinuousSessionServer:
     # ── the decode thread (the only thread touching device state) ────────
     def _warmup(self) -> None:
         """Load the kernels and run one prefill, insert and step."""
-        pre = self.session.continuous_prefill(np.zeros(16, np.float32), language=self._language)
-        slot = self.batcher.try_submit(pre["state"], pre["p_len"], pre["logits0"],
-                                       pre["tc_valid"])
+        if self._aed:
+            pre = self.session.continuous_prefill(np.zeros(16, np.float32), language=self._language)
+            slot = self.batcher.try_submit(pre["state"], pre["p_len"], pre["logits0"],
+                                           pre["tc_valid"])
+        else:
+            slot = self.batcher.try_submit(self._probe, 1)
         if self.batcher.is_active(slot):
             self.batcher.step_tick()
             self.batcher.cancel(slot)
@@ -170,16 +191,21 @@ class ContinuousSessionServer:
 
     def _admit(self, req: _Req) -> None:
         try:
-            pre = self.session.continuous_prefill(req.samples, language=self._language)
-            if pre["skip"]:  # no-speech window: empty result, no slot
-                req.t_admit = time.perf_counter()
-                with self._stats_lock:
-                    self._queue_wait_total += req.t_admit - req.t_enqueue
-                req.ids = []
-                self._complete(req)
-                return
-            slot = self.batcher.try_submit(pre["state"], pre["p_len"], pre["logits0"],
-                                           pre["tc_valid"], seed=req.seed)
+            if not self._aed:
+                embeds, valid = self.session.prompt_embeds(req.samples, context=self._context,
+                                                            language=self._language)
+                slot = self.batcher.try_submit(embeds, max(valid, 1), seed=req.seed)
+            else:
+                pre = self.session.continuous_prefill(req.samples, language=self._language)
+                if pre["skip"]:  # no-speech window: empty result, no slot
+                    req.t_admit = time.perf_counter()
+                    with self._stats_lock:
+                        self._queue_wait_total += req.t_admit - req.t_enqueue
+                    req.ids = []
+                    self._complete(req)
+                    return
+                slot = self.batcher.try_submit(pre["state"], pre["p_len"], pre["logits0"],
+                                               pre["tc_valid"], seed=req.seed)
         except Exception as exc:  # bad audio etc.: fail this request only
             req.error = exc
             req.event.set()
@@ -266,7 +292,7 @@ class ContinuousSessionServer:
             "ok": fatal is None,
             **({"error": f"{type(fatal).__name__}: {fatal}"} if fatal else {}),
             "engine": "continuous",
-            "decoder": "aed",
+            "decoder": "aed" if self._aed else "llm",
             "step_kernel": "fused" if self.batcher.stacked is not None else "rowwise",
             "replicas": 1,
             "tensor_parallel": 1,

@@ -11,7 +11,9 @@ prefix, which :func:`parse_asr_output` splits off.
 When the parameters are on a CUDA card and quantized matmuls run in the
 ``bf16`` mode, the session stacks the q4-packed LLM for the fused decode
 step (``ops/fused_decode.py``); a batch-1 transcription then runs every
-decode step as one kernel call, with the tied head inside it.
+decode step as one kernel call, with the tied head inside it, and the
+continuous server (``parallel/llm_server.py``) every step of all its slots
+as one call of the multi-slot kernel (``ops/fused_decode_multi.py``).
 """
 
 from __future__ import annotations
@@ -218,6 +220,11 @@ class QwenAsrSession:
             torch.tensor([len(s)], device=self.device),
             self._batch_ids(self._prompt_ids(context, language), 1))
         return embeds[0], int(valid[0])
+
+    @property
+    def llm_cfg(self):
+        """The LLM decoder's config (the continuous server's engine needs it)."""
+        return self.cfg.llm
 
     # ---- micro-batched HTTP serving surface (parallel/http_server.py) ----
 

@@ -5,7 +5,7 @@ Run from the repository root, with one card visible:
 
     python3 chip_smoke.py
 
-Phases: (1) the card; (2) build the five kernels from
+Phases: (1) the card; (2) build the six kernels from
 ``asr_tpu_torch/csrc`` with nvcc, one process per source, at once; (3)
 the int8 dequant-matmul kernel against its plain PyTorch version at every
 SenseVoiceSmall q8 shape, timed in turns; (4) SenseVoiceSmall at its full published geometry
@@ -43,7 +43,18 @@ step, one 30 s window's tower, prefill and per-token times, RTF and peak
 memory, and the q4 logits against plain matmuls on dequantized weights;
 (17) the same session behind the HTTP micro-batcher, 5 concurrent requests
 in batches of 4 (the per-weight route, int4 kernel at M = 4), each
-request's ids against the per-weight route alone.
+request's ids against the per-weight route alone; (18) the multi-slot Qwen3
+decode step against its plain version at full width (B = 2 and 8, f32 and
+bf16 caches, the head in the kernel and separate, mixed positions up to 700
+and one parked slot; phase 15's limits) and, slot by slot, bitwise against
+the batch-1 kernel; (19) its time at B = 2, 4, 8 against the plain
+version's, in turns, with its bound and a profile at B = 8; (20)
+continuous serving of phase 16's artifact over HTTP: 17 concurrent requests
+of 5-30 s with staggered starts on 8 slots, every decode step through the
+multi-slot kernel, each request's ids against the same request alone
+through the batcher (bitwise) and against ``session.transcribe`` (a
+teacher-forced replay where they differ), the serving numbers, and two
+requests on the rowwise route.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -53,7 +64,9 @@ decode step; continuous serving launches the multi-slot kernel once per
 decode step and never the batch-1 kernel; one Qwen3-ASR window launches
 the int8 kernel 195 times (the tower), the int4 kernel 113 times (the
 prefill's 28 x 4 linears and the first logits) and the fused Qwen3 step
-once per decode step.
+once per decode step; continuous Qwen3-ASR serving launches the multi-slot
+Qwen3 step once per decode step, the int4 kernel 113 times a prefill and
+never the batch-1 step.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -954,14 +967,15 @@ def phase_p4(torch, qm, quantize_linear, m_prefill: int, card: str) -> dict:
     return {"rows": rows, "max_abs_err": worst, "per_prefill": per_prefill}
 
 
-def qwen_step_bytes(stacked: dict, nl: int, kvw: int, rows: int, itemsize: int) -> tuple[int, float]:
-    """(bytes, operations) of one step: every stacked array read once, the
-    attended cache rows of k and v, the written row; 2 operations per int4
-    weight and the attention's scores and P.V over the rows."""
+def qwen_step_bytes(stacked: dict, nl: int, kvw: int, rows: list, itemsize: int) -> tuple[int, float]:
+    """(bytes, operations) of one step of len(rows) slots: every stacked
+    array read once for all slots, and per slot its attended cache rows of k
+    and v and the written row; 2 operations per int4 weight and slot, and
+    each slot's scores and P.V over its rows."""
     weights = sum(t.numel() * t.element_size() for t in stacked.values())
     nibbles = 2 * sum(stacked[k].numel() for k in ("wq", "wo", "wgu", "wd", "wh") if k in stacked)
-    nbytes = weights + 2 * nl * (rows + 1) * kvw * itemsize
-    return nbytes, 2.0 * nibbles + 2 * 2 * nl * (rows + 1) * 2 * kvw
+    nbytes = weights + sum(2 * nl * (r + 1) * kvw * itemsize for r in rows)
+    return nbytes, float(sum(2.0 * nibbles + 2 * 2 * nl * (r + 1) * 2 * kvw for r in rows))
 
 
 def phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card: str) -> dict:
@@ -1060,7 +1074,7 @@ def phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card: str) -> dict:
             lambda: fd.fused_decode_step_reference(stacked, cfg, x, kk, vk, pos, shift, cos, sin),
             lambda: fd.fused_decode_step_cuda(stacked, cfg, x, kk, vk, pos, shift, cos, sin),
             plain_iters=3)
-        nbytes, ops = qwen_step_bytes(stacked, nl, kvw, pos - shift, kc.element_size())
+        nbytes, ops = qwen_step_bytes(stacked, nl, kvw, [pos - shift], kc.element_size())
         b_ms, b_by = bound(nbytes, ops)
         times[cache] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by}
         print(f"[15 decode] cache={cache} pos={pos} shift={shift}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; "
@@ -1405,6 +1419,349 @@ def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str) -> dict:
     return {"int8": int8, "int4": int4, "wall_s": wall, "equal": equal}
 
 
+# ── 18-20. the multi-slot Qwen3 step, continuous Qwen3-ASR serving ────────
+# Slot positions of the step checks (one parked, -1) and the cache rows.
+QWEN_MULTI_POS = {2: (700, -1), 8: (0, 5, 64, 200, 440, -1, 650, 700)}
+QWEN_MULTI_T = 712
+QWEN_MULTI_TIMED_B = (2, 4, 8)
+QWEN_MULTI_TIMED_POS = 440
+QWEN_CONT_SLOTS = 8
+QWEN_CONT_SECONDS = (5.0, 30.0)  # 17 requests of one window each, lengths drawn from this range
+QWEN_CONT_REQUESTS = 17
+HEAD_KEYS = ("wh", "h_s", "h_zs")
+
+
+def phase_decode_multi_vs_plain(torch, fd, fdm, qwen3, quantize_pytree, card: str) -> dict:
+    """[18] The multi-slot Qwen3 step against its plain version at full
+    width (B = 2 and 8, f32 and bf16 caches, the head in the kernel and
+    separate, mixed positions up to 700 and one parked slot), with phase
+    15's limits, and slot by slot bitwise against the batch-1 kernel at
+    shift 0. Returns the stacked weights for phase 19."""
+    from asr_tpu_torch.layers.rope import rope_tables
+
+    cfg = qwen3.Qwen3Config()
+    g = torch.Generator(device=DEV).manual_seed(18)
+    params = qwen3.fuse_params(quantize_pytree(qwen3.init_params(cfg, g), bits=4, pack=True,
+                                               refine_iters=0, quantize_embeddings=True), cfg)
+    stacked = fd.stack_decode_params(params, cfg)
+    check(stacked is not None and "wh" in stacked, "the q4 LLM did not stack with its head")
+    del params
+    for key in ("in_s", "post_s", "qn_s", "kn_s", "fn_s"):  # the init has ones
+        stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
+    nl, kvw, v, t = cfg.num_layers, cfg.num_kv_heads * 128, cfg.vocab_size, QWEN_MULTI_T
+    one_cfg = dataclasses.replace(cfg, num_layers=1)
+    one = {k: (a[:1].contiguous() if a.shape[0] == nl and k != "fn_s" else a) for k, a in stacked.items()}
+    host = {k: a.cpu() for k, a in stacked.items()}
+    cs = torch.from_numpy(rope_tables(t, 128, cfg.rope_theta)).to(DEV)
+    g_ulp = torch.Generator(device=DEV).manual_seed(181)
+    inf = torch.tensor(float("inf"), device=DEV)
+    rows, worst, failures, bitwise = [], 0.0, [], 0
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    def dist(h, lg, hr, lr, b):
+        e = rel(h[b], hr[b])
+        return e if lg is None else max(e, rel(lg[b, :v], lr[b, :v]))
+
+    for bs, pos_l in QWEN_MULTI_POS.items():
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=DEV)
+        logical = pos.clamp(min=0).long()
+        cos, sin = cs[0][logical], cs[1][logical]
+        x = torch.randn((bs, cfg.hidden), generator=g, device=DEV) * 0.05
+        live = [b for b, p in enumerate(pos_l) if p >= 0]
+        for cdt in (torch.float32, torch.bfloat16):
+            cache = str(cdt).split(".")[-1]
+            kc = torch.randn((nl, bs, t, kvw), generator=g, device=DEV).to(cdt)
+            vc = torch.randn((nl, bs, t, kvw), generator=g, device=DEV).to(cdt)
+            # the plain version's own spread, slot by slot: host vs card, and
+            # the card again with every element of x moved by one f32 ulp
+            hc, lc, _, _ = fdm.fused_decode_step_multi_reference(stacked, cfg, x, kc.clone(), vc.clone(),
+                                                                  pos, cos, sin)
+            hh, lh, _, _ = fdm.fused_decode_step_multi_reference(host, cfg, x.cpu(), kc.cpu(), vc.cpu(),
+                                                                 pos.cpu(), cos.cpu(), sin.cpu())
+            drift = [dist(hh, lh, hc.cpu(), lc.cpu(), b) for b in range(bs)]
+            for _ in range(QWEN_ULP_DRAWS):
+                away = torch.where(torch.rand(x.shape, generator=g_ulp, device=DEV) < 0.5, -inf, inf)
+                hu, lu, _, _ = fdm.fused_decode_step_multi_reference(
+                    stacked, cfg, torch.nextafter(x, away), kc.clone(), vc.clone(), pos, cos, sin)
+                drift = [max(drift[b], dist(hu, lu, hc, lc, b)) for b in range(bs)]
+            for head in ("in", "separate"):
+                sel = (lambda d: d) if head == "in" else (
+                    lambda d: {k: a for k, a in d.items() if k not in HEAD_KEYS})
+                errs = {}
+                for depth, c, stk in (("one", one_cfg, sel(one)), ("all", cfg, sel(stacked))):
+                    n = c.num_layers
+                    kk, vk, kp, vp = (a[:n].clone() for a in (kc, vc, kc, vc))
+                    h, lg, _, _ = fdm.fused_decode_step_multi_cuda(stk, c, x, kk, vk, pos, cos, sin)
+                    torch.cuda.synchronize()
+                    hr, lr, _, _ = fdm.fused_decode_step_multi_reference(stk, c, x, kp, vp, pos, cos, sin)
+                    check(bool(torch.isfinite(h).all()), f"B={bs} {cache}: non-finite hidden")
+                    if head == "in":
+                        check(bool(torch.isfinite(lg).all()) and bool((lg[:, v:] == 0).all()),
+                              f"B={bs} {cache}: non-finite logits or pad logits not exactly 0")
+                        if depth == "all":
+                            worst = max(worst, (lg[live, :v] - lr[live, :v]).abs().max().item())
+                    else:
+                        check(lg is None and lr is None, "a head-less step returned logits")
+                    errs[depth] = max(dist(h, lg, hr, lr, b) for b in live)
+                    row0 = 0.0
+                    for b, p in enumerate(pos_l):
+                        if p < 0:
+                            check(torch.equal(kk[:, b], kc[:n, b]) and torch.equal(vk[:, b], vc[:n, b]),
+                                  f"B={bs} {cache}: the parked slot's planes changed")
+                            continue
+                        e = dist(h, lg, hr, lr, b)
+                        tol = QWEN_ONE_LAYER_TOL if depth == "one" else max(QWEN_STEP_TOL, 2 * drift[b])
+                        if e > tol:
+                            failures.append(f"B={bs} {cache} head {head} {depth} slot {b}: {e} > {tol}")
+                        others = torch.arange(t, device=DEV) != p
+                        check(torch.equal(kk[:, b, others], kc[:n, b, others])
+                              and torch.equal(vk[:, b, others], vc[:n, b, others]),
+                              f"B={bs} {cache}: slot {b} rows other than pos {p} changed")
+                        r_err = max((kk[0, b, p].float() - kp[0, b, p].float()).abs().max().item(),
+                                    (vk[0, b, p].float() - vp[0, b, p].float()).abs().max().item())
+                        r_ref = max(kp[0, b, p].float().abs().max().item(),
+                                    vp[0, b, p].float().abs().max().item())
+                        check(r_err <= QWEN_ROW0_TOL[cache] * r_ref,
+                              f"B={bs} {cache}: slot {b} layer-0 row {r_err} > {QWEN_ROW0_TOL[cache]} * {r_ref}")
+                        row0 = max(row0, r_err / r_ref)
+                        # the batch-1 kernel at shift 0 on this slot alone
+                        kb, vb = kc[:n, b].contiguous(), vc[:n, b].contiguous()
+                        hb, lb, _, _ = fd.fused_decode_step_cuda(stk, c, x[b : b + 1], kb, vb, p, 0,
+                                                                 cos[b : b + 1], sin[b : b + 1])
+                        same = (torch.equal(h[b : b + 1], hb) and (lg is None or torch.equal(lg[b : b + 1], lb))
+                                and torch.equal(kk[:, b], kb) and torch.equal(vk[:, b], vb))
+                        check(same, f"B={bs} {cache} head {head} {depth}: slot {b} differs from the "
+                              "batch-1 kernel")
+                        bitwise += 1
+                rows.append({"b": bs, "cache": cache, "head": head, "one_layer_rel": errs["one"],
+                             "all_layers_rel": errs["all"], "plain_drift": max(drift[b] for b in live),
+                             "row0_rel": row0})
+                print(f"[18 multi] B={bs} cache={cache:8s} head={head:8s} pos={list(pos_l)}: kernel vs plain, "
+                      f"worst slot's max of hidden and logits, one layer {errs['one']:.2e}, {nl} layers "
+                      f"{errs['all']:.2e} (plain's own spread up to {max(drift[b] for b in live):.2e}); "
+                      f"layer-0 rows within {row0:.2e}; every live slot bitwise = the batch-1 kernel at "
+                      f"shift 0; other rows and the parked slot bitwise unchanged")
+    torch.cuda.synchronize()
+    check(not failures, "multi-slot step vs plain: " + "; ".join(failures))
+    print(f"[18 multi] {bitwise} slot results bitwise equal to fused_decode.cu  [{card}]")
+    del one, host
+    return {"rows": rows, "max_abs_err": worst, "bitwise_slots": bitwise, "stacked": stacked, "cfg": cfg}
+
+
+def phase_decode_multi_times(torch, fd, fdm, stacked: dict, cfg, one_ms: dict, card: str) -> dict:
+    """[19] The multi-slot step's time at B = 2, 4, 8 (all slots at pos
+    440), in turns with the plain version, beside its bound, and a
+    torch.profiler breakdown at B = 8."""
+    from asr_tpu_torch.layers.rope import rope_tables
+
+    nl, kvw, pos_t, t = cfg.num_layers, cfg.num_kv_heads * 128, QWEN_MULTI_TIMED_POS, 464
+    g = torch.Generator(device=DEV).manual_seed(19)
+    cs = torch.from_numpy(rope_tables(t, 128, cfg.rope_theta)).to(DEV)
+    times = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        cache = str(cdt).split(".")[-1]
+        for bs in QWEN_MULTI_TIMED_B:
+            kc = torch.randn((nl, bs, t, kvw), generator=g, device=DEV).to(cdt)
+            vc = torch.randn((nl, bs, t, kvw), generator=g, device=DEV).to(cdt)
+            x = torch.randn((bs, cfg.hidden), generator=g, device=DEV) * 0.05
+            pos = torch.full((bs,), pos_t, dtype=torch.int32, device=DEV)
+            cos, sin = cs[0, pos_t].expand(bs, -1).contiguous(), cs[1, pos_t].expand(bs, -1).contiguous()
+            k_ms, p_ms = in_turns(
+                lambda: fdm.fused_decode_step_multi_reference(stacked, cfg, x, kc, vc, pos, cos, sin),
+                lambda: fdm.fused_decode_step_multi_cuda(stacked, cfg, x, kc, vc, pos, cos, sin),
+                plain_iters=1)
+            nbytes, ops = qwen_step_bytes(stacked, nl, kvw, [pos_t] * bs, kc.element_size())
+            b_ms, b_by = bound(nbytes, ops)
+            times[(bs, cache)] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bound_ms": b_ms,
+                                  "bound_by": b_by, "batch1_ms": one_ms[cache]}
+            print(f"[19 multi] B={bs} cache={cache:8s} pos={pos_t}: kernel {k_ms:.4f} ms a step, "
+                  f"{k_ms * 1e3 / bs:.1f} us a token (B x batch-1 kernel: {bs * one_ms[cache]:.4f} ms); "
+                  f"plain {p_ms:.2f} ms; {nbytes / 1e6:.1f} MB a step, {nbytes / (k_ms * 1e-3) / 1e9:.0f} "
+                  f"GB/s; bound {b_ms:.4f} ms ({b_by})  [{card}]")
+            if bs == QWEN_MULTI_TIMED_B[-1] and cache == "bfloat16":
+                host_ms, dev_ms, by_name = profile_steps(
+                    torch, lambda: fdm.fused_decode_step_multi_cuda(stacked, cfg, x, kc, vc, pos, cos, sin))
+                parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
+                times[(bs, cache)]["profile"] = {"host_ms": host_ms, "kernel_ms": dev_ms, "by_name": by_name}
+                print(f"[19 profile] B={bs} cache={cache}: {dev_ms * 1e3:.1f} us of kernels in a "
+                      f"{host_ms * 1e3:.1f} us step (idle share {1 - dev_ms / host_ms:.3f}); us a step: "
+                      f"{parts}  [{card}]")
+            del kc, vc
+    torch.cuda.empty_cache()
+    return times
+
+
+def qwen_replay_gap(torch, session, audio, ids: list) -> float:
+    """Teacher-force one window's ids through the per-weight route (the
+    session's left-padded prefill, f32 caches): the largest gap, over the
+    ids, between the best logit and the id's, as a share of max|logit|."""
+    from asr_tpu_torch.layers import qwen3
+
+    lcfg = session.cfg.llm
+    worst = 0.0
+    with torch.inference_mode():
+        state, shift, lf, t_max, logits = qwen_prefill(torch, session, audio)
+        embed = session.llm_params["embed"]
+        for j, tok in enumerate(ids):
+            lg = logits[0, : lcfg.vocab_size]
+            worst = max(worst, (lg.max() - lg[tok]).item() / lg.abs().max().item())
+            if j + 1 == len(ids):
+                break
+            pos = lf + j
+            tk = torch.tensor([[tok]], device=DEV)
+            h, state = qwen3.decoder_pass(session.llm_params, lcfg, embed[tk], state, pos,
+                                          qwen3.left_step_bias(shift, pos, t_max), pos_offset=shift)
+            logits = qwen3.logits_from_hidden(session.llm_params, lcfg, h[:, -1])
+    return worst
+
+
+def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, card: str) -> dict:
+    """[20] Continuous Qwen3-ASR-0.6B q4 serving over HTTP (phase 16's
+    artifact, 8 slots, bf16 caches, the 256-token budget): 17 concurrent
+    requests of 5-30 s with staggered starts, every decode step of every
+    slot one multi-slot kernel launch; then two requests on the rowwise
+    route."""
+    import copy
+
+    from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer, start_background_continuous
+    from asr_tpu_torch.runtime.qwen_session import load_qwen_session
+
+    qm.set_quant_config(mm="bf16")
+    session = load_qwen_session(folder, DEV)  # phase 16's artifact
+    check(session.stacked is not None, "the session did not stack the q4 LLM")
+    cfg = session.cfg
+    rng = np.random.default_rng(20)
+    seconds = rng.uniform(*QWEN_CONT_SECONDS, size=QWEN_CONT_REQUESTS)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16) for s in seconds]
+    delays = rng.uniform(0.0, 0.2, size=len(clips))
+    httpd, srv, thread = start_background_continuous(session, n_slots=QWEN_CONT_SLOTS, kv_dtype="bf16")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: list = [None] * len(clips)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qm.LAUNCHES = qm.LAUNCHES_INT4 = fd.LAUNCHES = fdm.LAUNCHES = 0  # the serving path starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_clip, args=(base, c, float(delays[i]), results, i))
+                   for i, c in enumerate(clips)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        int8, int4, fused, multi = qm.LAUNCHES, qm.LAUNCHES_INT4, fd.LAUNCHES, fdm.LAUNCHES  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        thread.join(timeout=60)
+    n_tower = 6 * cfg.tower_layers + 3
+    n_prefill = 4 * cfg.llm.num_layers + 1
+    check(health["ok"] and health["step_kernel"] == "fused" and health["decoder"] == "llm",
+          f"healthz: {health}")
+    check(health["requests_served"] == len(clips), f"served {health['requests_served']} windows")
+    check(health["slots_active"] == 0 and health["queue_depth"] == 0, f"healthz: {health}")
+    check(multi == health["decode_steps"] > 0, f"{multi} multi-slot launches for "
+          f"{health['decode_steps']} decode steps")
+    check(fused == 0, f"the batch-1 kernel was launched {fused} times")
+    check(int8 == len(clips) * n_tower, f"{int8} int8 launches, not {len(clips)} x {n_tower}")
+    check(int4 == len(clips) * n_prefill, f"{int4} int4 launches, not {len(clips)} prefills x {n_prefill}")
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"request {i}: {r}")
+    lat = np.array([r[2] for r in results])
+    t_max = srv.batcher.t_max
+
+    # Each request alone through the same batcher: bitwise its served ids.
+    bat, eot = srv.batcher, cfg.eot_id
+    with torch.inference_mode():
+        for i, clip in enumerate(clips):
+            emb, valid = session.prompt_embeds(clip.astype(np.float32) / 32768.0)
+            slot = bat.try_submit(emb, valid)
+            while bat.is_active(slot):
+                bat.step()
+            alone = [t for t in bat.take_result(slot) if t != eot]
+            check(alone == results[i][1]["token_ids"], f"request {i}: the served ids differ from the "
+                  "request run alone through the batcher")
+    # Against session.transcribe (the batch-1 kernel); where they differ, every
+    # served id within the replay margin of the per-weight route's best logit.
+    equal, gaps = 0, []
+    for i, clip in enumerate(clips):
+        audio = clip.astype(np.float32) / 32768.0
+        got = results[i][1]["token_ids"]
+        if session.transcribe(audio).token_ids == got:
+            equal += 1
+            continue
+        gaps.append(qwen_replay_gap(torch, session, audio, got))
+        check(gaps[-1] <= QWEN_REPLAY_MARGIN, f"request {i}: a served id {gaps[-1]:.2e} of max|logit| "
+              f"below the per-weight route's best (margin {QWEN_REPLAY_MARGIN})")
+    print(f"[20 serve] {len(clips)} requests ({seconds.min():.1f}-{seconds.max():.1f} s, {QWEN_CONT_SLOTS} "
+          f"slots, bf16 caches of {t_max} rows, starts staggered 0-200 ms) in {wall:.2f} s; healthz "
+          f"{json.dumps(health)}")
+    print(f"[20 serve] launches: multi-slot {multi} (= decode_steps {health['decode_steps']}), batch-1 "
+          f"{fused}, int4 {int4} ({len(clips)} prefills x {n_prefill}), int8 {int8} ({len(clips)} towers x "
+          f"{n_tower}); every request's ids bitwise equal to it alone through the batcher; equal to "
+          f"session.transcribe for {equal}/{len(clips)}, the other {len(gaps)} replayed: every served id "
+          f"within {max(gaps, default=0.0):.2e} of max|logit| of the per-weight best (margin "
+          f"{QWEN_REPLAY_MARGIN})")
+    toks = health["tokens_generated"]
+    step_s = health["step_latency_avg_s"]
+    agg = toks / (health["decode_steps"] * step_s) if step_s else 0.0
+    one = 1e3 / numbers["ms_per_token"]
+    p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
+    out = {"launches": multi, "int8": int8, "int4": int4, "tokens": toks, "agg_tok_s": agg,
+           "e2e_tok_s": toks / wall, "batch1_tok_s": one, "step_ms": step_s * 1e3, "p50_s": p50,
+           "p95_s": p95, "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak, "equal": equal,
+           "wall_s": wall}
+    print(f"[20 numbers] decode {toks} tokens: {agg:.0f} tokens/s over step time ({toks / wall:.0f} end "
+          f"to end) vs {one:.0f} tokens/s on the batch-1 fused route (phase 16); average step "
+          f"{step_s * 1e3:.3f} ms; completion p50 {p50:.2f} s, p95 {p95:.2f} s (client side); average "
+          f"queue wait {health['queue_wait_avg_s']:.3f} s; peak memory {peak:.0f} MiB  [{card}]")
+
+    # Two requests on the rowwise route: a session without stacked weights.
+    rows_sess = copy.copy(session)
+    rows_sess.stacked = None
+    rows_sess.decode_cfg = dataclasses.replace(session.decode_cfg, max_new_tokens=QWEN_SERVE_BUDGET)
+    srv2 = ContinuousSessionServer(rows_sess, n_slots=QWEN_CONT_SLOTS, kv_dtype="f32")
+    try:
+        before_m = fdm.LAUNCHES
+        pair = clips[:2]
+        outs: list = [None, None]
+        ths = [threading.Thread(target=lambda i=i: outs.__setitem__(i, srv2.transcribe_bytes(
+            wav_bytes(pair[i])))) for i in range(2)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+        st2 = srv2.stats()
+    finally:
+        srv2.close()
+    check(st2["step_kernel"] == "rowwise" and fdm.LAUNCHES == before_m,
+          "the rowwise route launched the multi-slot kernel")
+    row_gap, row_equal = 0.0, 0
+    for i in range(2):
+        check(outs[i] is not None, f"rowwise request {i} failed")
+        audio = pair[i].astype(np.float32) / 32768.0
+        if rows_sess.transcribe(audio).token_ids == outs[i]["token_ids"]:
+            row_equal += 1
+            continue
+        row_gap = max(row_gap, qwen_replay_gap(torch, rows_sess, audio, outs[i]["token_ids"]))
+        check(row_gap <= MARGIN, f"rowwise request {i}: a served id {row_gap:.2e} of max|logit| below the "
+              "per-weight best")
+    print(f"[20 serve] rowwise route (no stacked weights, f32 caches, {QWEN_SERVE_BUDGET}-token budget): "
+          f"2 requests, ids equal to the per-weight solo path for {row_equal}/2 (the rest within "
+          f"{row_gap:.2e} of max|logit| of its best), {st2['decode_steps']} steps at "
+          f"{st2['step_latency_avg_s'] * 1e3:.2f} ms, no multi-slot launch  [{card}]")
+    del session, rows_sess, srv, srv2, bat
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1425,6 +1782,7 @@ def main() -> int:
     from asr_tpu_torch.ops import fused_aed_multi as fm
     from asr_tpu_torch.ops import fused_aed_step as fs
     from asr_tpu_torch.ops import fused_decode as fd
+    from asr_tpu_torch.ops import fused_decode_multi as fdm
     from asr_tpu_torch.ops import quant_matmul as qm
     from asr_tpu_torch.parallel.http_server import start_background
     from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_linear, quantize_pytree
@@ -1433,7 +1791,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build([qm.SOURCE, fs.SOURCE, fm.SOURCE, qm.SOURCE_INT4, fd.SOURCE])
+    phase_build([qm.SOURCE, fs.SOURCE, fm.SOURCE, qm.SOURCE_INT4, fd.SOURCE, fdm.SOURCE])
     kern = phase_kernel_vs_plain(torch, qm, quantize_linear, card)
 
     # ── 4. model: full geometry, q8, artifact round trip, session ─────────
@@ -1610,6 +1968,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as qwen_dir:
         qrun = phase_qwen(torch, np, qm, fd, qwen_dir, card)
         qserve = phase_qwen_serve(torch, np, qm, fd, qwen_dir, card)
+        # ── 18-20. the multi-slot Qwen3 step, continuous Qwen3-ASR serving ──
+        mdec = phase_decode_multi_vs_plain(torch, fd, fdm, qwen3, quantize_pytree, card)
+        mtimes = phase_decode_multi_times(torch, fd, fdm, mdec.pop("stacked"), mdec.pop("cfg"),
+                                          {c: dec["times"][c]["ms"] for c in dec["times"]}, card)
+        qcont = phase_qwen_continuous(torch, np, qm, fd, fdm, qwen_dir, qrun, card)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -1619,14 +1982,16 @@ def main() -> int:
     f_t = fused["times"]["float32"]
     f_bound, f_by = bound(f_t["bytes"], f_t["flops"])
     m_t = multi["times"][(MULTI_TIMED_B[-1], "float32")]
+    q_t = mtimes[(QWEN_MULTI_TIMED_B[-1], "bfloat16")]
     print(json.dumps({"kernels": [{
         "name": "quant_matmul_int8",
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int8.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:115",
-        "launches": launches + wrun_int8 + serve["int8"] + qrun["int8"] + qserve["int8"],
+        "launches": launches + wrun_int8 + serve["int8"] + qrun["int8"] + qserve["int8"] + qcont["int8"],
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
-                             "qwen": qrun["int8"], "qwen_serve": qserve["int8"]},
+                             "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
+                             "qwen_continuous": qcont["int8"]},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1666,8 +2031,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int4.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:493",
-        "launches": qrun["int4"] + qserve["int4"],
-        "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"]},
+        "launches": qrun["int4"] + qserve["int4"] + qcont["int4"],
+        "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"],
+                             "qwen_continuous": qcont["int4"]},
         "max_abs_err": p4["max_abs_err"],
         "ms": p4["per_prefill"]["bf16"]["ms"],
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
@@ -1682,7 +2048,7 @@ def main() -> int:
         "source": "asr_tpu_torch/csrc/fused_decode.cu",
         "replaces": "asr_tpu/ops/fused_decode.py:310",
         "launches": qrun["fused"],
-        "launches_by_path": {"qwen": qrun["fused"], "qwen_serve": 0},
+        "launches_by_path": {"qwen": qrun["fused"], "qwen_serve": 0, "qwen_continuous": 0},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["times"]["bfloat16"]["ms"],
         "plain_ms": dec["times"]["bfloat16"]["plain_ms"],
@@ -1691,6 +2057,21 @@ def main() -> int:
         "library_ms": None,
         "timing": "one Qwen3-0.6B q4 step with the packed tied head, bf16 caches, pos 440, shift 17, "
                   "CUDA events",
+    }, {
+        "name": "fused_decode_multi",
+        "route": "cuda",
+        "source": "asr_tpu_torch/csrc/fused_decode_multi.cu",
+        "replaces": "asr_tpu/ops/fused_decode_multi.py:92",
+        "launches": qcont["launches"],
+        "launches_by_path": {"qwen_continuous": qcont["launches"]},
+        "max_abs_err": mdec["max_abs_err"],
+        "ms": q_t["ms"],
+        "plain_ms": q_t["plain_ms"],
+        "bound_ms": q_t["bound_ms"],
+        "bound_by": q_t["bound_by"],
+        "library_ms": None,
+        "timing": f"one Qwen3-0.6B q4 step of {QWEN_MULTI_TIMED_B[-1]} slots with the packed tied head, "
+                  f"bf16 caches, every slot at pos {QWEN_MULTI_TIMED_POS}, CUDA events",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ from asr_tpu_torch.ops import fused_aed_multi as tfm
 from asr_tpu_torch.ops import quant_matmul as tqm
 from asr_tpu_torch.ops.fused_aed_step import stack_whisper_step_params as tstack
 from asr_tpu_torch.parallel import aed_batcher as tab
+from asr_tpu_torch.parallel.slot_engine import _request_seed
 from asr_tpu_torch.runtime import artifact as tart
 
 WTINY = dict(vocab_size=96, d_model=32, encoder_layers=1, decoder_layers=2, num_heads=4,
@@ -288,7 +289,7 @@ def test_sampled_ids_do_not_depend_on_siblings(wparams):
 def test_explicit_seed_never_meets_an_automatic_one():
     """Deliberate divergence from the JAX package, where seed N collides with
     the N-th automatic seed: the port derives them apart."""
-    assert tab._request_seed(0, True, 0) != tab._request_seed(0, False, 0)
-    assert tab._request_seed(0, True, 5) != tab._request_seed(0, False, 5)
-    assert tab._request_seed(0, True, 5) == tab._request_seed(0, True, 5)
-    assert tab._request_seed(1, True, 5) != tab._request_seed(0, True, 5)
+    assert _request_seed(0, True, 0) != _request_seed(0, False, 0)
+    assert _request_seed(0, True, 5) != _request_seed(0, False, 5)
+    assert _request_seed(0, True, 5) == _request_seed(0, True, 5)
+    assert _request_seed(1, True, 5) != _request_seed(0, True, 5)

@@ -168,8 +168,10 @@ def test_refusals(params):
         def prompt_embeds(self, *a, **k):
             raise AssertionError
 
-    with pytest.raises(TypeError, match="LLM slice"):
-        tls.ContinuousSessionServer(LlmSession(), warmup=False)
+    # served on the LLM engine (tests/test_torch_llm_server.py), whose
+    # tensor-parallel form is not ported
+    with pytest.raises(ValueError, match="tensor-parallel LLM engine"):
+        tls.ContinuousSessionServer(LlmSession(), warmup=False, tensor_parallel=2)
     with pytest.raises(TypeError, match="no continuous serving surface"):
         tls.ContinuousSessionServer(object(), warmup=False)
     with pytest.raises(ValueError, match="data_parallel"):

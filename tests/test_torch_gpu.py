@@ -7,8 +7,10 @@ multi-slot AED decode-step kernel likewise, and its launch count in a
 continuous-serving run; the packed-int4 matmul at the Qwen3-ASR-0.6B shapes
 (and a row alone against the same row in a batch), the fused Qwen3 decode
 step at a small and at the full geometry, their wrappers' checks, and the
-launch counts of a batch-1 Qwen3-ASR transcription. Each test skips where
-no card is present.
+launch counts of a batch-1 Qwen3-ASR transcription; the multi-slot Qwen3
+step against its plain version and, slot by slot, bitwise against the
+batch-1 kernel, its wrapper's checks, and its launch count in a continuous
+Qwen3-ASR serving run. Each test skips where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -482,3 +484,153 @@ def test_qwen_transcribe_launches_fused_kernel_once_per_step():
         assert qm.LAUNCHES_INT4 - before_4 == 4 * lcfg.num_layers + 1
     finally:
         qm._CONFIG["mm"] = prev
+
+
+# ── the multi-slot Qwen3 decode step (continuous Qwen3-ASR serving) ──────
+# Tolerances as for the batch-1 step above; a slot of the multi-slot step
+# rounds and sums as the batch-1 kernel does for it alone at shift 0, so it
+# equals that kernel bitwise.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("full", [False, True])
+def test_multi_decode_kernel_matches_plain_version_and_batch1_kernel(full, cache):
+    _need_card()
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.ops import fused_decode as fd
+    from asr_tpu_torch.ops import fused_decode_multi as fdm
+
+    cfg = qwen3.Qwen3Config(num_layers=2) if full else qwen3.Qwen3Config(
+        vocab_size=3000, hidden=512, num_layers=3, num_heads=4, num_kv_heads=2, ffn_dim=1024)
+    _, st = _qwen_stacked(cfg, 8)
+    nl, t, kvw, v = cfg.num_layers, 456, cfg.num_kv_heads * 128, cfg.vocab_size
+    pos_l = [3, -1, 440, 0, 70]
+    bs = len(pos_l)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    kc = torch.randn((nl, bs, t, kvw), generator=g, device="cuda").to(cache)
+    vc = torch.randn((nl, bs, t, kvw), generator=g, device="cuda").to(cache)
+    x = torch.randn((bs, cfg.hidden), generator=g, device="cuda") * 0.05
+    ang = torch.rand((bs, 128), generator=g, device="cuda") * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    for head in (True, False):
+        stk = st if head else {k: a for k, a in st.items() if k not in ("wh", "h_s", "h_zs")}
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        before = fdm.LAUNCHES
+        h, lg, _, _ = fdm.fused_decode_step_multi(stk, cfg, x, k1, v1, pos, cos, sin)
+        torch.cuda.synchronize()
+        assert fdm.LAUNCHES == before + 1
+        hr, lr, _, _ = fdm.fused_decode_step_multi_reference(stk, cfg, x, k2, v2, pos, cos, sin)
+        assert torch.isfinite(h).all()
+        assert (h - hr).abs().max().item() <= 1e-2 * hr.abs().max().item()
+        if head:
+            assert (lg[:, :v] - lr[:, :v]).abs().max().item() <= 1e-2 * lr[:, :v].abs().max().item()
+            assert bool((lg[:, v:] == 0).all())
+        else:
+            assert lg is None and lr is None
+        tol0 = 1e-3 + (2.0**-8 if cache == torch.bfloat16 else 0.0)
+        for b, p in enumerate(pos_l):
+            if p < 0:  # parked: its planes bitwise unchanged
+                assert torch.equal(k1[:, b], kc[:, b]) and torch.equal(v1[:, b], vc[:, b])
+                continue
+            others = torch.arange(t, device="cuda") != p
+            assert torch.equal(k1[:, b, others], kc[:, b, others])
+            assert torch.equal(v1[:, b, others], vc[:, b, others])
+            for a, r in ((k1, k2), (v1, v2)):
+                assert (a[0, b, p].float() - r[0, b, p].float()).abs().max().item() <= \
+                    tol0 * r[0, b, p].float().abs().max().item()
+            # slot by slot, the batch-1 kernel at shift 0 on this slot alone
+            kb, vb = kc[:, b].contiguous(), vc[:, b].contiguous()
+            hb, lb, _, _ = fd.fused_decode_step_cuda(stk, cfg, x[b : b + 1], kb, vb, p, 0,
+                                                     cos[b : b + 1].contiguous(),
+                                                     sin[b : b + 1].contiguous())
+            assert torch.equal(h[b : b + 1], hb)
+            if head:
+                assert torch.equal(lg[b : b + 1], lb)
+            assert torch.equal(k1[:, b], kb) and torch.equal(v1[:, b], vb)
+
+
+@pytest.mark.gpu
+def test_multi_decode_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.ops import fused_decode_multi as fdm
+
+    cfg = qwen3.Qwen3Config(vocab_size=300, hidden=256, num_layers=1, num_heads=2, num_kv_heads=1,
+                            ffn_dim=512)
+    _, st = _qwen_stacked(cfg, 7)
+    kc = torch.zeros((1, 2, 16, 128), device="cuda")
+    x = torch.zeros((2, 256), device="cuda")
+    cs = torch.zeros((2, 128), device="cuda")
+    pos = torch.tensor([3, -1], dtype=torch.int32, device="cuda")
+    fdm.fused_decode_step_multi(st, cfg, x, kc, kc.clone(), pos, cs, cs)
+    with pytest.raises(ValueError):  # positions on the host
+        fdm.fused_decode_step_multi(st, cfg, x, kc, kc.clone(), pos.cpu(), cs, cs)
+    with pytest.raises(TypeError):  # int64 positions
+        fdm.fused_decode_step_multi(st, cfg, x, kc, kc.clone(), pos.long(), cs, cs)
+    with pytest.raises(TypeError):  # caches of two dtypes
+        fdm.fused_decode_step_multi(st, cfg, x, kc, kc.to(torch.bfloat16), pos, cs, cs)
+    with pytest.raises(ValueError):  # one cos row for two slots
+        fdm.fused_decode_step_multi(st, cfg, x, kc, kc.clone(), pos, cs[:1].contiguous(), cs)
+    with pytest.raises(ValueError):  # batch 1 is the batch-1 kernel's
+        fdm.fused_decode_step_multi(st, cfg, x[:1], kc[:, :1].contiguous(), kc[:, :1].contiguous(),
+                                    pos[:1], cs[:1], cs[:1])
+    with pytest.raises(ValueError):  # more slots than the kernel takes
+        n = fdm.MAX_SLOTS + 1
+        big = torch.zeros((1, n, 16, 128), device="cuda")
+        fdm.fused_decode_step_multi(st, cfg, torch.zeros((n, 256), device="cuda"), big, big.clone(),
+                                    torch.zeros(n, dtype=torch.int32, device="cuda"),
+                                    torch.zeros((n, 128), device="cuda"),
+                                    torch.zeros((n, 128), device="cuda"))
+
+
+@pytest.mark.gpu
+def test_qwen_continuous_serving_launches_multi_kernel_once_per_step():
+    _need_card()
+    import io
+    import wave
+
+    import numpy as np
+
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.ops import fused_decode as fd
+    from asr_tpu_torch.ops import fused_decode_multi as fdm
+    from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+
+    lcfg = qwen3.Qwen3Config(vocab_size=3000, hidden=512, num_layers=3, num_heads=4,
+                             num_kv_heads=2, ffn_dim=1024)
+    cfg = qa.QwenAsrConfig(tower_dim=256, tower_layers=2, tower_heads=4, tower_ffn=512,
+                           output_dim=512, llm=lcfg, eot_id=-1)
+    tower = quantize_pytree(qa.init_tower_params(cfg, torch.Generator(device="cuda").manual_seed(0)),
+                            bits=8, min_size=0)
+    llm, _ = _qwen_stacked(lcfg, 1)
+    prev = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="bf16")
+    try:
+        sess = QwenAsrSession(tower, llm, cfg, template=QwenPromptTemplate((1, 2), (3,), (4, 5)),
+                              max_new_tokens=10, max_seconds=4.0)
+        assert sess.stacked is not None
+        srv = ContinuousSessionServer(sess, n_slots=2, kv_dtype="bf16")
+        try:
+            before_m, before_f = fdm.LAUNCHES, fd.LAUNCHES
+            rng = np.random.default_rng(0)
+            for n in (20000, 9000, 30000):
+                buf = io.BytesIO()
+                with wave.open(buf, "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(16000)
+                    w.writeframes((rng.standard_normal(n) * 900).astype(np.int16).tobytes())
+                srv.transcribe_bytes(buf.getvalue())
+            st = srv.stats()
+        finally:
+            srv.close()
+    finally:
+        qm._CONFIG["mm"] = prev
+    assert st["step_kernel"] == "fused" and st["decoder"] == "llm" and st["requests_served"] == 3
+    assert fdm.LAUNCHES - before_m == st["decode_steps"] > 0
+    assert fd.LAUNCHES == before_f

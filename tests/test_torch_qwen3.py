@@ -169,3 +169,48 @@ def test_init_params_layout_matches():
         assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
     w = got["layers/0/attn/q/w"]
     assert abs(float(w.std()) - jcfg.hidden ** -0.5) < 0.1 * jcfg.hidden ** -0.5
+
+
+def test_rowwise_step_bias_matches_bitwise():
+    pos = np.asarray([0, 5, 15, 9], np.int32)
+    want = np.asarray(jq3.rowwise_step_bias(jnp.asarray(pos), T_MAX))
+    got = tq3.rowwise_step_bias(torch.from_numpy(pos), T_MAX).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("size,quant", [("gqa", "f32"), ("h128", "q4")])
+def test_decoder_step_rowwise_matches(size, quant):
+    """Per-row positions over compact caches (continuous batching), one row
+    parked: hidden and every cache row against JAX's
+    ``decoder_step_rowwise``; the parked row's caches are untouched."""
+    jcfg, tcfg, jp = _params(size, quant, seed=4)
+    jp = jq3.fuse_params(jp, jcfg)
+    tp = tart.params_from_flat(jart.flatten_pytree(jp), "cpu")
+    rng = np.random.default_rng(6)
+    lens = [6, 3, 9, 5]
+    # one prefill of all rows: row b's prompt fills its compact cache [0, lens[b]);
+    # the rows past it hold pad garbage that the step's bias masks
+    emb = jnp.asarray((rng.standard_normal((len(lens), 9, jcfg.hidden)) * 0.3).astype(np.float32))
+    _, state = jq3.decoder_pass(jp, jcfg, emb, jq3.make_kv_state(jcfg, len(lens), T_MAX),
+                                jnp.asarray(0, jnp.int32),
+                                jq3.causal_prefill_bias(jnp.asarray(lens, jnp.int32), 9, T_MAX))
+    tstate = {"layers": tuple({k: torch.from_numpy(np.array(v)) for k, v in ls.items()}
+                              for ls in state["layers"])}
+    before = [ls["k"].clone() for ls in tstate["layers"]]
+    x = (rng.standard_normal((len(lens), 1, jcfg.hidden)) * 0.3).astype(np.float32)
+    pos, active = np.asarray(lens, np.int32), np.asarray([True, True, False, True])
+    jh, jst = jq3.decoder_step_rowwise(jp, jcfg, jnp.asarray(x), state, jnp.asarray(pos),
+                                       jnp.asarray(active))
+    th, tst = tq3.decoder_step_rowwise(tp, tcfg, torch.from_numpy(x), tstate,
+                                       torch.from_numpy(pos), torch.from_numpy(active))
+    assert tst is tstate  # written in place
+    _close(th, jh, 1e-5)
+    for tl, jl, old in zip(tst["layers"], jst["layers"], before):
+        _close(tl["k"], jl["k"], 1e-5)
+        _close(tl["v"], jl["v"], 1e-5)
+        assert torch.equal(tl["k"][2], old[2])  # the parked row wrote nowhere
+    # without ``active`` every row writes, as in JAX
+    jh2, _ = jq3.decoder_step_rowwise(jp, jcfg, jnp.asarray(x), state, jnp.asarray(pos))
+    th2, _ = tq3.decoder_step_rowwise(tp, tcfg, torch.from_numpy(x), tstate, torch.from_numpy(pos))
+    _close(th2, jh2, 1e-5)
