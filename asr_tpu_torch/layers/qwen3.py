@@ -7,9 +7,9 @@ audio/text embeds) with additive f32 attention biases built from lengths
 and shifts (0 keep, the finite ``NEG_INF`` drop). Where JAX returns updated
 caches, the port writes the fresh rows into the given ``(B, T_max, Hkv,
 D)`` caches in place at ``pos`` and returns the same tensors. Linear
-weights are ``(in, out)`` and may be ``QuantizedLinear`` leaves (int8, or
-packed int4 through the int4 kernel); the tied ``embed`` may be a
-``QuantizedEmbedding``.
+weights are ``(in, out)`` and may be ``QuantizedLinear`` leaves (unpacked
+through the int8 kernel, packed int4 and packed int2 through their own
+kernels); the tied ``embed`` may be a ``QuantizedEmbedding``.
 """
 
 from __future__ import annotations

@@ -15,6 +15,8 @@ tensors with the same keys and layouts (conv kernels HWIO, linears
 in place. At batch 1, with stacked q4 weights and the ``bf16`` matmul mode,
 each decode step is one call of ``ops.fused_decode.fused_decode_step`` (the
 hand-written CUDA kernel on CUDA tensors, its plain version on CPU tensors).
+Every other LLM (a q2 LLM, whose packed 2-bit leaves do not stack, q8, or
+f32) decodes on the per-weight route, each linear one ``quant_dense`` call.
 """
 
 from __future__ import annotations

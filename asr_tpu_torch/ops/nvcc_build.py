@@ -1,6 +1,8 @@
 """Build a hand-written CUDA source into a shared library with nvcc.
 
-Each kernel source under ``asr_tpu_torch/csrc`` has a plain C interface and
+Each kernel source under ``asr_tpu_torch/csrc`` (:data:`SOURCES`, seven of
+them: the int8, packed-int4 and packed-int2 matmuls and the four fused
+decode steps) has a plain C interface and
 is compiled at first use (``sm_90a``) into ``asr_tpu_torch/_build/``, then
 loaded with ``ctypes``. The library name carries a hash of the source, the
 headers beside it (``csrc/*.cuh``, which the sources include) and the flags,
@@ -20,6 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,14 +1,19 @@
-"""Dequant-fused int8 and packed-int4 matmuls for weight-only-quantized linears.
+"""Dequant-fused int8, packed-int4 and packed-int2 matmuls for
+weight-only-quantized linears.
 
 Counterpart of ``asr_tpu/ops/quant_matmul.py``. ``quant_dense`` computes
 ``x @ ((q - zero) * scale)`` for a :class:`~asr_tpu_torch.quant.quantize.QuantizedLinear`
 leaf. On a CUDA tensor it launches a hand-written Hopper kernel (built with
 ``nvcc`` for ``sm_90a`` at first use, bound with ``ctypes``) or raises:
-``asr_tpu_torch/csrc/quant_matmul_int8.cu`` for unpacked int8 leaves,
+``asr_tpu_torch/csrc/quant_matmul_int8.cu`` for unpacked static leaves of
+any bit width (centered int8 storage, as the JAX package routes them),
 ``asr_tpu_torch/csrc/quant_matmul_int4.cu`` for packed 4-bit leaves (low
-nibble = rows ``[0, K/2)``, high nibble = rows ``[K/2, K)``). On a CPU
-tensor it runs the plain PyTorch versions, :func:`quant_dense_reference`
-and :func:`quant_dense_p4_reference`.
+nibble = rows ``[0, K/2)``, high nibble = rows ``[K/2, K)``) and
+``asr_tpu_torch/csrc/quant_matmul_int2.cu`` for packed 2-bit leaves (bit
+pair ``2j:2j+2`` = rows ``[jK/4, (j+1)K/4)``). On a CPU tensor it runs the
+plain PyTorch versions, :func:`quant_dense_reference`,
+:func:`quant_dense_p4_reference` and :func:`quant_dense_p2_reference`.
+Dynamic-activation int8 leaves are not ported and raise.
 
 Matmul mode, as in the JAX package:
   ``"f32"``:  the exact f32 product of x and the dequantized weight;
@@ -32,16 +37,19 @@ from asr_tpu_torch.quant.quantize import dequantize_weight
 # Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = 0       # the int8 kernel
 LAUNCHES_INT4 = 0  # the packed-int4 kernel
+LAUNCHES_INT2 = 0  # the packed-int2 kernel
 
 _CONFIG: dict = {"mm": None}
 
 SOURCE = nvcc_build.CSRC / "quant_matmul_int8.cu"
 SOURCE_INT4 = nvcc_build.CSRC / "quant_matmul_int4.cu"
+SOURCE_INT2 = nvcc_build.CSRC / "quant_matmul_int2.cu"
 NVCC_FLAGS = nvcc_build.NVCC_FLAGS
 INT4_BK = 32  # packed rows the int4 kernel stages per step; K/2 must be a multiple
+INT2_BK = 16  # packed rows the int2 kernel stages per step; K/4 must be a multiple
 
 _lib = None
-_lib4 = None
+_packed_libs: dict = {}  # kernel name -> the loaded packed-int4 / packed-int2 library
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -85,6 +93,17 @@ def quant_dense_p4_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
     return x @ w
 
 
+def quant_dense_p2_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                             zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Plain PyTorch version of the int2 kernel: unpack the four 2-bit
+    quarters, dequantize in f32 (unsigned zero), then ``x' @ w``."""
+    w = dequantize_weight({"q": q, "scale": scale, "zero": zero, "block": block,
+                           "bits": 2, "packed": True})
+    if _check_mm(mm) == "bf16":
+        x = x.to(torch.bfloat16).to(torch.float32)
+    return x @ w
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernel (once per source and flags); return (library, nvcc log)."""
     return nvcc_build.build(SOURCE, NVCC_FLAGS)
@@ -102,16 +121,16 @@ def _load():
     return _lib
 
 
-def _load_int4():
-    global _lib4
+def _load_packed(source: Path, name: str):
     with _lib_lock:
-        if _lib4 is None:
-            path, _ = nvcc_build.build(SOURCE_INT4, NVCC_FLAGS)
+        if name not in _packed_libs:
+            path, _ = nvcc_build.build(source, NVCC_FLAGS)
             lib = ctypes.CDLL(str(path))
-            lib.quant_matmul_int4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            lib.quant_matmul_int4.restype = ctypes.c_int
-            _lib4 = lib
-    return _lib4
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _packed_libs[name] = lib
+    return _packed_libs[name]
 
 
 def _check_operands(name: str, x, q, scale, zero) -> None:
@@ -128,18 +147,17 @@ def _check_operands(name: str, x, q, scale, zero) -> None:
             raise ValueError(f"{arg} must be a contiguous 2-D tensor, got shape {tuple(t.shape)}")
 
 
-def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                      zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
-    """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K/2, N) packed int4,
-    scale / unsigned zero (K / block, N)) -> (M, N) f32."""
-    global LAUNCHES_INT4
+def _packed_launch(name: str, parts: int, bk: int, x: torch.Tensor, q: torch.Tensor,
+                   scale: torch.Tensor, zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Checks and launch shared by the int4 (``parts`` = 2) and int2
+    (``parts`` = 4) kernels; returns the (M, N) f32 output."""
     mm = _check_mm(mm)
-    _check_operands("quant_matmul_int4", x, q, scale, zero)
+    _check_operands(name, x, q, scale, zero)
     m, k = x.shape
-    k2, n = q.shape
-    if k != 2 * k2 or block <= 0 or k2 % block or k2 % INT4_BK:
+    kp, n = q.shape
+    if k != parts * kp or block <= 0 or kp % block or kp % bk:
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, packed q {tuple(q.shape)}, block {block} "
-                         f"(K/2 must be a multiple of the block and of {INT4_BK})")
+                         f"(K/{parts} must be a multiple of the block and of {bk})")
     if scale.shape != (k // block, n) or zero.shape != (k // block, n):
         raise ValueError(f"scale/zero must be {(k // block, n)}, got "
                          f"{tuple(scale.shape)} / {tuple(zero.shape)}")
@@ -148,16 +166,37 @@ def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
     if m == 0 or n == 0:
         return out
-    lib = _load_int4()
+    lib = _load_packed(SOURCE_INT4 if parts == 2 else SOURCE_INT2, name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.quant_matmul_int4(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                                    zero.data_ptr(), out.data_ptr(), m, k, n, int(block),
-                                    int(mm == "bf16"), stream)
+        err = getattr(lib, name)(x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+                                 out.data_ptr(), m, k, n, int(block), int(mm == "bf16"), stream)
     if err != 0:
-        raise RuntimeError(f"quant_matmul_int4 launch failed: CUDA error {err}")
-    with _count_lock:
-        LAUNCHES_INT4 += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
+
+
+def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K/2, N) packed int4,
+    scale / unsigned zero (K / block, N)) -> (M, N) f32."""
+    global LAUNCHES_INT4
+    out = _packed_launch("quant_matmul_int4", 2, INT4_BK, x, q, scale, zero, block, mm)
+    if out.numel():
+        with _count_lock:
+            LAUNCHES_INT4 += 1
+    return out
+
+
+def quant_matmul_int2(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+    """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K/4, N) packed int2,
+    scale / unsigned zero (K / block, N)) -> (M, N) f32."""
+    global LAUNCHES_INT2
+    out = _packed_launch("quant_matmul_int2", 4, INT2_BK, x, q, scale, zero, block, mm)
+    if out.numel():
+        with _count_lock:
+            LAUNCHES_INT2 += 1
     return out
 
 
@@ -194,23 +233,27 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 def quant_dense(x: torch.Tensor, qleaf, mm: str | None = None) -> torch.Tensor:
-    """Batched dense through an unpacked static int8 or a packed 4-bit
-    quantized weight: (..., K) -> (..., N)."""
+    """Batched dense through a static quantized weight: (..., K) -> (..., N).
+    Packed 4-bit and 2-bit leaves take their own kernels; every unpacked
+    leaf, whatever its bit width, is centered int8 and takes the int8
+    kernel."""
     packed = "packed" in qleaf and bool(qleaf["packed"])
-    dynamic = "dynamic" in qleaf and bool(qleaf["dynamic"])
+    if "dynamic" in qleaf and bool(qleaf["dynamic"]):
+        raise NotImplementedError("dynamic-activation int8 weights have no kernel in the port")
     bits = int(qleaf["bits"])
-    if dynamic or (packed and bits != 4) or (not packed and bits != 8):
-        raise NotImplementedError("only unpacked static int8 and packed int4 weights have a "
-                                  "kernel in the port")
+    if packed and bits not in (2, 4):
+        raise ValueError(f"packed storage exists for 2 and 4 bits only, got bits={bits}")
     mode = _resolve_mm(mm)
     q, scale, zero, block = qleaf["q"], qleaf["scale"], qleaf["zero"], int(qleaf["block"])
     k = x.shape[-1]
     n = q.shape[1]
     x2 = x.reshape(-1, k).contiguous()
     if x2.device.type == "cpu":
-        ref = quant_dense_p4_reference if packed else quant_dense_reference
+        ref = (quant_dense_reference if not packed else
+               quant_dense_p4_reference if bits == 4 else quant_dense_p2_reference)
         out = ref(x2, q, scale, zero, block, mode)
     else:
-        launch = quant_matmul_int4 if packed else quant_matmul_int8
+        launch = (quant_matmul_int8 if not packed else
+                  quant_matmul_int4 if bits == 4 else quant_matmul_int2)
         out = launch(x2, q, scale, zero, block, mode)
     return out.reshape(*x.shape[:-1], n)

@@ -20,8 +20,8 @@ n_kv * 128)`` planes and each step is one call of
 on a card), the packed tied head inside it. Otherwise the state is the
 decoder's ``make_kv_state`` layout with a slot axis and each step runs
 ``layers/qwen3.decoder_step_rowwise``, whose linears go through ``dense``
-(the int4 kernel on a card for q4 weights). Both layouts are updated in
-place.
+at M = n_slots (on a card, the int2 kernel for a q2 LLM, the int4 kernel
+for unstacked q4 weights). Both layouts are updated in place.
 
 The slot bookkeeping, sampling streams (each request's own
 ``torch.Generator``; the JAX package's explicit seed N meeting its N-th

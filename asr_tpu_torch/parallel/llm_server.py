@@ -67,7 +67,7 @@ class ContinuousSessionServer:
     ``WhisperSession`` does. With the session's stacked weights (q4 for the
     LLM, q8 for AED) every decode step is one multi-slot kernel call
     (``step_kernel`` "fused" in ``/healthz``), else the rowwise step
-    ("rowwise"). An LLM engine's caches hold one prefill bucket of the
+    ("rowwise": a q2 LLM, which does not stack, serves this way). An LLM engine's caches hold one prefill bucket of the
     session's (fixed) prompt length plus the token budget.
     """
 

@@ -13,14 +13,20 @@ Packed 4-bit storage (``quantize_linear(bits=4, pack=True)``) keeps raw
 unsigned nibbles in a ``(K/2, N)`` int8 array: the low nibble holds rows
 ``[0, K/2)`` and the high nibble rows ``[K/2, K)`` (two contiguous halves,
 not interleaved), with an UNSIGNED zero point; it runs through the int4
-kernel.
+kernel. Packed 2-bit storage (``quantize_linear(bits=2, pack=True)``) keeps
+raw unsigned values in a ``(K/4, N)`` int8 array: bit pair ``2j:2j+2`` holds
+rows ``[jK/4, (j+1)K/4)`` (four contiguous quarters), again with an UNSIGNED
+zero point; it runs through the int2 kernel. Either packing applies only
+where each half (quarter) stays a whole number of blocks; elsewhere the
+weight stays unpacked, centered int8 at any bit width, as in the JAX
+package.
 
 ``QuantizedEmbedding`` is the gather-dequant table; its ``(D, V_pad)``
 tied-head copy runs the LM head through the quantized kernels
-(:func:`embedding_logits`): int8 with V padded to a 512 multiple, or, for
-4-bit tables, nibble-packed to ``(D/2, V_pad)`` with V padded to a 2048
-multiple. Packed int2 storage, the kquant and hqq objectives and dynamic
-int8 are not ported yet.
+(:func:`embedding_logits`): centered int8 with V padded to a 512 multiple
+(every width but 4, 2-bit tables included), or, for 4-bit tables,
+nibble-packed to ``(D/2, V_pad)`` with V padded to a 2048 multiple. The
+kquant and hqq objectives and dynamic int8 are not ported yet.
 """
 
 from __future__ import annotations
@@ -72,8 +78,8 @@ class QuantizedLinear:
     """Block-quantized linear weight with the JAX package's fields.
 
     Dict-style access (``leaf["q"]``) mirrors the JAX class. The port
-    computes with unpacked static int8 leaves and packed 4-bit leaves;
-    ``dynamic`` is kept so artifact leaves round-trip."""
+    computes with unpacked static leaves of any width and packed 4-bit and
+    2-bit leaves; ``dynamic`` is kept so artifact leaves round-trip."""
 
     FIELDS = ("q", "scale", "zero", "bits", "block", "packed", "dynamic")
 
@@ -109,16 +115,30 @@ def unpack4_halves(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([(u & 0xF), (u >> 4) & 0xF], dim=0).to(torch.float32)
 
 
+def pack2_quarters(q_unsigned: torch.Tensor) -> torch.Tensor:
+    """(K, N) values in [0, 4) -> (K/4, N) int8: bit pair ``2j:2j+2`` holds
+    rows ``[jK/4, (j+1)K/4)``."""
+    k4 = q_unsigned.shape[0] // 4
+    out = q_unsigned[:k4].to(torch.uint8)
+    for j in (1, 2, 3):
+        out = out | (q_unsigned[j * k4 : (j + 1) * k4].to(torch.uint8) << (2 * j))
+    return out.view(torch.int8)
+
+
+def unpack2_quarters(packed: torch.Tensor) -> torch.Tensor:
+    """(K/4, N) int8 -> (K, N) float32 unsigned 2-bit values."""
+    u = packed.contiguous().view(torch.uint8)
+    return torch.cat([(u >> (2 * j)) & 0x3 for j in range(4)], dim=0).to(torch.float32)
+
+
 def dequantize_weight(qleaf) -> torch.Tensor:
     """Quantized leaf (or equivalent dict) -> dense f32 (K, N) weight.
 
-    Unpacked storage is centered (q - 128, zero - 128); packed 4-bit storage
-    keeps raw unsigned nibbles with an unsigned zero. Both give
+    Unpacked storage is centered (q - 128, zero - 128); packed 4-bit and
+    2-bit storage keeps raw unsigned values with an unsigned zero. All give
     ``w = (q - zero) * scale`` per block."""
     if "packed" in qleaf and bool(qleaf["packed"]):
-        if int(qleaf["bits"]) != 4:
-            raise NotImplementedError("only packed 4-bit weights are ported")
-        q = unpack4_halves(qleaf["q"])
+        q = unpack2_quarters(qleaf["q"]) if int(qleaf["bits"]) == 2 else unpack4_halves(qleaf["q"])
     else:
         q = qleaf["q"].to(torch.float32)
     k, n = q.shape
@@ -131,16 +151,18 @@ def dequantize_weight(qleaf) -> torch.Tensor:
 def quantize_linear(w: torch.Tensor, bits: int = 8, block: int = 128,
                     refine_iters: int = 0, pack: bool = False) -> QuantizedLinear:
     """(K, N) weight -> QuantizedLinear; the block becomes K when it does not
-    divide K. ``pack`` nibble-packs 4-bit weights whose halves stay
-    block-aligned (raw unsigned nibbles, unsigned zero)."""
+    divide K. ``pack`` packs 4-bit weights whose halves, and 2-bit weights
+    whose quarters, stay block-aligned (raw unsigned values, unsigned zero);
+    any other weight stays unpacked."""
     k = w.shape[0]
     if k % block:
         block = k
     q, scale, zero = quantize_weight(w, bits, block, refine_iters)
-    if pack and bits == 4 and k % 2 == 0 and (k // 2) % block == 0:
-        q_unsigned = (q.to(torch.int32) + 128).to(torch.uint8)
-        return QuantizedLinear(pack4_halves(q_unsigned), scale, zero + 128.0, 4, block,
-                               packed=True)
+    for width, parts, packer in ((4, 2, pack4_halves), (2, 4, pack2_quarters)):
+        if pack and bits == width and k % parts == 0 and (k // parts) % block == 0:
+            q_unsigned = (q.to(torch.int32) + 128).to(torch.uint8)
+            return QuantizedLinear(packer(q_unsigned), scale, zero + 128.0, bits, block,
+                                   packed=True)
     return QuantizedLinear(q, scale, zero, bits, block)
 
 
@@ -192,8 +214,8 @@ class QuantizedEmbedding:
 def embedding_logits(embed, y: torch.Tensor) -> torch.Tensor:
     """Tied-head logits ``y @ embed.T`` for plain or quantized tables. A
     quantized table with its tied copy goes through ``quant_dense`` (the
-    int8 kernel, or the int4 kernel for a nibble-packed copy, on CUDA),
-    reading the quantized bytes only."""
+    int8 kernel for a centered copy of any width, or the int4 kernel for a
+    nibble-packed copy, on CUDA), reading the quantized bytes only."""
     if isinstance(embed, QuantizedEmbedding):
         if embed.q_t is not None:
             from asr_tpu_torch.ops.quant_matmul import quant_dense
@@ -266,9 +288,10 @@ def quantize_pytree(
 ):
     """Quantize every 2-D ``w``/``w1``/``w2`` linear weight of at least
     ``min_size`` elements, with the JAX package's defaults and walk;
-    ``pack`` nibble-packs 4-bit linears; ``quantize_embeddings`` also turns
-    ``embed`` tables of that size into :class:`QuantizedEmbedding` leaves
-    (4-bit tables carry the nibble-packed tied head)."""
+    ``pack`` packs 4-bit and 2-bit linears (:func:`quantize_linear`);
+    ``quantize_embeddings`` also turns ``embed`` tables of that size into
+    :class:`QuantizedEmbedding` leaves (4-bit tables carry the
+    nibble-packed tied head, every other width a centered one)."""
     # 2-D kernels under these parents are consumed elementwise, not by dense().
     non_matmul_parents = ("dw", "dw1", "dw2", "conv", "fusion")
 

@@ -5,10 +5,10 @@ WAV, polyphase resampling (scipy) for rate conversion, channel downmix,
 optional RMS normalization, and dtype conventions driven by model metadata
 (``audio_pcm_scale``: int16 numeric range vs [-1, 1] float PCM).
 
-Only the pure-Python paths are kept: resampling is always scipy's
-``resample_poly`` (the JAX package tries its native C++ resampler first),
-and the native parallel batch loader ``load_audio_batch`` is left out; it
-comes with ``SenseVoiceSession.transcribe_batch``.
+Resampling and the parallel WAV batch loader prefer the port's native C++
+layer (``asr_tpu_torch.native``, built with g++ at first use), as the JAX
+package prefers its own, so both packages feed their front ends the same
+samples; scipy and the per-file Python path are the fallbacks.
 
 Host-side only — device work starts at the front end.
 """
@@ -58,9 +58,19 @@ def downmix(samples: np.ndarray) -> np.ndarray:
 
 
 def resample(samples: np.ndarray, src_rate: int, dst_rate: int) -> np.ndarray:
-    """Polyphase resample 1-D samples from src_rate to dst_rate (scipy)."""
+    """Polyphase resample 1-D samples from src_rate to dst_rate.
+
+    Uses the native C++ resampler (``asr_tpu_torch.native``) when available, else
+    scipy."""
     if src_rate == dst_rate:
         return samples
+    try:
+        from asr_tpu_torch import native
+
+        if native.available():
+            return native.resample(samples, src_rate, dst_rate)
+    except Exception:
+        pass
     from scipy.signal import resample_poly
 
     g = math.gcd(src_rate, dst_rate)
@@ -121,3 +131,57 @@ def load_audio(
     if pcm_scale != 32768.0:
         mono = mono * (pcm_scale / 32768.0)
     return np.ascontiguousarray(mono, dtype=np.float32)
+
+
+def load_audio_batch(
+    paths,
+    sample_rate: int,
+    window_samples: int,
+    pcm_scale: float = 32768.0,
+    n_threads: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Parallel batch ingest: decode/downmix/resample N files into a fixed
+    (N, window) float32 batch + TRUE per-file sample counts (a count larger
+    than ``window_samples`` means the row was truncated — callers route
+    such files through their sliding-window path).
+
+    Uses the multithreaded C++ loader (``asr_tpu_torch.native.load_wav_batch``)
+    for WAV files; rows it cannot handle (MP3, exotic encodings, decode
+    errors) fall back to the per-file Python path. Output follows the
+    ``pcm_scale`` convention of :func:`load_audio`."""
+    paths = [str(p) for p in paths]
+    n = len(paths)
+    out = np.zeros((n, window_samples), np.float32)
+    valid = np.full((n,), -1, np.int64)
+    try:
+        from asr_tpu_torch import native
+
+        if native.available():
+            out, valid = native.load_wav_batch(paths, sample_rate, window_samples, n_threads)
+    except Exception:
+        pass
+    for i in range(n):
+        if valid[i] < 0:  # native miss -> python ingest
+            try:
+                mono = load_audio(paths[i], sample_rate)  # int16 range
+            except Exception as exc:
+                # Undecodable file (malformed header, unknown codec): keep
+                # the batch alive with a zero-length row, but SAY so — a
+                # silent empty transcript is indistinguishable from silence.
+                import warnings
+
+                warnings.warn(
+                    f"load_audio_batch: could not decode {paths[i]!r} "
+                    f"({type(exc).__name__}: {exc}); emitting an empty row",
+                    stacklevel=2,
+                )
+                out[i] = 0.0
+                valid[i] = 0
+                continue
+            keep = min(len(mono), window_samples)
+            out[i, :keep] = mono[:keep]
+            out[i, keep:] = 0.0
+            valid[i] = len(mono)  # TRUE length (callers detect overflow)
+    if pcm_scale != 32768.0:
+        out *= np.float32(pcm_scale / 32768.0)
+    return out, valid

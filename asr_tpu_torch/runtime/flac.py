@@ -1,7 +1,8 @@
 """Self-contained pure-Python FLAC decoder (no external deps).
 
-The port's own copy of ``asr_tpu/runtime/flac.py``, without its native C++
-decoder: this pure-Python decoder is the only path.
+The port's own copy of ``asr_tpu/runtime/flac.py``. Like the original, it
+prefers the native C++ decoder (``asr_tpu_torch.native``) and falls back to
+this pure-Python decoder.
 
 FLAC, the most common lossless fixture format, needs neither ffmpeg nor
 libFLAC here: this is a direct implementation of the format spec (https://xiph.org/flac/):
@@ -166,9 +167,22 @@ def read_flac(path: str | Path) -> tuple[np.ndarray, int]:
 
 
 def read_flac_bytes(data: bytes) -> tuple[np.ndarray, int]:
-    """Decode an in-memory FLAC stream (HTTP bodies skip the filesystem)."""
+    """Decode an in-memory FLAC stream (HTTP bodies skip the filesystem).
+
+    Prefers the native C++ decoder (``asr_tpu_torch.native.flac_decode``,
+    the same subset); this pure-Python implementation is the
+    always-available fallback and the reference for its tests."""
     if data[:4] != b"fLaC":
         raise ValueError("not a FLAC file (missing fLaC marker)")
+    try:
+        from asr_tpu_torch import native
+
+        if native.available():
+            samples, rate, depth = native.flac_decode(data)
+            scale = 2.0 ** (15 - (depth - 1))
+            return samples.astype(np.float32) * np.float32(scale), rate
+    except Exception:
+        pass  # native layer unavailable or the stream malformed: pure-Python path
     pos = 4
     info = None
     while True:

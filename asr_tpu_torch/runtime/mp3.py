@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import glob
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +31,9 @@ def _find_libmpg123():
         "/usr/lib/x86_64-linux-gnu/libmpg123.so.0",
         "/usr/lib/x86_64-linux-gnu/libmpg123.so.0.47.0",
     ]
+    # pygame's wheel bundles a libmpg123 in the environment's site-packages.
+    candidates += glob.glob(str(Path(sys.prefix) / "lib" / "python3*" / "site-packages"
+                                / "pygame.libs" / "libmpg123*.so*"))
     for c in candidates:
         if not c:
             continue

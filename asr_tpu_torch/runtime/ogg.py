@@ -1,6 +1,14 @@
 """OGG/Vorbis ingest via the system libvorbisfile (ctypes, no pip deps).
 
-The port's own copy of ``asr_tpu/runtime/ogg.py``.
+The port's own copy of ``asr_tpu/runtime/ogg.py``, with one repair, for
+chained streams (several logical bitstreams, one after another). The
+original reads the format once, from the first link, and assembles a later
+link's frames with the first link's channel count; and it starts reading
+where ``ov_fopen`` left the stream, which for a chained file is the start
+of the last link, so the earlier links are lost. The port seeks a chained
+file back to its first sample, re-reads the format whenever the link
+changes, and raises a ``RuntimeError`` naming both formats when a link
+changes the channel count or the sample rate.
 
 Closes the last ingest-format gap vs the reference, whose pydub/ffmpeg
 path reads any container (``SenseVoice/Inference_SenseVoice_ONNX.py:8``).
@@ -77,6 +85,10 @@ def _load() -> ctypes.CDLL | None:
         lib.ov_read_float.restype = ctypes.c_long
         lib.ov_clear.argtypes = [ctypes.c_void_p]
         lib.ov_clear.restype = ctypes.c_int
+        lib.ov_streams.argtypes = [ctypes.c_void_p]
+        lib.ov_streams.restype = ctypes.c_long
+        lib.ov_pcm_seek.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.ov_pcm_seek.restype = ctypes.c_int
         _lib = lib
         return _lib
     _lib_err = "libvorbisfile not found (tried: %s)" % ", ".join(candidates)
@@ -88,10 +100,22 @@ def available() -> bool:
     return _load() is not None
 
 
+def _check_link_format(lib, vf, link: int, channels: int, rate: int, path) -> None:
+    """Raise unless chained link ``link`` has the first link's format."""
+    info = lib.ov_info(vf, link)
+    if not info:
+        raise RuntimeError(f"ov_info({path}, link {link}) returned NULL")
+    ch, r = info.contents.channels, int(info.contents.rate)
+    if (ch, r) != (channels, rate):
+        raise RuntimeError(f"{path}: chained Ogg link {link} changes the format from "
+                           f"{channels} channel(s) at {rate} Hz to {ch} at {r} Hz")
+
+
 def read_ogg(path: str | Path) -> tuple[np.ndarray, int]:
     """Decode an OGG/Vorbis file -> (float32 (channels, n) in int16 numeric
     range, sample_rate). Raises ``RuntimeError`` when libvorbisfile is
-    absent or the file is not valid Vorbis."""
+    absent, the file is not valid Vorbis, or a chained link changes the
+    channel count or the sample rate."""
     lib = _load()
     if lib is None:
         raise RuntimeError(f"OGG ingest unavailable: {_lib_err}")
@@ -108,9 +132,14 @@ def read_ogg(path: str | Path) -> tuple[np.ndarray, int]:
         if channels <= 0 or rate <= 0:
             raise RuntimeError(f"bad Vorbis stream: channels={channels} rate={rate}")
         total = int(lib.ov_pcm_total(vf, -1))  # -1 on unseekable; grow then
+        if lib.ov_streams(vf) > 1 and total > 0:
+            rc = lib.ov_pcm_seek(vf, 0)  # a chained file: back to the first link
+            if rc != 0:
+                raise RuntimeError(f"ov_pcm_seek({path}, 0) failed: rc={rc}")
         chunks: list[np.ndarray] = []
         pcm = ctypes.POINTER(ctypes.POINTER(ctypes.c_float))()
         section = ctypes.c_int(0)
+        link = None  # the link whose format was last checked
         got = 0
         while True:
             n = lib.ov_read_float(vf, ctypes.byref(pcm), 4096, ctypes.byref(section))
@@ -121,6 +150,9 @@ def read_ogg(path: str | Path) -> tuple[np.ndarray, int]:
                 if n == -3:
                     continue
                 raise RuntimeError(f"ov_read_float failed: rc={n}")
+            if section.value != link:
+                link = section.value
+                _check_link_format(lib, vf, link, channels, rate, path)
             frame = np.empty((channels, n), np.float32)
             for c in range(channels):
                 frame[c] = np.ctypeslib.as_array(pcm[c], shape=(n,))

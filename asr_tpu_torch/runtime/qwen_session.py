@@ -13,7 +13,10 @@ When the parameters are on a CUDA card and quantized matmuls run in the
 step (``ops/fused_decode.py``); a batch-1 transcription then runs every
 decode step as one kernel call, with the tied head inside it, and the
 continuous server (``parallel/llm_server.py``) every step of all its slots
-as one call of the multi-slot kernel (``ops/fused_decode_multi.py``).
+as one call of the multi-slot kernel (``ops/fused_decode_multi.py``). An LLM
+that does not stack (a q2 LLM: packed 2-bit linears and a centered 2-bit
+tied head) takes the per-weight route everywhere, every linear one
+``quant_dense`` call (the int2 kernel on a card).
 """
 
 from __future__ import annotations
@@ -126,7 +129,8 @@ class QwenAsrSession:
         self.cfg = cfg
         self.device = _params_device(llm_params)
         # The stacked copy duplicates the q4 LLM and the packed head: built
-        # only where the fused kernel runs (a CUDA card, bf16 mode).
+        # only where the fused kernel runs (a CUDA card, bf16 mode). Other
+        # LLMs (q2, q8, f32) do not stack and stay on the per-weight route.
         self.stacked = None
         if self.device.type == "cuda" and _resolve_mm(None) == "bf16":
             self.stacked = stack_decode_params(llm_params, cfg.llm)

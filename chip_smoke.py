@@ -5,7 +5,7 @@ Run from the repository root, with one card visible:
 
     python3 chip_smoke.py
 
-Phases: (1) the card; (2) build the six kernels from
+Phases: (1) the card; (2) build the seven kernels from
 ``asr_tpu_torch/csrc`` with nvcc, one process per source, at once; (3)
 the int8 dequant-matmul kernel against its plain PyTorch version at every
 SenseVoiceSmall q8 shape, timed in turns; (4) SenseVoiceSmall at its full published geometry
@@ -33,7 +33,8 @@ through the multi-slot kernel, the ids against ``session.transcribe``, the
 serving numbers, and two requests on the rowwise route; (14) the
 packed-int4 kernel against its plain version at every Qwen3-ASR-0.6B q4
 shape (q|k|v, o, gate|up, down, the tied head) at M = 1, 8 and a 30 s
-prefill's rows, both modes, timed in turns; (15) the fused Qwen3 decode
+prefill's rows, both modes, timed in turns, and PyTorch's int4 call
+(``torch._weight_int4pack_mm``) as a yardstick; (15) the fused Qwen3 decode
 step against its plain version at full width (f32 and bf16 caches, three
 positions with a left shift, the head in the kernel and separate), its time
 at pos 440 in turns and a profile; (16) Qwen3-ASR-0.6B (q8 tower, q4 LLM
@@ -54,7 +55,19 @@ of 5-30 s with staggered starts on 8 slots, every decode step through the
 multi-slot kernel, each request's ids against the same request alone
 through the batcher (bitwise) and against ``session.transcribe`` (a
 teacher-forced replay where they differ), the serving numbers, and two
-requests on the rowwise route.
+requests on the rowwise route; (21) the packed-int2 kernel against its
+plain version at every Qwen3-ASR-0.6B q2 shape at M = 1, 4, 8 and a 30 s
+prefill's rows, both modes, rows of a batched call bitwise equal to the row
+alone, timed in turns; (22) Qwen3-ASR-0.6B with a q8 tower, a packed-q2 LLM
+and a 2-bit tied head through an artifact folder and ``load_qwen_session``
+(the per-weight route): 20 s with its launch counts and its ids against a
+replay with plain matmuls on the dequantized weights, one 30 s window's
+numbers, and the q2 logits against plain matmuls; (23) the q2 session
+behind the HTTP micro-batcher, 5 requests in batches of 4 (the int2 kernel
+at M = 4); (24) continuous serving of the q2 artifact on the rowwise route,
+9 concurrent requests on 8 slots with a 96-token budget, each request's ids
+bitwise equal to it alone through the batcher and against
+``session.transcribe``.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -66,7 +79,10 @@ the int8 kernel 195 times (the tower), the int4 kernel 113 times (the
 prefill's 28 x 4 linears and the first logits) and the fused Qwen3 step
 once per decode step; continuous Qwen3-ASR serving launches the multi-slot
 Qwen3 step once per decode step, the int4 kernel 113 times a prefill and
-never the batch-1 step.
+never the batch-1 step; every LLM pass of the q2 model (a prefill, a
+per-weight step, a rowwise step of all slots) launches the int2 kernel 112
+times (28 x 4 linears) and the int8 kernel once (the 2-bit tied head), and
+neither the int4 kernel nor a fused step.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -75,6 +91,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 import subprocess
@@ -919,15 +936,61 @@ def p4_cost(m: int, k: int, n: int) -> tuple[int, float]:
     return 4 * m * k + k * n // 2 + 2 * 4 * (k // 128) * n + 4 * m * n, 2.0 * m * k * n
 
 
+# The yardstick for the int4 row: PyTorch's one call for a group-wise int4
+# product (bf16 x, weights packed by _convert_weight_to_int4pack, per-group
+# bf16 scale and zero in its (q - 8) * s + z' form). Its bf16 scales and
+# output keep ~3 significant digits, so it is held to the plain version only
+# loosely (LIBRARY_INT4_TOL of max|plain|); the port never calls it.
+LIBRARY_INT4_TOL = 2e-2
+LIBRARY_INNER_K_TILES = 8
+
+
+def int4_library_call(torch, leaf, x):
+    """A zero-argument call of torch._weight_int4pack_mm computing x @
+    dequant(leaf) (group 128) in bf16, with the weight converted once here."""
+    from asr_tpu_torch.quant.quantize import unpack4_halves
+
+    u = unpack4_halves(leaf.q).to(torch.int32).t().contiguous()  # (N, K) values in [0, 16)
+    packed = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8),
+                                               LIBRARY_INNER_K_TILES)
+    # (u - z) * s = (u - 8) * s + (8 - z) * s
+    sz = torch.stack([leaf.scale, (8.0 - leaf.zero) * leaf.scale], dim=-1).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    return lambda: torch._weight_int4pack_mm(xb, packed, 128, sz.contiguous())
+
+
 def phase_p4(torch, qm, quantize_linear, m_prefill: int, card: str) -> dict:
     """[14] The packed-int4 kernel against its plain version at every shape
-    of the q4 path, M = 1, 8 and the prefill's rows, both modes, in turns."""
+    of the q4 path, M = 1, 8 and the prefill's rows, both modes, in turns;
+    and, at the prefill's shapes, PyTorch's int4 call as a yardstick."""
     g = torch.Generator(device=DEV).manual_seed(14)
     rows, worst = [], 0.0
-    for (k, n), _count in QWEN_P4_SHAPES.items():
+    library, library_note = 0.0, None
+    for (k, n), count in QWEN_P4_SHAPES.items():
         leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 4, 128,
                                pack=True)
         check(leaf.packed, f"K={k} N={n} did not pack")
+        m_lib = 1 if n == 153600 else m_prefill
+        if library_note is None:
+            x = torch.randn((m_lib, k), generator=g, device=DEV)
+            try:
+                call = int4_library_call(torch, leaf, x)
+                got = call().float()
+                torch.cuda.synchronize()
+            except (AttributeError, RuntimeError, TypeError) as exc:  # a yardstick only
+                library_note = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+            else:
+                want = qm.quant_dense_p4_reference(x, leaf.q, leaf.scale, leaf.zero, 128, "bf16")
+                err, ref = (got - want).abs().max().item(), want.abs().max().item()
+                if err <= LIBRARY_INT4_TOL * ref:
+                    lib_ms = time_ms(call)
+                    library += count * lib_ms
+                    print(f"[14 int4] library torch._weight_int4pack_mm M={m_lib:4d} K={k:4d} "
+                          f"N={n:6d}: {lib_ms:.4f} ms, err vs plain {err:.3e} (max|plain| {ref:.3e}, "
+                          f"bound {LIBRARY_INT4_TOL} of it)  [{card}]")
+                else:
+                    library_note = (f"disagrees with the plain version at K={k} N={n}: {err:.3e} > "
+                                    f"{LIBRARY_INT4_TOL} * {ref:.3e}")
         for m in (1, 8, m_prefill):
             x = torch.randn((m, k), generator=g, device=DEV)
             for mm in ("f32", "bf16"):
@@ -964,7 +1027,13 @@ def phase_p4(torch, qm, quantize_linear, m_prefill: int, card: str) -> dict:
         print(f"[14 int4] one prefill's 113 calls (M={m_prefill}, the head at M=1), mm={mm}: kernel "
               f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms  "
               f"[{card}]")
-    return {"rows": rows, "max_abs_err": worst, "per_prefill": per_prefill}
+    if library_note is None:
+        print(f"[14 int4] one prefill's 113 calls through torch._weight_int4pack_mm: {library:.3f} ms  "
+              f"[{card}]")
+    else:
+        print(f"[14 int4] torch._weight_int4pack_mm not timed: {library_note}")
+    return {"rows": rows, "max_abs_err": worst, "per_prefill": per_prefill,
+            "library_ms": library if library_note is None else None, "library_note": library_note}
 
 
 def qwen_step_bytes(stacked: dict, nl: int, kvw: int, rows: list, itemsize: int) -> tuple[int, float]:
@@ -1165,6 +1234,101 @@ def qwen_prefill(torch, session, audio):
     return state, shift, embeds.shape[1], t_max, logits
 
 
+def qwen_metadata(cfg):
+    """The artifact metadata of a Qwen3-ASR folder: the config and a
+    chat-template-sized prompt around the audio."""
+    from asr_tpu_torch.runtime.artifact import ModelMetadata
+
+    head, suffix, tail = QWEN_HEAD
+    special = cfg.llm.vocab_size - 292  # <|im_start|> = 151644 in the 151936-token vocab
+    return ModelMetadata(family="qwen_asr", audio_pcm_scale=1.0, extra={
+        "config": dataclasses.asdict(cfg), "prompt_head_ids": list(range(special, special + head)),
+        "prompt_suffix_ids": list(range(special + 25, special + 25 + suffix)),
+        "prompt_tail_ids": list(range(special + 26, special + 26 + tail)),
+        "language_prompt_ids": {"en": [special - 100, special - 99]}})
+
+
+def qwen_window_numbers(torch, np, session, label: str, route: str, card: str) -> dict:
+    """One 30 s window through ``session``: tower and prefill times (CUDA
+    events and a synchronized host clock), RTF, decode ms per token (host
+    wall, sync included) and peak memory."""
+    from asr_tpu_torch.models import qwen_asr as qa
+
+    cfg = session.cfg
+    out = {}
+    audio30 = (np.random.default_rng(17).standard_normal(30 * 16000) * 0.1).astype(np.float32)
+    a30 = torch.from_numpy(audio30).to(DEV)[None]
+    v30 = torch.tensor([len(audio30)], device=DEV)
+    with torch.inference_mode():
+        mel = qa.log_mel_spectrogram(a30, cfg.mel_config())
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, (-mel.shape[1]) % 800))
+        vf = torch.div(v30, 160, rounding_mode="floor")
+        qa.encode_audio(session.tower_params, cfg, mel, vf)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            qa.encode_audio(session.tower_params, cfg, mel, vf)
+        end.record()
+        torch.cuda.synchronize()
+        out["tower_ms"] = start.elapsed_time(end) / 3
+        _, t_pre = synced(torch, lambda: qwen_prefill(torch, session, audio30))
+        out["prefill_ms"] = t_pre * 1e3 - out["tower_ms"]
+    gc.collect()  # earlier phases' sessions sit in reference cycles; the peak is this session's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res30 = session.transcribe(audio30)
+    out["rtf_30s"] = res30.rtf
+    out["window_ms"] = res30.elapsed_seconds * 1e3
+    out["steps_30s"] = qwen_counts(session, res30.token_ids) - 1
+    out["ms_per_token"] = (res30.elapsed_seconds * 1e3 - t_pre * 1e3) / max(out["steps_30s"], 1)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[{label} numbers] one 30 s window: {out['window_ms']:.1f} ms, RTF {out['rtf_30s']:.5f}; tower "
+          f"{out['tower_ms']:.2f} ms ({cfg.tower_layers} layers, {mel.shape[1] // 100 * 13} audio rows), "
+          f"prefill {out['prefill_ms']:.2f} ms ({qwen_prefill_rows(cfg)} rows), {out['steps_30s']} decode "
+          f"steps at {out['ms_per_token']:.3f} ms per token ({route} route, host wall); peak memory "
+          f"{out['peak_mib']:.0f} MiB  [{card}]")
+    return out
+
+
+def qwen_logits_vs_plain(torch, session, audio, label: str, what: str) -> float:
+    """The quantized model's prefill logits (mm=f32) against plain f32
+    matmuls on its dequantized weights, on 8 s of ``audio``: checked within
+    1e-3 of max|logit|; returns the share."""
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.ops import quant_matmul as qm
+    from asr_tpu_torch.quant.quantize import dequantize_pytree
+
+    qm.set_quant_config(mm="f32")
+    cfg, lcfg = session.cfg, session.cfg.llm
+    a = torch.from_numpy(audio[: 8 * 16000]).to(DEV)[None]
+    va = torch.tensor([8 * 16000], device=DEV)
+    pids = session._batch_ids(session._prompt_ids(""), 1)
+    dense_tower, dense_llm = dequantize_pytree(session.tower_params), dequantize_pytree(session.llm_params)
+
+    def prefill_logits(tower_p, llm_p):
+        embeds, valid = qa.prompt_embeds(tower_p, llm_p, cfg, a, va, pids)
+        lf = embeds.shape[1]
+        t_m = -(-(lf + 1) // 8) * 8
+        st = qwen3.make_kv_state(lcfg, 1, t_m, torch.float32, DEV)
+        h, _ = qwen3.decoder_pass(llm_p, lcfg, embeds, st, 0,
+                                  qwen3.causal_prefill_bias(valid, lf, t_m))
+        return qwen3.logits_from_hidden(llm_p, lcfg, h[:, int(valid[0]) - 1])
+
+    with torch.inference_mode():
+        lq = prefill_logits(session.tower_params, session.llm_params)
+        lp = prefill_logits(dense_tower, dense_llm)
+    del dense_tower, dense_llm
+    diff, scale = (lq - lp).abs().max().item(), lp.abs().max().item()
+    check(bool(torch.isfinite(lq).all()), f"non-finite {what} logits")
+    check(diff <= 1e-3 * scale, f"{what} logits vs plain: {diff} > 1e-3 * {scale}")
+    print(f"[{label} check] {what} mm=f32 prefill logits (8 s) vs plain f32 matmuls on the dequantized "
+          f"weights: max diff {diff:.3e} (max|logit| {scale:.3e}, {diff / scale:.2e} of it)")
+    qm.set_quant_config(mm="bf16")
+    torch.cuda.empty_cache()
+    return diff / scale
+
+
 def phase_qwen(torch, np, qm, fd, folder: str, card: str) -> dict:
     """[16] Qwen3-ASR-0.6B (q8 tower, q4 LLM and tied head) through an
     artifact folder and load_qwen_session: 20 s on the fused route, a
@@ -1173,8 +1337,8 @@ def phase_qwen(torch, np, qm, fd, folder: str, card: str) -> dict:
     from asr_tpu_torch.layers import qwen3
     from asr_tpu_torch.layers.rope import rope_tables
     from asr_tpu_torch.models import qwen_asr as qa
-    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
-    from asr_tpu_torch.runtime.artifact import ModelMetadata, save_model
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime.artifact import save_model
     from asr_tpu_torch.runtime.qwen_session import load_qwen_session
 
     qm.set_quant_config(mm="bf16")  # the serving mode; the session stacks for the fused step
@@ -1184,14 +1348,7 @@ def phase_qwen(torch, np, qm, fd, folder: str, card: str) -> dict:
     g = torch.Generator(device=DEV).manual_seed(16)
     tower = quantize_pytree(qa.init_tower_params(cfg, g), bits=8)
     llm = quantize_pytree(qwen3.init_params(lcfg, g), bits=4, pack=True, quantize_embeddings=True)
-    head, suffix, tail = QWEN_HEAD
-    special = lcfg.vocab_size - 292  # <|im_start|> = 151644 in the 151936-token vocab
-    meta = ModelMetadata(family="qwen_asr", audio_pcm_scale=1.0, extra={
-        "config": dataclasses.asdict(cfg), "prompt_head_ids": list(range(special, special + head)),
-        "prompt_suffix_ids": list(range(special + 25, special + 25 + suffix)),
-        "prompt_tail_ids": list(range(special + 26, special + 26 + tail)),
-        "language_prompt_ids": {"en": [special - 100, special - 99]}})
-    save_model(folder, {"tower": tower, "llm": llm}, meta)
+    save_model(folder, {"tower": tower, "llm": llm}, qwen_metadata(cfg))
     size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
     del tower, llm
     torch.cuda.empty_cache()
@@ -1266,71 +1423,34 @@ def phase_qwen(torch, np, qm, fd, folder: str, card: str) -> dict:
 
     # One 30 s window: tower, prefill, ms per token, RTF, peak memory.
     out = {"int8": int8, "int4": int4, "fused": fused, "steps": steps}
-    audio30 = (np.random.default_rng(17).standard_normal(30 * 16000) * 0.1).astype(np.float32)
-    a30 = torch.from_numpy(audio30).to(DEV)[None]
-    v30 = torch.tensor([len(audio30)], device=DEV)
-    with torch.inference_mode():
-        mel = qa.log_mel_spectrogram(a30, cfg.mel_config())
-        mel = torch.nn.functional.pad(mel, (0, 0, 0, (-mel.shape[1]) % 800))
-        vf = torch.div(v30, 160, rounding_mode="floor")
-        qa.encode_audio(session.tower_params, cfg, mel, vf)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
-            qa.encode_audio(session.tower_params, cfg, mel, vf)
-        end.record()
-        torch.cuda.synchronize()
-        out["tower_ms"] = start.elapsed_time(end) / 3
-        _, t_pre = synced(torch, lambda: qwen_prefill(torch, session, audio30))
-        out["prefill_ms"] = t_pre * 1e3 - out["tower_ms"]
-    torch.cuda.reset_peak_memory_stats()
-    res30 = session.transcribe(audio30)
-    out["rtf_30s"] = res30.rtf
-    out["window_ms"] = res30.elapsed_seconds * 1e3
-    out["steps_30s"] = qwen_counts(session, res30.token_ids) - 1
-    out["ms_per_token"] = (res30.elapsed_seconds * 1e3 - t_pre * 1e3) / max(out["steps_30s"], 1)
-    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
-    print(f"[16 numbers] one 30 s window: {out['window_ms']:.1f} ms, RTF {out['rtf_30s']:.5f}; tower "
-          f"{out['tower_ms']:.2f} ms ({cfg.tower_layers} layers, {mel.shape[1] // 100 * 13} audio rows), "
-          f"prefill {out['prefill_ms']:.2f} ms ({qwen_prefill_rows(cfg)} rows), {out['steps_30s']} decode "
-          f"steps at {out['ms_per_token']:.3f} ms per token (fused route, host wall); peak memory "
-          f"{out['peak_mib']:.0f} MiB  [{card}]")
-
+    out.update(qwen_window_numbers(torch, np, session, "16", "fused", card))
     # The q4 logits (mm=f32) against plain matmuls on the dequantized weights.
-    qm.set_quant_config(mm="f32")
-    a = torch.from_numpy(audio20[: 8 * 16000]).to(DEV)[None]
-    va = torch.tensor([8 * 16000], device=DEV)
-    pids = session._batch_ids(session._prompt_ids(""), 1)
-    dense_tower, dense_llm = dequantize_pytree(session.tower_params), dequantize_pytree(session.llm_params)
-
-    def prefill_logits(tower_p, llm_p):
-        embeds, valid = qa.prompt_embeds(tower_p, llm_p, cfg, a, va, pids)
-        lf = embeds.shape[1]
-        t_m = -(-(lf + 1) // 8) * 8
-        st = qwen3.make_kv_state(lcfg, 1, t_m, torch.float32, DEV)
-        h, _ = qwen3.decoder_pass(llm_p, lcfg, embeds, st, 0,
-                                  qwen3.causal_prefill_bias(valid, lf, t_m))
-        return qwen3.logits_from_hidden(llm_p, lcfg, h[:, int(valid[0]) - 1])
-
-    with torch.inference_mode():
-        lq = prefill_logits(session.tower_params, session.llm_params)
-        lp = prefill_logits(dense_tower, dense_llm)
-    del dense_tower, dense_llm
-    diff, scale = (lq - lp).abs().max().item(), lp.abs().max().item()
-    check(bool(torch.isfinite(lq).all()), "non-finite q4 logits")
-    check(diff <= 1e-3 * scale, f"q4 logits vs plain: {diff} > 1e-3 * {scale}")
-    print(f"[16 check] q4 mm=f32 prefill logits (8 s) vs plain f32 matmuls on the dequantized weights: "
-          f"max diff {diff:.3e} (max|logit| {scale:.3e}, {diff / scale:.2e} of it)")
-    qm.set_quant_config(mm="bf16")
-    torch.cuda.empty_cache()
+    qwen_logits_vs_plain(torch, session, audio20, "16", "q4")
     return out
 
 
-def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str) -> dict:
+def qwen_pass_launches(session) -> tuple[str, int, int]:
+    """(the packed kernel's name, its launches a prefill or per-weight step,
+    int8 launches a pass for the tied head) of a Qwen session: a q4 LLM's 4
+    linears a layer and its packed head run through the int4 kernel; a q2
+    LLM's linears run through the int2 kernel and its centered 2-bit head
+    through the int8 kernel."""
+    lin = session.llm_params["layers"][0]["attn"]["qkv"]["w"]
+    per_pass = 4 * session.cfg.llm.num_layers
+    if lin.packed and lin.bits == 2:
+        return "int2", per_pass, 1
+    check(lin.packed and lin.bits == 4 and session.llm_params["embed"].q_t_packed,
+          "expected a q4 LLM with its packed head, or a q2 LLM")
+    return "int4", per_pass + 1, 0
+
+
+def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str, label: str = "17") -> dict:
     """[17] The Qwen session behind the micro-batched HTTP server: 5
     concurrent requests of 5-20 s in batches of 4 (p4 at M = 4 on the
     per-weight route); each request's ids against the per-weight route for
-    that request alone, with a teacher-forced replay where they differ."""
+    that request alone, with a teacher-forced replay where they differ.
+    [23] The same for the q2 artifact (p2 at M = 4, the 2-bit head through
+    the int8 kernel)."""
     from asr_tpu_torch.layers import qwen3
     from asr_tpu_torch.models import qwen_asr as qa
     from asr_tpu_torch.parallel.http_server import start_background
@@ -1342,12 +1462,13 @@ def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str) -> dict:
     rng = np.random.default_rng(17)
     seconds = rng.uniform(*QWEN_SERVE_SECONDS, size=QWEN_SERVE_REQUESTS)
     clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16) for s in seconds]
+    packed_kernel, per_step, head_int8 = qwen_pass_launches(session)
     httpd, srv, thread = start_background(session, max_batch=QWEN_SERVE_BATCH, max_wait_ms=200.0)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     results: list = [None] * len(clips)
     try:
         torch.cuda.synchronize()
-        qm.LAUNCHES = qm.LAUNCHES_INT4 = fd.LAUNCHES = 0  # the serving path starts here
+        qm.LAUNCHES = qm.LAUNCHES_INT4 = qm.LAUNCHES_INT2 = fd.LAUNCHES = 0  # the serving path starts here
         t0 = time.perf_counter()
         threads = [threading.Thread(target=post_clip, args=(base, c, 0.0, results, i))
                    for i, c in enumerate(clips)]
@@ -1359,18 +1480,22 @@ def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str) -> dict:
         check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
         with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
-        int8, int4, fused = qm.LAUNCHES, qm.LAUNCHES_INT4, fd.LAUNCHES  # and ends here
+        int8, int4, int2, fused = qm.LAUNCHES, qm.LAUNCHES_INT4, qm.LAUNCHES_INT2, fd.LAUNCHES  # and ends here
     finally:
         httpd.shutdown()
         httpd.server_close()
         srv.close()
         thread.join(timeout=60)
     batches = health["batches_dispatched"] - 1  # the warm-up batch came before the counts
-    per_step = 4 * lcfg.num_layers + 1
+    packed, other = (int4, int2) if packed_kernel == "int4" else (int2, int4)
     check(health["requests_served"] == 1 + len(clips), f"healthz: {health}")
     check(fused == 0, f"the batch-{QWEN_SERVE_BATCH} route launched the fused kernel {fused} times")
-    check(int8 == batches * (6 * cfg.tower_layers + 3), f"{int8} int8 launches for {batches} batches")
-    check(int4 > 0 and int4 % per_step == 0, f"{int4} int4 launches is not a multiple of {per_step}")
+    check(other == 0, f"the {packed_kernel} LLM launched the other packed kernel {other} times")
+    check(packed > 0 and packed % per_step == 0, f"{packed} {packed_kernel} launches is not a multiple "
+          f"of {per_step}")
+    passes = packed // per_step
+    check(int8 == batches * (6 * cfg.tower_layers + 3) + passes * head_int8,
+          f"{int8} int8 launches for {batches} batches and {passes} LLM passes")
     for i, r in enumerate(results):
         check(r is not None and r[0] == 200, f"request {i}: {r}")
 
@@ -1407,16 +1532,16 @@ def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str) -> dict:
                 h, state = qwen3.decoder_pass(session.llm_params, lcfg, embed[tk], state, pos,
                                               qwen3.left_step_bias(shift, pos, t_max), pos_offset=shift)
                 logits = qwen3.logits_from_hidden(session.llm_params, lcfg, h[:, -1])
-    print(f"[17 serve] {len(clips)} requests ({', '.join(f'{s:.1f}' for s in seconds)} s) in batches of "
-          f"{QWEN_SERVE_BATCH} ({batches} batches, {QWEN_SERVE_BUDGET}-token budget) in {wall:.2f} s; "
+    print(f"[{label} serve] {len(clips)} requests ({', '.join(f'{s:.1f}' for s in seconds)} s) in batches "
+          f"of {QWEN_SERVE_BATCH} ({batches} batches, {QWEN_SERVE_BUDGET}-token budget) in {wall:.2f} s; "
           f"healthz {json.dumps(health)}")
-    print(f"[17 serve] launches: int4 {int4} ({int4 // per_step} x {per_step}: prefills + per-weight "
-          f"steps at M = {QWEN_SERVE_BATCH}), int8 {int8}, fused {fused}; ids equal to the per-weight "
-          f"route alone for {equal}/{len(clips)} requests, {replay['steps']} replayed ids within "
-          f"{replay['worst_gap']:.2e} of max|logit| of the best  [{card}]")
+    print(f"[{label} serve] launches: {packed_kernel} {packed} ({passes} x {per_step}: prefills + "
+          f"per-weight steps at M = {QWEN_SERVE_BATCH}), int8 {int8}, fused {fused}; ids equal to the "
+          f"per-weight route alone for {equal}/{len(clips)} requests, {replay['steps']} replayed ids "
+          f"within {replay['worst_gap']:.2e} of max|logit| of the best  [{card}]")
     del session
     torch.cuda.empty_cache()
-    return {"int8": int8, "int4": int4, "wall_s": wall, "equal": equal}
+    return {"int8": int8, "int4": int4, "int2": int2, "wall_s": wall, "equal": equal}
 
 
 # ── 18-20. the multi-slot Qwen3 step, continuous Qwen3-ASR serving ────────
@@ -1762,6 +1887,305 @@ def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, ca
     return out
 
 
+# ── 21-24. Qwen3-ASR-0.6B with a packed-int2 LLM, the int2 kernel ────────
+# Every packed (K, N) of the q2 LLM and how many of one LLM pass's 112 int2
+# calls have it: q|k|v, o, gate|up and down in each of the 28 layers. The
+# 2-bit tied head stays centered int8 and runs through the int8 kernel.
+QWEN_P2_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1024): 28}
+QWEN_P2_M = (1, 4, 8)  # decode steps, the micro-batcher, the continuous server's slots
+Q2_CONT_REQUESTS = 9
+Q2_CONT_SECONDS = (5.0, 30.0)
+Q2_CONT_BUDGET = 96  # new tokens a window on the continuous rowwise route
+
+
+def p2_cost(m: int, k: int, n: int) -> tuple[int, float]:
+    """Bytes (x read, packed weight, f32 scale and zero, output written) and
+    operations (2 M K N) of one int2 call."""
+    return 4 * m * k + k * n // 4 + 2 * 4 * (k // 128) * n + 4 * m * n, 2.0 * m * k * n
+
+
+def phase_p2(torch, qm, quantize_linear, m_prefill: int, card: str) -> dict:
+    """[21] The packed-int2 kernel against its plain version at every shape
+    of the q2 path, M = 1, 4, 8 and the prefill's rows, both modes; rows of
+    a batched call bitwise equal to the row alone; timed in turns."""
+    g = torch.Generator(device=DEV).manual_seed(21)
+    rows, worst = [], 0.0
+    for (k, n), _count in QWEN_P2_SHAPES.items():
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 2, 128,
+                               pack=True)
+        check(leaf.packed and tuple(leaf.q.shape) == (k // 4, n), f"K={k} N={n} did not pack to 2 bits")
+        for m in (*QWEN_P2_M, m_prefill):
+            x = torch.randn((m, k), generator=g, device=DEV)
+            for mm in ("f32", "bf16"):
+                args = (x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+                got = qm.quant_matmul_int2(*args)
+                torch.cuda.synchronize()
+                want = qm.quant_dense_p2_reference(*args)
+                err = (got - want).abs().max().item()
+                ref = want.abs().max().item()
+                check(err <= 1e-4 * ref, f"int2 kernel vs plain at M={m} K={k} N={n} {mm}: "
+                      f"{err} > 1e-4 * {ref}")
+                worst = max(worst, err)
+                for r in sorted({0, m // 2, m - 1}) if m > 1 else ():
+                    one = qm.quant_matmul_int2(x[r : r + 1].contiguous(), *args[1:])
+                    check(torch.equal(one[0], got[r]), f"int2 at M={m} K={k} N={n} {mm}: row {r} "
+                          "differs from the same row alone")
+                k_ms, p_ms = in_turns(lambda: qm.quant_dense_p2_reference(*args),
+                                      lambda: qm.quant_matmul_int2(*args), plain_iters=5)
+                nbytes, ops = p2_cost(m, k, n)
+                b_ms, b_by = bound(nbytes, ops)
+                rows.append({"m": m, "k": k, "n": n, "mm": mm, "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+                             "max_abs_err": err})
+                print(f"[21 int2] M={m:4d} K={k:4d} N={n:5d} mm={mm:4s} kernel {k_ms:.4f} ms "
+                      f"({2 * m * k * n / (k_ms * 1e6):.0f} GFLOP/s, {nbytes / (k_ms * 1e6):.0f} GB/s)  "
+                      f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  err {err:.3e} "
+                      f"(max|plain| {ref:.3e})  [{card}]")
+    per_pass = {}
+    for label, m_sel in (("prefill", m_prefill), ("step", 1)):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+        for r in rows:
+            if r["mm"] == "bf16" and r["m"] == m_sel:
+                for key in tot:
+                    tot[key] += QWEN_P2_SHAPES[(r["k"], r["n"])] * r[key]
+        tot["bound_by"] = bound(tot["bytes"], tot["ops"])[1]
+        per_pass[label] = tot
+        print(f"[21 int2] one LLM pass's 112 calls at M={m_sel} ({label}), mm=bf16: kernel "
+              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+              f"({tot['bound_by']})  [{card}]")
+    return {"rows": rows, "max_abs_err": worst, "per_prefill": per_pass["prefill"],
+            "per_step": per_pass["step"]}
+
+
+def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
+    """[22] Qwen3-ASR-0.6B with a q8 tower, a packed-q2 LLM and a 2-bit tied
+    head through an artifact folder and load_qwen_session (the per-weight
+    route: a q2 LLM does not stack): 20 s with its launch counts, its ids
+    against a replay with plain matmuls on the dequantized weights, one 30 s
+    window's numbers, and the q2 logits against plain matmuls."""
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+    from asr_tpu_torch.runtime.artifact import save_model
+    from asr_tpu_torch.runtime.qwen_session import load_qwen_session
+
+    cfg = qa.QwenAsrConfig()
+    lcfg = cfg.llm
+    t0 = time.perf_counter()
+    tower = quantize_pytree(qa.init_tower_params(cfg, torch.Generator(device=DEV).manual_seed(0)), bits=8)
+    llm = quantize_pytree(qwen3.init_params(lcfg, torch.Generator(device=DEV).manual_seed(1)), bits=2,
+                          pack=True, quantize_embeddings=True)
+    save_model(folder, {"tower": tower, "llm": llm}, qwen_metadata(cfg))
+    size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
+    del tower, llm
+    torch.cuda.empty_cache()
+    qm.set_quant_config(mm="f32")  # the exact product, so the plain replay below agrees to f32 rounding
+    session = load_qwen_session(folder, DEV)
+    check(session.stacked is None, "a q2 LLM stacked for the fused step")
+    lins = [leaf["w"] for layer in session.llm_params["layers"] for part in ("attn", "mlp")
+            for leaf in layer[part].values() if isinstance(leaf, dict) and "w" in leaf]
+    check(len(lins) == 4 * lcfg.num_layers and all(w.packed and w.bits == 2 for w in lins),
+          "not every LLM linear is packed 2-bit")
+    emb = session.llm_params["embed"]
+    check(emb.bits == 2 and not emb.q_t_packed and emb.q_t.dtype == torch.int8,
+          "the 2-bit tied head is not centered int8")
+    print(f"[22 q2] Qwen3-ASR-0.6B (q8 tower, packed-q2 LLM, 2-bit tied head {tuple(emb.q_t.shape)} "
+          f"int8): init + quantize + artifact ({size_mb:.1f} MB) round trip in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(22)
+    audio20 = (rng.standard_normal(20 * 16000) * 0.1).astype(np.float32)
+    session.transcribe(audio20[:16000])  # warm-up
+    torch.cuda.synchronize()
+
+    qm.LAUNCHES = qm.LAUNCHES_INT4 = qm.LAUNCHES_INT2 = fd.LAUNCHES = fdm.LAUNCHES = 0  # the q2 path starts here
+    res = session.transcribe(audio20)
+    int8, int4, int2, fused, multi = (qm.LAUNCHES, qm.LAUNCHES_INT4, qm.LAUNCHES_INT2, fd.LAUNCHES,
+                                      fdm.LAUNCHES)  # and ends here
+    ids = res.token_ids
+    steps = qwen_counts(session, ids) - 1
+    per_pass = 4 * lcfg.num_layers
+    n_tower = 6 * cfg.tower_layers + 3
+    check(int2 == per_pass * (1 + steps) and steps > 0,
+          f"{int2} int2 launches, not {per_pass} x (the prefill + {steps} steps)")
+    check(int8 == n_tower + 1 + steps, f"{int8} int8 launches, not the tower's {n_tower} + the head's "
+          f"{1 + steps}")
+    check(int4 == fused == multi == 0, f"int4 {int4}, fused {fused}, multi-slot {multi} launches on the "
+          "q2 path")
+    print(f"[22 q2] 20 s -> {len(ids)} tokens in {res.elapsed_seconds * 1e3:.1f} ms (per-weight route, "
+          f"mm=f32); int2 {int2} ({per_pass} x (1 prefill + {steps} steps)), int8 {int8} (tower {n_tower} "
+          f"+ head {1 + steps}), int4 {int4}, fused {fused}, multi-slot {multi}  [{card}]")
+
+    # The same window replayed with plain matmuls on the dequantized weights.
+    dense_tower, dense_llm = dequantize_pytree(session.tower_params), dequantize_pytree(session.llm_params)
+    checked, under, worst = 0, 0, 0.0
+    with torch.inference_mode():
+        buf = torch.zeros((1, session.window_samples), device=DEV)
+        buf[0, : len(audio20)] = torch.from_numpy(audio20).to(DEV)
+        embeds, valid = qa.prompt_embeds(dense_tower, dense_llm, cfg, buf,
+                                         torch.tensor([len(audio20)], device=DEV),
+                                         session._batch_ids(session._prompt_ids(""), 1))
+        state, shift, t_max, logits = qa.left_prefill(dense_llm, cfg, embeds, valid,
+                                                      session.decode_cfg.max_new_tokens)
+        lf = embeds.shape[1]
+        for j, tok in enumerate(ids):
+            lg = logits[0, : lcfg.vocab_size]
+            scale = lg.abs().max().item()
+            worst = max(worst, (lg.max() - lg[tok]).item() / scale)
+            if logits_margin(lg).item() > MARGIN * scale:
+                check(int(lg.argmax()) == tok, f"step {j}: the q2 id {tok} is not the plain replay's "
+                      f"argmax {int(lg.argmax())} above a {MARGIN} top-2 margin")
+                checked += 1
+            else:
+                under += 1
+            if j + 1 == len(ids):
+                break
+            pos = lf + j
+            tk = torch.tensor([[tok]], device=DEV)
+            h, state = qwen3.decoder_pass(dense_llm, lcfg, dense_llm["embed"][tk], state, pos,
+                                          qwen3.left_step_bias(shift, pos, t_max), pos_offset=shift)
+            logits = qwen3.logits_from_hidden(dense_llm, lcfg, h[:, -1])
+    del dense_tower, dense_llm, state
+    print(f"[22 check] replay with plain matmuls on the dequantized weights: the session's id is the "
+          f"replay's argmax at {checked}/{len(ids)} ids above a {MARGIN} top-2 margin ({under} under it); "
+          f"every id within {worst:.2e} of max|logit| of the replay's best")
+
+    out = {"int8": int8, "int2": int2, "steps": steps}
+    qm.set_quant_config(mm="bf16")  # the serving mode for the window's numbers
+    out.update(qwen_window_numbers(torch, np, session, "22", "per-weight", card))
+    # Where a per-weight step's time goes: one step at the 30 s window's last position.
+    with torch.inference_mode():
+        state, shift, lf, t_max, logits = qwen_prefill(torch, session, audio20)
+        pos, tk = t_max - 2, logits[:, : lcfg.vocab_size].argmax(-1)[:, None]
+        emb_tk = session.llm_params["embed"][tk]
+        bias = qwen3.left_step_bias(shift, pos, t_max)
+
+        def step():
+            h, _ = qwen3.decoder_pass(session.llm_params, lcfg, emb_tk, state, pos, bias, pos_offset=shift)
+            return qwen3.logits_from_hidden(session.llm_params, lcfg, h[:, -1])
+
+        host_ms, dev_ms, by_name = profile_steps(torch, step, steps=10)
+        del state
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out.update(step_host_ms=host_ms, step_dev_ms=dev_ms, step_kernels=dict(top))
+    print(f"[22 profile] one per-weight step (bf16, pos {pos}): {dev_ms * 1e3:.1f} us of kernels in a "
+          f"{host_ms * 1e3:.1f} us step (idle share {1 - dev_ms / host_ms:.3f}); us a step: "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in top) + f"  [{card}]")
+    out["logits_rel"] = qwen_logits_vs_plain(torch, session, audio20, "22", "q2")
+    del session
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_qwen_q2_continuous(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
+    """[24] Continuous serving of the q2 artifact over HTTP on the rowwise
+    route (8 slots, bf16 caches, a 96-token budget): 9 concurrent requests
+    of 5-30 s with staggered starts, every step's linears through the int2
+    kernel at M = 8; each request's ids against the same request alone
+    through the batcher (bitwise) and against session.transcribe (a
+    teacher-forced replay where they differ)."""
+    from asr_tpu_torch.parallel.llm_server import start_background_continuous
+    from asr_tpu_torch.runtime.qwen_session import load_qwen_session
+
+    qm.set_quant_config(mm="bf16")
+    session = load_qwen_session(folder, DEV, max_new_tokens=Q2_CONT_BUDGET)  # phase 22's artifact
+    check(session.stacked is None, "a q2 LLM stacked for the fused step")
+    gc.collect()  # as in qwen_window_numbers: the peak below is this server's
+    cfg = session.cfg
+    rng = np.random.default_rng(24)
+    seconds = rng.uniform(*Q2_CONT_SECONDS, size=Q2_CONT_REQUESTS)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16) for s in seconds]
+    delays = rng.uniform(0.0, 0.2, size=len(clips))
+    httpd, srv, thread = start_background_continuous(session, n_slots=QWEN_CONT_SLOTS, kv_dtype="bf16")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: list = [None] * len(clips)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qm.LAUNCHES = qm.LAUNCHES_INT4 = qm.LAUNCHES_INT2 = fd.LAUNCHES = fdm.LAUNCHES = 0  # the path starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_clip, args=(base, c, float(delays[i]), results, i))
+                   for i, c in enumerate(clips)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        int8, int4, int2, fused, multi = (qm.LAUNCHES, qm.LAUNCHES_INT4, qm.LAUNCHES_INT2, fd.LAUNCHES,
+                                          fdm.LAUNCHES)  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        thread.join(timeout=60)
+    n_tower = 6 * cfg.tower_layers + 3
+    per_pass = 4 * cfg.llm.num_layers
+    check(health["ok"] and health["step_kernel"] == "rowwise" and health["decoder"] == "llm",
+          f"healthz: {health}")
+    check(health["requests_served"] == len(clips), f"served {health['requests_served']} windows")
+    check(health["slots_active"] == 0 and health["queue_depth"] == 0, f"healthz: {health}")
+    check(multi == 0 and fused == 0 and int4 == 0, f"multi-slot {multi}, batch-1 {fused}, int4 {int4} "
+          "launches on the q2 rowwise route")
+    passes = len(clips) + health["decode_steps"]  # each request's prefill, then one pass a step
+    check(int2 == per_pass * passes, f"{int2} int2 launches, not {per_pass} x ({len(clips)} prefills + "
+          f"{health['decode_steps']} steps)")
+    check(int8 == len(clips) * n_tower + passes, f"{int8} int8 launches, not {len(clips)} towers x "
+          f"{n_tower} + {passes} heads")
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"request {i}: {r}")
+    lat = np.array([r[2] for r in results])
+    t_max = srv.batcher.t_max
+
+    # Each request alone through the same batcher: bitwise its served ids.
+    bat, eot = srv.batcher, cfg.eot_id
+    with torch.inference_mode():
+        for i, clip in enumerate(clips):
+            emb, valid = session.prompt_embeds(clip.astype(np.float32) / 32768.0)
+            slot = bat.try_submit(emb, valid)
+            while bat.is_active(slot):
+                bat.step()
+            alone = [t for t in bat.take_result(slot) if t != eot]
+            check(alone == results[i][1]["token_ids"], f"request {i}: the served ids differ from the "
+                  "request run alone through the batcher")
+    # Against session.transcribe (batch 1, f32 caches); where they differ, every
+    # served id within the replay margin of the per-weight route's best logit.
+    equal, gaps = 0, []
+    for i, clip in enumerate(clips):
+        audio = clip.astype(np.float32) / 32768.0
+        got = results[i][1]["token_ids"]
+        if session.transcribe(audio).token_ids == got:
+            equal += 1
+            continue
+        gaps.append(qwen_replay_gap(torch, session, audio, got))
+        check(gaps[-1] <= QWEN_REPLAY_MARGIN, f"request {i}: a served id {gaps[-1]:.2e} of max|logit| "
+              f"below the per-weight route's best (margin {QWEN_REPLAY_MARGIN})")
+    toks = health["tokens_generated"]
+    step_s = health["step_latency_avg_s"]
+    agg = toks / (health["decode_steps"] * step_s) if step_s else 0.0
+    p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
+    print(f"[24 serve] {len(clips)} requests ({seconds.min():.1f}-{seconds.max():.1f} s, {QWEN_CONT_SLOTS} "
+          f"slots, bf16 caches of {t_max} rows, {Q2_CONT_BUDGET}-token budget, starts staggered "
+          f"0-200 ms) in {wall:.2f} s; healthz {json.dumps(health)}")
+    print(f"[24 serve] launches: int2 {int2} ({per_pass} x ({len(clips)} prefills + "
+          f"{health['decode_steps']} rowwise steps at M = {QWEN_CONT_SLOTS})), int8 {int8}, multi-slot "
+          f"{multi}, batch-1 {fused}; every request's ids bitwise equal to it alone through the "
+          f"batcher; equal to session.transcribe for {equal}/{len(clips)}, the other {len(gaps)} "
+          f"replayed: every served id within {max(gaps, default=0.0):.2e} of max|logit| of the "
+          f"per-weight best (margin {QWEN_REPLAY_MARGIN})")
+    print(f"[24 numbers] decode {toks} tokens: {agg:.0f} tokens/s over step time ({toks / wall:.0f} end "
+          f"to end); average step {step_s * 1e3:.3f} ms; completion p50 {p50:.2f} s, p95 {p95:.2f} s "
+          f"(client side); average queue wait {health['queue_wait_avg_s']:.3f} s; peak memory "
+          f"{peak:.0f} MiB  [{card}]")
+    del session, srv, bat
+    torch.cuda.empty_cache()
+    return {"int8": int8, "int2": int2, "tokens": toks, "agg_tok_s": agg, "e2e_tok_s": toks / wall,
+            "step_ms": step_s * 1e3, "p50_s": p50, "p95_s": p95,
+            "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak, "equal": equal, "wall_s": wall}
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1791,7 +2215,12 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build([qm.SOURCE, fs.SOURCE, fm.SOURCE, qm.SOURCE_INT4, fd.SOURCE, fdm.SOURCE])
+    from asr_tpu_torch.ops import nvcc_build
+
+    check(len(nvcc_build.SOURCES) == 7 and {qm.SOURCE, qm.SOURCE_INT4, qm.SOURCE_INT2, fs.SOURCE,
+                                             fm.SOURCE, fd.SOURCE, fdm.SOURCE} == set(nvcc_build.SOURCES),
+          f"expected the seven kernel sources, found {[p.name for p in nvcc_build.SOURCES]}")
+    phase_build(nvcc_build.SOURCES)
     kern = phase_kernel_vs_plain(torch, qm, quantize_linear, card)
 
     # ── 4. model: full geometry, q8, artifact round trip, session ─────────
@@ -1974,6 +2403,13 @@ def main() -> int:
                                           {c: dec["times"][c]["ms"] for c in dec["times"]}, card)
         qcont = phase_qwen_continuous(torch, np, qm, fd, fdm, qwen_dir, qrun, card)
 
+    # ── 21-24. Qwen3-ASR-0.6B with a packed-int2 LLM, the int2 kernel ──────
+    p2 = phase_p2(torch, qm, quantize_linear, qwen_prefill_rows(QwenAsrConfig()), card)
+    with tempfile.TemporaryDirectory() as q2_dir:
+        q2run = phase_qwen_q2(torch, np, qm, fd, fdm, q2_dir, card)
+        q2serve = phase_qwen_serve(torch, np, qm, fd, q2_dir, card, label="23")
+        q2cont = phase_qwen_q2_continuous(torch, np, qm, fd, fdm, q2_dir, card)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     worst = max(r["max_abs_err"] for r in kern["rows"])
@@ -1988,10 +2424,12 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int8.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:115",
-        "launches": launches + wrun_int8 + serve["int8"] + qrun["int8"] + qserve["int8"] + qcont["int8"],
+        "launches": (launches + wrun_int8 + serve["int8"] + qrun["int8"] + qserve["int8"] + qcont["int8"]
+                     + q2run["int8"] + q2serve["int8"] + q2cont["int8"]),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
-                             "qwen_continuous": qcont["int8"]},
+                             "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
+                             "qwen_q2_serve": q2serve["int8"], "qwen_q2_continuous": q2cont["int8"]},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2039,7 +2477,9 @@ def main() -> int:
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
         "bound_ms": p4["per_prefill"]["bf16"]["bound_ms"],
         "bound_by": p4["per_prefill"]["bf16"]["bound_by"],
-        "library_ms": None,
+        "library_ms": p4["library_ms"],
+        "library": "torch._weight_int4pack_mm (bf16, group 128), the same 113 calls"
+                   + (f"; not timed: {p4['library_note']}" if p4["library_note"] else ""),
         "timing": f"sum over one 30 s prefill's 113 calls (112 at M={qwen_prefill_rows(QwenAsrConfig())}, "
                   "the tied head at M=1), mm=bf16, CUDA events; bound summed per call",
     }, {
@@ -2072,6 +2512,23 @@ def main() -> int:
         "library_ms": None,
         "timing": f"one Qwen3-0.6B q4 step of {QWEN_MULTI_TIMED_B[-1]} slots with the packed tied head, "
                   f"bf16 caches, every slot at pos {QWEN_MULTI_TIMED_POS}, CUDA events",
+    }, {
+        "name": "quant_matmul_int2",
+        "route": "cuda",
+        "source": "asr_tpu_torch/csrc/quant_matmul_int2.cu",
+        "replaces": "asr_tpu/ops/quant_matmul.py:231",
+        "launches": q2run["int2"] + q2serve["int2"] + q2cont["int2"],
+        "launches_by_path": {"qwen_q2": q2run["int2"], "qwen_q2_serve": q2serve["int2"],
+                             "qwen_q2_continuous": q2cont["int2"]},
+        "max_abs_err": p2["max_abs_err"],
+        "ms": p2["per_prefill"]["ms"],
+        "plain_ms": p2["per_prefill"]["plain_ms"],
+        "bound_ms": p2["per_prefill"]["bound_ms"],
+        "bound_by": p2["per_prefill"]["bound_by"],
+        "library_ms": None,
+        "timing": f"sum over one 30 s prefill's 112 calls at M={qwen_prefill_rows(QwenAsrConfig())}, "
+                  "mm=bf16, CUDA events; bound summed per call; no PyTorch call computes a 2-bit "
+                  "group-wise product",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ of one full-geometry forward; the fused AED decode-step kernel against its
 plain version at a small and at the Whisper-Large-v3-Turbo geometry, its
 wrapper's checks, and its launch count in a one-window transcription; the
 multi-slot AED decode-step kernel likewise, and its launch count in a
-continuous-serving run; the packed-int4 matmul at the Qwen3-ASR-0.6B shapes
-(and a row alone against the same row in a batch), the fused Qwen3 decode
+continuous-serving run; the packed-int4 and packed-int2 matmuls at the
+Qwen3-ASR-0.6B shapes (and a row alone against the same row in a batch),
+unpacked leaves of 2, 4 and 8 bits through the int8 kernel, the fused Qwen3 decode
 step at a small and at the full geometry, their wrappers' checks, and the
 launch counts of a batch-1 Qwen3-ASR transcription; the multi-slot Qwen3
 step against its plain version and, slot by slot, bitwise against the
@@ -365,6 +366,70 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take():
         qm.quant_matmul_int4(x, leaf.q, leaf.scale, leaf.zero, 96, "f32")
     with pytest.raises(ValueError):
         qm.quant_matmul_int4(x, leaf.q.cpu(), leaf.scale, leaf.zero, 128, "f32")
+
+
+# ── the packed-int2 matmul, unpacked leaves of every width ───────────────
+# Every packed (K, N) of the Qwen3-ASR-0.6B q2 LLM: q|k|v, o, gate|up, down.
+QWEN_P2_SHAPES = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n", QWEN_P2_SHAPES)
+def test_int2_kernel_matches_plain_version(k, n, mm):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(k + n + 2)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 2, 128,
+                           pack=True)
+    assert leaf.packed and tuple(leaf.q.shape) == (k // 4, n)
+    for m in (1, 4, 8, 432):
+        x = torch.randn((m, k), generator=g, device="cuda")
+        before = qm.LAUNCHES_INT2
+        got = qm.quant_matmul_int2(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+        torch.cuda.synchronize()
+        assert qm.LAUNCHES_INT2 == before + 1
+        want = qm.quant_dense_p2_reference(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        # each row sums in the same order at every M: a row alone is bitwise the same
+        one = qm.quant_matmul_int2(x[m // 2 : m // 2 + 1].contiguous(), leaf.q, leaf.scale,
+                                   leaf.zero, 128, mm)
+        assert torch.equal(one[0], got[m // 2])
+
+
+@pytest.mark.gpu
+def test_int2_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    leaf = quantize_linear(torch.randn((512, 128), device="cuda"), 2, 128, pack=True)
+    assert leaf.packed
+    x = torch.randn((4, 512), device="cuda")
+    with pytest.raises(TypeError):
+        qm.quant_matmul_int2(x.double(), leaf.q, leaf.scale, leaf.zero, 128, "f32")
+    with pytest.raises(ValueError):  # K is not 4 x the packed rows
+        qm.quant_matmul_int2(x[:, :256].contiguous(), leaf.q, leaf.scale, leaf.zero, 128, "f32")
+    with pytest.raises(ValueError):  # K/4 is not a multiple of the block
+        qm.quant_matmul_int2(x, leaf.q, leaf.scale, leaf.zero, 96, "f32")
+    with pytest.raises(ValueError):  # K/4 is not a multiple of the staging depth
+        qm.quant_matmul_int2(torch.randn((4, 40), device="cuda"), leaf.q[:10].contiguous(),
+                             leaf.scale, leaf.zero, 10, "f32")
+    with pytest.raises(ValueError):
+        qm.quant_matmul_int2(x, leaf.q.cpu(), leaf.scale, leaf.zero, 128, "f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_unpacked_leaves_of_every_width_take_the_int8_kernel(bits):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(bits)
+    leaf = quantize_linear(torch.randn((1024, 512), generator=g, device="cuda") * 0.03, bits, 128)
+    assert not leaf.packed and leaf.bits == bits
+    x = torch.randn((5, 1024), generator=g, device="cuda")
+    for mm in ("f32", "bf16"):
+        before = (qm.LAUNCHES, qm.LAUNCHES_INT4, qm.LAUNCHES_INT2)
+        got = qm.quant_dense(x, leaf, mm=mm)
+        torch.cuda.synchronize()
+        assert (qm.LAUNCHES, qm.LAUNCHES_INT4, qm.LAUNCHES_INT2) == (before[0] + 1, *before[1:])
+        want = qm.quant_dense_reference(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 def _qwen_stacked(cfg, seed):

@@ -159,3 +159,41 @@ def test_quantize_pytree_same_leaves_as_jax():
             assert (jout[key] == tout[key]).mean() >= 0.999, key
         else:
             np.testing.assert_allclose(tout[key], jout[key], rtol=1e-6, atol=0, err_msg=key)
+
+
+# Unpacked leaves of every width: the JAX package stores them centered int8
+# and runs them through its int8 kernel (``asr_tpu/ops/quant_matmul.py``,
+# ``elif not packed``); the port once refused every unpacked leaf but 8-bit.
+# The three writers of such leaves: ``quantize --bits 4`` without ``--pack``,
+# a 4-bit pack whose K/2 is not a block multiple, and every 2-bit tied head.
+@pytest.mark.parametrize("bits,pack,k", [(2, False, 512), (4, False, 512), (8, False, 512),
+                                         (4, True, 384), (2, True, 256)])
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+def test_unpacked_leaves_of_every_width_match_jax(bits, pack, k, mm):
+    rng = np.random.default_rng(bits + k)
+    w = (rng.standard_normal((k, 256)) * 0.05).astype(np.float32)
+    jleaf = jquant.quantize_linear(jnp.asarray(w), bits=bits, block=128, pack=pack)
+    tleaf = tquant.quantize_linear(torch.from_numpy(w), bits=bits, block=128, pack=pack)
+    assert not jleaf.packed and not tleaf.packed and tleaf.bits == bits
+    np.testing.assert_array_equal(tleaf.q.numpy(), np.asarray(jleaf.q))
+    x = rng.standard_normal((7, k)).astype(np.float32)
+    want = np.asarray(jqm._pallas_quant_dense_2d(jnp.asarray(x), jleaf, interpret=True, mm=mm))
+    before = tqm.LAUNCHES
+    got = tqm.quant_dense(torch.from_numpy(x), tleaf, mm=mm).numpy()
+    assert tqm.LAUNCHES == before  # a CPU tensor: the plain version
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_two_bit_tied_head_matches_jax():
+    table = (np.random.default_rng(5).standard_normal((700, 256)) * 0.02).astype(np.float32)
+    je = jquant.quantize_embedding(jnp.asarray(table), bits=2, block=128)
+    te = tquant.quantize_embedding(torch.from_numpy(table), bits=2, block=128)
+    assert not je.q_t_packed and not te.q_t_packed and tuple(te.q_t.shape) == (256, 1024)
+    for f in ("q", "scale", "zero", "q_t", "scale_t", "zero_t"):
+        np.testing.assert_array_equal(getattr(te, f).numpy(), np.asarray(getattr(je, f)), err_msg=f)
+    y = np.random.default_rng(6).standard_normal((2, 256)).astype(np.float32)
+    tqm.set_quant_config(mm="f32")
+    got = tquant.embedding_logits(te, torch.from_numpy(y)).numpy()
+    want = np.asarray(jquant.embedding_logits(je, jnp.asarray(y)))
+    assert got.shape == (2, 700)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

@@ -5,9 +5,11 @@ FLAC decoder, mel banks, window-text joining, RoPE tables, Qwen output
 parsing) agree with the originals on the same inputs; the loaders run on
 the card unless the caller asks for the CPU.
 
-The JAX package's audio and FLAC paths prefer its native C++ layer; the
-port's copies keep only the pure-Python paths, so those comparisons turn the
-native layer off in the JAX package (``native.available`` -> False).
+Both packages' audio and FLAC paths prefer their native C++ layers (the
+port keeps its own copy, ``asr_tpu_torch/native``); the comparisons of the
+pure-Python paths here turn the native layer off in both packages
+(``native.available`` -> False). ``tests/test_torch_readers.py`` compares
+the native paths.
 """
 
 import ast
@@ -27,6 +29,7 @@ from asr_tpu.parallel import http_server as jhttp
 from asr_tpu.runtime import audio as jaudio
 from asr_tpu.runtime import flac as jflac
 from asr_tpu.runtime import metadata as jmeta
+from asr_tpu_torch import native as tnative
 from asr_tpu_torch.frontend import mel_banks as tmb
 from asr_tpu_torch.parallel import http_server as thttp
 from asr_tpu_torch.runtime import audio as taudio
@@ -102,6 +105,11 @@ qsess = QwenAsrSession(qtower, qllm, qcfg, template=QwenPromptTemplate((1, 2), (
                        max_new_tokens=3, max_seconds=1.0)
 qout = qsess.transcribe(np.zeros(8000, np.float32))
 assert len(qout.token_ids) == 4, qout
+from asr_tpu_torch.quant.quantize import quantize_linear
+leaf2 = quantize_linear(torch.randn(512, 128), bits=2, pack=True)
+assert leaf2.packed and qm.quant_dense(torch.randn(3, 512), leaf2).shape == (3, 128)
+from asr_tpu_torch.runtime import audio as taudio
+assert taudio.resample(np.ones(4410, np.float32), 44100, 16000).shape == (1600,)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
 assert not leaked, leaked
 print("STANDALONE_OK", len(out["token_ids"]))
@@ -110,8 +118,9 @@ print("STANDALONE_OK", len(out["token_ids"]))
 
 def test_port_runs_without_jax_or_the_jax_package():
     """Every module imported, the SenseVoice forward, a Whisper
-    transcription, the continuous server and a q4 Qwen3-ASR transcription,
-    in a fresh process."""
+    transcription, the continuous server, a q4 Qwen3-ASR transcription, a
+    packed-int2 product and a (native, where g++ builds it) resample, in a
+    fresh process."""
     proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -178,6 +187,7 @@ def test_read_wav_matches(tmp_path, width, channels):
 @pytest.mark.parametrize("src,dst", [(8000, 16000), (44100, 16000), (16000, 16000)])
 def test_scipy_resample_matches(monkeypatch, src, dst):
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     x = np.random.default_rng(src).standard_normal(3000).astype(np.float32) * 1000
     got, want = taudio.resample(x, src, dst), jaudio.resample(x, src, dst)
     assert got.dtype == want.dtype
@@ -188,6 +198,7 @@ def test_flac_decoding_matches(tmp_path, monkeypatch):
     from test_flac import _encode  # the JAX package's in-test FLAC encoder
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     rng = np.random.default_rng(0)
     a = rng.integers(-3000, 3000, 64).astype(np.int64)
     b = np.cumsum(rng.integers(-40, 40, 64)).astype(np.int64) + 100
@@ -236,3 +247,13 @@ def test_rope_tables_and_asr_output_parsing_match():
                 "LANGUAGE chinese<asr_text> 你好 "):
         for lang in (None, "en"):
             assert tqs.parse_asr_output(raw, lang) == jqs.parse_asr_output(raw, lang)
+
+
+def test_native_source_is_the_reference_source():
+    """The port's ``native/audio_dsp.cc`` is the JAX package's below the
+    leading comment block."""
+    def body(path):
+        lines = path.read_text().splitlines()
+        return lines[next(i for i, l in enumerate(lines) if not l.startswith("//")):]
+
+    assert body(REPO / "asr_tpu_torch/native/audio_dsp.cc") == body(REPO / "asr_tpu/native/audio_dsp.cc")
