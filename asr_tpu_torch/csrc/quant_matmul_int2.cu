@@ -6,54 +6,51 @@
 // 2-bit values: bit pair 2j:2j+2 of byte [r, n] carries u[j * K/4 + r, n]
 // (four contiguous K-quarters, not interleaved); scale, zero (K / block, N)
 // f32 with an UNSIGNED zero; out (M, N) f32. x' = x, or x rounded to bf16
-// (round to nearest even) in the "bf16" mode. The sum is accumulated in f32.
+// (round to nearest even) in the "bf16" mode.
 //
 // Replaces the Pallas TPU kernel asr_tpu/ops/quant_matmul.py:_kernel_p2
 // (quant_matmul_pallas_p2). That kernel walked a sequential K/4 grid axis
-// with an f32 VMEM accumulator, fed each 2-bit plane to the MXU against the
-// matching quarter of x, and applied the block affine as a rank-1
-// correction in bf16 mode. Here each block owns one BM x BN output tile and
-// loops over K/4 itself; every packed byte is read once, split into its four
-// planes and dequantized in registers as the four quarters are staged into
-// shared memory, so the f32 weight never exists in device memory. The
-// design is the int4 kernel's (quant_matmul_int4.cu) with four planes in
-// place of two; BK is halved to 16 packed rows so the staged tiles stay at
-// the int4 kernel's 33 KB of static shared memory.
+// with an f32 VMEM accumulator and fed each 2-bit plane to the MXU against
+// the matching quarter of x: in bf16 mode the raw values, with the block
+// affine applied as a rank-1 correction; in f32 mode the dequantized weight
+// at HIGHEST precision. The two modes keep those two formulations here:
 //
-// Summation order. Every output is one fmaf chain over k in the same order
-// for every tile shape: for each step of BK packed rows, plane 0's BK rows,
-// then planes 1, 2 and 3. So a row of a batched call equals the same row
-// computed alone, bit for bit, whichever tile the launcher picks: the
-// micro-batcher's and the continuous server's ids rely on it.
+// bf16 mode (every serving path): tensor cores, packed_common.cuh (the int4
+// kernel's route with four planes), raw 2-bit values as mma.sync's B
+// operand, 16-byte cp.async weight staging, the wrapper's split-K plan.
+// The micro-batcher's and the continuous server's ids rely on its rows
+// being bitwise the row alone; packed_common.cuh says why they are.
 //
-// What bounds it on an H100 (3.35 TB/s; f32 CUDA cores 67 TFLOP/s): a call
-// does 2*M*K*N FLOPs and moves K*N/4 weight bytes, 8*K*N/block scale and
-// zero bytes (at block 128 that is 20 % of the weight-side bytes) and
-// 4*(M*K + M*N) activation bytes. At M = 1 .. 8 (decode steps, the
-// micro-batcher, the continuous server's slots) that is 6-50 FLOP per byte:
-// bytes bound. At a 30 s prefill's M = 432 it is past the ridge: bound by
-// the cores. Two tile shapes: 64 x 64 (4 x 4 outputs a thread) for M > 16,
-// and 8 x 64 (1 x 2 a thread) for M <= 16, which wastes no FMAs on padding
-// rows and gives the weight-streaming calls N/64 blocks.
+// f32 mode (the exact replays): the CUDA-core kernel below, unchanged from
+// its first design (the int4 kernel's with four planes, BK halved to 16
+// packed rows). Every output is one fmaf chain over k in the same order for
+// every tile shape: for each step of BK packed rows, plane 0's BK rows,
+// then planes 1, 2 and 3. So a row of a batched call equals the row alone.
 //
-// Left for later: tensor cores (wgmma with bf16 A and 2-bit->bf16 B), TMA /
-// cp.async multi-stage staging, wide (16-byte) weight loads, scales staged
-// once a block row, and split-K for the M = 1 shapes with few columns.
+// What bounds it on an H100 (3.35 TB/s; bf16 tensor cores 989 TFLOP/s): a
+// call does 2*M*K*N operations and moves K*N/4 weight bytes, 8*K*N/block
+// scale and zero bytes (at block 128 a fifth of the weight-side bytes) and
+// 4*(M*K + M*N) activation bytes. At M = 1 .. 16 (decode steps, the
+// micro-batcher, the continuous server's slots) that is 6-100 operations per
+// byte: bytes bound, and at these sizes (0.25-1.5 MB of weights) the
+// launch and the last block's tail weigh as much as the bytes; split-K
+// brings (N/BN) * S blocks to at least the 132 SMs. At a 30 s prefill's
+// M = 432 it is operations bound, on mma.sync. Measured on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py phase 21): 7.8-10.7 us a call at M = 1..8,
+// bound by latency as the int4 kernel's; 37-51 TFLOP/s at M = 432.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "packed_common.cuh"
 
 namespace {
 
 constexpr int BK = 16;      // packed rows staged per step (4 * BK rows of K)
 constexpr int PLANES = 4;
 
-__device__ __forceinline__ float round_to_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <int BM, int BN, int TM, int TN, bool kBf16X>
+template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 quant_matmul_int2_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                          const float* __restrict__ scale, const float* __restrict__ zero,
@@ -86,7 +83,6 @@ quant_matmul_int2_kernel(const float* __restrict__ x, const int8_t* __restrict__
       const int gm = m0 + r;
       const int gk = (c / BK) * K4 + k0 + (c % BK);
       float v = gm < M ? x[(size_t)gm * K + gk] : 0.f;
-      if (kBf16X) v = round_to_bf16(v);
       xs[c][r] = v;
     }
     // weights: one byte read feeds one row of each quarter.
@@ -138,37 +134,40 @@ quant_matmul_int2_kernel(const float* __restrict__ x, const int8_t* __restrict__
 }
 
 template <int BM, int BN, int TM, int TN>
-void launch(const float* x, const int8_t* q, const float* s, const float* z, float* o, int M,
-            int K, int N, int block, bool bf16_x, cudaStream_t st) {
+void launch_f32(const float* x, const int8_t* q, const float* s, const float* z, float* o, int M,
+                int K, int N, int block, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   constexpr int threads = (BM / TM) * (BN / TN);
-  if (bf16_x) {
-    quant_matmul_int2_kernel<BM, BN, TM, TN, true><<<grid, threads, 0, st>>>(x, q, s, z, o, M, K, N,
-                                                                            block);
-  } else {
-    quant_matmul_int2_kernel<BM, BN, TM, TN, false><<<grid, threads, 0, st>>>(x, q, s, z, o, M, K,
-                                                                             N, block);
-  }
+  quant_matmul_int2_kernel<BM, BN, TM, TN><<<grid, threads, 0, st>>>(x, q, s, z, o, M, K, N, block);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// The caller checks shapes, types and contiguity and guarantees
-// (K / 4) % block == 0 and (K / 4) % 16 == 0.
+// Launches on `stream` and returns a CUDA error code (0 on success).
+// bf16_x != 0: the tensor-core route (packed_common.cuh) with the wrapper's
+// plan: `splits` parts of whole scale blocks, tiles of bn x bm, and `ws` a
+// workspace laid out as packed::Layout. bf16_x == 0: the f32 CUDA-core
+// route, which ignores the plan and the workspace. The caller checks shapes, types,
+// contiguity and 16-byte alignment and guarantees block % 32 == 0 and
+// (K / 4) % block == 0.
 extern "C" int quant_matmul_int2(const void* x, const void* q, const void* scale,
-                                 const void* zero, void* out, int M, int K, int N, int block,
-                                 int bf16_x, void* stream) {
+                                 const void* zero, void* out, void* ws, int M, int K, int N,
+                                 int block, int bf16_x, int splits, int bn, int bm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
-  const int8_t* qi = static_cast<const int8_t*>(q);
   const float* sf = static_cast<const float*>(scale);
   const float* zf = static_cast<const float*>(zero);
   float* of = static_cast<float*>(out);
+  if (bf16_x) {
+    const packed::Args a{xf, static_cast<const uint8_t*>(q), sf, zf, of, static_cast<float*>(ws),
+                         M, K, N, block, splits};
+    return packed::launch_bf16<4>(a, bn, bm, st);
+  }
+  const int8_t* qi = static_cast<const int8_t*>(q);
   if (M <= 16) {
-    launch<8, 64, 1, 2>(xf, qi, sf, zf, of, M, K, N, block, bf16_x != 0, st);
+    launch_f32<8, 64, 1, 2>(xf, qi, sf, zf, of, M, K, N, block, st);
   } else {
-    launch<64, 64, 4, 4>(xf, qi, sf, zf, of, M, K, N, block, bf16_x != 0, st);
+    launch_f32<64, 64, 4, 4>(xf, qi, sf, zf, of, M, K, N, block, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,49 +6,55 @@
 // nibbles: byte [r, n] carries u[r, n] in its low nibble and u[K/2 + r, n] in
 // its high nibble (the two K-halves are contiguous, not interleaved); scale,
 // zero (K / block, N) f32 with an UNSIGNED zero; out (M, N) f32. x' = x, or x
-// rounded to bf16 (round to nearest even) in the "bf16" mode. The sum is
-// accumulated in f32.
+// rounded to bf16 (round to nearest even) in the "bf16" mode.
 //
 // Replaces the Pallas TPU kernel asr_tpu/ops/quant_matmul.py:_kernel_p4
 // (quant_matmul_pallas_p4). That kernel walked a sequential K/2 grid axis
-// with an f32 VMEM accumulator, fed each nibble plane to the MXU against the
-// matching half of x, and applied the block affine as a rank-1 correction in
-// bf16 mode. Here each block owns one BM x BN output tile and loops over K/2
-// itself; every packed byte is read once, split into its two nibbles and
-// dequantized in registers as both halves are staged into shared memory, so
-// the f32 weight never exists in device memory.
+// with an f32 VMEM accumulator and fed each nibble plane to the MXU against
+// the matching half of x: in bf16 mode the raw nibbles, with the block
+// affine applied as a rank-1 correction; in f32 mode the dequantized weight
+// at HIGHEST precision. The two modes keep those two formulations here:
 //
-// Summation order. Every output is one fmaf chain over k in the same order
-// for every tile shape: for each step of BK packed rows, the BK low-half
-// rows, then the BK high-half rows. So a row of a batched call equals the
-// same row computed alone, bit for bit, whichever tile the launcher picks.
+// bf16 mode (every serving path): tensor cores, packed_common.cuh, with the
+// raw nibbles as mma.sync's B operand, 16-byte cp.async weight staging and
+// the split-K plan of the wrapper (asr_tpu_torch/ops/quant_matmul.py,
+// packed_plan).
 //
-// What bounds it on an H100 (f32 CUDA cores: 67 TFLOP/s, 3.35 TB/s): a call
-// does 2*M*K*N FLOPs and moves K*N/2 weight bytes, 8*K*N/block scale bytes
-// and 4*(M*K + M*N) activation bytes. At M = 1 .. 8 (the tied head, batched
-// decode steps) that is 4-32 FLOP per weight byte: bytes bound. At the
-// prefill's M ~ 430 it is far past the f32 ridge (20 FLOP/byte): bound by
-// the CUDA cores. Two tile shapes: 64 x 64 (4 x 4 outputs a thread) for
-// M > 16, and 8 x 64 (1 x 2 a thread) for M <= 16, which wastes no FMAs on
-// padding rows and gives the weight-streaming calls N/64 blocks.
+// f32 mode (the exact replays): the CUDA-core kernel below, unchanged from
+// its first design. Each block owns one BM x BN output tile and loops over
+// K/2; every packed byte is read once, split into its two nibbles and
+// dequantized in registers as both halves are staged into shared memory.
+// Every output is one fmaf chain over k in the same order for every tile
+// shape: for each step of BK packed rows, the BK low-half rows, then the BK
+// high-half rows. So a row of a batched call equals the row alone.
 //
-// Left for later: tensor cores (wgmma with bf16 A and nibble->bf16 B),
-// TMA / cp.async multi-stage staging, wide (16-byte) weight loads, and a
-// split-K schedule for the M = 1 shapes with few output columns.
+// What bounds it on an H100 (3.35 TB/s; bf16 tensor cores 989 TFLOP/s): a
+// call does 2*M*K*N operations and moves K*N/2 weight bytes, 8*K*N/block
+// scale and zero bytes and 4*(M*K + M*N) activation bytes. At M = 1 .. 16
+// (the tied head, the micro-batcher's and the slots' calls) that is 4-60
+// operations per byte, far under the ridge (295): bytes bound, so the design
+// is about bytes in flight: 16-byte loads, a 4-stage ring, and split-K so
+// that (N/BN) * S blocks cover the 132 SMs where N/BN alone would not
+// (16 blocks at N = 1024 in the first design). At the prefill's M ~ 430 it
+// is ~700 operations per byte: operations bound, and mma.sync takes the
+// products that the first design ran on the f32 CUDA cores (67 TFLOP/s).
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 14): the
+// small-M calls take 8-13 us, bound by latency (the x-staging kernel, the
+// first stage's DRAM round trip, the cluster reduction), not by their
+// 1.2-3.6 MB; the head streams at ~1.25 TB/s; the prefill shapes reach
+// 40-50 TFLOP/s, bound by staging x once per column tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_common.cuh"
+
 namespace {
 
 constexpr int BK = 32;  // packed rows staged per step (2 * BK rows of K)
 
-__device__ __forceinline__ float round_to_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <int BM, int BN, int TM, int TN, bool kBf16X>
+template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 quant_matmul_int4_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                          const float* __restrict__ scale, const float* __restrict__ zero,
@@ -80,7 +86,6 @@ quant_matmul_int4_kernel(const float* __restrict__ x, const int8_t* __restrict__
       const int gm = m0 + r;
       const int gk = (c < BK) ? k0 + c : K2 + k0 + (c - BK);
       float v = gm < M ? x[(size_t)gm * K + gk] : 0.f;
-      if (kBf16X) v = round_to_bf16(v);
       xs[c][r] = v;
     }
     // weights: one byte read feeds one row of each half.
@@ -131,37 +136,40 @@ quant_matmul_int4_kernel(const float* __restrict__ x, const int8_t* __restrict__
 }
 
 template <int BM, int BN, int TM, int TN>
-void launch(const float* x, const int8_t* q, const float* s, const float* z, float* o, int M,
-            int K, int N, int block, bool bf16_x, cudaStream_t st) {
+void launch_f32(const float* x, const int8_t* q, const float* s, const float* z, float* o, int M,
+                int K, int N, int block, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   constexpr int threads = (BM / TM) * (BN / TN);
-  if (bf16_x) {
-    quant_matmul_int4_kernel<BM, BN, TM, TN, true><<<grid, threads, 0, st>>>(x, q, s, z, o, M, K, N,
-                                                                            block);
-  } else {
-    quant_matmul_int4_kernel<BM, BN, TM, TN, false><<<grid, threads, 0, st>>>(x, q, s, z, o, M, K,
-                                                                             N, block);
-  }
+  quant_matmul_int4_kernel<BM, BN, TM, TN><<<grid, threads, 0, st>>>(x, q, s, z, o, M, K, N, block);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// The caller checks shapes, types and contiguity and guarantees
-// (K / 2) % block == 0 and (K / 2) % 32 == 0.
+// Launches on `stream` and returns a CUDA error code (0 on success).
+// bf16_x != 0: the tensor-core route (packed_common.cuh) with the wrapper's
+// plan: `splits` parts of whole scale blocks, tiles of bn x bm, and `ws` a
+// workspace laid out as packed::Layout. bf16_x == 0: the f32 CUDA-core
+// route, which ignores the plan and the workspace. The caller checks shapes, types,
+// contiguity and 16-byte alignment and guarantees block % 32 == 0 and
+// (K / 2) % block == 0.
 extern "C" int quant_matmul_int4(const void* x, const void* q, const void* scale,
-                                 const void* zero, void* out, int M, int K, int N, int block,
-                                 int bf16_x, void* stream) {
+                                 const void* zero, void* out, void* ws, int M, int K, int N,
+                                 int block, int bf16_x, int splits, int bn, int bm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
-  const int8_t* qi = static_cast<const int8_t*>(q);
   const float* sf = static_cast<const float*>(scale);
   const float* zf = static_cast<const float*>(zero);
   float* of = static_cast<float*>(out);
+  if (bf16_x) {
+    const packed::Args a{xf, static_cast<const uint8_t*>(q), sf, zf, of, static_cast<float*>(ws),
+                         M, K, N, block, splits};
+    return packed::launch_bf16<2>(a, bn, bm, st);
+  }
+  const int8_t* qi = static_cast<const int8_t*>(q);
   if (M <= 16) {
-    launch<8, 64, 1, 2>(xf, qi, sf, zf, of, M, K, N, block, bf16_x != 0, st);
+    launch_f32<8, 64, 1, 2>(xf, qi, sf, zf, of, M, K, N, block, st);
   } else {
-    launch<64, 64, 4, 4>(xf, qi, sf, zf, of, M, K, N, block, bf16_x != 0, st);
+    launch_f32<64, 64, 4, 4>(xf, qi, sf, zf, of, M, K, N, block, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,7 @@ then ``"bf16"``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
 
@@ -45,8 +46,9 @@ SOURCE = nvcc_build.CSRC / "quant_matmul_int8.cu"
 SOURCE_INT4 = nvcc_build.CSRC / "quant_matmul_int4.cu"
 SOURCE_INT2 = nvcc_build.CSRC / "quant_matmul_int2.cu"
 NVCC_FLAGS = nvcc_build.NVCC_FLAGS
-INT4_BK = 32  # packed rows the int4 kernel stages per step; K/2 must be a multiple
-INT2_BK = 16  # packed rows the int2 kernel stages per step; K/4 must be a multiple
+PACKED_STAGE = 32  # packed rows a stage of the packed kernels holds; the block must be a multiple
+SMS = 132          # streaming multiprocessors of an H100 SXM, which a decode call's blocks should cover
+PACKED_MAX_SPLIT = 8  # split parts of a tile: one thread block cluster, at most the portable size
 
 _lib = None
 _packed_libs: dict = {}  # kernel name -> the loaded packed-int4 / packed-int2 library
@@ -121,13 +123,17 @@ def _load():
     return _lib
 
 
+# x, q, scale, zero, out, workspace; M, K, N, block, bf16, splits, BN, BM; stream
+PACKED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
 def _load_packed(source: Path, name: str):
     with _lib_lock:
         if name not in _packed_libs:
             path, _ = nvcc_build.build(source, NVCC_FLAGS)
             lib = ctypes.CDLL(str(path))
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = PACKED_ARGTYPES
             fn.restype = ctypes.c_int
             _packed_libs[name] = lib
     return _packed_libs[name]
@@ -147,33 +153,88 @@ def _check_operands(name: str, x, q, scale, zero) -> None:
             raise ValueError(f"{arg} must be a contiguous 2-D tensor, got shape {tuple(t.shape)}")
 
 
-def _packed_launch(name: str, parts: int, bk: int, x: torch.Tensor, q: torch.Tensor,
+@functools.lru_cache(maxsize=1024)
+def packed_plan(m: int, k: int, n: int, parts: int, block: int) -> tuple[int, int, int]:
+    """(S, BN, BM) of a bf16-mode packed call: K/``parts`` packed rows split
+    into S parts of whole scale blocks, output tiles BN columns wide and BM
+    rows high. BN is the widest of 128, 64, 32, 16 whose column tiles, times
+    some S that divides the scale blocks (so every part is as long) and is
+    at most :data:`PACKED_MAX_SPLIT`, give :data:`SMS` blocks, and S the
+    least such divisor; both depend on (K, N, block, parts) only, so the sum
+    behind each output never depends on M. M picks BM alone."""
+    nbk = k // parts // block
+    for bn in (128, 64, 32, 16):
+        tiles = -(-n // bn)
+        s = next((d for d in range(-(-SMS // tiles), min(nbk, PACKED_MAX_SPLIT) + 1) if nbk % d == 0),
+                 max(d for d in range(1, min(nbk, PACKED_MAX_SPLIT) + 1) if nbk % d == 0))
+        if tiles * s >= SMS:
+            break
+    bm = 16 if m <= 16 else (32 if bn == 128 else 64)
+    return s, bn, bm
+
+
+def packed_workspace(m: int, k: int) -> int:
+    """f32 words of a bf16-mode call's workspace (``Layout`` in
+    ``csrc/packed_common.cuh``): x in bf16 fragment order for M rounded up
+    to 16, then the row sums of each stage's x."""
+    mpad = -(-m // 16) * 16
+    return mpad * k // 2 + k // PACKED_STAGE * mpad
+
+
+def check_packed_shapes(parts: int, x_shape, q_shape, scale_shape, zero_shape, block: int) -> None:
+    """Raise ValueError for what the packed kernels do not take."""
+    m, k = x_shape
+    kp, n = q_shape
+    if (k != parts * kp or kp == 0 or block <= 0 or block % PACKED_STAGE or kp % block):
+        raise ValueError(f"bad shapes: x {tuple(x_shape)}, packed q {tuple(q_shape)}, block {block} "
+                         f"(K/{parts} must be a positive multiple of the block, and the block of "
+                         f"{PACKED_STAGE})")
+    if tuple(scale_shape) != (k // block, n) or tuple(zero_shape) != (k // block, n):
+        raise ValueError(f"scale/zero must be {(k // block, n)}, got "
+                         f"{tuple(scale_shape)} / {tuple(zero_shape)}")
+    if max(k, n) >= 2**31 or m > 32 * 65535:  # int sizes; grid.y counts row tiles of 32 or more
+        raise ValueError(f"shape too large for the kernel: {(m, k, n)}")
+
+
+def _packed_launch(name: str, parts: int, x: torch.Tensor, q: torch.Tensor,
                    scale: torch.Tensor, zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
     """Checks and launch shared by the int4 (``parts`` = 2) and int2
-    (``parts`` = 4) kernels; returns the (M, N) f32 output."""
+    (``parts`` = 4) kernels; returns the (M, N) f32 output. bf16 mode runs
+    :func:`packed_plan`'s split with a :func:`packed_workspace`; f32 mode
+    takes the CUDA-core kernel, which needs neither."""
     mm = _check_mm(mm)
     _check_operands(name, x, q, scale, zero)
+    check_packed_shapes(parts, x.shape, q.shape, scale.shape, zero.shape, block)
+    if mm == "bf16" and any(t.data_ptr() % 16 for t in (x, q, scale, zero)):
+        raise ValueError(f"{name} in bf16 mode needs 16-byte aligned operands (cp.async)")
     m, k = x.shape
-    kp, n = q.shape
-    if k != parts * kp or block <= 0 or kp % block or kp % bk:
-        raise ValueError(f"bad shapes: x {tuple(x.shape)}, packed q {tuple(q.shape)}, block {block} "
-                         f"(K/{parts} must be a multiple of the block and of {bk})")
-    if scale.shape != (k // block, n) or zero.shape != (k // block, n):
-        raise ValueError(f"scale/zero must be {(k // block, n)}, got "
-                         f"{tuple(scale.shape)} / {tuple(zero.shape)}")
-    if max(k, n) >= 2**31 or m > 64 * 65535:  # int sizes; grid.y counts row tiles
-        raise ValueError(f"shape too large for the kernel: {(m, k, n)}")
-    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    n = q.shape[1]
     if m == 0 or n == 0:
-        return out
+        return torch.empty((m, n), device=x.device, dtype=torch.float32)
     lib = _load_packed(SOURCE_INT4 if parts == 2 else SOURCE_INT2, name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, name)(x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-                                 out.data_ptr(), m, k, n, int(block), int(mm == "bf16"), stream)
+    s, bn, bm = packed_plan(m, k, n, parts, block) if mm == "bf16" else (1, 0, 0)
+    # one allocation: the output, then (bf16) the workspace at a 16-byte boundary
+    out_words = -(-m * n // 4) * 4
+    buf = torch.empty(out_words + (packed_workspace(m, k) if mm == "bf16" else 0), device=x.device,
+                      dtype=torch.float32)
+    out = buf[: m * n].view(m, n)
+    ws = buf[out_words:].data_ptr() if mm == "bf16" else None
+    if x.device.index == torch.cuda.current_device():
+        err = _call_packed(lib, name, x, q, scale, zero, out, ws, block, mm, s, bn, bm)
+    else:
+        with torch.cuda.device(x.device):
+            err = _call_packed(lib, name, x, q, scale, zero, out, ws, block, mm, s, bn, bm)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
+
+
+def _call_packed(lib, name, x, q, scale, zero, out, ws, block, mm, s, bn, bm) -> int:
+    """The C call on the current device's current stream; returns its error code."""
+    (m, k), n = x.shape, q.shape[1]
+    return getattr(lib, name)(x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+                              out.data_ptr(), ws, m, k, n, int(block), int(mm == "bf16"), s, bn, bm,
+                              torch.cuda.current_stream().cuda_stream)
 
 
 def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -181,7 +242,7 @@ def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K/2, N) packed int4,
     scale / unsigned zero (K / block, N)) -> (M, N) f32."""
     global LAUNCHES_INT4
-    out = _packed_launch("quant_matmul_int4", 2, INT4_BK, x, q, scale, zero, block, mm)
+    out = _packed_launch("quant_matmul_int4", 2, x, q, scale, zero, block, mm)
     if out.numel():
         with _count_lock:
             LAUNCHES_INT4 += 1
@@ -193,7 +254,7 @@ def quant_matmul_int2(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K/4, N) packed int2,
     scale / unsigned zero (K / block, N)) -> (M, N) f32."""
     global LAUNCHES_INT2
-    out = _packed_launch("quant_matmul_int2", 4, INT2_BK, x, q, scale, zero, block, mm)
+    out = _packed_launch("quant_matmul_int2", 4, x, q, scale, zero, block, mm)
     if out.numel():
         with _count_lock:
             LAUNCHES_INT2 += 1

@@ -1,8 +1,7 @@
-"""Time a batch-1 fused decode-step kernel built from two checkouts' sources
-against each other on one card, in turns (A, B, B, A), and compare their
-results.
+"""Time a kernel built from two checkouts' sources against each other on one
+card, in turns (A, B, B, A), and compare their results.
 
-    python3 chip_ab_step.py OTHER_ROOT [aed|qwen]
+    python3 chip_ab_step.py OTHER_ROOT [aed|qwen|p4|p2]
 
 A is built from ``OTHER_ROOT/asr_tpu_torch/csrc/<kernel>.cu`` (for example an
 earlier commit unpacked with ``git archive``), B from this checkout's; both
@@ -14,7 +13,15 @@ pos 447, 1500 cross rows. ``qwen``: the fused Qwen3 step
 head, pos 440, shift 17. Both with f32 and bf16 caches and random weights
 from a seed. Prints each build's ptxas lines, ms per step for A and B, the
 largest difference of their outputs and whether they are bitwise equal.
-Exits 2 where no card is visible.
+``p4`` / ``p2``: the packed-int4 / packed-int2 matmul
+(``quant_matmul_int4.cu`` / ``quant_matmul_int2.cu``) at every (K, N) of
+the Qwen3-ASR-0.6B q4 / q2 path and M = 1, 4, 8, 432, in both modes, each
+side called through its own C signature (the split-K one, with the plan
+of this checkout's wrapper, or the earlier one without a plan); ms per call
+from a CUDA graph of back-to-back calls (device time, no host launch cost),
+whether the f32-mode outputs are bitwise equal and the bf16-mode largest
+difference, and the sums over one LLM pass. Exits 2 where no card is
+visible.
 """
 
 from __future__ import annotations
@@ -81,8 +88,98 @@ def _qwen_case(torch, cs, fd):
     return inputs, f"pos={pos} shift={shift}"
 
 
+PACKED_M = (1, 4, 8, 432)
+
+
+def _packed_fn(lib, name: str, source: Path):
+    """The C entry point with the argtypes its source declares: the split-K
+    signature (with a workspace and a plan) or the earlier one."""
+    import ctypes
+
+    fn = getattr(lib, name)
+    split = "int splits" in source.read_text()
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 if split
+                   else [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, split
+
+
+def packed_ab(torch, cs, which: str, other: Path, card: str) -> int:
+    """A (OTHER_ROOT's packed kernel) against B (this checkout's)."""
+    import ctypes
+
+    from asr_tpu_torch.ops import nvcc_build
+    from asr_tpu_torch.ops import quant_matmul as qm
+    from asr_tpu_torch.quant.quantize import quantize_linear
+
+    bits, parts = (4, 2) if which == "p4" else (2, 4)
+    name = f"quant_matmul_int{bits}"
+    shapes = cs.QWEN_P4_SHAPES if which == "p4" else cs.QWEN_P2_SHAPES
+    fns = {}
+    for label, root in (("A", other), ("B", ROOT)):
+        source = root / "asr_tpu_torch" / "csrc" / f"{name}.cu"
+        path, log = nvcc_build.build(source)
+        print(f"[build {label}] {source} -> {path.name}")
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry")):
+                print(f"[build {label}] {line.strip()}")
+        fns[label] = _packed_fn(ctypes.CDLL(str(path)), name, source)
+
+    g = torch.Generator(device="cuda").manual_seed(21 if which == "p2" else 14)
+    rows, all_f32_equal = [], True
+    for (k, n), count in shapes.items():
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, bits, 128,
+                               pack=True)
+        for m in PACKED_M:
+            x = torch.randn((m, k), generator=g, device="cuda")
+            for mm in ("f32", "bf16"):
+                s, bn, bm = qm.packed_plan(m, k, n, parts, 128) if mm == "bf16" else (1, 0, 0)
+                ws = torch.empty(qm.packed_workspace(m, k), device="cuda") if mm == "bf16" else None
+                outs = {lab: torch.empty((m, n), device="cuda") for lab in ("A", "B")}
+
+                def call(label, s=s, bn=bn, bm=bm, ws=ws, x=x, m=m, mm=mm):
+                    fn, split = fns[label]
+                    stream = torch.cuda.current_stream().cuda_stream  # the graph's, while capturing
+                    ptrs = [t.data_ptr() for t in (x, leaf.q, leaf.scale, leaf.zero, outs[label])]
+                    if split:
+                        err = fn(*ptrs, None if ws is None else ws.data_ptr(), m, k, n, 128,
+                                 int(mm == "bf16"), s, bn, bm, stream)
+                    else:
+                        err = fn(*ptrs, m, k, n, 128, int(mm == "bf16"), stream)
+                    if err:
+                        raise RuntimeError(f"{label}: CUDA error {err}")
+
+                call("A")
+                call("B")
+                torch.cuda.synchronize()
+                diff = (outs["A"] - outs["B"]).abs().max().item()
+                same = torch.equal(outs["A"], outs["B"])
+                if mm == "f32":
+                    all_f32_equal &= same
+                ms = {"A": [], "B": []}
+                for _ in range(ROUNDS):
+                    for label in ("A", "B", "B", "A"):
+                        ms[label].append(cs.graph_ms(torch, lambda label=label: call(label)))
+                a_ms, b_ms = (sum(v) / len(v) for v in (ms["A"], ms["B"]))
+                rows.append({"k": k, "n": n, "m": m, "mm": mm, "count": count, "A": a_ms, "B": b_ms})
+                print(f"[ab] {which} M={m:4d} K={k:4d} N={n:6d} mm={mm:4s} plan S={s} BN={bn} BM={bm}: "
+                      f"A {' '.join(f'{v:.4f}' for v in ms['A'])} ms (mean {a_ms:.4f}); "
+                      f"B {' '.join(f'{v:.4f}' for v in ms['B'])} ms (mean {b_ms:.4f}); "
+                      f"A/B {a_ms / b_ms:.2f}x; max|A - B| {diff:.3e}, bitwise equal: {same}  [{card}]")
+    calls = sum(shapes.values())
+    for mm in ("bf16", "f32"):
+        for m in PACKED_M:
+            a = sum(r["count"] * r["A"] for r in rows if r["m"] == m and r["mm"] == mm)
+            b = sum(r["count"] * r["B"] for r in rows if r["m"] == m and r["mm"] == mm)
+            print(f"[ab] {which} one pass's {calls} calls at M={m} mm={mm}: A {a:.4f} ms, B {b:.4f} ms, "
+                  f"A/B {a / b:.2f}x  [{card}]")
+    print(f"[ab] {which} f32-mode outputs bitwise equal at every shape: {all_f32_equal}")
+    return 0 if all_f32_equal else 1
+
+
 def main() -> int:
-    if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3 and sys.argv[2] not in ("aed", "qwen")):
+    if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3 and
+                                       sys.argv[2] not in ("aed", "qwen", "p4", "p2")):
         print(__doc__, file=sys.stderr)
         return 2
     other = Path(sys.argv[1]).resolve()
@@ -95,6 +192,8 @@ def main() -> int:
         return 2
     import chip_smoke as cs
 
+    if which in ("p4", "p2"):
+        return packed_ab(torch, cs, which, other, cs.phase_device(torch))
     if which == "aed":
         from asr_tpu_torch.ops import fused_aed_step as mod
         source, marker = "fused_aed_step.cu", "q8_matvec"

@@ -184,6 +184,10 @@ def phase_build(sources) -> None:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"[2 build] ptxas: {line.strip()}")
+        if lib.name.startswith(("libquant_matmul_int4", "libquant_matmul_int2")):
+            spills = [ln.strip() for ln in log.splitlines()
+                      if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+            check(not spills, f"{lib.name} spills registers: {spills}")
 
 
 def phase_kernel_vs_plain(torch, qm, quantize_linear, card: str) -> dict:
@@ -930,110 +934,160 @@ def qwen_prefill_rows(cfg) -> int:
     return sum(QWEN_HEAD) + windows * cfg.tokens_per_window
 
 
-def p4_cost(m: int, k: int, n: int) -> tuple[int, float]:
+def packed_cost(bits: int, m: int, k: int, n: int) -> tuple[int, float]:
     """Bytes (x read, packed weight, f32 scale and zero, output written) and
-    operations (2 M K N) of one int4 call."""
-    return 4 * m * k + k * n // 2 + 2 * 4 * (k // 128) * n + 4 * m * n, 2.0 * m * k * n
+    operations (2 M K N) of one int4 / int2 call at block 128."""
+    return 4 * m * k + k * n * bits // 8 + 2 * 4 * (k // 128) * n + 4 * m * n, 2.0 * m * k * n
 
 
-# The yardstick for the int4 row: PyTorch's one call for a group-wise int4
-# product (bf16 x, weights packed by _convert_weight_to_int4pack, per-group
-# bf16 scale and zero in its (q - 8) * s + z' form). Its bf16 scales and
-# output keep ~3 significant digits, so it is held to the plain version only
-# loosely (LIBRARY_INT4_TOL of max|plain|); the port never calls it.
+# The yardstick for the packed rows: PyTorch's one call for a group-wise
+# int4 product (bf16 x, weights packed by _convert_weight_to_int4pack,
+# per-group bf16 scale and zero in its (q - 8) * s + z' form), given the
+# leaf's raw values: the nibbles, or the 2-bit values widened to nibbles
+# around the nibble midpoint (u + 6 against zero + 6: the same function,
+# and its bf16 (8 - zero) * scale term stays small). Its bf16 scales and
+# output keep ~3 significant digits, so it is held to the plain version
+# only loosely (LIBRARY_INT4_TOL of max|plain|); the port never calls it.
 LIBRARY_INT4_TOL = 2e-2
 LIBRARY_INNER_K_TILES = 8
+# Rows of the packed calls: decode steps (1), the micro-batchers (2, 4), the
+# continuous servers' slots (8), one m16 tile and one row past it (16, 17),
+# then the prefill's rows. Timed at the rows the main paths run.
+PACKED_CHECK_M = (1, 2, 4, 8, 16, 17)
+PACKED_TIMED_M = (1, 4, 8)
+GRAPH_CALLS = 50  # back-to-back calls in one CUDA graph, for device times without launch cost
 
 
-def int4_library_call(torch, leaf, x):
-    """A zero-argument call of torch._weight_int4pack_mm computing x @
-    dequant(leaf) (group 128) in bf16, with the weight converted once here."""
-    from asr_tpu_torch.quant.quantize import unpack4_halves
+def graph_ms(torch, fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+    """Device ms per call of ``fn``: ``calls`` back-to-back calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
-    u = unpack4_halves(leaf.q).to(torch.int32).t().contiguous()  # (N, K) values in [0, 16)
-    packed = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8),
+
+def packed_library_call(torch, u, scale, zero, x):
+    """A zero-argument call of torch._weight_int4pack_mm computing
+    x @ ((u - zero) * scale) (group 128) in bf16, for raw values u (K, N)
+    below 16, with the weight converted once here."""
+    ut = u.to(torch.int32).t().contiguous()  # (N, K)
+    packed = torch._convert_weight_to_int4pack((ut[:, ::2] << 4 | ut[:, 1::2]).to(torch.uint8),
                                                LIBRARY_INNER_K_TILES)
     # (u - z) * s = (u - 8) * s + (8 - z) * s
-    sz = torch.stack([leaf.scale, (8.0 - leaf.zero) * leaf.scale], dim=-1).to(torch.bfloat16)
+    sz = torch.stack([scale, (8.0 - zero) * scale], dim=-1).to(torch.bfloat16).contiguous()
     xb = x.to(torch.bfloat16)
-    return lambda: torch._weight_int4pack_mm(xb, packed, 128, sz.contiguous())
+    return lambda: torch._weight_int4pack_mm(xb, packed, 128, sz)
 
 
-def phase_p4(torch, qm, quantize_linear, m_prefill: int, card: str) -> dict:
-    """[14] The packed-int4 kernel against its plain version at every shape
-    of the q4 path, M = 1, 8 and the prefill's rows, both modes, in turns;
-    and, at the prefill's shapes, PyTorch's int4 call as a yardstick."""
-    g = torch.Generator(device=DEV).manual_seed(14)
-    rows, worst = [], 0.0
-    library, library_note = 0.0, None
-    for (k, n), count in QWEN_P4_SHAPES.items():
-        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 4, 128,
+def phase_packed(torch, qm, quantize_linear, bits: int, m_prefill: int, card: str) -> dict:
+    """[14] the packed-int4 kernel at every shape of the q4 path, [21] the
+    packed-int2 kernel at every shape of the q2 path: against the plain
+    version at M = 1, 2, 4, 8, 16, 17 and the prefill's rows, both modes;
+    rows of every batched call bitwise equal to the row alone; at M = 1, 4,
+    8 and the prefill's rows, device time (CUDA graph) in turns with the
+    plain version, and PyTorch's int4 call as the yardstick in bf16."""
+    from asr_tpu_torch.quant.quantize import unpack2_quarters, unpack4_halves
+
+    if bits == 4:
+        tag, shapes, launch, plain = "14 int4", QWEN_P4_SHAPES, qm.quant_matmul_int4, qm.quant_dense_p4_reference
+        unpack = unpack4_halves
+    else:
+        tag, shapes, launch, plain = "21 int2", QWEN_P2_SHAPES, qm.quant_matmul_int2, qm.quant_dense_p2_reference
+        unpack = unpack2_quarters
+    g = torch.Generator(device=DEV).manual_seed(14 if bits == 4 else 21)
+    rows, worst, library_note = [], 0.0, None
+    for (k, n), _count in shapes.items():
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, bits, 128,
                                pack=True)
-        check(leaf.packed, f"K={k} N={n} did not pack")
-        m_lib = 1 if n == 153600 else m_prefill
-        if library_note is None:
-            x = torch.randn((m_lib, k), generator=g, device=DEV)
-            try:
-                call = int4_library_call(torch, leaf, x)
-                got = call().float()
-                torch.cuda.synchronize()
-            except (AttributeError, RuntimeError, TypeError) as exc:  # a yardstick only
-                library_note = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
-            else:
-                want = qm.quant_dense_p4_reference(x, leaf.q, leaf.scale, leaf.zero, 128, "bf16")
-                err, ref = (got - want).abs().max().item(), want.abs().max().item()
-                if err <= LIBRARY_INT4_TOL * ref:
-                    lib_ms = time_ms(call)
-                    library += count * lib_ms
-                    print(f"[14 int4] library torch._weight_int4pack_mm M={m_lib:4d} K={k:4d} "
-                          f"N={n:6d}: {lib_ms:.4f} ms, err vs plain {err:.3e} (max|plain| {ref:.3e}, "
-                          f"bound {LIBRARY_INT4_TOL} of it)  [{card}]")
-                else:
-                    library_note = (f"disagrees with the plain version at K={k} N={n}: {err:.3e} > "
-                                    f"{LIBRARY_INT4_TOL} * {ref:.3e}")
-        for m in (1, 8, m_prefill):
+        check(leaf.packed and tuple(leaf.q.shape) == (k * bits // 8, n), f"K={k} N={n} did not pack")
+        off = 0 if bits == 4 else 6  # 2-bit values 0..3 -> nibbles 6..9
+        u, zero = unpack(leaf.q) + off, leaf.zero + off
+        for m in (*PACKED_CHECK_M, m_prefill):
             x = torch.randn((m, k), generator=g, device=DEV)
             for mm in ("f32", "bf16"):
                 args = (x, leaf.q, leaf.scale, leaf.zero, 128, mm)
-                got = qm.quant_matmul_int4(*args)
+                got = launch(*args)
                 torch.cuda.synchronize()
-                want = qm.quant_dense_p4_reference(*args)
+                want = plain(*args)
                 err = (got - want).abs().max().item()
                 ref = want.abs().max().item()
-                check(err <= 1e-4 * ref, f"int4 kernel vs plain at M={m} K={k} N={n} {mm}: "
+                check(err <= 1e-4 * ref, f"int{bits} kernel vs plain at M={m} K={k} N={n} {mm}: "
                       f"{err} > 1e-4 * {ref}")
                 worst = max(worst, err)
-                k_ms, p_ms = in_turns(lambda: qm.quant_dense_p4_reference(*args),
-                                      lambda: qm.quant_matmul_int4(*args), plain_iters=5)
-                nbytes, ops = p4_cost(m, k, n)
+                for r in sorted({0, m // 2, m - 1}) if m > 1 else ():
+                    one = launch(x[r : r + 1].contiguous(), *args[1:])
+                    check(torch.equal(one[0], got[r]), f"int{bits} at M={m} K={k} N={n} {mm}: row {r} "
+                          "differs from the same row alone")
+                if m not in (*PACKED_TIMED_M, m_prefill):
+                    continue
+                p1 = time_ms(lambda: plain(*args), 5, 3)
+                k1 = graph_ms(torch, lambda: launch(*args))
+                k2 = graph_ms(torch, lambda: launch(*args))
+                p2 = time_ms(lambda: plain(*args), 5, 3)
+                k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                host_ms = time_ms(lambda: launch(*args))
+                nbytes, ops = packed_cost(bits, m, k, n)
                 b_ms, b_by = bound(nbytes, ops)
+                lib_ms = None
+                if mm == "bf16" and library_note is None:
+                    try:
+                        call = packed_library_call(torch, u, leaf.scale, zero, x)
+                        lib = call().float()
+                        torch.cuda.synchronize()
+                        lerr = (lib - want).abs().max().item()
+                        check(lerr <= LIBRARY_INT4_TOL * ref, f"torch._weight_int4pack_mm vs plain at "
+                              f"M={m} K={k} N={n}: {lerr:.3e} > {LIBRARY_INT4_TOL} * {ref:.3e}")
+                        lib_ms = graph_ms(torch, call)
+                    except (AttributeError, RuntimeError, TypeError) as exc:  # a yardstick only
+                        library_note = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
                 rows.append({"m": m, "k": k, "n": n, "mm": mm, "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
-                             "max_abs_err": err})
-                print(f"[14 int4] M={m:4d} K={k:4d} N={n:6d} mm={mm:4s} kernel {k_ms:.4f} ms "
-                      f"({2 * m * k * n / (k_ms * 1e6):.0f} GFLOP/s)  plain {p_ms:.4f} ms  bound "
-                      f"{b_ms:.4f} ms ({b_by})  err {err:.3e} (max|plain| {ref:.3e})  [{card}]")
-    per_prefill = {}
-    for mm in ("bf16", "f32"):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+                             "host_ms": host_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "bytes": nbytes, "ops": ops, "max_abs_err": err})
+                lib_txt = f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""
+                print(f"[{tag}] M={m:4d} K={k:4d} N={n:6d} mm={mm:4s} kernel {k_ms:.4f} ms "
+                      f"({ops / (k_ms * 1e9):.1f} TFLOP/s, {nbytes / (k_ms * 1e6):.0f} GB/s; host-launched "
+                      f"{host_ms:.4f} ms){lib_txt}  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                      f"err {err:.3e} (max|plain| {ref:.3e})  [{card}]")
+    if library_note is not None:
+        print(f"[{tag}] torch._weight_int4pack_mm not timed: {library_note}")
+
+    def pass_total(mm: str, m: int, m_head: int) -> dict:
+        """One LLM pass: every linear at M = m, the tied head (int4) at m_head."""
+        tot = {"ms": 0.0, "plain_ms": 0.0, "host_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "bytes": 0.0, "ops": 0.0}
         for r in rows:
-            count = QWEN_P4_SHAPES[(r["k"], r["n"])]
-            # the linears run at the prefill's M, the head once at M = 1
-            if r["mm"] == mm and r["m"] == (1 if r["n"] == 153600 else m_prefill):
+            if r["mm"] == mm and r["m"] == (m_head if r["n"] == 153600 else m):
                 for key in tot:
-                    tot[key] += count * r[key]
+                    tot[key] = None if tot[key] is None or r[key] is None else tot[key] + (
+                        shapes[(r["k"], r["n"])] * r[key])
         tot["bound_by"] = bound(tot["bytes"], tot["ops"])[1]
-        per_prefill[mm] = tot
-        print(f"[14 int4] one prefill's 113 calls (M={m_prefill}, the head at M=1), mm={mm}: kernel "
-              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms  "
-              f"[{card}]")
-    if library_note is None:
-        print(f"[14 int4] one prefill's 113 calls through torch._weight_int4pack_mm: {library:.3f} ms  "
-              f"[{card}]")
-    else:
-        print(f"[14 int4] torch._weight_int4pack_mm not timed: {library_note}")
-    return {"rows": rows, "max_abs_err": worst, "per_prefill": per_prefill,
-            "library_ms": library if library_note is None else None, "library_note": library_note}
+        return tot
+
+    calls = sum(shapes.values())
+    per_prefill = {mm: pass_total(mm, m_prefill, 1) for mm in ("bf16", "f32")}
+    per_pass = {m: pass_total("bf16", m, m) for m in PACKED_TIMED_M}
+    for label, tot in [(f"prefill (M={m_prefill}{', the head at M=1' if bits == 4 else ''}), mm={mm}",
+                        per_prefill[mm]) for mm in ("bf16", "f32")] + [
+                           (f"M={m}, mm=bf16", per_pass[m]) for m in PACKED_TIMED_M]:
+        lib = tot["library_ms"]
+        print(f"[{tag}] one LLM pass's {calls} calls at {label}: kernel {tot['ms']:.3f} ms "
+              f"(host-launched {tot['host_ms']:.3f}), plain {tot['plain_ms']:.3f} ms, bound "
+              f"{tot['bound_ms']:.3f} ms ({tot['bound_by']}), torch._weight_int4pack_mm "
+              f"{'not timed' if lib is None or 'f32' in label else f'{lib:.3f} ms'}  [{card}]")
+    return {"rows": rows, "max_abs_err": worst, "per_prefill": per_prefill, "per_pass": per_pass,
+            "library_note": library_note}
 
 
 def qwen_step_bytes(stacked: dict, nl: int, kvw: int, rows: list, itemsize: int) -> tuple[int, float]:
@@ -1892,69 +1946,9 @@ def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, ca
 # calls have it: q|k|v, o, gate|up and down in each of the 28 layers. The
 # 2-bit tied head stays centered int8 and runs through the int8 kernel.
 QWEN_P2_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1024): 28}
-QWEN_P2_M = (1, 4, 8)  # decode steps, the micro-batcher, the continuous server's slots
 Q2_CONT_REQUESTS = 9
 Q2_CONT_SECONDS = (5.0, 30.0)
 Q2_CONT_BUDGET = 96  # new tokens a window on the continuous rowwise route
-
-
-def p2_cost(m: int, k: int, n: int) -> tuple[int, float]:
-    """Bytes (x read, packed weight, f32 scale and zero, output written) and
-    operations (2 M K N) of one int2 call."""
-    return 4 * m * k + k * n // 4 + 2 * 4 * (k // 128) * n + 4 * m * n, 2.0 * m * k * n
-
-
-def phase_p2(torch, qm, quantize_linear, m_prefill: int, card: str) -> dict:
-    """[21] The packed-int2 kernel against its plain version at every shape
-    of the q2 path, M = 1, 4, 8 and the prefill's rows, both modes; rows of
-    a batched call bitwise equal to the row alone; timed in turns."""
-    g = torch.Generator(device=DEV).manual_seed(21)
-    rows, worst = [], 0.0
-    for (k, n), _count in QWEN_P2_SHAPES.items():
-        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 2, 128,
-                               pack=True)
-        check(leaf.packed and tuple(leaf.q.shape) == (k // 4, n), f"K={k} N={n} did not pack to 2 bits")
-        for m in (*QWEN_P2_M, m_prefill):
-            x = torch.randn((m, k), generator=g, device=DEV)
-            for mm in ("f32", "bf16"):
-                args = (x, leaf.q, leaf.scale, leaf.zero, 128, mm)
-                got = qm.quant_matmul_int2(*args)
-                torch.cuda.synchronize()
-                want = qm.quant_dense_p2_reference(*args)
-                err = (got - want).abs().max().item()
-                ref = want.abs().max().item()
-                check(err <= 1e-4 * ref, f"int2 kernel vs plain at M={m} K={k} N={n} {mm}: "
-                      f"{err} > 1e-4 * {ref}")
-                worst = max(worst, err)
-                for r in sorted({0, m // 2, m - 1}) if m > 1 else ():
-                    one = qm.quant_matmul_int2(x[r : r + 1].contiguous(), *args[1:])
-                    check(torch.equal(one[0], got[r]), f"int2 at M={m} K={k} N={n} {mm}: row {r} "
-                          "differs from the same row alone")
-                k_ms, p_ms = in_turns(lambda: qm.quant_dense_p2_reference(*args),
-                                      lambda: qm.quant_matmul_int2(*args), plain_iters=5)
-                nbytes, ops = p2_cost(m, k, n)
-                b_ms, b_by = bound(nbytes, ops)
-                rows.append({"m": m, "k": k, "n": n, "mm": mm, "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
-                             "max_abs_err": err})
-                print(f"[21 int2] M={m:4d} K={k:4d} N={n:5d} mm={mm:4s} kernel {k_ms:.4f} ms "
-                      f"({2 * m * k * n / (k_ms * 1e6):.0f} GFLOP/s, {nbytes / (k_ms * 1e6):.0f} GB/s)  "
-                      f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  err {err:.3e} "
-                      f"(max|plain| {ref:.3e})  [{card}]")
-    per_pass = {}
-    for label, m_sel in (("prefill", m_prefill), ("step", 1)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-        for r in rows:
-            if r["mm"] == "bf16" and r["m"] == m_sel:
-                for key in tot:
-                    tot[key] += QWEN_P2_SHAPES[(r["k"], r["n"])] * r[key]
-        tot["bound_by"] = bound(tot["bytes"], tot["ops"])[1]
-        per_pass[label] = tot
-        print(f"[21 int2] one LLM pass's 112 calls at M={m_sel} ({label}), mm=bf16: kernel "
-              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-              f"({tot['bound_by']})  [{card}]")
-    return {"rows": rows, "max_abs_err": worst, "per_prefill": per_pass["prefill"],
-            "per_step": per_pass["step"]}
 
 
 def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
@@ -2392,7 +2386,7 @@ def main() -> int:
     # ── 14-17. Qwen3-ASR-0.6B q4, the int4 kernel, the fused Qwen3 step ────
     from asr_tpu_torch.models.qwen_asr import QwenAsrConfig
 
-    p4 = phase_p4(torch, qm, quantize_linear, qwen_prefill_rows(QwenAsrConfig()), card)
+    p4 = phase_packed(torch, qm, quantize_linear, 4, qwen_prefill_rows(QwenAsrConfig()), card)
     dec = phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card)
     with tempfile.TemporaryDirectory() as qwen_dir:
         qrun = phase_qwen(torch, np, qm, fd, qwen_dir, card)
@@ -2404,7 +2398,7 @@ def main() -> int:
         qcont = phase_qwen_continuous(torch, np, qm, fd, fdm, qwen_dir, qrun, card)
 
     # ── 21-24. Qwen3-ASR-0.6B with a packed-int2 LLM, the int2 kernel ──────
-    p2 = phase_p2(torch, qm, quantize_linear, qwen_prefill_rows(QwenAsrConfig()), card)
+    p2 = phase_packed(torch, qm, quantize_linear, 2, qwen_prefill_rows(QwenAsrConfig()), card)
     with tempfile.TemporaryDirectory() as q2_dir:
         q2run = phase_qwen_q2(torch, np, qm, fd, fdm, q2_dir, card)
         q2serve = phase_qwen_serve(torch, np, qm, fd, q2_dir, card, label="23")
@@ -2477,11 +2471,14 @@ def main() -> int:
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
         "bound_ms": p4["per_prefill"]["bf16"]["bound_ms"],
         "bound_by": p4["per_prefill"]["bf16"]["bound_by"],
-        "library_ms": p4["library_ms"],
+        "library_ms": p4["per_prefill"]["bf16"]["library_ms"],
         "library": "torch._weight_int4pack_mm (bf16, group 128), the same 113 calls"
                    + (f"; not timed: {p4['library_note']}" if p4["library_note"] else ""),
+        "per_pass_ms": {f"M={m}": {key: t[key] for key in ("ms", "library_ms", "bound_ms")}
+                        for m, t in p4["per_pass"].items()},
         "timing": f"sum over one 30 s prefill's 113 calls (112 at M={qwen_prefill_rows(QwenAsrConfig())}, "
-                  "the tied head at M=1), mm=bf16, CUDA events; bound summed per call",
+                  f"the tied head at M=1), mm=bf16, device time of a CUDA graph of {GRAPH_CALLS} calls "
+                  "(the library call likewise; the plain version with CUDA events); bound summed per call",
     }, {
         "name": "fused_decode",
         "route": "cuda",
@@ -2521,14 +2518,18 @@ def main() -> int:
         "launches_by_path": {"qwen_q2": q2run["int2"], "qwen_q2_serve": q2serve["int2"],
                              "qwen_q2_continuous": q2cont["int2"]},
         "max_abs_err": p2["max_abs_err"],
-        "ms": p2["per_prefill"]["ms"],
-        "plain_ms": p2["per_prefill"]["plain_ms"],
-        "bound_ms": p2["per_prefill"]["bound_ms"],
-        "bound_by": p2["per_prefill"]["bound_by"],
-        "library_ms": None,
+        "ms": p2["per_prefill"]["bf16"]["ms"],
+        "plain_ms": p2["per_prefill"]["bf16"]["plain_ms"],
+        "bound_ms": p2["per_prefill"]["bf16"]["bound_ms"],
+        "bound_by": p2["per_prefill"]["bf16"]["bound_by"],
+        "library_ms": p2["per_prefill"]["bf16"]["library_ms"],
+        "library": "torch._weight_int4pack_mm (bf16, group 128) on the 2-bit values widened to nibbles, "
+                   "the same 112 calls" + (f"; not timed: {p2['library_note']}" if p2["library_note"] else ""),
+        "per_pass_ms": {f"M={m}": {key: t[key] for key in ("ms", "library_ms", "bound_ms")}
+                        for m, t in p2["per_pass"].items()},
         "timing": f"sum over one 30 s prefill's 112 calls at M={qwen_prefill_rows(QwenAsrConfig())}, "
-                  "mm=bf16, CUDA events; bound summed per call; no PyTorch call computes a 2-bit "
-                  "group-wise product",
+                  f"mm=bf16, device time of a CUDA graph of {GRAPH_CALLS} calls (the library call "
+                  "likewise; the plain version with CUDA events); bound summed per call",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -339,18 +339,29 @@ def test_int4_kernel_matches_plain_version(k, n, mm):
     leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 4, 128,
                            pack=True)
     assert leaf.packed and tuple(leaf.q.shape) == (k // 2, n)
-    for m in (1, 8, 430):
+    _packed_matches_plain(g, qm.quant_matmul_int4, qm.quant_dense_p4_reference, "LAUNCHES_INT4",
+                          leaf, k, 128, mm)
+
+
+# Rows of the packed calls: decode steps (1), the micro-batcher (2, 4), the
+# continuous server's slots (8), one m16 tile and one row past it (16, 17)
+# and a 30 s prefill (432).
+PACKED_M = (1, 2, 4, 8, 16, 17, 432)
+
+
+def _packed_matches_plain(g, launch, plain, counter, leaf, k, block, mm):
+    for m in PACKED_M:
         x = torch.randn((m, k), generator=g, device="cuda")
-        before = qm.LAUNCHES_INT4
-        got = qm.quant_matmul_int4(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+        before = getattr(qm, counter)
+        got = launch(x, leaf.q, leaf.scale, leaf.zero, block, mm)
         torch.cuda.synchronize()
-        assert qm.LAUNCHES_INT4 == before + 1
-        want = qm.quant_dense_p4_reference(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
+        assert getattr(qm, counter) == before + 1
+        want = plain(x, leaf.q, leaf.scale, leaf.zero, block, mm)
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
-        # each row sums in the same order at every M: a row alone is bitwise the same
-        one = qm.quant_matmul_int4(x[m // 2 : m // 2 + 1].contiguous(), leaf.q, leaf.scale,
-                                   leaf.zero, 128, mm)
-        assert torch.equal(one[0], got[m // 2])
+        # the sum behind each output does not depend on M: a row alone is bitwise the same
+        for r in sorted({0, m // 2, m - 1}) if m > 1 else ():
+            one = launch(x[r : r + 1].contiguous(), leaf.q, leaf.scale, leaf.zero, block, mm)
+            assert torch.equal(one[0], got[r])
 
 
 @pytest.mark.gpu
@@ -382,18 +393,32 @@ def test_int2_kernel_matches_plain_version(k, n, mm):
     leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 2, 128,
                            pack=True)
     assert leaf.packed and tuple(leaf.q.shape) == (k // 4, n)
-    for m in (1, 4, 8, 432):
-        x = torch.randn((m, k), generator=g, device="cuda")
-        before = qm.LAUNCHES_INT2
-        got = qm.quant_matmul_int2(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
-        torch.cuda.synchronize()
-        assert qm.LAUNCHES_INT2 == before + 1
-        want = qm.quant_dense_p2_reference(x, leaf.q, leaf.scale, leaf.zero, 128, mm)
-        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
-        # each row sums in the same order at every M: a row alone is bitwise the same
-        one = qm.quant_matmul_int2(x[m // 2 : m // 2 + 1].contiguous(), leaf.q, leaf.scale,
-                                   leaf.zero, 128, mm)
-        assert torch.equal(one[0], got[m // 2])
+    _packed_matches_plain(g, qm.quant_matmul_int2, qm.quant_dense_p2_reference, "LAUNCHES_INT2",
+                          leaf, k, 128, mm)
+
+
+# Packed leaves off the main path: blocks 32 and 64, a column count that is
+# not a multiple of 16 (byte-staged weights) or of 4 (scalar scales), a
+# single scale block, and the CPU tests' widths.
+ODD_PACKED = [(4, 512, 100, 64), (4, 256, 30, 32), (4, 512, 1024, 128), (4, 1024, 512, 32),
+              (2, 512, 100, 64), (2, 1024, 30, 32), (2, 512, 1024, 128), (2, 1024, 2048, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("bits,k,n,block", ODD_PACKED)
+def test_packed_kernels_at_odd_shapes(bits, k, n, block, mm):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(k + n + block + bits)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, bits, block,
+                           pack=True)
+    assert leaf.packed and leaf.block == block
+    if bits == 4:
+        _packed_matches_plain(g, qm.quant_matmul_int4, qm.quant_dense_p4_reference, "LAUNCHES_INT4",
+                              leaf, k, block, mm)
+    else:
+        _packed_matches_plain(g, qm.quant_matmul_int2, qm.quant_dense_p2_reference, "LAUNCHES_INT2",
+                              leaf, k, block, mm)
 
 
 @pytest.mark.gpu
@@ -408,7 +433,7 @@ def test_int2_wrapper_rejects_what_the_kernel_does_not_take():
         qm.quant_matmul_int2(x[:, :256].contiguous(), leaf.q, leaf.scale, leaf.zero, 128, "f32")
     with pytest.raises(ValueError):  # K/4 is not a multiple of the block
         qm.quant_matmul_int2(x, leaf.q, leaf.scale, leaf.zero, 96, "f32")
-    with pytest.raises(ValueError):  # K/4 is not a multiple of the staging depth
+    with pytest.raises(ValueError):  # the block is not a multiple of the staging depth
         qm.quant_matmul_int2(torch.randn((4, 40), device="cuda"), leaf.q[:10].contiguous(),
                              leaf.scale, leaf.zero, 10, "f32")
     with pytest.raises(ValueError):

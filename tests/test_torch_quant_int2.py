@@ -120,8 +120,8 @@ def test_quantize_pytree_pack_matches_jax():
 
 
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
-@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 2048, 384), (37, 1024, 128),
-                                   (8, 4096, 256)])
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (2, 512, 256), (8, 2048, 384), (16, 2048, 384),
+                                   (17, 1024, 128), (37, 1024, 128), (8, 4096, 256)])
 def test_p2_plain_matches_jax_interpret_kernel(mm, m, k, n):
     """K/4 of one block (512) and of several (1024 .. 4096)."""
     leaf = jq.quantize_linear(jnp.asarray(_w(k, n, m + n)), 2, 128, 0, pack=True)

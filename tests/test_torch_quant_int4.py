@@ -115,7 +115,8 @@ def test_quantize_pytree_pack_matches_jax():
 
 
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
-@pytest.mark.parametrize("m,k,n", [(1, 256, 256), (8, 1024, 512), (37, 512, 384)])
+@pytest.mark.parametrize("m,k,n", [(1, 256, 256), (2, 256, 256), (8, 1024, 512), (16, 1024, 512),
+                                   (17, 512, 384), (37, 512, 384)])
 def test_p4_plain_matches_jax_interpret_kernel(mm, m, k, n):
     leaf = jq.quantize_linear(jnp.asarray(_w(k, n, m)), 4, 128, 0, pack=True)
     x = np.random.default_rng(m + k).standard_normal((m, k)).astype(np.float32)
