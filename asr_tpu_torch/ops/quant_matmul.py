@@ -17,8 +17,14 @@ Dynamic-activation int8 leaves are not ported and raise.
 
 Matmul mode, as in the JAX package:
   ``"f32"``:  the exact f32 product of x and the dequantized weight;
-  ``"bf16"``: x is rounded to bf16 (nearest even) first; weights and the
-              accumulation stay f32.
+  ``"bf16"``: x is rounded to bf16 (nearest even) first; the kernels take
+              the raw integers on tensor cores with f32 accumulation and
+              apply each scale block's affine to the f32 partial, as the
+              TPU kernels' bf16 branch does (the plain versions dequantize
+              in f32: the same function up to f32 rounding). The split
+              of K behind each output is fixed by the weight
+              (:func:`packed_plan`, :func:`int8_split`), so a row of a
+              batched call is bitwise the row alone.
 Precedence: an explicit ``mm=`` argument, then ``set_quant_config(mm=...)``,
 then ``"bf16"``.
 """
@@ -49,6 +55,11 @@ NVCC_FLAGS = nvcc_build.NVCC_FLAGS
 PACKED_STAGE = 32  # packed rows a stage of the packed kernels holds; the block must be a multiple
 SMS = 132          # streaming multiprocessors of an H100 SXM, which a decode call's blocks should cover
 PACKED_MAX_SPLIT = 8  # split parts of a tile: one thread block cluster, at most the portable size
+INT8_STAGE = 64    # padded rows of K a stage of the int8 kernel holds; each scale block pads to a multiple
+INT8_TILE_N = (128, 64, 32)  # column tile widths of the int8 kernel's cluster schedule at M <= 16, widest first
+INT8_CLUSTER_TILES = ((16, 32), (16, 64), (16, 128), (64, 128))  # (BM, BN) of its cluster schedule
+INT8_WALK_TILES = ((64, 128), (64, 64))  # (BM, BN) of its walking schedule
+INT8_WALK_MAX_K = 2048  # the narrow walking tile only where K is short: longer K splits better
 
 _lib = None
 _packed_libs: dict = {}  # kernel name -> the loaded packed-int4 / packed-int2 library
@@ -117,7 +128,7 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            lib.quant_matmul_int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.quant_matmul_int8.argtypes = INT8_ARGTYPES
             lib.quant_matmul_int8.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -125,6 +136,8 @@ def _load():
 
 # x, q, scale, zero, out, workspace; M, K, N, block, bf16, splits, BN, BM; stream
 PACKED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# the same, then walk (the int8 kernel's large-M schedule); stream
+INT8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _load_packed(source: Path, name: str):
@@ -179,6 +192,62 @@ def packed_workspace(m: int, k: int) -> int:
     to 16, then the row sums of each stage's x."""
     mpad = -(-m // 16) * 16
     return mpad * k // 2 + k // PACKED_STAGE * mpad
+
+
+def _divisors(n: int, most: int) -> list[int]:
+    return [d for d in range(1, min(n, most) + 1) if n % d == 0]
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_split(k: int, n: int, block: int) -> tuple[int, int]:
+    """(V, BN) of the int8 kernel's bf16 mode for a (K, N) weight: V splits
+    the K/``block`` scale blocks into V contiguous equal parts, so each
+    output is ``((part_0 + part_1) + ...) + part_{V-1}``, each part folded
+    block by block; BN is the cluster schedule's tile width. BN is the
+    widest of :data:`INT8_TILE_N` whose column tiles, times the least
+    divisor V of the block count (at most :data:`PACKED_MAX_SPLIT`, a thread
+    block cluster) that reaches :data:`SMS` blocks, fill the card at M <= 16;
+    where none does, BN is the narrowest and V the largest such divisor.
+    Both depend on (K, N, block) only: the sum order never depends on M."""
+    divs = _divisors(k // block, PACKED_MAX_SPLIT)
+    for bn in INT8_TILE_N:
+        tiles = -(-n // bn)
+        v = next((d for d in divs if tiles * d >= SMS), None)
+        if v is not None:
+            return v, bn
+    return divs[-1], INT8_TILE_N[-1]
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_plan(m: int, k: int, n: int, block: int) -> tuple[int, int, int, bool]:
+    """(V, BN, BM, walk) of a bf16-mode int8 call. V is :func:`int8_split`'s;
+    the schedule follows M. Up to 16 rows, the V parts of a 16 x BN tile
+    (BN from :func:`int8_split`) are one thread block cluster. Above, one
+    block walks its tile's V parts in order where the 64 x 128 walking tiles
+    number at least :data:`SMS` (or the 64 x 64 ones do and K is at most
+    :data:`INT8_WALK_MAX_K`); otherwise the parts of a 64 x 128 tile form a
+    cluster. Every schedule adds the same parts in the same order, so a row
+    is bitwise the same under each. (The choices follow device times of
+    every tile at the main paths' shapes on an H100: PERF.md.)"""
+    v, bn = int8_split(k, n, block)
+    if m <= 16:
+        return v, bn, 16, False
+    rows = -(-m // 64)
+    if rows * -(-n // 128) >= SMS:
+        return v, 128, 64, True
+    if k <= INT8_WALK_MAX_K and rows * -(-n // 64) >= SMS:
+        return v, 64, 64, True
+    return v, 128, 64, False
+
+
+def int8_workspace(m: int, k: int, block: int) -> int:
+    """f32 words of a bf16-mode int8 call's workspace (``i8::Layout`` in
+    ``csrc/quant_matmul_int8.cu``): x in bf16 fragment order for M rounded
+    up to 16 over K with each scale block padded to a multiple of
+    :data:`INT8_STAGE` rows, then the row sums of each stage's x."""
+    mpad = -(-m // 16) * 16
+    kp = k // block * (-(-block // INT8_STAGE) * INT8_STAGE)
+    return mpad * kp // 2 + kp // INT8_STAGE * mpad
 
 
 def check_packed_shapes(parts: int, x_shape, q_shape, scale_shape, zero_shape, block: int) -> None:
@@ -262,11 +331,14 @@ def quant_matmul_int2(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                      zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
-    """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K, N) int8) -> (M, N) f32."""
+                      zero: torch.Tensor, block: int, mm: str,
+                      plan: tuple[int, int, int, bool] | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel: x (M, K) f32 @ dequant(q (K, N) int8) -> (M, N)
+    f32. bf16 mode runs ``plan`` ((V, BN, BM, walk); :func:`int8_plan` by
+    default) with an :func:`int8_workspace`; f32 mode takes the CUDA-core
+    kernel, which needs neither."""
     global LAUNCHES
     mm = _check_mm(mm)
-    dev = x.device
     _check_operands("quant_matmul_int8", x, q, scale, zero)
     m, k = x.shape
     n = q.shape[1]
@@ -275,17 +347,27 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if scale.shape != (k // block, n) or zero.shape != (k // block, n):
         raise ValueError(f"scale/zero must be {(k // block, n)}, got "
                          f"{tuple(scale.shape)} / {tuple(zero.shape)}")
-    if max(k, n) >= 2**31 or -(-m // 64) > 65535:  # int sizes; grid.y counts 64-row tiles
+    if max(k, n) >= 2**31 or -(-m // 64) > 65535:  # int sizes; grid.y counts 64-row tiles (16 up to M = 16)
         raise ValueError(f"shape too large for the kernel: {(m, k, n)}")
-    out = torch.empty((m, n), device=dev, dtype=torch.float32)
+    if mm == "bf16" and any(t.data_ptr() % 16 for t in (q, scale, zero)):
+        raise ValueError("quant_matmul_int8 in bf16 mode needs 16-byte aligned q, scale and zero (cp.async)")
     if m == 0 or n == 0:
-        return out
+        return torch.empty((m, n), device=x.device, dtype=torch.float32)
     lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.quant_matmul_int8(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                                    zero.data_ptr(), out.data_ptr(), m, k, n, int(block),
-                                    int(mm == "bf16"), stream)
+    v, bn, bm, walk = (plan or int8_plan(m, k, n, block)) if mm == "bf16" else (1, 0, 0, False)
+    # one allocation: the output, then (bf16) the workspace at a 16-byte boundary
+    out_words = -(-m * n // 4) * 4
+    buf = torch.empty(out_words + (int8_workspace(m, k, block) if mm == "bf16" else 0),
+                      device=x.device, dtype=torch.float32)
+    out = buf[: m * n].view(m, n)
+    ws = buf[out_words:].data_ptr() if mm == "bf16" else None
+    args = (x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(), ws,
+            m, k, n, int(block), int(mm == "bf16"), v, bn, bm, int(walk))
+    if x.device.index == torch.cuda.current_device():
+        err = lib.quant_matmul_int8(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = lib.quant_matmul_int8(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul_int8 launch failed: CUDA error {err}")
     with _count_lock:

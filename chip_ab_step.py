@@ -1,7 +1,7 @@
 """Time a kernel built from two checkouts' sources against each other on one
 card, in turns (A, B, B, A), and compare their results.
 
-    python3 chip_ab_step.py OTHER_ROOT [aed|qwen|p4|p2]
+    python3 chip_ab_step.py OTHER_ROOT [aed|qwen|p4|p2|int8]
 
 A is built from ``OTHER_ROOT/asr_tpu_torch/csrc/<kernel>.cu`` (for example an
 earlier commit unpacked with ``git archive``), B from this checkout's; both
@@ -20,8 +20,14 @@ side called through its own C signature (the split-K one, with the plan
 of this checkout's wrapper, or the earlier one without a plan); ms per call
 from a CUDA graph of back-to-back calls (device time, no host launch cost),
 whether the f32-mode outputs are bitwise equal and the bf16-mode largest
-difference, and the sums over one LLM pass. Exits 2 where no card is
-visible.
+difference, and the sums over one LLM pass. ``int8``: the int8 matmul
+(``quant_matmul_int8.cu``) at every (M, K, N, block) of the main paths
+(``chip_smoke.int8_paths``: SenseVoiceSmall, the Whisper encoder and
+per-weight step, the Qwen3-ASR tower, the q2 head), in both modes, each side
+through its own C signature (the planned one, with this checkout's
+``int8_plan`` and a workspace, or the earlier one); the same timing, f32-mode
+bitwise equality (exit 1 otherwise), the bf16-mode largest difference, and
+the sums over each path. Exits 2 where no card is visible.
 """
 
 from __future__ import annotations
@@ -177,9 +183,99 @@ def packed_ab(torch, cs, which: str, other: Path, card: str) -> int:
     return 0 if all_f32_equal else 1
 
 
+def _int8_fn(lib, source: Path):
+    """quant_matmul_int8 with the argtypes its source declares: the planned
+    signature (a workspace, V, BN, BM, walk) or the earlier one."""
+    import ctypes
+
+    fn = lib.quant_matmul_int8
+    planned = "int walk" in source.read_text()
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 if planned
+                   else [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, planned
+
+
+def int8_ab(torch, cs, other: Path, card: str) -> int:
+    """A (OTHER_ROOT's int8 kernel) against B (this checkout's)."""
+    import ctypes
+
+    from asr_tpu_torch.ops import nvcc_build
+    from asr_tpu_torch.ops import quant_matmul as qm
+    from asr_tpu_torch.quant.quantize import quantize_linear
+
+    fns = {}
+    for label, root in (("A", other), ("B", ROOT)):
+        source = root / "asr_tpu_torch" / "csrc" / "quant_matmul_int8.cu"
+        path, log = nvcc_build.build(source)
+        print(f"[build {label}] {source} -> {path.name}")
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry")):
+                print(f"[build {label}] {line.strip()}")
+        fns[label] = _int8_fn(ctypes.CDLL(str(path)), source)
+
+    paths = cs.int8_paths()
+    calls = sorted({key for path_calls in paths.values() for key in path_calls}, key=lambda c: c[1:] + c[:1])
+    g = torch.Generator(device="cuda").manual_seed(8)
+    leaves, times, all_f32_equal = {}, {}, True
+    for m, k, n, block in calls:
+        if (k, n) not in leaves:
+            leaves.clear()  # one weight at a time: the q2 head alone is 156 MB
+            w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+            leaves[(k, n)] = quantize_linear(w, 8, 128)
+        leaf = leaves[(k, n)]
+        x = torch.randn((m, k), generator=g, device="cuda")
+        for mm in ("f32", "bf16"):
+            plan = qm.int8_plan(m, k, n, block) if mm == "bf16" else (1, 0, 0, False)
+            ws = torch.empty(qm.int8_workspace(m, k, block), device="cuda") if mm == "bf16" else None
+            outs = {lab: torch.empty((m, n), device="cuda") for lab in ("A", "B")}
+
+            def call(label, plan=plan, ws=ws, x=x, m=m, k=k, n=n, block=block, mm=mm, leaf=leaf):
+                fn, planned = fns[label]
+                stream = torch.cuda.current_stream().cuda_stream  # the graph's, while capturing
+                ptrs = [t.data_ptr() for t in (x, leaf.q, leaf.scale, leaf.zero, outs[label])]
+                if planned:
+                    err = fn(*ptrs, None if ws is None else ws.data_ptr(), m, k, n, block, int(mm == "bf16"),
+                             plan[0], plan[1], plan[2], int(plan[3]), stream)
+                else:
+                    err = fn(*ptrs, m, k, n, block, int(mm == "bf16"), stream)
+                if err:
+                    raise RuntimeError(f"{label}: CUDA error {err}")
+
+            call("A")
+            call("B")
+            torch.cuda.synchronize()
+            diff = (outs["A"] - outs["B"]).abs().max().item()
+            same = torch.equal(outs["A"], outs["B"])
+            if mm == "f32":
+                all_f32_equal &= same
+            ms = {"A": [], "B": []}
+            for _ in range(ROUNDS):
+                for label in ("A", "B", "B", "A"):
+                    ms[label].append(cs.graph_ms(torch, lambda label=label: call(label),
+                                                 cs.INT8_GRAPH_CALLS["f32"], 3))
+            a_ms, b_ms = (sum(v) / len(v) for v in (ms["A"], ms["B"]))
+            times[(m, k, n, block, mm)] = (a_ms, b_ms)
+            plan_txt = (f"plan V={plan[0]} BN={plan[1]} BM={plan[2]} {'walk' if plan[3] else 'cluster'} "
+                        if mm == "bf16" else "")
+            print(f"[ab] int8 M={m:5d} K={k:5d} N={n:6d} mm={mm:4s} {plan_txt}"
+                  f"A {' '.join(f'{v:.4f}' for v in ms['A'])} ms (mean {a_ms:.4f}); "
+                  f"B {' '.join(f'{v:.4f}' for v in ms['B'])} ms (mean {b_ms:.4f}); "
+                  f"A/B {a_ms / b_ms:.2f}x; max|A - B| {diff:.3e}, bitwise equal: {same}  [{card}]")
+    for name, path_calls in paths.items():
+        for mm in ("bf16", "f32"):
+            a = sum(c * times[key + (mm,)][0] for key, c in path_calls.items())
+            b = sum(c * times[key + (mm,)][1] for key, c in path_calls.items())
+            print(f"[ab] int8 {name}'s {sum(path_calls.values())} calls, mm={mm}: A {a:.4f} ms, "
+                  f"B {b:.4f} ms, "
+                  f"A/B {a / b:.2f}x  [{card}]")
+    print(f"[ab] int8 f32-mode outputs bitwise equal at every shape: {all_f32_equal}")
+    return 0 if all_f32_equal else 1
+
+
 def main() -> int:
     if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3 and
-                                       sys.argv[2] not in ("aed", "qwen", "p4", "p2")):
+                                       sys.argv[2] not in ("aed", "qwen", "p4", "p2", "int8")):
         print(__doc__, file=sys.stderr)
         return 2
     other = Path(sys.argv[1]).resolve()
@@ -194,6 +290,8 @@ def main() -> int:
 
     if which in ("p4", "p2"):
         return packed_ab(torch, cs, which, other, cs.phase_device(torch))
+    if which == "int8":
+        return int8_ab(torch, cs, other, cs.phase_device(torch))
     if which == "aed":
         from asr_tpu_torch.ops import fused_aed_step as mod
         source, marker = "fused_aed_step.cu", "q8_matvec"

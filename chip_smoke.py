@@ -8,7 +8,16 @@ Run from the repository root, with one card visible:
 Phases: (1) the card; (2) build the seven kernels from
 ``asr_tpu_torch/csrc`` with nvcc, one process per source, at once; (3)
 the int8 dequant-matmul kernel against its plain PyTorch version at every
-SenseVoiceSmall q8 shape, timed in turns; (4) SenseVoiceSmall at its full published geometry
+int8 shape of the main paths (SenseVoiceSmall at M = 1096 and 137, the
+Whisper encoder and cross-KV at M = 1500, Whisper's per-weight step and
+head at M = 1 and 2, the Qwen3-ASR tower at a 30 s window's rows with
+``conv_out`` at K = 7680, the q2 head at M = 1, 4 and 8), both modes, rows
+of every batched call bitwise equal to the row alone, device time from a
+CUDA graph beside the host-launched time, the plain version's, the bound
+and a cuBLAS bf16 yardstick; then, for one weight of each split count, rows
+bitwise equal to the row alone at M = 1 .. 1500 across the plan's schedule
+switches and every tile of the kernel bitwise equal, and the sums per
+path; (4) SenseVoiceSmall at its full published geometry
 with random weights from a seed, quantized to q8, saved as an artifact
 folder and loaded back, transcribing 20 s of audio through
 ``SenseVoiceSession``; (5) the same session behind the HTTP micro-batching
@@ -113,6 +122,7 @@ DEV = "cuda"
 BATCH, WINDOW_S = 8, 8.0
 ROWS = 137  # SANM rows of one 8 s window: 133 LFR frames + 4 prompt rows
 MARGIN = 1e-3
+GRAPH_CALLS = 50  # back-to-back calls in one CUDA graph, for device times without launch cost
 
 
 def check(cond: bool, msg: str) -> None:
@@ -184,23 +194,114 @@ def phase_build(sources) -> None:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"[2 build] ptxas: {line.strip()}")
-        if lib.name.startswith(("libquant_matmul_int4", "libquant_matmul_int2")):
+        if lib.name.startswith(("libquant_matmul_int8", "libquant_matmul_int4", "libquant_matmul_int2")):
             spills = [ln.strip() for ln in log.splitlines()
                       if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
             check(not spills, f"{lib.name} spills registers: {spills}")
 
 
+def int8_paths() -> dict:
+    """The int8 kernel's calls on each main path: path -> {(M, K, N, block):
+    calls}. SenseVoiceSmall q8: one batch-8 x 8 s forward (M = 1096) and one
+    request (M = 137); Whisper-Large-v3-Turbo: one 30 s window's encoder (6
+    linears a layer) and cross-KV (2 a decoder layer) at M = 1500, and one
+    per-weight decode step (8 linears a decoder layer and the head, V padded
+    to 512) at M = 1 and 2; Qwen3-ASR-0.6B: one 30 s window's tower (conv_out,
+    6 linears a layer, the two projections) at its rows; the q2 model's
+    2-bit tied head at M = 1, 4 and 8 (one call an LLM pass)."""
+    from asr_tpu_torch.models.qwen_asr import QwenAsrConfig
+    from asr_tpu_torch.models.whisper import WhisperConfig
+
+    w, q = WhisperConfig(), QwenAsrConfig()
+    d, f, pad = w.d_model, w.ffn_dim, lambda v: -(-v // 512) * 512
+    enc = 4 * w.encoder_layers + 2 * w.decoder_layers
+    paths = {"sensevoice_b8": {(BATCH * ROWS, k, n, b): c for (k, n, b), c in SLICE_SHAPES.items()},
+             "sensevoice_b1": {(ROWS, k, n, b): c for (k, n, b), c in SLICE_SHAPES.items()},
+             "whisper_encoder": {(w.max_source_positions, d, d, 128): enc,
+                                 (w.max_source_positions, d, f, 128): w.encoder_layers,
+                                 (w.max_source_positions, f, d, 128): w.encoder_layers}}
+    for m in (1, 2):
+        paths[f"whisper_step_m{m}"] = {(m, d, d, 128): 6 * w.decoder_layers,
+                                       (m, d, f, 128): w.decoder_layers, (m, f, d, 128): w.decoder_layers,
+                                       (m, d, pad(w.vocab_size), 128): 1}
+    rows, t, tf = qwen_tower_rows(q), q.tower_dim, q.tower_ffn
+    c_in = q.downsample_hidden * -(-q.n_mels // 8)  # conv_out: channels x mel bins after three stride-2 convs
+    paths["qwen_tower"] = {(rows, c_in, t, 128): 1, (rows, t, t, 128): 4 * q.tower_layers + 1,
+                           (rows, t, tf, 128): q.tower_layers, (rows, tf, t, 128): q.tower_layers,
+                           (rows, t, q.output_dim, 128): 1}
+    for m in (1, 4, 8):
+        paths[f"q2_head_m{m}"] = {(m, q.llm.hidden, pad(q.llm.vocab_size), 128): 1}
+    return paths
+
+
+def qwen_tower_rows(cfg) -> int:
+    """Rows of every tower linear in one 30 s window: the windows' tokens."""
+    frames = 30 * cfg.sample_rate // cfg.mel_config().hop_length
+    per_window = cfg.chunk_frames * cfg.chunks_per_window
+    return -(-frames // per_window) * cfg.tokens_per_window
+
+
+def int8_cost(m: int, k: int, n: int, block: int) -> tuple[int, float]:
+    """Bytes (x f32 read, the int8 weight, its f32 scales and zeros, the f32
+    output written) and operations (2 M K N) of one int8 call."""
+    return 4 * m * k + k * n + 2 * 4 * (k // block) * n + 4 * m * n, 2.0 * m * k * n
+
+
+def int8_path_bound(calls: dict) -> tuple[float, str, float, float]:
+    """The int8 kernel's bound over a path's calls ({(M, K, N, block):
+    count}): each call's larger time (:func:`bound`), summed; what bounds the
+    sum; its bytes and operations."""
+    total, nbytes, flops = 0.0, 0.0, 0.0
+    for (m, k, n, block), count in calls.items():
+        b, f = int8_cost(m, k, n, block)
+        total += count * bound(b, f)[0]
+        nbytes += count * b
+        flops += count * f
+    return total, bound(nbytes, flops)[1], nbytes, flops
+
+
+# Rows at which a batched int8 call is held bitwise to the row alone, across
+# every schedule switch of the plan (cluster at M <= 16 and at mid M, a
+# walking tile above), for one weight of each split count.
+INT8_ROW_M = (1, 4, 8, 16, 17, 137, 1096, 1500)
+INT8_ROW_SHAPES = ((512, 512, 128), (560, 1536, 560), (512, 25055, 128), (1280, 1280, 128),
+                   (5120, 1280, 128), (7680, 1280, 128))
+INT8_GRAPH_CALLS = {"bf16": GRAPH_CALLS, "f32": 10}  # the f32 CUDA-core kernel is slow at M = 1500
+
+
+def int8_tiles(qm) -> list:
+    """Every (V-free) schedule the bf16 kernel has: (BN, BM, walk)."""
+    return ([(bn, bm, False) for bm, bn in qm.INT8_CLUSTER_TILES]
+            + [(bn, bm, True) for bm, bn in qm.INT8_WALK_TILES])
+
+
 def phase_kernel_vs_plain(torch, qm, quantize_linear, card: str) -> dict:
+    """[3] The int8 kernel at every shape of the main paths (:func:`int8_paths`),
+    both modes: against the plain version within 1e-4 of max|plain|, rows of
+    every batched call bitwise equal to the row alone; device time from a
+    CUDA graph of back-to-back calls beside the host-launched time, the plain
+    version's (CUDA events), the bound and a cuBLAS bf16 yardstick (bf16 x
+    times the bf16 dequantized weight: not the same function, never called
+    by the port). Then, for one weight of each split count, rows bitwise
+    equal to the row alone at every M of INT8_ROW_M and every schedule the
+    kernel has bitwise equal to the plan's. Sums per path."""
+    paths = int8_paths()
+    shapes: dict = {}
+    for calls in paths.values():
+        for (m, k, n, block) in calls:
+            shapes.setdefault((k, n, block), set()).add(m)
     g = torch.Generator(device=DEV).manual_seed(1234)
-    rows = []
-    worst = 0.0
-    for (k, n, block), _count in SLICE_SHAPES.items():
+    rows, worst, by_key = [], 0.0, {}
+    for (k, n, block), ms in shapes.items():
         leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 8, 128)
         check(leaf.block == block, f"block {leaf.block} != {block} at K={k}")
-        for m in (BATCH * ROWS, ROWS):
+        w16 = qm.dequantize_weight({"q": leaf.q, "scale": leaf.scale, "zero": leaf.zero,
+                                    "block": block}).to(torch.bfloat16)
+        for m in sorted(ms):
             x = torch.randn((m, k), generator=g, device=DEV)
+            plan = qm.int8_plan(m, k, n, block)
             for mm in ("f32", "bf16"):
-                args = (x, leaf.q, leaf.scale, leaf.zero, leaf.block, mm)
+                args = (x, leaf.q, leaf.scale, leaf.zero, block, mm)
                 got = qm.quant_matmul_int8(*args)
                 torch.cuda.synchronize()
                 want = qm.quant_dense_reference(*args)
@@ -208,21 +309,84 @@ def phase_kernel_vs_plain(torch, qm, quantize_linear, card: str) -> dict:
                 ref = want.abs().max().item()
                 check(err <= 1e-4 * ref, f"kernel vs plain at M={m} K={k} N={n} {mm}: {err} > 1e-4 * {ref}")
                 worst = max(worst, err)
-                k_ms, p_ms = in_turns(lambda: qm.quant_dense_reference(*args),
-                                      lambda: qm.quant_matmul_int8(*args))
-                gflops = 2 * m * k * n / (k_ms * 1e6)
-                rows.append({"m": m, "k": k, "n": n, "block": block, "mm": mm,
-                             "ms": k_ms, "plain_ms": p_ms, "max_abs_err": err})
-                print(f"[3 kernel] M={m:5d} K={k:5d} N={n:5d} block={block:3d} mm={mm:4s} "
-                      f"kernel {k_ms:.4f} ms ({gflops:.0f} GFLOP/s)  plain {p_ms:.4f} ms  "
-                      f"err {err:.3e} (max|plain| {ref:.3e})  [{card}]")
-    per_fwd = {mm: [sum(SLICE_SHAPES[(r['k'], r['n'], r['block'])] * r[key] for r in rows
-                        if r["m"] == BATCH * ROWS and r["mm"] == mm) for key in ("ms", "plain_ms")]
-               for mm in ("f32", "bf16")}
-    for mm, (k_ms, p_ms) in per_fwd.items():
-        print(f"[3 kernel] one batch-8 forward's 281 calls, mm={mm}: kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms  [{card}]")
-    return {"rows": rows, "max_abs_err": worst, "per_forward": per_fwd}
+                for r in sorted({0, m // 2, m - 1}) if m > 1 else ():
+                    one = qm.quant_matmul_int8(x[r : r + 1].contiguous(), *args[1:])
+                    check(torch.equal(one[0], got[r]), f"int8 at M={m} K={k} N={n} {mm}: row {r} differs "
+                          "from the same row alone")
+                calls = INT8_GRAPH_CALLS[mm]
+                p1 = time_ms(lambda: qm.quant_dense_reference(*args), 5, 2)
+                k1 = graph_ms(torch, lambda: qm.quant_matmul_int8(*args), calls, 3)
+                k2 = graph_ms(torch, lambda: qm.quant_matmul_int8(*args), calls, 3)
+                p2 = time_ms(lambda: qm.quant_dense_reference(*args), 5, 2)
+                host_ms = time_ms(lambda: qm.quant_matmul_int8(*args), 10, 2)
+                yard = None
+                if mm == "bf16":
+                    xb = x.to(torch.bfloat16)
+                    yard = graph_ms(torch, lambda: torch.matmul(xb, w16), GRAPH_CALLS, 3)
+                nbytes, ops = int8_cost(m, k, n, block)
+                b_ms, b_by = bound(nbytes, ops)
+                row = {"m": m, "k": k, "n": n, "block": block, "mm": mm, "ms": (k1 + k2) / 2,
+                       "plain_ms": (p1 + p2) / 2, "host_ms": host_ms, "yardstick_ms": yard, "bound_ms": b_ms,
+                       "bound_by": b_by, "max_abs_err": err, "plan": plan if mm == "bf16" else None}
+                rows.append(row)
+                by_key[(m, k, n, block, mm)] = row
+                yard_txt = f"  cuBLAS bf16 yardstick {yard:.4f} ms" if yard is not None else ""
+                plan_txt = (f"plan V={plan[0]} BN={plan[1]} BM={plan[2]} {'walk' if plan[3] else 'cluster'} "
+                            if mm == "bf16" else "")
+                print(f"[3 int8] M={m:5d} K={k:5d} N={n:6d} block={block:3d} mm={mm:4s} {plan_txt}"
+                      f"kernel {row['ms']:.4f} ms ({ops / (row['ms'] * 1e9):.1f} TFLOP/s; host-launched "
+                      f"{host_ms:.4f} ms){yard_txt}  plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                      f"({b_by})  err {err:.3e} (max|plain| {ref:.3e})  [{card}]")
+        del w16
+
+    for k, n, block in INT8_ROW_SHAPES:
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 8, 128)
+        x = torch.randn((max(INT8_ROW_M), k), generator=g, device=DEV)
+        v = qm.int8_split(k, n, block)[0]
+        alone = {}
+        for m in INT8_ROW_M:
+            got = qm.quant_matmul_int8(x[:m].contiguous(), leaf.q, leaf.scale, leaf.zero, block, "bf16")
+            for r in sorted({0, m // 2, m - 1}):
+                if r not in alone:
+                    alone[r] = qm.quant_matmul_int8(x[r : r + 1].contiguous(), leaf.q, leaf.scale, leaf.zero,
+                                                    block, "bf16")[0]
+                check(torch.equal(alone[r], got[r]), f"int8 at M={m} K={k} N={n} plan "
+                      f"{qm.int8_plan(m, k, n, block)}: row {r} differs from the same row alone")
+            if m == 137:  # every tile and schedule the kernel has, on the same split
+                for bn, bm, walk in int8_tiles(qm):
+                    other = qm.quant_matmul_int8(x[:m].contiguous(), leaf.q, leaf.scale, leaf.zero, block,
+                                                 "bf16", plan=(v, bn, bm, walk))
+                    check(torch.equal(other, got), f"int8 at M={m} K={k} N={n}: schedule BN={bn} BM={bm} "
+                          f"walk={walk} differs from the plan's {qm.int8_plan(m, k, n, block)}")
+        torch.cuda.synchronize()
+        print(f"[3 int8] K={k} N={n} block={block} V={v}: rows bitwise = the row alone at M = "
+              f"{', '.join(map(str, INT8_ROW_M))} (schedules "
+              f"{sorted({qm.int8_plan(m, k, n, block)[1:] for m in INT8_ROW_M})}), and all "
+              f"{len(int8_tiles(qm))} schedules bitwise equal at M = 137  [{card}]")
+
+    per_path = {}
+    for name, calls in paths.items():
+        tot = {}
+        for mm in ("bf16", "f32"):
+            t = {key: 0.0 for key in ("ms", "plain_ms", "host_ms", "yardstick_ms")}
+            for (m, k, n, block), count in calls.items():
+                r = by_key[(m, k, n, block, mm)]
+                for key in t:
+                    t[key] = None if t[key] is None or r[key] is None else t[key] + count * r[key]
+            tot[mm] = t
+        b_ms, b_by, nbytes, ops = int8_path_bound(calls)
+        per_path[name] = {"calls": sum(calls.values()), "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+                          "bytes": nbytes,
+                          **{f"{mm}_{key}": v for mm, t in tot.items() for key, v in t.items()}}
+        pp = per_path[name]
+        print(f"[3 int8] {name}: {pp['calls']} calls, bf16 kernel {pp['bf16_ms']:.3f} ms "
+              f"({ops / (pp['bf16_ms'] * 1e9):.1f} TFLOP/s; host-launched {pp['bf16_host_ms']:.3f}), "
+              f"f32 kernel {pp['f32_ms']:.3f} ms, plain {pp['bf16_plain_ms']:.3f} / "
+              f"{pp['f32_plain_ms']:.3f} ms (bf16 / f32), bound {b_ms:.4f} ms ({b_by}), cuBLAS bf16 yardstick "
+              f"{pp['bf16_yardstick_ms']:.3f} ms  [{card}]")
+    sv = per_path["sensevoice_b8"]
+    per_fwd = {mm: [sv[f"{mm}_ms"], sv[f"{mm}_plain_ms"]] for mm in ("f32", "bf16")}
+    return {"rows": rows, "max_abs_err": worst, "per_forward": per_fwd, "per_path": per_path}
 
 
 def logits_margin(logits):
@@ -539,23 +703,6 @@ def step_flops(stacked: dict, nl: int, d: int, slots: list) -> float:
     attention's scores and P.V over each slot's (pos, tc_valid) rows."""
     weights = sum(stacked[k].numel() for k in ("wa_all", "wb_all", "wh"))
     return float(sum(2 * weights + 4 * nl * (p + tc) * d for p, tc in slots))
-
-
-def int8_forward_bound() -> tuple[float, str, float, float]:
-    """The int8 kernel's bound over one batch-8 SenseVoiceSmall forward (281
-    calls at M = 1096): each call's bytes (x f32 read, the int8 weight, its
-    f32 scales and zeros, the f32 output written) and operations (2 M K N at
-    the bf16 peak), each call's larger time, summed."""
-    m = BATCH * ROWS
-    total, nbytes, flops = 0.0, 0.0, 0.0
-    for (k, n, block), count in SLICE_SHAPES.items():
-        b = 4 * m * k + k * n + 2 * 4 * (k // block) * n + 4 * m * n
-        f = 2.0 * m * k * n
-        total += count * bound(b, f)[0]
-        nbytes += count * b
-        flops += count * f
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
-    return total, by, nbytes, flops
 
 
 def profile_steps(torch, fn, steps: int = 20) -> tuple[float, float, dict]:
@@ -928,10 +1075,7 @@ QWEN_ROW0_TOL = {"float32": 1e-3, "bfloat16": 1e-3 + 2.0**-8}
 def qwen_prefill_rows(cfg) -> int:
     """Rows of one 30 s window's prefill: the prompt ids and the audio
     tokens of the padded tower windows (assemble_prompt's static buffer)."""
-    frames = 30 * cfg.sample_rate // cfg.mel_config().hop_length
-    per_window = cfg.chunk_frames * cfg.chunks_per_window
-    windows = -(-frames // per_window)
-    return sum(QWEN_HEAD) + windows * cfg.tokens_per_window
+    return sum(QWEN_HEAD) + qwen_tower_rows(cfg)
 
 
 def packed_cost(bits: int, m: int, k: int, n: int) -> tuple[int, float]:
@@ -955,7 +1099,6 @@ LIBRARY_INNER_K_TILES = 8
 # then the prefill's rows. Timed at the rows the main paths run.
 PACKED_CHECK_M = (1, 2, 4, 8, 16, 17)
 PACKED_TIMED_M = (1, 4, 8)
-GRAPH_CALLS = 50  # back-to-back calls in one CUDA graph, for device times without launch cost
 
 
 def graph_ms(torch, fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
@@ -2406,13 +2549,12 @@ def main() -> int:
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
-    worst = max(r["max_abs_err"] for r in kern["rows"])
     k_ms, p_ms = kern["per_forward"]["bf16"]
-    i_bound, i_by, _, _ = int8_forward_bound()
     f_t = fused["times"]["float32"]
     f_bound, f_by = bound(f_t["bytes"], f_t["flops"])
     m_t = multi["times"][(MULTI_TIMED_B[-1], "float32")]
     q_t = mtimes[(QWEN_MULTI_TIMED_B[-1], "bfloat16")]
+    sv = kern["per_path"]["sensevoice_b8"]
     print(json.dumps({"kernels": [{
         "name": "quant_matmul_int8",
         "route": "cuda",
@@ -2424,13 +2566,20 @@ def main() -> int:
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
                              "qwen_q2_serve": q2serve["int8"], "qwen_q2_continuous": q2cont["int8"]},
-        "max_abs_err": worst,
+        "max_abs_err": kern["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
-        "bound_ms": i_bound,
-        "bound_by": i_by,
+        "bound_ms": sv["bound_ms"],
+        "bound_by": sv["bound_by"],
         "library_ms": None,
-        "timing": "sum over one batch-8 x 8 s forward's 281 calls (M=1096), mm=bf16, CUDA events",
+        "yardstick": "torch.matmul of bf16 x and the bf16 dequantized weight (cuBLAS): not the same "
+                     "function, never called by the port",
+        "yardstick_ms": sv["bf16_yardstick_ms"],
+        "per_path_ms": {name: {key: pp[key] for key in ("calls", "bf16_ms", "bf16_host_ms", "bf16_plain_ms",
+                                                         "bf16_yardstick_ms", "bound_ms")}
+                        for name, pp in kern["per_path"].items()},
+        "timing": "sum over one batch-8 x 8 s forward's 281 calls (M=1096), mm=bf16, device time of a "
+                  f"CUDA graph of {GRAPH_CALLS} calls (the plain version with CUDA events); bound summed per call",
     }, {
         "name": "fused_aed_step",
         "route": "cuda",

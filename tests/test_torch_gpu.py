@@ -1,6 +1,8 @@
 """PyTorch port on a CUDA card: the int8 dequant-matmul kernel against its
-plain version at the SenseVoiceSmall q8 shapes, and the kernel launch count
-of one full-geometry forward; the fused AED decode-step kernel against its
+plain version at the SenseVoiceSmall q8 shapes and at ragged ones (K = block
+= 560 and 140, N = 25055 and 30) for M = 1..17, rows of a batched call
+bitwise the row alone across every schedule its plan switches between and
+every tile it has, and the kernel launch count of one full-geometry forward; the fused AED decode-step kernel against its
 plain version at a small and at the Whisper-Large-v3-Turbo geometry, its
 wrapper's checks, and its launch count in a one-window transcription; the
 multi-slot AED decode-step kernel likewise, and its launch count in a
@@ -51,6 +53,70 @@ def test_kernel_matches_plain_version(k, n, block, mm):
         assert qm.LAUNCHES == before + 1
         want = qm.quant_dense_reference(x, leaf.q, leaf.scale, leaf.zero, leaf.block, mm)
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# Shapes off the aligned path: K = block = 560 (SenseVoice's first linear)
+# and 140 (one scale block padded to whole stages), N = 25055 (rows not 16-byte
+# aligned: byte staging) and N = 30.
+RAGGED_INT8 = [(560, 1536), (140, 100), (512, 25055), (140, 30)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n", RAGGED_INT8)
+def test_int8_kernel_at_ragged_shapes(k, n, mm):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 8, 128)
+    assert leaf.block == (128 if k % 128 == 0 else k)
+    for m in range(1, 18):
+        x = torch.randn((m, k), generator=g, device="cuda")
+        got = qm.quant_matmul_int8(x, leaf.q, leaf.scale, leaf.zero, leaf.block, mm)
+        want = qm.quant_dense_reference(x, leaf.q, leaf.scale, leaf.zero, leaf.block, mm)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), f"M={m}"
+        one = qm.quant_matmul_int8(x[m - 1 :].contiguous(), leaf.q, leaf.scale, leaf.zero, leaf.block, mm)
+        assert torch.equal(one[0], got[m - 1]), f"M={m}"
+
+
+# Row counts across every schedule switch of the int8 plan: cluster at
+# M <= 16, a walking or cluster tile above.
+INT8_ROW_M = (1, 4, 8, 16, 17, 137, 1096, 1500)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(512, 512), (1280, 1280), (5120, 1280), (512, 25055)])
+def test_int8_rows_bitwise_across_schedules(k, n):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(k * 3 + n)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 8, 128)
+    x = torch.randn((max(INT8_ROW_M), k), generator=g, device="cuda")
+    alone = {}
+    for m in INT8_ROW_M:
+        got = qm.quant_matmul_int8(x[:m].contiguous(), leaf.q, leaf.scale, leaf.zero, 128, "bf16")
+        for r in sorted({0, m // 2, m - 1}):
+            if r not in alone:
+                alone[r] = qm.quant_matmul_int8(x[r : r + 1].contiguous(), leaf.q, leaf.scale, leaf.zero,
+                                                128, "bf16")[0]
+            assert torch.equal(alone[r], got[r]), f"M={m} row {r} plan {qm.int8_plan(m, k, n, 128)}"
+    v = qm.int8_split(k, n, 128)[0]
+    want = qm.quant_matmul_int8(x[:137].contiguous(), leaf.q, leaf.scale, leaf.zero, 128, "bf16")
+    schedules = ([(bm, bn, False) for bm, bn in qm.INT8_CLUSTER_TILES]
+                 + [(bm, bn, True) for bm, bn in qm.INT8_WALK_TILES])
+    for bm, bn, walk in schedules:
+        other = qm.quant_matmul_int8(x[:137].contiguous(), leaf.q, leaf.scale, leaf.zero, 128, "bf16",
+                                     plan=(v, bn, bm, walk))
+        assert torch.equal(other, want), f"tile {bm}x{bn} walk={walk}"
+
+
+@pytest.mark.gpu
+def test_int8_bf16_mode_refuses_a_plan_it_has_no_tile_for():
+    _need_card()
+    leaf = quantize_linear(torch.randn((256, 128), device="cuda"), 8, 128)
+    x = torch.randn((4, 256), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        qm.quant_matmul_int8(x, leaf.q, leaf.scale, leaf.zero, 128, "bf16", plan=(2, 96, 16, False))
+    with pytest.raises(RuntimeError, match="CUDA error"):  # V must divide the scale blocks
+        qm.quant_matmul_int8(x, leaf.q, leaf.scale, leaf.zero, 128, "bf16", plan=(3, 128, 16, False))
 
 
 @pytest.mark.gpu
