@@ -30,14 +30,20 @@ Stacked weights (:func:`stack_decode_params`) keep the JAX keys: packed
 zero*scale in the nibble-plane-major layout ``(NL, 2, NB/2, N)`` (plane 0 =
 the low nibble = unpacked rows ``[0, K/2)``), the norm scales, and the head
 ``wh`` (H/2, V_pad) with ``h_s`` / ``h_zs`` (1, 2, NB/2, V_pad). The TPU
-strip plan and its VMEM fit test are not needed here.
+strip plan and its VMEM fit test are not needed here; :func:`decode_plan`
+takes their place: each matvec's column tile and split of K, and the
+attention's row chunks, all fixed by the shapes, so a slot of the
+multi-slot step (``ops/fused_decode_multi.py``, the same plan) is bitwise
+the batch-1 step.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -46,12 +52,30 @@ from asr_tpu_torch.quant.quantize import QuantizedEmbedding, QuantizedLinear
 
 # Kernel launches since import (or since a caller reset it to 0): one per step.
 LAUNCHES = 0
+MATVEC_LAUNCHES = 0  # the step's matvec launched alone (nibble_matvec_cuda)
 
 SOURCE = nvcc_build.CSRC / "fused_decode.cu"
 NVCC_FLAGS = nvcc_build.NVCC_FLAGS
 BLOCK = 128      # quantization block the kernel takes
 HEAD_DIM = 128   # head width the kernel takes
 GROUPS = 2      # q heads per kv head the kernel takes (Qwen3-ASR's 16 / 8)
+SMS = 132        # streaming multiprocessors of an H100 SXM, which every matvec's blocks should cover
+MV_WIDTHS = (64, 32)  # column tiles of the matvec (32 a warp slab), widest first
+MAX_ROWS = 32    # slots the matvec takes: two m16 tiles
+ATTN_MIN_ROWS = 32   # cached rows an attention chunk takes at least
+# The kernel's own limits (qwen_plan_limits in csrc/fused_decode.cu, which
+# _load checks against these): parts of a matvec tile at most (one cluster
+# of portable size), the 128-row blocks a part holds at once, the packed
+# rows of a stage (a warp's share of a block) and their padding, the
+# dynamic shared memory an H100 block may take, the attention's chunks at
+# most (one cluster of portable size) and the plan's ints.
+MAX_PARTS = 8
+MV_BLOCKS_PER_PART = 2
+MV_STAGE, MV_PAD = 32, 16
+MAX_SMEM = 232448
+ATTN_MAX_CHUNKS = 8
+PLAN_INTS = 14
+MV_STAGES_PER_BLOCK = BLOCK // MV_STAGE
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -237,6 +261,103 @@ def fused_decode_step_reference(stacked: dict, cfg, x: torch.Tensor, k_cache: to
     return hidden, logits, k_cache, v_cache
 
 
+# ── the plan ────────────────────────────────────────────────────────────
+
+
+def matvec_smem(bn: int, parts: int, k: int, rows: int = MAX_ROWS) -> int:
+    """Shared memory of a matvec block (``mv_smem`` in
+    ``csrc/qwen_common.cuh``, which the card tests hold it to through
+    ``qwen_matvec_smem``): every stage of the part's 128-row blocks
+    (weight rows, x fragments, chunk sums), their scales, the exchange of
+    the stages' partial sums, and the inbox of the cells it sums (``rows`` x
+    BN cells shared by the parts, 64 at a time), one term per 128-row block
+    of K."""
+    mt = 2 if rows > 16 else 1
+    slot = MV_STAGE * (bn + MV_PAD) + mt * 2048 + 2 * 16 * mt * 4
+    nbj = k // 2 // BLOCK
+    jper = nbj // parts
+    share = -(-(-(-rows * bn // parts)) // 64) * 64
+    exchange = MV_STAGES_PER_BLOCK * bn // 32 * 2 * mt * 16 * 32 * 4
+    return jper * MV_STAGES_PER_BLOCK * slot + jper * 4 * bn * 4 + exchange + 2 * nbj * share * 4
+
+
+@functools.lru_cache(maxsize=256)
+def matvec_plan(k: int, n: int, paired: bool = False) -> tuple[int, int]:
+    """(BN, parts) of the step's matvec for a packed (K/2, N) weight: column
+    tiles BN wide, K/256 128-row blocks split into ``parts`` equal runs of at
+    most :data:`MV_BLOCKS_PER_PART` blocks (a thread block cluster). BN is
+    the widest of :data:`MV_WIDTHS` (64 and up for the paired gate|up) whose
+    tiles, times the least such divisor of the block count up to
+    :data:`MAX_PARTS` whose part fits in shared memory at :data:`MAX_ROWS`
+    rows, reach :data:`SMS` blocks; where none does, the narrowest with the
+    most parts. Depends on (K, N) alone: the sum behind an output never
+    depends on the slot count."""
+    nbj = k // 2 // BLOCK
+    widths = [bn for bn in MV_WIDTHS if n % bn == 0 and (bn >= 64 or not paired)]
+    if nbj < 1 or k % (2 * BLOCK) or not widths:
+        raise ValueError(f"no matvec tile for K={k}, N={n}")
+    divs = [d for d in range(1, min(nbj, MAX_PARTS) + 1)
+            if nbj % d == 0 and nbj // d <= MV_BLOCKS_PER_PART]
+    for bn in widths:
+        s = next((d for d in divs if n // bn * d >= SMS and matvec_smem(bn, d, k) <= MAX_SMEM), None)
+        if s is not None:
+            return bn, s
+    bn = widths[-1]
+    return bn, max(d for d in divs if matvec_smem(bn, d, k) <= MAX_SMEM)
+
+
+def attn_chunks(rows: int, min_rows: int = ATTN_MIN_ROWS, max_chunks: int = ATTN_MAX_CHUNKS) -> int:
+    """Row chunks of an attention over ``rows`` cached rows (``attn_chunks``
+    in ``csrc/qwen_common.cuh``): at least ``min_rows`` a chunk, at most
+    ``max_chunks``; it depends on the row count alone."""
+    return max(1, min(max_chunks, -(-rows // min_rows)))
+
+
+def chunk_rows(rows: int, chunks: int, c: int) -> tuple[int, int]:
+    """[r0, r1) of chunk c: chunks of ceil(rows / chunks) rows (``chunk_rows``
+    in ``csrc/aed_common.cuh``)."""
+    n = -(-rows // chunks)
+    r0 = min(rows, c * n)
+    return r0, min(rows, r0 + n)
+
+
+class DecodePlan(NamedTuple):
+    """What both step kernels take beside their tensors: (BN, parts) of the
+    q|k|v, o, gate|up, down and head matvecs ((0, 0) without a head), the
+    attention's chunk rule and cluster size, the score rows a chunk holds,
+    and whether the launches are chained (programmatic dependent launch).
+    ``pdl`` is off only to profile the step's kernels one at a time (with
+    chained launches they overlap): ``chip_smoke.step_profile``."""
+    qkv: tuple[int, int]
+    o: tuple[int, int]
+    gu: tuple[int, int]
+    down: tuple[int, int]
+    head: tuple[int, int]
+    attn_min_rows: int
+    attn_max_chunks: int
+    attn_cap: int
+    pdl: bool = True
+
+    def c_array(self):
+        """The kernel's ``qwen::Plan`` as a ctypes int array."""
+        vals = (*self.qkv, *self.o, *self.gu, *self.down, *self.head, self.attn_min_rows,
+                self.attn_max_chunks, self.attn_cap, int(self.pdl))
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def decode_plan(cfg, t: int, vp: int = 0, pdl: bool = True) -> DecodePlan:
+    """The plan of a step of ``cfg`` over caches of ``t`` rows (and a tied
+    head of ``vp`` padded columns): one for every slot count. A chunk holds
+    at most ``max(ATTN_MIN_ROWS, ceil(t / ATTN_MAX_CHUNKS))`` score rows
+    (the kernel refuses less)."""
+    h, f = cfg.hidden, cfg.ffn_dim
+    qd = cfg.num_heads * HEAD_DIM
+    qn = qd + 2 * cfg.num_kv_heads * HEAD_DIM
+    return DecodePlan(matvec_plan(h, qn), matvec_plan(qd, h), matvec_plan(h, 2 * f, paired=True),
+                      matvec_plan(f, h), matvec_plan(h, vp) if vp else (0, 0), ATTN_MIN_ROWS,
+                      ATTN_MAX_CHUNKS, max(ATTN_MIN_ROWS, -(-t // ATTN_MAX_CHUNKS)), pdl)
+
+
 # ── the CUDA kernel ─────────────────────────────────────────────────────
 
 
@@ -255,12 +376,29 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            # x, cos, sin, 17 stacked arrays, wh, h_s, h_zs, k, v, hidden, logits, scratch
+            # x, cos, sin, 17 stacked arrays, wh, h_s, h_zs, k, v, hidden, logits, scratch;
+            # 10 ints, eps, plan, stream
             lib.fused_decode.argtypes = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 10
-                                         + [ctypes.c_float, ctypes.c_void_p])
+                                         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
             lib.fused_decode.restype = ctypes.c_int
-            lib.fused_decode_scratch_floats.argtypes = [ctypes.c_int] * 6
+            lib.fused_decode_scratch_floats.argtypes = [ctypes.c_int] * 4
             lib.fused_decode_scratch_floats.restype = ctypes.c_longlong
+            # x, w, s, zs, out, scratch; rows, k, n, bn, parts; stream
+            lib.qwen_matvec.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.qwen_matvec.restype = ctypes.c_int
+            lib.qwen_matvec_scratch_floats.argtypes = [ctypes.c_int] * 2
+            lib.qwen_matvec_scratch_floats.restype = ctypes.c_longlong
+            lib.qwen_matvec_smem.argtypes = [ctypes.c_int] * 4
+            lib.qwen_matvec_smem.restype = ctypes.c_longlong
+            lib.qwen_plan_limits.argtypes = [ctypes.c_void_p]
+            lib.qwen_plan_limits.restype = None
+            limits = (ctypes.c_int * 7)()
+            lib.qwen_plan_limits(limits)
+            ours = (MAX_PARTS, MV_BLOCKS_PER_PART, MV_STAGE, MV_PAD, MAX_SMEM, ATTN_MAX_CHUNKS,
+                    PLAN_INTS)
+            if tuple(limits) != ours:
+                raise RuntimeError(f"{SOURCE.name} was built with the plan limits {tuple(limits)}, "
+                                   f"the plan assumes {ours}")
             _lib = lib
     return _lib
 
@@ -289,11 +427,12 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes, dev: torch.device) 
 
 def fused_decode_step_cuda(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, pos: int, shift: int,
-                           cos: torch.Tensor, sin: torch.Tensor):
+                           cos: torch.Tensor, sin: torch.Tensor, plan: DecodePlan | None = None):
     """Launch the CUDA kernel; checks every argument and raises on what the
     kernel does not take (head width 128, 2 q heads a kv head, H and F
     multiples of 256, block-128 packed weights, f32 or bf16 caches of
-    one dtype, ``0 <= shift <= pos < T``)."""
+    one dtype, ``0 <= shift <= pos < T``). ``plan`` defaults to
+    :func:`decode_plan`'s."""
     global LAUNCHES
     dev = x.device
     if dev.type != "cuda":
@@ -325,8 +464,9 @@ def fused_decode_step_cuda(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.T
     pos, shift = int(pos), int(shift)
     if not 0 <= shift <= pos < t:
         raise ValueError(f"need 0 <= shift <= pos < {t}, got shift {shift}, pos {pos}")
+    plan = plan or decode_plan(cfg, t, vp)
     lib = _load()
-    scratch = torch.empty((lib.fused_decode_scratch_floats(h, nh, nkv, f, t, vp),),
+    scratch = torch.empty((lib.fused_decode_scratch_floats(h, nh, nkv, f),),
                           device=dev, dtype=torch.float32)
     hidden = torch.empty((1, h), device=dev, dtype=torch.float32)
     logits = torch.empty((1, vp), device=dev, dtype=torch.float32) if head else None
@@ -340,12 +480,46 @@ def fused_decode_step_cuda(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.T
             k_cache.data_ptr(), v_cache.data_ptr(), hidden.data_ptr(),
             logits.data_ptr() if head else null, scratch.data_ptr(),
             nl, h, nh, nkv, f, t, vp, pos, shift, int(cdt == torch.bfloat16),
-            cfg.rms_eps, stream)
+            cfg.rms_eps, plan.c_array(), stream)
     if err != 0:
         raise RuntimeError(f"fused_decode launch failed: CUDA error {err}")
     with _count_lock:
         LAUNCHES += 1
     return hidden, logits, k_cache, v_cache
+
+
+def nibble_matvec_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                       zs: torch.Tensor) -> torch.Tensor:
+    """The step's matvec alone, on the card: x (B, K) f32, B <= 32, through a
+    packed (K/2, N) weight with scales and zero*scales (2, K/256, N) as the
+    stacked weights hold them -> (B, N) f32, with :func:`matvec_plan`'s tile.
+    Its plain version is :func:`_dot`, row by row."""
+    global MATVEC_LAUNCHES
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"nibble_matvec_cuda needs CUDA tensors, got {dev}")
+    rows, k = x.shape
+    n = q.shape[1]
+    if not 1 <= rows <= MAX_ROWS or k % (2 * BLOCK) or n % 32:
+        raise ValueError(f"the matvec takes 1..{MAX_ROWS} rows, K a multiple of {2 * BLOCK} and N of "
+                         f"32; got x {tuple(x.shape)}, q {tuple(q.shape)}")
+    _check("x", x, (rows, k), (torch.float32,), dev)
+    _check("q", q, (k // 2, n), (torch.int8,), dev)
+    for name, a in (("s", s), ("zs", zs)):
+        _check(name, a, (2, k // 2 // BLOCK, n), (torch.float32,), dev)
+    bn, parts = matvec_plan(k, n)
+    lib = _load()
+    scratch = torch.empty((lib.qwen_matvec_scratch_floats(rows, k),), device=dev, dtype=torch.float32)
+    out = torch.empty((rows, n), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = lib.qwen_matvec(x.data_ptr(), q.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), rows, k, n, bn, parts,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qwen_matvec launch failed: CUDA error {err}")
+    with _count_lock:
+        MATVEC_LAUNCHES += 1
+    return out
 
 
 def fused_decode_step(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,

@@ -14,7 +14,9 @@ hand-written Hopper kernel ``asr_tpu_torch/csrc/fused_decode_multi.cu``
 (nvcc, ``sm_90a``, bound with ``ctypes``) or raises; on a CPU tensor it runs
 the plain PyTorch version :func:`fused_decode_step_multi_reference`, which
 runs each slot through the batch-1 plain version's layer, so a slot's
-results equal that version's bitwise.
+results equal that version's bitwise. Both kernels run one step design and
+one plan (``fd.decode_plan``), so on the card too a slot equals the batch-1
+kernel's result for it alone, bitwise.
 
 ``pos`` is a ``(B,)`` int32 tensor on the caches' device, so a step needs no
 host synchronisation. ``pos[b] = -1`` parks slot b: it writes no cache row,
@@ -41,7 +43,7 @@ LAUNCHES = 0
 
 SOURCE = nvcc_build.CSRC / "fused_decode_multi.cu"
 NVCC_FLAGS = nvcc_build.NVCC_FLAGS
-MAX_SLOTS = 32  # kMaxSlots in the kernel source
+MAX_SLOTS = fd.MAX_ROWS  # kMaxSlots in the kernel source: two m16 tiles of the matvec
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -102,11 +104,12 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            # x, cos, sin, 17 stacked arrays, wh, h_s, h_zs, k, v, pos, hidden, logits, scratch
+            # x, cos, sin, 17 stacked arrays, wh, h_s, h_zs, k, v, pos, hidden, logits, scratch;
+            # 9 ints, eps, plan, stream
             lib.fused_decode_multi.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.c_int] * 9
-                                               + [ctypes.c_float, ctypes.c_void_p])
+                                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
             lib.fused_decode_multi.restype = ctypes.c_int
-            lib.fused_decode_multi_scratch_floats.argtypes = [ctypes.c_int] * 7
+            lib.fused_decode_multi_scratch_floats.argtypes = [ctypes.c_int] * 5
             lib.fused_decode_multi_scratch_floats.restype = ctypes.c_longlong
             lib.fused_decode_multi_max_slots.restype = ctypes.c_int
             if lib.fused_decode_multi_max_slots() != MAX_SLOTS:
@@ -117,11 +120,12 @@ def _load():
 
 def fused_decode_step_multi_cuda(stacked: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor, pos: torch.Tensor, cos: torch.Tensor,
-                                 sin: torch.Tensor):
+                                 sin: torch.Tensor, plan: fd.DecodePlan | None = None):
     """Launch the CUDA kernel; checks every argument and raises on what the
     kernel does not take (2..MAX_SLOTS slots, head width 128, 2 q heads a kv
     head, H and F multiples of 256, block-128 packed weights, f32 or bf16
-    caches of one dtype, int32 ``pos`` on the card)."""
+    caches of one dtype, int32 ``pos`` on the card). ``plan`` defaults to
+    ``fd.decode_plan``'s, the batch-1 step's: it never depends on B."""
     global LAUNCHES
     dev = x.device
     if dev.type != "cuda":
@@ -154,8 +158,9 @@ def fused_decode_step_multi_cuda(stacked: dict, cfg, x: torch.Tensor, k_cache: t
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
         fd._check(name, c, (nl, bs, t, nkv * fd.HEAD_DIM), (cdt,), dev)
     fd._check("pos", pos, (bs,), (torch.int32,), dev)
+    plan = plan or fd.decode_plan(cfg, t, vp)
     lib = _load()
-    scratch = torch.empty((lib.fused_decode_multi_scratch_floats(bs, h, nh, nkv, f, t, vp),),
+    scratch = torch.empty((lib.fused_decode_multi_scratch_floats(bs, h, nh, nkv, f),),
                           device=dev, dtype=torch.float32)
     hidden = torch.empty((bs, h), device=dev, dtype=torch.float32)
     logits = torch.empty((bs, vp), device=dev, dtype=torch.float32) if head else None
@@ -168,7 +173,8 @@ def fused_decode_step_multi_cuda(stacked: dict, cfg, x: torch.Tensor, k_cache: t
             *((stacked[k].data_ptr() for k in ("wh", "h_s", "h_zs")) if head else (null,) * 3),
             k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), hidden.data_ptr(),
             logits.data_ptr() if head else null, scratch.data_ptr(),
-            nl, bs, h, nh, nkv, f, t, vp, int(cdt == torch.bfloat16), cfg.rms_eps, stream)
+            nl, bs, h, nh, nkv, f, t, vp, int(cdt == torch.bfloat16), cfg.rms_eps,
+            plan.c_array(), stream)
     if err != 0:
         raise RuntimeError(f"fused_decode_multi launch failed: CUDA error {err}")
     with _count_lock:

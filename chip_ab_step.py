@@ -1,18 +1,25 @@
 """Time a kernel built from two checkouts' sources against each other on one
 card, in turns (A, B, B, A), and compare their results.
 
-    python3 chip_ab_step.py OTHER_ROOT [aed|qwen|p4|p2|int8]
+    python3 chip_ab_step.py OTHER_ROOT [aed|qwen|qwen_multi|p4|p2|int8]
 
 A is built from ``OTHER_ROOT/asr_tpu_torch/csrc/<kernel>.cu`` (for example an
-earlier commit unpacked with ``git archive``), B from this checkout's; both
-keep the same C interface and are driven through this checkout's wrapper on
-the same inputs. ``aed`` (the default): the fused AED step
+earlier commit unpacked with ``git archive``), B from this checkout's, on the
+same inputs. ``aed`` (the default): the fused AED step
 (``fused_aed_step.cu``) at the Whisper-Large-v3-Turbo q8 decoder geometry,
-pos 447, 1500 cross rows. ``qwen``: the fused Qwen3 step
-(``fused_decode.cu``) at the Qwen3-ASR-0.6B q4 geometry with the packed tied
-head, pos 440, shift 17. Both with f32 and bf16 caches and random weights
-from a seed. Prints each build's ptxas lines, ms per step for A and B, the
+pos 447, 1500 cross rows, both sides through this checkout's wrapper (one C
+interface); prints each build's ptxas lines, ms per step for A and B, the
 largest difference of their outputs and whether they are bitwise equal.
+``qwen``: the fused Qwen3 step (``fused_decode.cu``) at the Qwen3-ASR-0.6B q4
+geometry with the packed tied head, pos 440, shift 17; ``qwen_multi``: the
+multi-slot Qwen3 step (``fused_decode_multi.cu``) at the same geometry, 8
+slots at pos 440. Each side of these two runs through its own checkout's
+wrapper (``ops/fused_decode.py`` / ``ops/fused_decode_multi.py``, loaded
+from that checkout, so each passes its own C signature); ms per step from
+CUDA events and from a CUDA graph of 10 steps, and the largest difference of
+hidden, logits and the written cache rows (the redesigned step sums in
+another order, so the two are not bitwise equal). All with f32 and bf16
+caches and random weights from a seed.
 ``p4`` / ``p2``: the packed-int4 / packed-int2 matmul
 (``quant_matmul_int4.cu`` / ``quant_matmul_int2.cu``) at every (K, N) of
 the Qwen3-ASR-0.6B q4 / q2 path and M = 1, 4, 8, 432, in both modes, each
@@ -64,11 +71,38 @@ def _aed_case(torch, cs, fs):
     return inputs, f"pos={pos} tc_valid={tc_valid}"
 
 
-def _qwen_case(torch, cs, fd):
+def _wrapper(root: Path, name: str):
+    """``asr_tpu_torch/ops/<name>.py`` of the checkout at ``root`` as its own
+    module, building from that checkout's ``csrc``."""
+    import importlib.util
+
+    path = root / "asr_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_ab_{name}_{abs(hash(str(root)))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = root / "asr_tpu_torch" / "csrc" / f"{name}.cu"
+    mod._lib = None
+    return mod
+
+
+def qwen_ab(torch, cs, which: str, other: Path, card: str) -> int:
+    """A (OTHER_ROOT's Qwen3 step) against B (this checkout's), each through
+    its own wrapper."""
     from asr_tpu_torch.layers import qwen3
     from asr_tpu_torch.layers.rope import rope_tables
+    from asr_tpu_torch.ops import fused_decode as fd
     from asr_tpu_torch.quant.quantize import quantize_pytree
 
+    name = "fused_decode" if which == "qwen" else "fused_decode_multi"
+    mods = {}
+    for label, root in (("A", other), ("B", ROOT)):
+        mod = _wrapper(root, name)
+        path, log = mod.build()
+        print(f"[build {label}] {mod.SOURCE} -> {path.name}")
+        for line in log.splitlines():
+            if "registers" in line and "ptxas" in line:
+                print(f"[build {label}] {line.strip()}")
+        mods[label] = mod
     cfg = qwen3.Qwen3Config()
     g = torch.Generator(device="cuda").manual_seed(15)
     params = qwen3.fuse_params(quantize_pytree(qwen3.init_params(cfg, g), bits=4, pack=True,
@@ -78,22 +112,46 @@ def _qwen_case(torch, cs, fd):
     for key in ("in_s", "post_s", "qn_s", "kn_s", "fn_s"):  # the init has ones
         stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device="cuda")
     nl, kvw, t = cfg.num_layers, cfg.num_kv_heads * 128, 464
-    (pos, shift) = cs.QWEN_DECODE_POS[-1]
     tab = torch.from_numpy(rope_tables(t, 128, cfg.rope_theta)).cuda()
-    cos, sin = tab[0, pos - shift][None], tab[1, pos - shift][None]
+    bs = 1 if which == "qwen" else MULTI_AB_SLOTS
+    (pos, shift) = cs.QWEN_DECODE_POS[-1] if which == "qwen" else (cs.QWEN_MULTI_TIMED_POS, 0)
+    cos = tab[0, pos - shift].expand(bs, -1).contiguous()
+    sin = tab[1, pos - shift].expand(bs, -1).contiguous()
+    for cdt in (torch.float32, torch.bfloat16):
+        shape = (nl, t, kvw) if which == "qwen" else (nl, bs, t, kvw)
+        kc, vc = (torch.randn(shape, generator=g, device="cuda").to(cdt) for _ in range(2))
+        x = torch.randn((bs, cfg.hidden), generator=g, device="cuda") * 0.05
+        pos_t = torch.full((bs,), pos, dtype=torch.int32, device="cuda")
 
-    def inputs(cdt):
-        kc, vc = (torch.randn((nl, t, kvw), generator=g, device="cuda").to(cdt) for _ in range(2))
-        x = torch.randn((1, cfg.hidden), generator=g, device="cuda") * 0.05
+        def step(label):  # row `pos` is rewritten with the same values each call
+            if which == "qwen":
+                h, lg, k, v = mods[label].fused_decode_step_cuda(stacked, cfg, x, kc, vc, pos, shift, cos, sin)
+                return h, lg, k[:, pos].clone(), v[:, pos].clone()
+            h, lg, k, v = mods[label].fused_decode_step_multi_cuda(stacked, cfg, x, kc, vc, pos_t, cos, sin)
+            return h, lg, k[:, :, pos].clone(), v[:, :, pos].clone()
 
-        def step():  # row `pos` is rewritten with the same values each call
-            h, lg, k, v = fd.fused_decode_step_cuda(stacked, cfg, x, kc, vc, pos, shift, cos, sin)
-            return h, lg, k[:, pos].clone(), v[:, pos].clone()
-        return step
+        outs = {label: [o.clone() for o in step(label)] for label in ("A", "B")}
+        diffs = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                 for a, b in zip(outs["A"], outs["B"])]
+        ms = {"A": [], "B": []}
+        gms = {"A": [], "B": []}
+        for _ in range(ROUNDS):
+            for label in ("A", "B", "B", "A"):
+                ms[label].append(cs.time_ms(lambda: step(label), ITERS // 2, 10))
+                gms[label].append(cs.graph_ms(torch, lambda: step(label), 10, 3))
+        cache = str(cdt).split(".")[-1]
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        gmean = {k: sum(v) / len(v) for k, v in gms.items()}
+        print(f"[ab] {which} B={bs} cache={cache:8s} pos={pos} shift={shift}: CUDA events A "
+              f"{' '.join(f'{m:.4f}' for m in ms['A'])} ms (mean {mean['A']:.4f}); B "
+              f"{' '.join(f'{m:.4f}' for m in ms['B'])} ms (mean {mean['B']:.4f}); A/B {mean['A'] / mean['B']:.2f}x; "
+              f"CUDA graph of 10 steps A {gmean['A']:.4f} ms, B {gmean['B']:.4f} ms, A/B "
+              f"{gmean['A'] / gmean['B']:.2f}x; largest difference relative to B's max (hidden, logits, "
+              f"k row, v row): {', '.join(f'{d:.2e}' for d in diffs)}  [{card}]")
+    return 0
 
-    return inputs, f"pos={pos} shift={shift}"
 
-
+MULTI_AB_SLOTS = 8
 PACKED_M = (1, 4, 8, 432)
 
 
@@ -275,7 +333,7 @@ def int8_ab(torch, cs, other: Path, card: str) -> int:
 
 def main() -> int:
     if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3 and
-                                       sys.argv[2] not in ("aed", "qwen", "p4", "p2", "int8")):
+                                       sys.argv[2] not in ("aed", "qwen", "qwen_multi", "p4", "p2", "int8")):
         print(__doc__, file=sys.stderr)
         return 2
     other = Path(sys.argv[1]).resolve()
@@ -292,12 +350,10 @@ def main() -> int:
         return packed_ab(torch, cs, which, other, cs.phase_device(torch))
     if which == "int8":
         return int8_ab(torch, cs, other, cs.phase_device(torch))
-    if which == "aed":
-        from asr_tpu_torch.ops import fused_aed_step as mod
-        source, marker = "fused_aed_step.cu", "q8_matvec"
-    else:
-        from asr_tpu_torch.ops import fused_decode as mod
-        source, marker = "fused_decode.cu", "p4_matvec"
+    if which in ("qwen", "qwen_multi"):
+        return qwen_ab(torch, cs, which, other, cs.phase_device(torch))
+    from asr_tpu_torch.ops import fused_aed_step as mod
+    source, marker = "fused_aed_step.cu", "q8_matvec"
     card = cs.phase_device(torch)
     libs = {}
     for label, root in (("A", other), ("B", ROOT)):
@@ -310,7 +366,7 @@ def main() -> int:
                 print(f"[build {label}] {line.strip()}")
         libs[label] = mod._load()
 
-    inputs, where = (_aed_case if which == "aed" else _qwen_case)(torch, cs, mod)
+    inputs, where = _aed_case(torch, cs, mod)
     for cdt in (torch.float32, torch.bfloat16):
         step = inputs(cdt)
 

@@ -46,7 +46,12 @@ prefill's rows, both modes, timed in turns, and PyTorch's int4 call
 (``torch._weight_int4pack_mm``) as a yardstick; (15) the fused Qwen3 decode
 step against its plain version at full width (f32 and bf16 caches, three
 positions with a left shift, the head in the kernel and separate), its time
-at pos 440 in turns and a profile; (16) Qwen3-ASR-0.6B (q8 tower, q4 LLM
+at pos 440 in turns, its device busy time and idle share, a profile by part
+(matvec, attention, epilogues) and its launches a step with the launches
+unchained, and the device time of a CUDA graph of steps; (15b) the
+two Qwen3 steps' shared tensor-core matvec alone at the five Qwen3-ASR-0.6B
+shapes, B = 1 and 8, against its plain version, rows bitwise alone, device
+time of a CUDA graph beside its bound; (16) Qwen3-ASR-0.6B (q8 tower, q4 LLM
 and packed tied head) through an artifact folder and ``load_qwen_session``:
 20 s on the fused route, a teacher-forced replay through the per-weight
 step, one 30 s window's tower, prefill and per-token times, RTF and peak
@@ -58,7 +63,8 @@ decode step against its plain version at full width (B = 2 and 8, f32 and
 bf16 caches, the head in the kernel and separate, mixed positions up to 700
 and one parked slot; phase 15's limits) and, slot by slot, bitwise against
 the batch-1 kernel; (19) its time at B = 2, 4, 8 against the plain
-version's, in turns, with its bound and a profile at B = 8; (20)
+version's, in turns, with its bound and, for each B and cache type, a
+profile by part, launches a step and graph device time; (20)
 continuous serving of phase 16's artifact over HTTP: 17 concurrent requests
 of 5-30 s with staggered starts on 8 slots, every decode step through the
 multi-slot kernel, each request's ids against the same request alone
@@ -731,6 +737,103 @@ def profile_steps(torch, fn, steps: int = 20) -> tuple[float, float, dict]:
     return wall * 1e3 / steps, sum(by_name.values()), by_name
 
 
+# The Qwen3 steps' kernels by part (csrc/qwen_common.cuh).
+STEP_PARTS = {"nibble_matvec": "matvec", "attn_step": "attention", "rms_stage": "epilogue"}
+
+
+def step_profile(torch, chained, unchained, steps: int = 20) -> dict:
+    """One Qwen3 step kernel (``chained``: its launches chained by
+    programmatic dependent launch, as it runs; ``unchained``: the same step
+    with every launch waiting for the one before): the host wall time a
+    step and the device's busy time (the union of kernel intervals, so
+    overlapping chained kernels count once) and idle share of the chained
+    step; the device time by part (matvec, attention, the residual + RMSNorm
+    epilogues) and the kernels launched a step, from the unchained step,
+    whose kernels do not overlap; and the device time of a CUDA graph of 10
+    chained steps (no host launch cost)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall * 1e3 / steps, kernels
+
+    host_ms, kernels = run(chained)
+    busy, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy, end = busy + max(0.0, hi - lo), max(end, hi)
+    _, kernels = run(unchained)
+    parts = {}
+    for e in kernels:
+        part = next((v for k, v in STEP_PARTS.items() if k in e.name), "other")
+        parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    busy_ms = busy / 1e3 / steps
+    return {"host_ms": host_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / host_ms,
+            "parts_ms": parts, "unchained_kernel_ms": sum(parts.values()),
+            "launches_per_step": len(kernels) / steps, "graph_ms": graph_ms(torch, chained, 10, 3)}
+
+
+def print_step_profile(label: str, what: str, prof: dict, card: str) -> None:
+    parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(prof["parts_ms"].items(), key=lambda kv: -kv[1]))
+    print(f"[{label} profile] {what}: device busy {prof['busy_ms'] * 1e3:.1f} us in a {prof['host_ms'] * 1e3:.1f} "
+          f"us step (idle share {prof['idle_share']:.3f}); unchained, us a step by part: {parts} "
+          f"(sum {prof['unchained_kernel_ms'] * 1e3:.1f}); {prof['launches_per_step']:.1f} launches a step; "
+          f"a CUDA graph of 10 steps: {prof['graph_ms']:.4f} ms a step  [{card}]")
+
+
+def phase_step_matvec(torch, fd, card: str) -> dict:
+    """[15b] The two Qwen3 steps' shared tensor-core matvec alone at the five
+    Qwen3-ASR-0.6B shapes, B = 1 and 8: against the plain ``_dot`` (1e-4 of
+    max|plain|), each row bitwise the row alone, and its device time from a
+    CUDA graph (the input staging kernel included) beside its bound. The
+    plan's shared-memory formula must give the kernel's for each tile."""
+    from asr_tpu_torch.quant.quantize import quantize_linear
+
+    g = torch.Generator(device=DEV).manual_seed(151)
+    out = {}
+    lib = fd._load()
+    for name, (k, n) in QWEN_STEP_MATVECS.items():
+        bn, parts = fd.matvec_plan(k, n, name == "gate|up")
+        for rows in range(1, fd.MAX_ROWS + 1):
+            want = lib.qwen_matvec_smem(bn, parts, k, rows)
+            check(fd.matvec_smem(bn, parts, k, rows) == want,
+                  f"matvec {name} rows={rows}: the plan's shared memory {fd.matvec_smem(bn, parts, k, rows)} "
+                  f"is not the kernel's {want}")
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 4, 128, pack=True)
+        s = leaf.scale.reshape(2, k // 256, n).contiguous()
+        zs = (leaf.zero * leaf.scale).reshape(2, k // 256, n).contiguous()
+        vals = fd._nibbles(leaf.q)
+        nbytes = leaf.q.numel() + 2 * s.numel() * 4
+        for b in QWEN_STEP_MATVEC_B:
+            x = torch.randn((b, k), generator=g, device=DEV)
+            got = fd.nibble_matvec_cuda(x, leaf.q, s, zs)
+            want = torch.cat([fd._dot(x[i : i + 1], vals, s, zs) for i in range(b)])
+            err = (got - want).abs().max().item()
+            check(err <= 1e-4 * want.abs().max().item(), f"matvec {name} B={b}: {err}")
+            check(all(torch.equal(got[i], fd.nibble_matvec_cuda(x[i : i + 1].contiguous(), leaf.q, s, zs)[0])
+                      for i in range(b)), f"matvec {name} B={b}: a row differs from the row alone")
+            ms = graph_ms(torch, lambda: fd.nibble_matvec_cuda(x, leaf.q, s, zs))
+            b_ms, b_by = bound(nbytes + 4 * b * (k + n), 2.0 * b * k * n)
+            out[f"{name} B={b}"] = {"k": k, "n": n, "tile": fd.matvec_plan(k, n, name == "gate|up"), "ms": ms,
+                                    "gb_s": nbytes / (ms * 1e-3) / 1e9, "bound_ms": b_ms, "bound_by": b_by,
+                                    "max_abs_err": err}
+            print(f"[15b matvec] {name:6s} K={k} N={n:6d} B={b}: tile (BN, parts) {out[f'{name} B={b}']['tile']}, "
+                  f"{ms * 1e3:.2f} us (staging included; CUDA graph of {GRAPH_CALLS}), "
+                  f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, bound {b_ms * 1e3:.2f} us ({b_by}); vs plain "
+                  f"{err:.2e}, rows bitwise = alone  [{card}]")
+        del leaf, vals
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> dict:
     """[11] The multi-slot kernel against its plain version and against the
     batch-1 kernel slot by slot, at turbo geometry; [12] its time against
@@ -1062,6 +1165,9 @@ QWEN_SERVE_BUDGET = 96  # new tokens a window on the served, per-weight route
 # reading the previous layer's weights, or its caches) must land beyond that
 # bound in the same run. The first layer's written row sits behind one
 # rounding only.
+QWEN_STEP_MATVECS = {"q|k|v": (1024, 4096), "o": (2048, 1024), "gate|up": (1024, 6144),
+                     "down": (3072, 1024), "head": (1024, 153600)}  # (K, N) of Qwen3-ASR-0.6B's step
+QWEN_STEP_MATVEC_B = (1, 8)
 QWEN_ONE_LAYER_TOL = 1e-2
 QWEN_STEP_TOL = 3e-2
 QWEN_ULP_DRAWS = 3
@@ -1346,13 +1452,12 @@ def phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card: str) -> dict:
         print(f"[15 decode] cache={cache} pos={pos} shift={shift}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; "
               f"{nbytes / 1e6:.1f} MB a step, {nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s; bound "
               f"{b_ms:.4f} ms ({b_by})  [{card}]")
-        if cache == "bfloat16":
-            host_ms, dev_ms, by_name = profile_steps(
-                torch, lambda: fd.fused_decode_step_cuda(stacked, cfg, x, kk, vk, pos, shift, cos, sin))
-            parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
-            times[cache]["profile"] = {"host_ms": host_ms, "kernel_ms": dev_ms, "by_name": by_name}
-            print(f"[15 profile] cache={cache}: {dev_ms * 1e3:.1f} us of kernels in a {host_ms * 1e3:.1f} us "
-                  f"step (idle share {1 - dev_ms / host_ms:.3f}); us a step: {parts}  [{card}]")
+        unchained = fd.decode_plan(cfg, t, stacked["wh"].shape[1], pdl=False)
+        prof = step_profile(
+            torch, lambda: fd.fused_decode_step_cuda(stacked, cfg, x, kk, vk, pos, shift, cos, sin),
+            lambda: fd.fused_decode_step_cuda(stacked, cfg, x, kk, vk, pos, shift, cos, sin, plan=unchained))
+        times[cache]["profile"] = prof
+        print_step_profile("15", f"cache={cache} pos={pos}", prof, card)
     check(not failures, "fused step vs plain: " + "; ".join(failures))
     del stacked, one, host
     torch.cuda.empty_cache()
@@ -1874,8 +1979,9 @@ def phase_decode_multi_vs_plain(torch, fd, fdm, qwen3, quantize_pytree, card: st
 
 def phase_decode_multi_times(torch, fd, fdm, stacked: dict, cfg, one_ms: dict, card: str) -> dict:
     """[19] The multi-slot step's time at B = 2, 4, 8 (all slots at pos
-    440), in turns with the plain version, beside its bound, and a
-    torch.profiler breakdown at B = 8."""
+    440), f32 and bf16 caches, in turns with the plain version, beside its
+    bound, each with a profile by part, launches a step and the device time
+    of a CUDA graph of steps."""
     from asr_tpu_torch.layers.rope import rope_tables
 
     nl, kvw, pos_t, t = cfg.num_layers, cfg.num_kv_heads * 128, QWEN_MULTI_TIMED_POS, 464
@@ -1902,14 +2008,12 @@ def phase_decode_multi_times(torch, fd, fdm, stacked: dict, cfg, one_ms: dict, c
                   f"{k_ms * 1e3 / bs:.1f} us a token (B x batch-1 kernel: {bs * one_ms[cache]:.4f} ms); "
                   f"plain {p_ms:.2f} ms; {nbytes / 1e6:.1f} MB a step, {nbytes / (k_ms * 1e-3) / 1e9:.0f} "
                   f"GB/s; bound {b_ms:.4f} ms ({b_by})  [{card}]")
-            if bs == QWEN_MULTI_TIMED_B[-1] and cache == "bfloat16":
-                host_ms, dev_ms, by_name = profile_steps(
-                    torch, lambda: fdm.fused_decode_step_multi_cuda(stacked, cfg, x, kc, vc, pos, cos, sin))
-                parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
-                times[(bs, cache)]["profile"] = {"host_ms": host_ms, "kernel_ms": dev_ms, "by_name": by_name}
-                print(f"[19 profile] B={bs} cache={cache}: {dev_ms * 1e3:.1f} us of kernels in a "
-                      f"{host_ms * 1e3:.1f} us step (idle share {1 - dev_ms / host_ms:.3f}); us a step: "
-                      f"{parts}  [{card}]")
+            unchained = fd.decode_plan(cfg, t, stacked["wh"].shape[1], pdl=False)
+            prof = step_profile(
+                torch, lambda: fdm.fused_decode_step_multi_cuda(stacked, cfg, x, kc, vc, pos, cos, sin),
+                lambda: fdm.fused_decode_step_multi_cuda(stacked, cfg, x, kc, vc, pos, cos, sin, plan=unchained))
+            times[(bs, cache)]["profile"] = prof
+            print_step_profile("19", f"B={bs} cache={cache} pos={pos_t}", prof, card)
             del kc, vc
     torch.cuda.empty_cache()
     return times
@@ -2531,6 +2635,7 @@ def main() -> int:
 
     p4 = phase_packed(torch, qm, quantize_linear, 4, qwen_prefill_rows(QwenAsrConfig()), card)
     dec = phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card)
+    step_mv = phase_step_matvec(torch, fd, card)
     with tempfile.TemporaryDirectory() as qwen_dir:
         qrun = phase_qwen(torch, np, qm, fd, qwen_dir, card)
         qserve = phase_qwen_serve(torch, np, qm, fd, qwen_dir, card)
@@ -2643,6 +2748,13 @@ def main() -> int:
         "library_ms": None,
         "timing": "one Qwen3-0.6B q4 step with the packed tied head, bf16 caches, pos 440, shift 17, "
                   "CUDA events",
+        "steps": {cache: {"ms": t["ms"], "graph_ms": t["profile"]["graph_ms"],
+                          "busy_ms": t["profile"]["busy_ms"], "host_ms": t["profile"]["host_ms"],
+                          "idle_share": t["profile"]["idle_share"], "unchained_parts_ms": t["profile"]["parts_ms"],
+                          "launches_per_step": t["profile"]["launches_per_step"], "bound_ms": t["bound_ms"]}
+                  for cache, t in dec["times"].items()},
+        "matvec_alone_ms": {name: {key: m[key] for key in ("ms", "gb_s", "bound_ms", "tile")}
+                            for name, m in step_mv.items()},
     }, {
         "name": "fused_decode_multi",
         "route": "cuda",
@@ -2658,6 +2770,13 @@ def main() -> int:
         "library_ms": None,
         "timing": f"one Qwen3-0.6B q4 step of {QWEN_MULTI_TIMED_B[-1]} slots with the packed tied head, "
                   f"bf16 caches, every slot at pos {QWEN_MULTI_TIMED_POS}, CUDA events",
+        "steps": {f"B={bs} {cache}": {"ms": t["ms"], "graph_ms": t["profile"]["graph_ms"],
+                                      "busy_ms": t["profile"]["busy_ms"], "host_ms": t["profile"]["host_ms"],
+                                      "idle_share": t["profile"]["idle_share"],
+                                      "unchained_parts_ms": t["profile"]["parts_ms"],
+                                      "launches_per_step": t["profile"]["launches_per_step"],
+                                      "bound_ms": t["bound_ms"]}
+                  for (bs, cache), t in mtimes.items()},
     }, {
         "name": "quant_matmul_int2",
         "route": "cuda",

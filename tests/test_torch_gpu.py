@@ -12,8 +12,11 @@ unpacked leaves of 2, 4 and 8 bits through the int8 kernel, the fused Qwen3 deco
 step at a small and at the full geometry, their wrappers' checks, and the
 launch counts of a batch-1 Qwen3-ASR transcription; the multi-slot Qwen3
 step against its plain version and, slot by slot, bitwise against the
-batch-1 kernel, its wrapper's checks, and its launch count in a continuous
-Qwen3-ASR serving run. Each test skips where no card is present.
+batch-1 kernel (at B = 2, 8, 17 and 32 with parked slots too), its
+wrapper's checks, and its launch count in a continuous Qwen3-ASR serving
+run; the two steps' shared tensor-core matvec alone against its plain
+version at the five Qwen3-ASR-0.6B shapes for 1-32 rows. Each test skips
+where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -705,6 +708,94 @@ def test_multi_decode_kernel_matches_plain_version_and_batch1_kernel(full, cache
             if head:
                 assert torch.equal(lg[b : b + 1], lb)
             assert torch.equal(k1[:, b], kb) and torch.equal(v1[:, b], vb)
+
+
+# The Qwen3-ASR-0.6B matvecs of both step kernels: q|k|v, o, gate|up, down, the head.
+QWEN_STEP_MATVECS = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 153600)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", QWEN_STEP_MATVECS)
+def test_step_matvec_matches_plain_dot_and_rows_alone(k, n):
+    """The steps' shared tensor-core matvec alone against the plain
+    version's ``_dot`` (1e-4 of max|plain|) at every slot count the kernels
+    see, one and two m16 tiles, each row bitwise the row alone."""
+    _need_card()
+    from asr_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 4, 128, pack=True)
+    s = leaf.scale.reshape(2, k // 256, n).contiguous()
+    zs = (leaf.zero * leaf.scale).reshape(2, k // 256, n).contiguous()
+    vals = fd._nibbles(leaf.q)
+    x = torch.randn((32, k), generator=g, device="cuda")
+    alone = [fd.nibble_matvec_cuda(x[r : r + 1].contiguous(), leaf.q, s, zs)[0] for r in range(32)]
+    for b in (1, 2, 8, 16, 17, 32):
+        before = fd.MATVEC_LAUNCHES
+        got = fd.nibble_matvec_cuda(x[:b].contiguous(), leaf.q, s, zs)
+        torch.cuda.synchronize()
+        assert fd.MATVEC_LAUNCHES == before + 1
+        want = torch.cat([fd._dot(x[i : i + 1], vals, s, zs) for i in range(b)])
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        assert all(torch.equal(got[r], alone[r]) for r in range(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", QWEN_STEP_MATVECS + [(256, 768), (512, 2048)])
+def test_plan_shared_memory_is_the_kernels(k, n):
+    """``matvec_smem``, which ``decode_plan`` chooses tiles by, gives the
+    kernel's own figure (``qwen_matvec_smem``) for every column tile and
+    split of K it may choose, at 1..32 slots; the library's limits are the
+    plan's (``_load`` checks them, so loading must succeed)."""
+    _need_card()
+    from asr_tpu_torch.ops import fused_decode as fd
+
+    lib = fd._load()
+    nbj = k // 256
+    for bn in fd.MV_WIDTHS:
+        for parts in (d for d in range(1, fd.MAX_PARTS + 1) if nbj % d == 0):
+            for rows in range(1, fd.MAX_ROWS + 1):
+                assert fd.matvec_smem(bn, parts, k, rows) == lib.qwen_matvec_smem(bn, parts, k, rows), \
+                    (bn, parts, rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [2, 8, 17, 32])
+def test_multi_decode_slots_equal_batch1_kernel_bitwise(bs, cache):
+    """Full width, two layers: every live slot of the multi-slot kernel
+    (rows 0-15 of the first m16 tile and, past 16 slots, of the second) is
+    bitwise the batch-1 kernel on that slot alone at shift 0; every fifth
+    slot is parked and its planes are left as they were."""
+    _need_card()
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.ops import fused_decode as fd
+    from asr_tpu_torch.ops import fused_decode_multi as fdm
+
+    cfg = qwen3.Qwen3Config(num_layers=2)
+    _, st = _qwen_stacked(cfg, 8)
+    nl, t, kvw = cfg.num_layers, 456, cfg.num_kv_heads * 128
+    pos_l = [-1 if b % 5 == 1 else (37 * b + 5) % (t - 6) for b in range(bs)]
+    g = torch.Generator(device="cuda").manual_seed(bs)
+    kc = torch.randn((nl, bs, t, kvw), generator=g, device="cuda").to(cache)
+    vc = torch.randn((nl, bs, t, kvw), generator=g, device="cuda").to(cache)
+    x = torch.randn((bs, cfg.hidden), generator=g, device="cuda") * 0.05
+    ang = torch.rand((bs, 128), generator=g, device="cuda") * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    k1, v1 = kc.clone(), vc.clone()
+    h, lg, _, _ = fdm.fused_decode_step_multi_cuda(st, cfg, x, k1, v1, pos, cos, sin)
+    torch.cuda.synchronize()
+    assert torch.isfinite(h).all() and torch.isfinite(lg).all()
+    for b, p in enumerate(pos_l):
+        if p < 0:
+            assert torch.equal(k1[:, b], kc[:, b]) and torch.equal(v1[:, b], vc[:, b])
+            continue
+        kb, vb = kc[:, b].contiguous(), vc[:, b].contiguous()
+        hb, lb, _, _ = fd.fused_decode_step_cuda(st, cfg, x[b : b + 1], kb, vb, p, 0,
+                                                 cos[b : b + 1].contiguous(), sin[b : b + 1].contiguous())
+        assert torch.equal(h[b : b + 1], hb) and torch.equal(lg[b : b + 1], lb), f"slot {b}"
+        assert torch.equal(k1[:, b], kb) and torch.equal(v1[:, b], vb), f"slot {b}"
 
 
 @pytest.mark.gpu
