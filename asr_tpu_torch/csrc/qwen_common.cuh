@@ -57,8 +57,6 @@
 // them.
 #pragma once
 
-#include <utility>
-
 #include "aed_common.cuh"
 #include "packed_common.cuh"
 
@@ -84,17 +82,6 @@ constexpr int kMaxBlocksPerPart = 2;  // 128-row blocks a matvec part holds at o
 constexpr int kMaxChunks = 8;     // row chunks of an attention: one cluster of portable size
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take on an H100
 constexpr int kPlanInts = 14;     // the plan the wrappers pass, see Plan
-
-__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
-// The two halves of a cluster barrier: every block of the cluster has
-// started once the wait returns (before any distributed shared memory access).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void grid_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
 
 // The stacked weights of a step (wh, h_s, h_zs null without the head).
 struct Weights {
@@ -444,14 +431,6 @@ __global__ void stage_rows(const float* __restrict__ x, int k, float* staged, in
 
 // ── attention ────────────────────────────────────────────────────────────
 
-// Row chunks of an attention over `rows` cached rows: at least min_rows a
-// chunk, at most max_chunks; chunk c takes rows [c len, c len + len) of
-// len = ceil(rows / chunks) (aed::chunk_rows).
-__host__ __device__ __forceinline__ int attn_chunks(int rows, int min_rows, int max_chunks) {
-  const int c = (rows + min_rows - 1) / min_rows;
-  return c < 1 ? 1 : (c > max_chunks ? max_chunks : c);
-}
-
 // The vectors of kv head h, from the slot's q|k|v matvec output row: for
 // each of its G q heads, qf = RoPE(RMSNorm(q)) * 128^-0.5 and qs = bf16(qf);
 // with `fresh`, kf = RoPE(RMSNorm(k)) and vf = v. Warp g < G rebuilds q head
@@ -781,35 +760,6 @@ struct Plan {
     }
   }
 };
-
-// cudaLaunchKernelEx with the chain attribute (pdl) and a cluster of
-// `cluster` blocks along x (0: none).
-template <typename... Exp, typename... Act>
-cudaError_t launch(void (*kernel)(Exp...), dim3 grid, dim3 block, size_t smem, cudaStream_t st,
-                   int pdl, int cluster, Act&&... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attrs[2];
-  int n = 0;
-  if (pdl) {
-    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attrs[n].val.programmaticStreamSerializationAllowed = 1;
-    ++n;
-  }
-  if (cluster > 0) {
-    attrs[n].id = cudaLaunchAttributeClusterDimension;
-    attrs[n].val.clusterDim.x = cluster;
-    attrs[n].val.clusterDim.y = 1;
-    attrs[n].val.clusterDim.z = 1;
-    ++n;
-  }
-  cfg.attrs = attrs;
-  cfg.numAttrs = n;
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
-}
 
 template <int MT, int WARPS>
 cudaError_t launch_matvec_t(const Mv& a, int pdl, cudaStream_t st) {

@@ -21,7 +21,9 @@ writes no cache row, attends only to its own fresh row and returns finite
 logits the caller discards. The TPU kernel's VMEM planning
 (``aed_fused_fits_multi``) has no counterpart; the kernel takes B >= 2
 slots (batch 1 is the batch-1 step's job), at most the kernel's
-``max_slots``.
+``max_slots``, and the batch-1 step's plan (``ops/fused_aed_step.aed_plan``),
+which has no slot count in it: that is what keeps each slot bitwise the
+batch-1 step.
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ from asr_tpu_torch.ops.fused_aed_step import (
     EPS,
     HEAD_DIM,
     AedGeom,
+    AedPlan,
     _check,
     _stacked_shapes,
+    aed_plan,
     fused_aed_step_reference,
 )
 
@@ -101,10 +105,12 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
+            # x, 19 stacked arrays, 4 caches, pos, tc_valid, logits, scratch; 9 ints, eps, plan,
+            # stream
             lib.fused_aed_step_multi.argtypes = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 9
-                                                 + [ctypes.c_float, ctypes.c_void_p])
+                                                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
             lib.fused_aed_step_multi.restype = ctypes.c_int
-            lib.fused_aed_multi_scratch_floats.argtypes = [ctypes.c_int] * 7
+            lib.fused_aed_multi_scratch_floats.argtypes = [ctypes.c_int] * 3
             lib.fused_aed_multi_scratch_floats.restype = ctypes.c_longlong
             lib.fused_aed_multi_max_slots.restype = ctypes.c_int
             if lib.fused_aed_multi_max_slots() != MAX_SLOTS:
@@ -116,11 +122,13 @@ def _load():
 def fused_aed_step_multi_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
                               k_self: torch.Tensor, v_self: torch.Tensor,
                               cross_k: torch.Tensor, cross_v: torch.Tensor,
-                              pos: torch.Tensor, tc_valid: torch.Tensor):
+                              pos: torch.Tensor, tc_valid: torch.Tensor,
+                              plan: AedPlan | None = None):
     """Launch the CUDA kernel; checks every argument and raises on what the
     kernel does not take (B >= 2 slots, head_dim 64, D and F multiples of
     128, block-128 q8 weights, f32 or bf16 caches of one dtype, int32
-    ``pos`` / ``tc_valid`` on the card)."""
+    ``pos`` / ``tc_valid`` on the card). ``plan`` defaults to
+    ``aed_plan``'s, the batch-1 step's."""
     global LAUNCHES
     dev = x.device
     if dev.type != "cuda":
@@ -150,10 +158,10 @@ def fused_aed_step_multi_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
         _check(name, t, (nl, bs, rows, d), (cdt,), dev)
     _check("pos", pos, (bs,), (torch.int32,), dev)
     _check("tc_valid", tc_valid, (bs,), (torch.int32,), dev)
+    plan = plan or aed_plan(d, f, vp, t_self, t_cross)
     lib = _load()
-    scratch = torch.empty(
-        (lib.fused_aed_multi_scratch_floats(bs, d, f, h, t_self, t_cross, vp),),
-        device=dev, dtype=torch.float32)
+    scratch = torch.empty((lib.fused_aed_multi_scratch_floats(bs, d, f),), device=dev,
+                          dtype=torch.float32)
     logits = torch.empty((bs, vp), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -161,7 +169,8 @@ def fused_aed_step_multi_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
             x.data_ptr(), *(stacked[k].data_ptr() for k in shapes),
             k_self.data_ptr(), v_self.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
             pos.data_ptr(), tc_valid.data_ptr(), logits.data_ptr(), scratch.data_ptr(),
-            nl, bs, d, h, f, t_self, t_cross, vp, int(cdt == torch.bfloat16), EPS, stream)
+            nl, bs, d, h, f, t_self, t_cross, vp, int(cdt == torch.bfloat16), EPS,
+            plan.c_array(), stream)
     if err != 0:
         raise RuntimeError(f"fused_aed_step_multi launch failed: CUDA error {err}")
     with _count_lock:

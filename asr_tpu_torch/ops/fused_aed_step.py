@@ -28,14 +28,21 @@ and ``a_zs``/``b_zs`` = zero*scale, absent biases as zeros, and the tied
 head ``wh`` ``(D, V_pad)`` with ``h_s``/``h_zs`` ``(1, D/128, V_pad)``. The
 TPU strip-width re-pad of the head is dropped: V_pad is the embedding's
 512 multiple, and its pad columns (zero scale) give logits of exactly 0.
+The TPU strip plan and its VMEM fit test are not needed here;
+:func:`aed_plan` takes their place: each matvec's column tile and split of
+K, and the attentions' row chunks, all fixed by the shapes, so a slot of
+the multi-slot step (``ops/fused_aed_multi.py``, the same plan) is bitwise
+the batch-1 step.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -44,12 +51,30 @@ from asr_tpu_torch.quant.quantize import QuantizedEmbedding, QuantizedLinear
 
 # Kernel launches since import (or since a caller reset it to 0): one per step.
 LAUNCHES = 0
+MATVEC_LAUNCHES = 0  # the step's matvec launched alone (aed_matvec_cuda)
 
 SOURCE = nvcc_build.CSRC / "fused_aed_step.cu"
 NVCC_FLAGS = nvcc_build.NVCC_FLAGS
 BLOCK = 128          # quantization block the kernel takes
 HEAD_DIM = 64        # head width the kernel takes
 EPS = 1e-5
+SMS = 132            # streaming multiprocessors of an H100 SXM, which every matvec's blocks should cover
+MV_WIDTHS = (128, 64, 32)  # column tiles of the matvec (32 a warp slab), widest first
+MAX_ROWS = 32        # slots the matvec takes: two m16 tiles
+CHUNK = 32           # values a staged chunk sum covers
+ATTN_MIN_ROWS = 32   # cached rows an attention chunk takes at least
+ATTN_STAGE_BYTES = 49152  # k (then v) rows, f32, an attention chunk stages in shared memory at most
+# The kernel's own limits (aed_plan_limits in csrc/fused_aed_step.cu, which
+# _load checks against these): parts of a matvec tile at most (one cluster
+# of portable size), the padding of a staged weight row, the dynamic shared
+# memory an H100 block may take, the attention's chunks at most (one
+# cluster of portable size), its threads a block and the plan's ints.
+MAX_PARTS = 8
+MV_PAD = 16
+MAX_SMEM = 232448
+ATTN_MAX_CHUNKS = 8
+ROW_THREADS = 256
+PLAN_INTS = 21
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -221,6 +246,114 @@ def fused_aed_step_reference(stacked: dict, geom: AedGeom, x: torch.Tensor,
     return logits, k_self, v_self
 
 
+# ── the plan ────────────────────────────────────────────────────────────
+
+
+def matvec_smem(bn: int, parts: int, k: int, rows: int = MAX_ROWS) -> int:
+    """Shared memory of a matvec block (``mv_smem`` in
+    ``csrc/aed_step.cuh``, which the card tests hold it to through
+    ``aed_matvec_smem``): each 128-row block of the part (weight rows, x
+    fragments, chunk sums), their scales and zero*scales, and the inbox of
+    the cells it owns (``rows`` x BN cells shared by the parts, 64 at a
+    time), one partial sum per part."""
+    mt = 2 if rows > 16 else 1
+    blk = BLOCK * (bn + MV_PAD) + (BLOCK // CHUNK) * mt * 1024 + (BLOCK // CHUNK) * 16 * mt * 4
+    jper = k // BLOCK // parts
+    share = -(-(-(-rows * bn // parts)) // 64) * 64
+    return jper * blk + jper * 2 * bn * 4 + parts * share * 4
+
+
+@functools.lru_cache(maxsize=256)
+def matvec_plan(k: int, n: int) -> tuple[int, int]:
+    """(BN, parts) of the step's matvec for an int8 (K, N) weight: column
+    tiles BN wide, K/128 128-row blocks split into ``parts`` equal runs (a
+    thread block cluster). ``parts`` is the largest divisor of the block
+    count up to :data:`MAX_PARTS` whose part fits in shared memory at
+    :data:`MAX_ROWS` rows (fewest blocks a part: the least latency a
+    block), BN the widest of :data:`MV_WIDTHS` whose tiles, times the
+    parts, reach :data:`SMS` blocks; where none does, the narrowest.
+    Depends on (K, N) alone: the sum behind an output never depends on the
+    slot count."""
+    nb = k // BLOCK
+    widths = [bn for bn in MV_WIDTHS if n % bn == 0]
+    if nb < 1 or k % BLOCK or not widths:
+        raise ValueError(f"no matvec tile for K={k}, N={n}")
+    divs = [d for d in range(1, min(nb, MAX_PARTS) + 1) if nb % d == 0]
+    fits = {bn: [d for d in divs if matvec_smem(bn, d, k) <= MAX_SMEM] for bn in widths}
+    for bn in widths:
+        if fits[bn] and n // bn * fits[bn][-1] >= SMS:
+            return bn, fits[bn][-1]
+    bn = widths[-1]
+    if not fits[bn]:
+        raise ValueError(f"no matvec split of K={k} fits in shared memory")
+    return bn, fits[bn][-1]
+
+
+def attn_smem(cap: int, srows: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of an attention block (``attn_smem`` in
+    ``csrc/aed_step.cuh``): ``cap`` scores, then ``srows`` rows of k, later
+    of v, in one buffer. The kernel takes at most half of :data:`MAX_SMEM`
+    (its static arrays take part of the rest)."""
+    return -(-cap * 4 // 16) * 16 + srows * HEAD_DIM * itemsize
+
+
+def attn_cap(t_rows: int) -> tuple[int, int]:
+    """(score rows a chunk holds, k / v rows it stages) for an attention over
+    at most ``t_rows`` cached rows: the longest chunk is ceil(t_rows / 8)
+    rows, or fewer than :data:`ATTN_MIN_ROWS`, and a chunk stages as many of
+    its rows as :data:`ATTN_STAGE_BYTES` hold in f32."""
+    cap = max(ATTN_MIN_ROWS, -(-t_rows // ATTN_MAX_CHUNKS))
+    return cap, min(cap, ATTN_STAGE_BYTES // (HEAD_DIM * 4))
+
+
+class AedPlan(NamedTuple):
+    """What both step kernels take beside their tensors: (BN, parts) of the
+    q|k|v, self-o, cross-q, cross-o, fc1, fc2 and head matvecs, the
+    attentions' chunk rule and cluster size, the score rows a chunk holds
+    and the k / v rows it stages (self, then cross), and whether the
+    launches are chained (programmatic dependent launch). ``pdl`` is off
+    only to profile the step's kernels one at a time (with chained launches
+    they overlap): ``chip_smoke.step_profile``."""
+    qkv: tuple[int, int]
+    so: tuple[int, int]
+    cq: tuple[int, int]
+    co: tuple[int, int]
+    fc1: tuple[int, int]
+    fc2: tuple[int, int]
+    head: tuple[int, int]
+    attn_min_rows: int
+    attn_max_chunks: int
+    self_cap: int
+    self_srows: int
+    cross_cap: int
+    cross_srows: int
+    pdl: bool = True
+
+    def c_array(self):
+        """The kernel's ``aedstep::Plan`` as a ctypes int array."""
+        vals = (*self.qkv, *self.so, *self.cq, *self.co, *self.fc1, *self.fc2, *self.head,
+                self.attn_min_rows, self.attn_max_chunks, self.self_cap, self.self_srows,
+                self.cross_cap, self.cross_srows, int(self.pdl))
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def matvec_shapes(d: int, f: int, vp: int) -> dict:
+    """(K, N) of the step's seven matvecs, in the plan's order."""
+    return {"qkv": (d, 3 * d), "so": (d, d), "cq": (d, d), "co": (d, d), "fc1": (d, f),
+            "fc2": (f, d), "head": (d, vp)}
+
+
+def aed_plan(d: int, f: int, vp: int, t_self: int, t_cross: int, pdl: bool = True) -> AedPlan:
+    """The plan of a step of width ``d``, FFN ``f`` and a tied head of ``vp``
+    padded columns over self caches of ``t_self`` rows (at most t_self - 1
+    cached rows attended) and cross caches of ``t_cross``: one for every
+    slot count."""
+    mv = {name: matvec_plan(k, n) for name, (k, n) in matvec_shapes(d, f, vp).items()}
+    return AedPlan(**mv, attn_min_rows=ATTN_MIN_ROWS, attn_max_chunks=ATTN_MAX_CHUNKS,
+                   self_cap=attn_cap(t_self - 1)[0], self_srows=attn_cap(t_self - 1)[1],
+                   cross_cap=attn_cap(t_cross)[0], cross_srows=attn_cap(t_cross)[1], pdl=pdl)
+
+
 # ── the CUDA kernel ─────────────────────────────────────────────────────
 
 
@@ -235,11 +368,29 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
+            # x, 19 stacked arrays, 4 caches, logits, scratch; 10 ints, eps, plan, stream
             lib.fused_aed_step.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 10
-                                           + [ctypes.c_float, ctypes.c_void_p])
+                                           + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
             lib.fused_aed_step.restype = ctypes.c_int
-            lib.fused_aed_step_scratch_floats.argtypes = [ctypes.c_int] * 6
+            lib.fused_aed_step_scratch_floats.argtypes = [ctypes.c_int] * 2
             lib.fused_aed_step_scratch_floats.restype = ctypes.c_longlong
+            # x, w, s, zs, out, scratch; rows, k, n, bn, parts; stream
+            lib.aed_matvec.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.aed_matvec.restype = ctypes.c_int
+            lib.aed_matvec_scratch_floats.argtypes = [ctypes.c_int] * 2
+            lib.aed_matvec_scratch_floats.restype = ctypes.c_longlong
+            lib.aed_matvec_smem.argtypes = [ctypes.c_int] * 4
+            lib.aed_matvec_smem.restype = ctypes.c_longlong
+            lib.aed_attn_smem.argtypes = [ctypes.c_int] * 3
+            lib.aed_attn_smem.restype = ctypes.c_longlong
+            lib.aed_plan_limits.argtypes = [ctypes.c_void_p]
+            lib.aed_plan_limits.restype = None
+            limits = (ctypes.c_int * 6)()
+            lib.aed_plan_limits(limits)
+            ours = (MAX_PARTS, MV_PAD, MAX_SMEM, ATTN_MAX_CHUNKS, ROW_THREADS, PLAN_INTS)
+            if tuple(limits) != ours:
+                raise RuntimeError(f"{SOURCE.name} was built with the plan limits {tuple(limits)}, "
+                                   f"the plan assumes {ours}")
             _lib = lib
     return _lib
 
@@ -268,10 +419,11 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes, dev: torch.device) 
 def fused_aed_step_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
                         k_self: torch.Tensor, v_self: torch.Tensor,
                         cross_k: torch.Tensor, cross_v: torch.Tensor,
-                        pos: int, tc_valid: int | None = None):
+                        pos: int, tc_valid: int | None = None, plan: AedPlan | None = None):
     """Launch the CUDA kernel; checks every argument and raises on what the
     kernel does not take (it takes head_dim 64, D and F multiples of 128,
-    block-128 q8 weights, and f32 or bf16 caches of one dtype)."""
+    block-128 q8 weights, and f32 or bf16 caches of one dtype). ``plan``
+    defaults to :func:`aed_plan`'s."""
     global LAUNCHES
     dev = x.device
     if dev.type != "cuda":
@@ -302,9 +454,9 @@ def fused_aed_step_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
         raise ValueError(f"pos {pos} outside the self cache of {t_self} rows")
     if not 1 <= tc_valid <= t_cross:
         raise ValueError(f"tc_valid {tc_valid} outside [1, {t_cross}]")
+    plan = plan or aed_plan(d, f, vp, t_self, t_cross)
     lib = _load()
-    scratch = torch.empty((lib.fused_aed_step_scratch_floats(d, f, h, t_self, t_cross, vp),),
-                          device=dev, dtype=torch.float32)
+    scratch = torch.empty((lib.fused_aed_step_scratch_floats(d, f),), device=dev, dtype=torch.float32)
     logits = torch.empty((1, vp), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -313,12 +465,46 @@ def fused_aed_step_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
             k_self.data_ptr(), v_self.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
             logits.data_ptr(), scratch.data_ptr(),
             nl, d, h, f, t_self, t_cross, vp, pos, tc_valid, int(cdt == torch.bfloat16),
-            EPS, stream)
+            EPS, plan.c_array(), stream)
     if err != 0:
         raise RuntimeError(f"fused_aed_step launch failed: CUDA error {err}")
     with _count_lock:
         LAUNCHES += 1
     return logits, k_self, v_self
+
+
+def aed_matvec_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                    zs: torch.Tensor) -> torch.Tensor:
+    """The step's matvec alone, on the card: x (B, K) f32, B <= 32, through an
+    int8 (K, N) weight with scales and zero*scales (K/128, N) -> (B, N) f32,
+    with :func:`matvec_plan`'s tile. Its plain version is :func:`_matvec`,
+    row by row."""
+    global MATVEC_LAUNCHES
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"aed_matvec_cuda needs CUDA tensors, got {dev}")
+    rows, k = x.shape
+    n = q.shape[1]
+    if not 1 <= rows <= MAX_ROWS or k % BLOCK or n % 32:
+        raise ValueError(f"the matvec takes 1..{MAX_ROWS} rows, K a multiple of {BLOCK} and N of 32; "
+                         f"got x {tuple(x.shape)}, q {tuple(q.shape)}")
+    _check("x", x, (rows, k), (torch.float32,), dev)
+    _check("q", q, (k, n), (torch.int8,), dev)
+    for name, a in (("s", s), ("zs", zs)):
+        _check(name, a, (k // BLOCK, n), (torch.float32,), dev)
+    bn, parts = matvec_plan(k, n)
+    lib = _load()
+    scratch = torch.empty((lib.aed_matvec_scratch_floats(rows, k),), device=dev, dtype=torch.float32)
+    out = torch.empty((rows, n), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = lib.aed_matvec(x.data_ptr(), q.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
+                             scratch.data_ptr(), rows, k, n, bn, parts,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"aed_matvec launch failed: CUDA error {err}")
+    with _count_lock:
+        MATVEC_LAUNCHES += 1
+    return out
 
 
 def fused_aed_step(stacked: dict, geom: AedGeom, x: torch.Tensor,

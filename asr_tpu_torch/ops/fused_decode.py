@@ -308,8 +308,9 @@ def matvec_plan(k: int, n: int, paired: bool = False) -> tuple[int, int]:
 
 def attn_chunks(rows: int, min_rows: int = ATTN_MIN_ROWS, max_chunks: int = ATTN_MAX_CHUNKS) -> int:
     """Row chunks of an attention over ``rows`` cached rows (``attn_chunks``
-    in ``csrc/qwen_common.cuh``): at least ``min_rows`` a chunk, at most
-    ``max_chunks``; it depends on the row count alone."""
+    in ``csrc/aed_common.cuh``, which the AED steps share): at least
+    ``min_rows`` a chunk, at most ``max_chunks``; it depends on the row
+    count alone."""
     return max(1, min(max_chunks, -(-rows // min_rows)))
 
 

@@ -1,25 +1,26 @@
 """Time a kernel built from two checkouts' sources against each other on one
 card, in turns (A, B, B, A), and compare their results.
 
-    python3 chip_ab_step.py OTHER_ROOT [aed|qwen|qwen_multi|p4|p2|int8]
+    python3 chip_ab_step.py OTHER_ROOT [aed|aed_multi|qwen|qwen_multi|p4|p2|int8]
 
 A is built from ``OTHER_ROOT/asr_tpu_torch/csrc/<kernel>.cu`` (for example an
 earlier commit unpacked with ``git archive``), B from this checkout's, on the
 same inputs. ``aed`` (the default): the fused AED step
 (``fused_aed_step.cu``) at the Whisper-Large-v3-Turbo q8 decoder geometry,
-pos 447, 1500 cross rows, both sides through this checkout's wrapper (one C
-interface); prints each build's ptxas lines, ms per step for A and B, the
-largest difference of their outputs and whether they are bitwise equal.
-``qwen``: the fused Qwen3 step (``fused_decode.cu``) at the Qwen3-ASR-0.6B q4
+pos 447, 1500 cross rows; ``aed_multi``: the multi-slot AED step
+(``fused_aed_multi.cu``) at the same geometry, 8 slots at pos 447 and 1500
+cross rows. ``qwen``: the fused Qwen3 step (``fused_decode.cu``) at the Qwen3-ASR-0.6B q4
 geometry with the packed tied head, pos 440, shift 17; ``qwen_multi``: the
 multi-slot Qwen3 step (``fused_decode_multi.cu``) at the same geometry, 8
-slots at pos 440. Each side of these two runs through its own checkout's
-wrapper (``ops/fused_decode.py`` / ``ops/fused_decode_multi.py``, loaded
-from that checkout, so each passes its own C signature); ms per step from
-CUDA events and from a CUDA graph of 10 steps, and the largest difference of
-hidden, logits and the written cache rows (the redesigned step sums in
-another order, so the two are not bitwise equal). All with f32 and bf16
-caches and random weights from a seed.
+slots at pos 440. Each side of these four runs through its own checkout's
+wrapper (``ops/fused_aed_step.py`` / ``ops/fused_aed_multi.py`` /
+``ops/fused_decode.py`` / ``ops/fused_decode_multi.py``, loaded from that
+checkout, so each passes its own C signature); each build's ptxas lines, ms
+per step from CUDA events and from a CUDA graph of 10 steps, the largest
+difference of the outputs (logits and the written cache rows; the Qwen
+steps' hidden too) and whether they are bitwise equal (a redesigned step
+sums in another order, so the two are not). All with f32 and bf16 caches
+and random weights from a seed.
 ``p4`` / ``p2``: the packed-int4 / packed-int2 matmul
 (``quant_matmul_int4.cu`` / ``quant_matmul_int2.cu``) at every (K, N) of
 the Qwen3-ASR-0.6B q4 / q2 path and M = 1, 4, 8, 432, in both modes, each
@@ -47,30 +48,6 @@ ROUNDS = 3  # A, B, B, A repeated
 ITERS = 200
 
 
-def _aed_case(torch, cs, fs):
-    from asr_tpu_torch.models import whisper as wh
-    from asr_tpu_torch.quant.quantize import quantize_pytree
-
-    cfg = wh.WhisperConfig(encoder_layers=0)
-    g = torch.Generator(device="cuda").manual_seed(8)
-    params = quantize_pytree(wh.init_params(cfg, g), bits=8, block=128, quantize_embeddings=True)
-    stacked = fs.stack_whisper_step_params(params, cfg)
-    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
-    nl, d, t, tc = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, cfg.max_source_positions
-    pos, tc_valid = cs.FUSED_POS[-1], cs.FUSED_TC[0]
-
-    def inputs(cdt):
-        ks, vs = (torch.randn((nl, t, d), generator=g, device="cuda").to(cdt) for _ in range(2))
-        ck, cv = (torch.randn((nl, tc, d), generator=g, device="cuda").to(cdt) for _ in range(2))
-        x = torch.randn((1, d), generator=g, device="cuda") * 0.05
-
-        def step():  # row `pos` is rewritten with the same values each call
-            return fs.fused_aed_step_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tc_valid)[:1]
-        return step
-
-    return inputs, f"pos={pos} tc_valid={tc_valid}"
-
-
 def _wrapper(root: Path, name: str):
     """``asr_tpu_torch/ops/<name>.py`` of the checkout at ``root`` as its own
     module, building from that checkout's ``csrc``."""
@@ -79,10 +56,96 @@ def _wrapper(root: Path, name: str):
     path = root / "asr_tpu_torch" / "ops" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"_ab_{name}_{abs(hash(str(root)))}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
     spec.loader.exec_module(mod)
     mod.SOURCE = root / "asr_tpu_torch" / "csrc" / f"{name}.cu"
     mod._lib = None
     return mod
+
+
+def _build_sides(name: str, other: Path) -> dict:
+    """Each side's ``ops/<name>.py`` as its own module, built, with its ptxas lines printed."""
+    mods = {}
+    for label, root in (("A", other), ("B", ROOT)):
+        mod = _wrapper(root, name)
+        path, log = mod.build()
+        print(f"[build {label}] {mod.SOURCE} -> {path.name}")
+        for line in log.splitlines():
+            if "registers" in line and "ptxas" in line:
+                print(f"[build {label}] {line.strip()}")
+        mods[label] = mod
+    return mods
+
+
+def _race(torch, cs, step) -> tuple[dict, dict]:
+    """ms per step of A and B on CUDA events and in a CUDA graph of 10 steps,
+    timed A, B, B, A, ROUNDS times."""
+    ms = {"A": [], "B": []}
+    gms = {"A": [], "B": []}
+    for _ in range(ROUNDS):
+        for label in ("A", "B", "B", "A"):
+            ms[label].append(cs.time_ms(lambda: step(label), ITERS // 2, 10))
+            gms[label].append(cs.graph_ms(torch, lambda: step(label), 10, 3))
+    return ms, gms
+
+
+def _report(which: str, where: str, ms: dict, gms: dict, diffs: list, names: str, same: bool,
+            card: str) -> None:
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    gmean = {k: sum(v) / len(v) for k, v in gms.items()}
+    print(f"[ab] {which} {where}: CUDA events A "
+          f"{' '.join(f'{m:.4f}' for m in ms['A'])} ms (mean {mean['A']:.4f}); B "
+          f"{' '.join(f'{m:.4f}' for m in ms['B'])} ms (mean {mean['B']:.4f}); A/B {mean['A'] / mean['B']:.2f}x; "
+          f"CUDA graph of 10 steps A {gmean['A']:.4f} ms, B {gmean['B']:.4f} ms, A/B "
+          f"{gmean['A'] / gmean['B']:.2f}x; largest difference relative to B's max ({names}): "
+          f"{', '.join(f'{d:.2e}' for d in diffs)}; bitwise equal: {same}  [{card}]")
+
+
+def aed_ab(torch, cs, which: str, other: Path, card: str) -> int:
+    """A (OTHER_ROOT's AED step) against B (this checkout's), each through its
+    own wrapper."""
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.ops import fused_aed_step as fs
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+
+    mods = _build_sides("fused_aed_step" if which == "aed" else "fused_aed_multi", other)
+    cfg = wh.WhisperConfig(encoder_layers=0)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    params = quantize_pytree(wh.init_params(cfg, g), bits=8, block=128, quantize_embeddings=True)
+    stacked = fs.stack_whisper_step_params(params, cfg)
+    del params
+    for key in ("ba", "bb", "ln1_b", "lnc_b", "ln2_b", "lnf_b"):  # the init has zeros and ones
+        stacked[key] = 0.1 * torch.randn(stacked[key].shape, generator=g, device="cuda")
+    for key in ("ln1_s", "lnc_s", "ln2_s", "lnf_s"):
+        stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device="cuda")
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, tc = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, cfg.max_source_positions
+    pos, tc_valid = cs.FUSED_POS[-1], cs.FUSED_TC[0]
+    bs = 1 if which == "aed" else MULTI_AB_SLOTS
+    for cdt in (torch.float32, torch.bfloat16):
+        shape = (lambda r: (nl, r, d)) if which == "aed" else (lambda r: (nl, bs, r, d))
+        ks, vs = (torch.randn(shape(t), generator=g, device="cuda").to(cdt) for _ in range(2))
+        ck, cv = (torch.randn(shape(tc), generator=g, device="cuda").to(cdt) for _ in range(2))
+        x = torch.randn((bs, d), generator=g, device="cuda") * 0.05
+        pos_t = torch.full((bs,), pos, dtype=torch.int32, device="cuda")
+        tcv_t = torch.full((bs,), tc_valid, dtype=torch.int32, device="cuda")
+
+        def step(label):  # row `pos` is rewritten with the same values each call
+            if which == "aed":
+                lg, k, v = mods[label].fused_aed_step_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tc_valid)
+                return lg, k[:, pos].clone(), v[:, pos].clone()
+            lg, k, v = mods[label].fused_aed_step_multi_cuda(stacked, geom, x, ks, vs, ck, cv, pos_t, tcv_t)
+            return lg, k[:, :, pos].clone(), v[:, :, pos].clone()
+
+        outs = {label: [o.clone() for o in step(label)] for label in ("A", "B")}
+        diffs = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                 for a, b in zip(outs["A"], outs["B"])]
+        same = all(torch.equal(a, b) for a, b in zip(outs["A"], outs["B"]))
+        ms, gms = _race(torch, cs, step)
+        cache = str(cdt).split(".")[-1]
+        _report(which, f"B={bs} cache={cache:8s} pos={pos} tc_valid={tc_valid}", ms, gms, diffs,
+                "logits, k row, v row", same, card)
+    return 0
 
 
 def qwen_ab(torch, cs, which: str, other: Path, card: str) -> int:
@@ -93,16 +156,7 @@ def qwen_ab(torch, cs, which: str, other: Path, card: str) -> int:
     from asr_tpu_torch.ops import fused_decode as fd
     from asr_tpu_torch.quant.quantize import quantize_pytree
 
-    name = "fused_decode" if which == "qwen" else "fused_decode_multi"
-    mods = {}
-    for label, root in (("A", other), ("B", ROOT)):
-        mod = _wrapper(root, name)
-        path, log = mod.build()
-        print(f"[build {label}] {mod.SOURCE} -> {path.name}")
-        for line in log.splitlines():
-            if "registers" in line and "ptxas" in line:
-                print(f"[build {label}] {line.strip()}")
-        mods[label] = mod
+    mods = _build_sides("fused_decode" if which == "qwen" else "fused_decode_multi", other)
     cfg = qwen3.Qwen3Config()
     g = torch.Generator(device="cuda").manual_seed(15)
     params = qwen3.fuse_params(quantize_pytree(qwen3.init_params(cfg, g), bits=4, pack=True,
@@ -133,21 +187,11 @@ def qwen_ab(torch, cs, which: str, other: Path, card: str) -> int:
         outs = {label: [o.clone() for o in step(label)] for label in ("A", "B")}
         diffs = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
                  for a, b in zip(outs["A"], outs["B"])]
-        ms = {"A": [], "B": []}
-        gms = {"A": [], "B": []}
-        for _ in range(ROUNDS):
-            for label in ("A", "B", "B", "A"):
-                ms[label].append(cs.time_ms(lambda: step(label), ITERS // 2, 10))
-                gms[label].append(cs.graph_ms(torch, lambda: step(label), 10, 3))
+        same = all(torch.equal(a, b) for a, b in zip(outs["A"], outs["B"]))
+        ms, gms = _race(torch, cs, step)
         cache = str(cdt).split(".")[-1]
-        mean = {k: sum(v) / len(v) for k, v in ms.items()}
-        gmean = {k: sum(v) / len(v) for k, v in gms.items()}
-        print(f"[ab] {which} B={bs} cache={cache:8s} pos={pos} shift={shift}: CUDA events A "
-              f"{' '.join(f'{m:.4f}' for m in ms['A'])} ms (mean {mean['A']:.4f}); B "
-              f"{' '.join(f'{m:.4f}' for m in ms['B'])} ms (mean {mean['B']:.4f}); A/B {mean['A'] / mean['B']:.2f}x; "
-              f"CUDA graph of 10 steps A {gmean['A']:.4f} ms, B {gmean['B']:.4f} ms, A/B "
-              f"{gmean['A'] / gmean['B']:.2f}x; largest difference relative to B's max (hidden, logits, "
-              f"k row, v row): {', '.join(f'{d:.2e}' for d in diffs)}  [{card}]")
+        _report(which, f"B={bs} cache={cache:8s} pos={pos} shift={shift}", ms, gms, diffs,
+                "hidden, logits, k row, v row", same, card)
     return 0
 
 
@@ -333,7 +377,8 @@ def int8_ab(torch, cs, other: Path, card: str) -> int:
 
 def main() -> int:
     if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3 and
-                                       sys.argv[2] not in ("aed", "qwen", "qwen_multi", "p4", "p2", "int8")):
+                                       sys.argv[2] not in ("aed", "aed_multi", "qwen", "qwen_multi", "p4",
+                                                           "p2", "int8")):
         print(__doc__, file=sys.stderr)
         return 2
     other = Path(sys.argv[1]).resolve()
@@ -352,41 +397,7 @@ def main() -> int:
         return int8_ab(torch, cs, other, cs.phase_device(torch))
     if which in ("qwen", "qwen_multi"):
         return qwen_ab(torch, cs, which, other, cs.phase_device(torch))
-    from asr_tpu_torch.ops import fused_aed_step as mod
-    source, marker = "fused_aed_step.cu", "q8_matvec"
-    card = cs.phase_device(torch)
-    libs = {}
-    for label, root in (("A", other), ("B", ROOT)):
-        mod._lib = None
-        mod.SOURCE = root / "asr_tpu_torch" / "csrc" / source
-        path, log = mod.build()
-        print(f"[build {label}] {mod.SOURCE} -> {path.name}")
-        for line in log.splitlines():
-            if marker in line or ("registers" in line and "ptxas" in line):
-                print(f"[build {label}] {line.strip()}")
-        libs[label] = mod._load()
-
-    inputs, where = _aed_case(torch, cs, mod)
-    for cdt in (torch.float32, torch.bfloat16):
-        step = inputs(cdt)
-
-        def run(label):
-            mod._lib = libs[label]
-            return step()
-
-        outs = {label: [o.clone() for o in run(label)] for label in ("A", "B")}
-        diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs["A"], outs["B"]))
-        same = all(torch.equal(a, b) for a, b in zip(outs["A"], outs["B"]))
-        ms = {"A": [], "B": []}
-        for _ in range(ROUNDS):
-            for label in ("A", "B", "B", "A"):
-                ms[label].append(cs.time_ms(lambda: run(label), ITERS, 10))
-        cache = str(cdt).split(".")[-1]
-        print(f"[ab] {which} cache={cache:8s} {where}: "
-              f"A {' '.join(f'{m:.4f}' for m in ms['A'])} ms (mean {sum(ms['A']) / len(ms['A']):.4f}); "
-              f"B {' '.join(f'{m:.4f}' for m in ms['B'])} ms (mean {sum(ms['B']) / len(ms['B']):.4f}); "
-              f"max|A - B| {diff:.3e}, bitwise equal: {same}  [{card}]")
-    return 0
+    return aed_ab(torch, cs, which, other, cs.phase_device(torch))
 
 
 if __name__ == "__main__":

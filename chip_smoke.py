@@ -25,21 +25,30 @@ server; (6) RTF and peak memory at batch 8 x 8 s, then the q8 logits
 against the same forward on the dequantized weights with plain matmuls;
 (8) the fused AED decode-step kernel against its plain version at the
 Whisper-Large-v3-Turbo decoder geometry (f32 and bf16 caches, three
-positions, two cross lengths), timed in turns; (9) Whisper-Large-v3-Turbo
+positions, two cross lengths), timed in turns, with its bound and, for
+each cache type, its device busy time and idle share, a profile by part
+(matvec, attention, LayerNorm epilogues) and its launches a step with the
+launches unchained, and the device time of a CUDA graph of steps; (9) Whisper-Large-v3-Turbo
 q8 at its full geometry through an artifact folder and
 ``load_whisper_session``: 20 s of audio (one window, the fused route), a
 teacher-forced replay of its ids through the per-weight step, and 45 s
 (two windows, the per-weight route); (10) encoder time, decode time per
 token on both routes, the host sync's share, RTF of one 30 s window and
 peak memory; (11) the multi-slot AED decode-step kernel against its plain
-version and, slot by slot, against the batch-1 kernel at turbo geometry
-(B = 2 and 8, f32 and bf16 caches, mixed positions with one parked slot,
-mixed cross lengths); (12) its time at B = 2, 4, 8 against the plain
-version's, in turns, with its bound and a profile at B = 8; (13)
-continuous serving of phase 9's artifact over HTTP: 17 concurrent
-requests (18 windows) with staggered starts on 8 slots, every decode step
-through the multi-slot kernel, the ids against ``session.transcribe``, the
-serving numbers, and two requests on the rowwise route; (14) the
+version and, slot by slot, bitwise against the batch-1 kernel (logits and
+written cache rows) at turbo geometry (B = 2, 5, 8, 17 and 32, f32 and
+bf16 caches, mixed positions with one parked slot, mixed cross lengths);
+(12) its time at B = 2, 4, 8 against the plain version's, in turns, with
+its bound and, for each B and cache type, a profile as phase 8's; (12b)
+the two AED steps' shared tensor-core int8 matvec alone at the seven
+turbo shapes, B = 1 and 8, against its plain version, rows bitwise alone,
+device time of a CUDA graph beside its bound, and the plan's
+shared-memory formulas against the kernels'; (13) continuous serving of
+phase 9's artifact over HTTP: 17 concurrent requests (18 windows) with
+staggered starts on 8 slots, every decode step through the multi-slot
+kernel, each request's ids bitwise equal to it alone through the batcher
+and against ``session.transcribe`` (a teacher-forced replay where they
+differ), the serving numbers, and two requests on the rowwise route; (14) the
 packed-int4 kernel against its plain version at every Qwen3-ASR-0.6B q4
 shape (q|k|v, o, gate|up, down, the tied head) at M = 1, 8 and a 30 s
 prefill's rows, both modes, timed in turns, and PyTorch's int4 call
@@ -403,6 +412,7 @@ def logits_margin(logits):
 # ── Whisper-Large-v3-Turbo q8 and the fused decode-step kernel ──────────────
 FUSED_POS = (3, 200, 447)
 FUSED_TC = (1500, 750)
+AED_GEOMETRY = (1280, 5120, 52224, 448, 1500)  # turbo's D, F, V_pad, self and cross rows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # The plain version rounds every matvec input to bf16, as the kernel does. A
 # last-bit f32 difference from another summation order can flip one such
@@ -505,11 +515,19 @@ def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
             lambda: fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv))
         nbytes = step_bytes(stacked, nl, d, pos, tcv, ks.element_size())
         rate = nbytes / (k_ms * 1e-3)
+        flops = step_flops(stacked, nl, d, [(pos, tcv)])
+        b_ms, b_by = bound(nbytes, flops)
         times[rows[-1]["cache"]] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bytes_per_s": rate,
-                                    "flops": step_flops(stacked, nl, d, [(pos, tcv)])}
+                                    "flops": flops, "bound_ms": b_ms, "bound_by": b_by}
         print(f"[8 fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms; {nbytes / 1e6:.1f} MB per step, {rate / 1e9:.0f} GB/s, "
-              f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s  [{card}]")
+              f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound {b_ms:.4f} ms ({b_by})  [{card}]")
+        unchained = fs.aed_plan(d, cfg.ffn_dim, stacked["wh"].shape[1], t, tc, pdl=False)
+        prof = step_profile(
+            torch, lambda: fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv),
+            lambda: fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv, plan=unchained))
+        times[rows[-1]["cache"]]["profile"] = prof
+        print_step_profile("8", f"cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}", prof, card)
     del params, stacked
     torch.cuda.empty_cache()
     return {"rows": rows, "max_abs_err": worst, "times": times}
@@ -689,7 +707,7 @@ def phase_whisper_numbers(torch, np, qm, fs, wh_run: dict, card: str) -> dict:
 
 # ── 11-13. the multi-slot AED decode-step kernel, continuous serving ────────
 PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
-MULTI_B = (2, 8)
+MULTI_B = (2, 5, 8, 17, 32)  # one and two m16 tiles of the matvec
 MULTI_TIMED_B = (2, 4, 8)
 SERVE_SLOTS = 8
 SERVE_SECONDS = (5.0, 30.0)  # 16 requests of one window each, lengths drawn from this range
@@ -730,15 +748,17 @@ def profile_steps(torch, fn, steps: int = 20) -> tuple[float, float, dict]:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        # "void (anonymous namespace)::attn_pv_multi<float, false>(...)" -> "attn_pv_multi"
+        # "void aedstep::(anonymous namespace)::attn_aed<float, false>(...)" -> "attn_aed"
         name = re.sub(r"^void ", "", e.key.replace("(anonymous namespace)::", ""))
         name = re.sub(r"[(<].*", "", name).split("::")[-1].strip()
         by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3 / steps
     return wall * 1e3 / steps, sum(by_name.values()), by_name
 
 
-# The Qwen3 steps' kernels by part (csrc/qwen_common.cuh).
-STEP_PARTS = {"nibble_matvec": "matvec", "attn_step": "attention", "rms_stage": "epilogue"}
+# The fused steps' kernels by part: the Qwen3 steps' (csrc/qwen_common.cuh)
+# and the AED steps' (csrc/aed_step.cuh).
+STEP_PARTS = {"nibble_matvec": "matvec", "attn_step": "attention", "rms_stage": "epilogue",
+              "q8_matvec": "matvec", "attn_aed": "attention", "ln_stage": "epilogue"}
 
 
 def step_profile(torch, chained, unchained, steps: int = 20) -> dict:
@@ -834,10 +854,70 @@ def phase_step_matvec(torch, fd, card: str) -> dict:
     return out
 
 
+# The Whisper-Large-v3-Turbo matvecs of the AED steps (csrc/aed_step.cuh):
+# q|k|v, self-o, cross-q, cross-o, fc1, fc2, the tied head.
+AED_STEP_MATVECS = {"q|k|v": (1280, 3840), "self-o": (1280, 1280), "cross-q": (1280, 1280),
+                    "cross-o": (1280, 1280), "fc1": (1280, 5120), "fc2": (5120, 1280),
+                    "head": (1280, 52224)}
+AED_STEP_MATVEC_B = (1, 8)
+
+
+def phase_aed_matvec(torch, fs, card: str) -> dict:
+    """[12b] The two AED steps' shared tensor-core int8 matvec alone at the
+    seven Whisper-Large-v3-Turbo shapes, B = 1 and 8: against the plain
+    ``_matvec`` (1e-4 of max|plain|), each row bitwise the row alone, and its
+    device time from a CUDA graph (the input staging kernel included)
+    beside its byte bound. The plan's shared-memory formulas must give the
+    kernel's for each tile and attention."""
+    from asr_tpu_torch.quant.quantize import quantize_linear
+
+    g = torch.Generator(device=DEV).manual_seed(121)
+    out = {}
+    lib = fs._load()
+    plan = fs.aed_plan(*AED_GEOMETRY)
+    for cap, srows in ((plan.self_cap, plan.self_srows), (plan.cross_cap, plan.cross_srows)):
+        for itemsize in (2, 4):
+            check(fs.attn_smem(cap, srows, itemsize) == lib.aed_attn_smem(cap, srows, itemsize),
+                  f"attention cap={cap}: the plan's shared memory is not the kernel's")
+    for name, (k, n) in AED_STEP_MATVECS.items():
+        bn, parts = fs.matvec_plan(k, n)
+        for rows in range(1, fs.MAX_ROWS + 1):
+            want = lib.aed_matvec_smem(bn, parts, k, rows)
+            check(fs.matvec_smem(bn, parts, k, rows) == want,
+                  f"matvec {name} rows={rows}: the plan's shared memory {fs.matvec_smem(bn, parts, k, rows)} "
+                  f"is not the kernel's {want}")
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, 8, 128)
+        s, zs = leaf.scale.contiguous(), (leaf.zero * leaf.scale).contiguous()
+        nbytes = leaf.q.numel() + 2 * s.numel() * 4
+        for b in AED_STEP_MATVEC_B:
+            x = torch.randn((b, k), generator=g, device=DEV)
+            got = fs.aed_matvec_cuda(x, leaf.q, s, zs)
+            want = torch.cat([fs._matvec(x[i : i + 1], leaf.q, s, zs) for i in range(b)])
+            err = (got - want).abs().max().item()
+            check(err <= 1e-4 * want.abs().max().item(), f"matvec {name} B={b}: {err}")
+            check(all(torch.equal(got[i], fs.aed_matvec_cuda(x[i : i + 1].contiguous(), leaf.q, s, zs)[0])
+                      for i in range(b)), f"matvec {name} B={b}: a row differs from the row alone")
+            ms = graph_ms(torch, lambda: fs.aed_matvec_cuda(x, leaf.q, s, zs))
+            b_ms, b_by = bound(nbytes + 4 * b * (k + n), 2.0 * b * k * n)
+            out[f"{name} B={b}"] = {"k": k, "n": n, "tile": (bn, parts), "ms": ms,
+                                    "gb_s": nbytes / (ms * 1e-3) / 1e9, "bound_ms": b_ms, "bound_by": b_by,
+                                    "max_abs_err": err}
+            print(f"[12b matvec] {name:7s} K={k} N={n:5d} B={b}: tile (BN, parts) {(bn, parts)}, "
+                  f"{ms * 1e3:.2f} us (staging included; CUDA graph of {GRAPH_CALLS}), "
+                  f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, bound {b_ms * 1e3:.2f} us ({b_by}); vs plain "
+                  f"{err:.2e}, rows bitwise = alone  [{card}]")
+        del leaf
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> dict:
-    """[11] The multi-slot kernel against its plain version and against the
-    batch-1 kernel slot by slot, at turbo geometry; [12] its time against
-    the plain version's, in turns, at B in {2, 4, 8}."""
+    """[11] The multi-slot kernel against its plain version and, slot by
+    slot, bitwise against the batch-1 kernel (logits and written rows), at
+    turbo geometry, B = 2 .. 32; [12] its time against the plain version's,
+    in turns, at B in {2, 4, 8}, each with a profile (busy time, idle share,
+    device time by part from an unchained step, launches a step, a CUDA
+    graph of 10 steps)."""
     cfg = wh.WhisperConfig(encoder_layers=0)  # the decoder at full width
     g = torch.Generator(device=DEV).manual_seed(11)
     params = quantize_pytree(wh.init_params(cfg, g), bits=8, block=128, quantize_embeddings=True)
@@ -878,7 +958,7 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
             check(err <= FUSED_LOGIT_TOL * ref, f"B={bs} {cache}: multi vs plain {err} > "
                   f"{FUSED_LOGIT_TOL} * {ref}")
             worst = max(worst, err)
-            row0, vs1 = 0.0, 0.0
+            row0 = 0.0
             for b, p in enumerate(pos_l):
                 others = torch.arange(t, device=DEV) != p
                 check(torch.equal(kk[:, b, others], ks[:, b, others])
@@ -892,19 +972,19 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
                 tol0 = ROW0_TOL[cache]
                 check(r_err <= tol0 * r_ref, f"B={bs} {cache}: slot {b} layer-0 row {r_err} > {tol0} * {r_ref}")
                 row0 = max(row0, r_err / r_ref)
-                one, _, _ = fs.fused_aed_step_cuda(
-                    stacked, geom, x[b : b + 1], *(c[:, b].clone(memory_format=torch.contiguous_format)
-                                                   for c in (ks, vs, ck, cv)), p, tc_l[b])
-                s_err = (got[b, :v] - one[0, :v]).abs().max().item()
-                s_ref = one[0, :v].abs().max().item()
-                check(s_err <= FUSED_LOGIT_TOL * s_ref, f"B={bs} {cache}: slot {b} vs the batch-1 kernel "
-                      f"{s_err} > {FUSED_LOGIT_TOL} * {s_ref}")
-                vs1 = max(vs1, s_err / s_ref)
+                # the batch-1 kernel on this slot alone: bitwise its logits and written rows
+                kb, vb = ks[:, b].contiguous(), vs[:, b].contiguous()
+                one, _, _ = fs.fused_aed_step_cuda(stacked, geom, x[b : b + 1], kb, vb, ck[:, b].contiguous(),
+                                                   cv[:, b].contiguous(), p, tc_l[b])
+                check(torch.equal(got[b : b + 1], one), f"B={bs} {cache}: slot {b}'s logits are not "
+                      "bitwise the batch-1 kernel's")
+                check(torch.equal(kk[:, b], kb) and torch.equal(vk[:, b], vb), f"B={bs} {cache}: slot {b}'s "
+                      "caches are not bitwise the batch-1 kernel's")
             rows.append({"b": bs, "cache": cache, "max_abs_err": err, "max_abs_plain": ref,
-                         "row0_rel": row0, "vs_batch1_rel": vs1})
+                         "row0_rel": row0, "slots_bitwise_batch1": True})
             print(f"[11 multi] B={bs} cache={cache:8s} pos={pos_l} tc_valid={tc_l}: logits err "
                   f"{err:.3e} ({err / ref:.2e} of max|plain|); layer-0 rows within {row0:.2e} of "
-                  f"max|row|; slots vs the batch-1 kernel within {vs1:.2e} of max|logit|; other "
+                  f"max|row|; every live slot bitwise the batch-1 kernel (logits and caches); other "
                   f"rows and the parked slot bitwise unchanged")
     torch.cuda.synchronize()
 
@@ -913,6 +993,7 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
     for cdt in (torch.float32, torch.bfloat16):
         cache = str(cdt).split(".")[-1]
         one_ms = fused["times"][cache]["ms"]
+        unchained = fs.aed_plan(d, cfg.ffn_dim, stacked["wh"].shape[1], t, tc, pdl=False)
         for bs in MULTI_TIMED_B:
             ks, vs, ck, cv = planes(bs, cdt)
             x = torch.randn((bs, d), generator=g, device=DEV) * 0.05
@@ -932,13 +1013,12 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
                   f"step, {k_ms * 1e3 / bs:.1f} us a token (B x batch-1 kernel: {bs * one_ms:.4f} ms); "
                   f"plain {p_ms:.2f} ms; {nbytes / 1e6:.1f} MB a step, {rate / 1e9:.0f} GB/s, "
                   f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound {b_ms:.4f} ms ({b_by})  [{card}]")
-            if bs == MULTI_TIMED_B[-1]:
-                host_ms, dev_ms, by_name = profile_steps(
-                    torch, lambda: fm.fused_aed_step_multi_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tcv))
-                parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
-                print(f"[12 profile] B={bs} cache={cache}: {dev_ms * 1e3:.1f} us of kernels in a "
-                      f"{host_ms * 1e3:.1f} us step (idle share {1 - dev_ms / host_ms:.3f}); us a step: "
-                      f"{parts}  [{card}]")
+            prof = step_profile(
+                torch, lambda: fm.fused_aed_step_multi_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tcv),
+                lambda: fm.fused_aed_step_multi_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tcv,
+                                                     plan=unchained))
+            times[(bs, cache)]["profile"] = prof
+            print_step_profile("12", f"B={bs} cache={cache} pos={pos_t} tc_valid={tc_t}", prof, card)
     del params, stacked
     torch.cuda.empty_cache()
     return {"rows": rows, "max_abs_err": worst, "times": times}
@@ -1069,6 +1149,26 @@ def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: st
         check(r is not None and r[0] == 200, f"request {i}: {r}")
     lat = np.array([r[2] for r in results])
 
+    # Each request alone through the same batcher, window by window as the
+    # server submits it: bitwise its served ids.
+    from asr_tpu_torch.parallel.http_server import decode_audio_bytes
+
+    bat, eot = srv.batcher, cfg.eot_id
+    with torch.inference_mode():
+        for i, clip in enumerate(clips):
+            samples = decode_audio_bytes(wav_bytes(clip), 16000) * np.float32(session.pcm_scale / 32768.0)
+            alone = []
+            for s0 in iter_windows(len(samples), w, w):
+                pre = session.continuous_prefill(samples[s0 : s0 + w])
+                if pre["skip"]:
+                    continue
+                slot = bat.try_submit(pre["state"], pre["p_len"], pre["logits0"], pre["tc_valid"])
+                while bat.is_active(slot):
+                    bat.step()
+                alone += [t for t in bat.take_result(slot) if t != eot]
+            check(alone == results[i][1]["token_ids"], f"request {i}: the served ids differ from the "
+                  "request run alone through the batcher")
+
     # Each request's ids against session.transcribe on the same audio.
     equal, replayed = 0, []
     for i, clip in enumerate(clips):
@@ -1091,7 +1191,8 @@ def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: st
     print(f"[13 serve] {len(clips)} requests ({windows} windows, {SERVE_SLOTS} slots, f32 caches, "
           f"starts staggered 0-200 ms) in {wall:.2f} s; healthz {json.dumps(health)}")
     print(f"[13 serve] launches: multi-slot {multi} (= decode_steps {health['decode_steps']}), "
-          f"batch-1 {fused}, int8 {int8} ({windows} windows x {int8_per_window(cfg)})")
+          f"batch-1 {fused}, int8 {int8} ({windows} windows x {int8_per_window(cfg)}); every request's "
+          "ids bitwise equal to it alone through the batcher")
     print(f"[13 serve] ids equal to session.transcribe (batch-1 kernel; per-weight for 2 windows) "
           f"for {equal}/{len(clips)} requests; replayed {len(replayed)} teacher-forced over "
           f"{replay['steps']} steps: multi vs per-weight within {replay['worst_rel']:.3e} of "
@@ -1104,7 +1205,7 @@ def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: st
     p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
     out = {"launches": multi, "int8": int8, "tokens": toks, "agg_tok_s": agg, "e2e_tok_s": toks / wall,
            "batch1_tok_s": one, "step_ms": step_s * 1e3, "p50_s": p50, "p95_s": p95,
-           "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak, "equal": equal}
+           "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak, "equal": equal, "wall_s": wall}
     print(f"[13 numbers] decode {toks} tokens: {agg:.0f} tokens/s over step time ({toks / wall:.0f} "
           f"end to end) vs {one:.0f} tokens/s on the batch-1 fused route (phase 10); average step "
           f"{step_s * 1e3:.3f} ms; completion p50 {p50:.2f} s, p95 {p95:.2f} s (client side); "
@@ -2628,6 +2729,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         # ── 11-13. the multi-slot decode-step kernel, continuous serving ──
         multi = phase_multi(torch, fs, fm, wh, quantize_pytree, fused, card)
+        aed_mv = phase_aed_matvec(torch, fs, card)
         serve = phase_continuous(torch, np, qm, fs, fm, whisper_dir, wnum, card)
 
     # ── 14-17. Qwen3-ASR-0.6B q4, the int4 kernel, the fused Qwen3 step ────
@@ -2656,7 +2758,6 @@ def main() -> int:
     print(card)
     k_ms, p_ms = kern["per_forward"]["bf16"]
     f_t = fused["times"]["float32"]
-    f_bound, f_by = bound(f_t["bytes"], f_t["flops"])
     m_t = multi["times"][(MULTI_TIMED_B[-1], "float32")]
     q_t = mtimes[(QWEN_MULTI_TIMED_B[-1], "bfloat16")]
     sv = kern["per_path"]["sensevoice_b8"]
@@ -2694,10 +2795,17 @@ def main() -> int:
         "max_abs_err": fused["max_abs_err"],
         "ms": f_t["ms"],
         "plain_ms": f_t["plain_ms"],
-        "bound_ms": f_bound,
-        "bound_by": f_by,
+        "bound_ms": f_t["bound_ms"],
+        "bound_by": f_t["bound_by"],
         "library_ms": None,
         "timing": "one turbo q8 step, f32 caches, pos 447, 1500 cross rows, CUDA events",
+        "steps": {cache: {"ms": t["ms"], "graph_ms": t["profile"]["graph_ms"],
+                          "busy_ms": t["profile"]["busy_ms"], "host_ms": t["profile"]["host_ms"],
+                          "idle_share": t["profile"]["idle_share"], "unchained_parts_ms": t["profile"]["parts_ms"],
+                          "launches_per_step": t["profile"]["launches_per_step"], "bound_ms": t["bound_ms"]}
+                  for cache, t in fused["times"].items()},
+        "matvec_alone_ms": {name: {key: m[key] for key in ("ms", "gb_s", "bound_ms", "tile")}
+                            for name, m in aed_mv.items()},
     }, {
         "name": "fused_aed_multi",
         "route": "cuda",
@@ -2712,6 +2820,13 @@ def main() -> int:
         "library_ms": None,
         "timing": f"one turbo q8 step of {MULTI_TIMED_B[-1]} slots, f32 caches, pos 447, 1500 cross "
                   "rows, CUDA events",
+        "steps": {f"B={bs} {cache}": {"ms": t["ms"], "graph_ms": t["profile"]["graph_ms"],
+                                      "busy_ms": t["profile"]["busy_ms"], "host_ms": t["profile"]["host_ms"],
+                                      "idle_share": t["profile"]["idle_share"],
+                                      "unchained_parts_ms": t["profile"]["parts_ms"],
+                                      "launches_per_step": t["profile"]["launches_per_step"],
+                                      "bound_ms": t["bound_ms"]}
+                  for (bs, cache), t in multi["times"].items()},
     }, {
         "name": "quant_matmul_int4",
         "route": "cuda",

@@ -5,8 +5,12 @@ bitwise the row alone across every schedule its plan switches between and
 every tile it has, and the kernel launch count of one full-geometry forward; the fused AED decode-step kernel against its
 plain version at a small and at the Whisper-Large-v3-Turbo geometry, its
 wrapper's checks, and its launch count in a one-window transcription; the
-multi-slot AED decode-step kernel likewise, and its launch count in a
-continuous-serving run; the packed-int4 and packed-int2 matmuls at the
+multi-slot AED decode-step kernel likewise and, slot by slot, bitwise
+against the batch-1 kernel (at B = 2, 5, 8, 17 and 32 with parked slots),
+and its launch count in a continuous-serving run; the two AED steps'
+shared tensor-core int8 matvec alone against its plain version at the
+Whisper-Large-v3-Turbo shapes for 1-32 rows, and the AED plan's limits
+and shared-memory formulas against the kernels'; the packed-int4 and packed-int2 matmuls at the
 Qwen3-ASR-0.6B shapes (and a row alone against the same row in a batch),
 unpacked leaves of 2, 4 and 8 bits through the int8 kernel, the fused Qwen3 decode
 step at a small and at the full geometry, their wrappers' checks, and the
@@ -216,6 +220,39 @@ def test_fused_step_kernel_matches_plain_version(turbo, cache):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_fused_step_reads_rows_past_the_staged_ones(cache):
+    """2000 cross rows: a chunk holds 250 rows, more than the 192 it stages
+    in shared memory, so the rest are read from device memory; batch 1 and
+    a multi-slot slot (bitwise the batch-1 kernel) against the plain
+    version."""
+    _need_card()
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+
+    fs, cfg, params, stacked, g = _fused_setup({**SMALL_WHISPER, "max_source_positions": 2000})
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, tc, v = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, 2000, cfg.vocab_size
+    plan = fs.aed_plan(d, cfg.ffn_dim, stacked["wh"].shape[1], t, tc)
+    assert plan.cross_srows < -(-tc // plan.attn_max_chunks) <= plan.cross_cap
+    ks, vs = (torch.randn((nl, 2, t, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    ck, cv = (torch.randn((nl, 2, tc, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    x = torch.randn((2, d), generator=g, device="cuda") * 0.05
+    pos, tcv = [9, 5], [tc, 1700]
+    kk, vk = ks.clone(), vs.clone()
+    got, _, _ = fm.fused_aed_step_multi_cuda(stacked, geom, x, kk, vk, ck, cv,
+                                             torch.tensor(pos, dtype=torch.int32, device="cuda"),
+                                             torch.tensor(tcv, dtype=torch.int32, device="cuda"))
+    for b in range(2):
+        kb, vb = ks[:, b].contiguous(), vs[:, b].contiguous()
+        one, _, _ = fs.fused_aed_step_cuda(stacked, geom, x[b : b + 1], kb, vb, ck[:, b].contiguous(),
+                                           cv[:, b].contiguous(), pos[b], tcv[b])
+        assert torch.equal(got[b : b + 1], one)
+        want, _, _ = fs.fused_aed_step_reference(stacked, geom, x[b : b + 1], ks[:, b].clone(),
+                                                 vs[:, b].clone(), ck[:, b], cv[:, b], pos[b], tcv[b])
+        assert (one[:, :v] - want[:, :v]).abs().max().item() <= 1e-2 * want[:, :v].abs().max().item()
+
+
+@pytest.mark.gpu
 def test_fused_wrapper_rejects_what_the_kernel_does_not_take():
     _need_card()
     fs, cfg, params, stacked, g = _fused_setup(SMALL_WHISPER)
@@ -242,6 +279,11 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take():
                           ck, cv, 2)
     with pytest.raises(ValueError):  # fused_aed_step_cuda refuses the CPU
         fs.fused_aed_step_cuda(stacked, geom, x.cpu(), kc.cpu(), vc.cpu(), ck.cpu(), cv.cpu(), 2)
+    plan = fs.aed_plan(d, cfg.ffn_dim, stacked["wh"].shape[1], 16, 24)
+    with pytest.raises(RuntimeError):  # a column tile the kernel has no instance for
+        fs.fused_aed_step_cuda(stacked, geom, x, kc, vc, ck, cv, 2, plan=plan._replace(qkv=(48, 1)))
+    with pytest.raises(RuntimeError):  # a cross cap too short for the cache's rows
+        fs.fused_aed_step_cuda(stacked, geom, x, kc, vc, ck, cv, 2, plan=plan._replace(cross_cap=2))
 
 
 @pytest.mark.gpu
@@ -312,15 +354,106 @@ def test_multi_step_kernel_matches_plain_version(turbo, cache):
         for have, ref in ((kk, kp), (vk, vp)):
             err = (have[0, b, p].float() - ref[0, b, p].float()).abs().max().item()
             assert err <= bound * ref[0, b, p].float().abs().max().item()
-        one, _, _ = fs.fused_aed_step(stacked, geom, x[b : b + 1],
-                                      *(c[:, b].clone(memory_format=torch.contiguous_format)
-                                        for c in (ks, vs)),
-                                      ck[:, b].contiguous(), cv[:, b].contiguous(), p, tc_l[b])
-        assert (got[b, :v] - one[0, :v]).abs().max().item() <= 1e-2 * one[0, :v].abs().max().item()
+        kb, vb = ks[:, b].contiguous(), vs[:, b].contiguous()
+        one, _, _ = fs.fused_aed_step(stacked, geom, x[b : b + 1], kb, vb, ck[:, b].contiguous(),
+                                      cv[:, b].contiguous(), p, tc_l[b])
+        assert torch.equal(got[b : b + 1], one), f"slot {b}"  # bitwise the batch-1 kernel
+        assert torch.equal(kk[:, b], kb) and torch.equal(vk[:, b], vb), f"slot {b}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [2, 5, 8, 17, 32])
+def test_multi_aed_slots_equal_batch1_kernel_bitwise(bs, cache):
+    """Turbo width, two layers: every live slot of the multi-slot AED kernel
+    (rows 0-15 of the first m16 tile and, past 16 slots, of the second) is
+    bitwise the batch-1 kernel on that slot alone, logits and written rows,
+    at mixed positions and cross lengths; every fifth slot is parked and
+    its planes are left as they were."""
+    _need_card()
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+
+    fs, cfg, params, stacked, g = _fused_setup({"encoder_layers": 0, "decoder_layers": 2}, seed=bs)
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, tc = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, cfg.max_source_positions
+    pos_l = [-1 if b % 5 == 1 else (37 * b + 5) % (t - 6) for b in range(bs)]
+    tc_l = [tc - 97 * b % (tc - 1) for b in range(bs)]
+    ks, vs = (torch.randn((nl, bs, t, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    ck, cv = (torch.randn((nl, bs, tc, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    x = torch.randn((bs, d), generator=g, device="cuda") * 0.05
+    k1, v1 = ks.clone(), vs.clone()
+    lg, _, _ = fm.fused_aed_step_multi_cuda(stacked, geom, x, k1, v1, ck, cv,
+                                            torch.tensor(pos_l, dtype=torch.int32, device="cuda"),
+                                            torch.tensor(tc_l, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.isfinite(lg).all()
+    for b, p in enumerate(pos_l):
+        if p < 0:
+            assert torch.equal(k1[:, b], ks[:, b]) and torch.equal(v1[:, b], vs[:, b])
+            continue
+        kb, vb = ks[:, b].contiguous(), vs[:, b].contiguous()
+        one, _, _ = fs.fused_aed_step_cuda(stacked, geom, x[b : b + 1], kb, vb, ck[:, b].contiguous(),
+                                           cv[:, b].contiguous(), p, tc_l[b])
+        assert torch.equal(lg[b : b + 1], one), f"slot {b}"
+        assert torch.equal(k1[:, b], kb) and torch.equal(v1[:, b], vb), f"slot {b}"
+
+
+# The Whisper-Large-v3-Turbo matvecs of both AED step kernels: q|k|v, self-o,
+# cross-q and cross-o (one shape), fc1, fc2, the head.
+AED_STEP_MATVECS = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 52224)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", AED_STEP_MATVECS)
+def test_aed_matvec_matches_plain_and_rows_alone(k, n):
+    """The AED steps' shared tensor-core matvec alone against the plain
+    version's ``_matvec`` (1e-4 of max|plain|) at every slot count the
+    kernels see, one and two m16 tiles, each row bitwise the row alone."""
+    _need_card()
+    from asr_tpu_torch.ops import fused_aed_step as fs
+
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 8, 128)
+    s, zs = leaf.scale.contiguous(), (leaf.zero * leaf.scale).contiguous()
+    x = torch.randn((32, k), generator=g, device="cuda")
+    alone = [fs.aed_matvec_cuda(x[r : r + 1].contiguous(), leaf.q, s, zs)[0] for r in range(32)]
+    for b in (1, 2, 8, 16, 17, 32):
+        before = fs.MATVEC_LAUNCHES
+        got = fs.aed_matvec_cuda(x[:b].contiguous(), leaf.q, s, zs)
+        torch.cuda.synchronize()
+        assert fs.MATVEC_LAUNCHES == before + 1
+        want = torch.cat([fs._matvec(x[i : i + 1], leaf.q, s, zs) for i in range(b)])
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        assert all(torch.equal(got[r], alone[r]) for r in range(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", AED_STEP_MATVECS + [(256, 768), (384, 1536), (1024, 4096)])
+def test_aed_plan_shared_memory_is_the_kernels(k, n):
+    """``matvec_smem`` and ``attn_smem``, which ``aed_plan`` sizes tiles and
+    staged rows by, give the kernel's own figures (``aed_matvec_smem``,
+    ``aed_attn_smem``) for every column tile and split of K it may choose,
+    at 1..32 slots; the library's limits are the plan's (``_load`` checks
+    them, so loading must succeed)."""
+    _need_card()
+    from asr_tpu_torch.ops import fused_aed_step as fs
+
+    lib = fs._load()
+    nb = k // 128
+    for bn in fs.MV_WIDTHS:
+        for parts in (d for d in range(1, fs.MAX_PARTS + 1) if nb % d == 0):
+            for rows in range(1, fs.MAX_ROWS + 1):
+                assert fs.matvec_smem(bn, parts, k, rows) == lib.aed_matvec_smem(bn, parts, k, rows), \
+                    (bn, parts, rows)
+    for t_rows in (15, 447, 750, 1500, 3000):
+        cap, srows = fs.attn_cap(t_rows)
+        for itemsize in (2, 4):
+            assert fs.attn_smem(cap, srows, itemsize) == lib.aed_attn_smem(cap, srows, itemsize)
 
 
 @pytest.mark.gpu
 def test_multi_wrapper_rejects_what_the_kernel_does_not_take():
+
     _need_card()
     from asr_tpu_torch.ops import fused_aed_multi as fm
 
