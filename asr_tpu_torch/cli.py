@@ -1,0 +1,300 @@
+"""Command line: transcribe, inspect, quantize, align and serve over model
+artifact folders (``python -m asr_tpu_torch``).
+
+Counterpart of ``asr_tpu/cli.py`` with the same subcommands' flags and
+defaults, for the families the port runs: ``sensevoice``, ``whisper``,
+``qwen_asr``, ``fun_asr_nano`` (the CTC head), ``fun_asr_nano_llm`` and
+``qwen_aligner``. ``--platform`` picks the torch device: the CUDA card by
+default (it raises where no card is visible), ``cpu`` when asked for.
+``--quant-mm`` sets the quantized kernels' matmul mode.
+
+Not here (they wait for later slices of the port): the ``build``,
+``optimize``, ``parity``, ``bench`` and ``serve-stream`` subcommands,
+``--profile``, ``quantize --algorithm kquant|hqq|dynamic`` and
+``--reorder``, data and tensor parallelism (``--data-parallel``,
+``--tensor-parallel``), and the XLA / TPU options ``--compile-cache`` and
+``--quant-kernel``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import shutil
+import sys
+from pathlib import Path
+
+FAMILIES = ("sensevoice", "whisper", "qwen_asr", "fun_asr_nano", "fun_asr_nano_llm",
+            "qwen_aligner")
+
+
+def _device(platform: str):
+    """``--platform`` -> torch device: ``cpu``, or the CUDA card (``cuda``,
+    ``gpu``), which must be visible."""
+    import torch
+
+    if platform == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit(f"--platform {platform}: no CUDA card is visible "
+                         "(pass --platform cpu to run on the CPU)")
+    return torch.device("cuda")
+
+
+def _build_tokenizer(folder: Path, meta):
+    """The artifact's tokenizer (``runtime/artifact.load_tokenizer``), or None."""
+    from asr_tpu_torch.runtime.artifact import load_tokenizer
+
+    return load_tokenizer(folder, meta)
+
+
+def _build_session(folder: Path, language: str | None = None, dtype: str | None = None,
+                   device="cuda"):
+    """Artifact folder -> a ready session on ``device``, for every family the
+    port runs. ``dtype``: serving cast of the plain weights (e.g.
+    ``"bfloat16"``; norms and softmax stay f32 inside the models)."""
+    from asr_tpu_torch.runtime.artifact import load_model
+    from asr_tpu_torch.runtime.metadata import config_from_dict
+
+    params, meta = load_model(folder, device)
+    if dtype:
+        from asr_tpu_torch.quant.quantize import cast_pytree
+
+        params = cast_pytree(params, dtype)
+    family = meta.family
+    tokenizer = _build_tokenizer(folder, meta)
+    cfg_dict = meta.extra.get("config", {})
+
+    if family == "sensevoice":
+        from asr_tpu_torch.models.sensevoice import SenseVoiceConfig
+        from asr_tpu_torch.runtime.session import SenseVoiceSession
+
+        return SenseVoiceSession(params, config_from_dict(SenseVoiceConfig, cfg_dict),
+                                 tokenizer=tokenizer, metadata=meta)
+
+    if family == "whisper":
+        from asr_tpu_torch.models.whisper import WhisperConfig
+        from asr_tpu_torch.runtime.whisper_session import WhisperSession, WhisperSessionConfig
+
+        scfg = WhisperSessionConfig(
+            suppress_ids=tuple(meta.extra.get("suppress_tokens", [])),
+            begin_suppress_ids=tuple(meta.extra.get("begin_suppress_tokens", [])))
+        lang_map = {p.code: p.prompt_token_id for p in meta.supported_languages
+                    if p.prompt_token_id is not None}
+        return WhisperSession(params, config_from_dict(WhisperConfig, cfg_dict),
+                              tokenizer=tokenizer, session_cfg=scfg, language_id_map=lang_map)
+
+    if family == "fun_asr_nano":
+        from asr_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
+        from asr_tpu_torch.runtime.transducer_session import FunAsrNanoCtcSession
+
+        return FunAsrNanoCtcSession(params, config_from_dict(FunAsrNanoConfig, cfg_dict),
+                                    tokenizer=tokenizer)
+
+    if family == "fun_asr_nano_llm":
+        from asr_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
+        from asr_tpu_torch.runtime.qwen_session import FunAsrNanoLlmSession, prompt_template
+
+        return FunAsrNanoLlmSession(params["encoder"], params["llm"],
+                                    config_from_dict(FunAsrNanoConfig, cfg_dict),
+                                    tokenizer=tokenizer, template=prompt_template(meta))
+
+    if family == "qwen_asr":
+        from asr_tpu_torch.models.qwen_asr import QwenAsrConfig
+        from asr_tpu_torch.runtime.qwen_session import QwenAsrSession, prompt_template
+
+        return QwenAsrSession(params["tower"], params["llm"], config_from_dict(QwenAsrConfig, cfg_dict),
+                              tokenizer=tokenizer, template=prompt_template(meta),
+                              language_prompt_ids=meta.extra.get("language_prompt_ids") or {},
+                              metadata=meta)
+
+    if family == "qwen_aligner":
+        from asr_tpu_torch.models.forced_aligner import ForcedAlignerConfig
+        from asr_tpu_torch.runtime.aligner_session import QwenAlignerSession
+
+        return QwenAlignerSession(
+            params["tower"], params["llm"], params["head"],
+            config_from_dict(ForcedAlignerConfig, cfg_dict), tokenizer=tokenizer,
+            special_ids=meta.special_token_ids,
+            tokens_per_word=int(meta.extra.get("timestamp_tokens_per_word", 1)))
+
+    raise SystemExit(f"no session wired for family {family!r} yet; the port runs "
+                     f"{', '.join(FAMILIES)}")
+
+
+def cmd_transcribe(args) -> int:
+    sess = _build_session(Path(args.model_dir), language=args.language, dtype=args.dtype,
+                          device=args.device)
+
+    def kwargs(fn):
+        if args.language and "language" in inspect.signature(fn).parameters:
+            return {"language": args.language}
+        return {}
+
+    if len(args.audio) > 1 and hasattr(sess, "transcribe_batch"):
+        # many files -> one batched forward
+        pairs = zip(args.audio, sess.transcribe_batch(args.audio, **kwargs(sess.transcribe_batch)))
+    else:
+        pairs = ((audio, sess.transcribe(audio, **kwargs(sess.transcribe))) for audio in args.audio)
+    for audio, res in pairs:
+        print(f"{audio}\t({res.audio_seconds:.2f}s, RTF {res.rtf:.4f})")
+        print(res.text if res.text else res.token_ids)
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    from asr_tpu_torch.runtime.artifact import WEIGHTS_FILENAME
+    from asr_tpu_torch.runtime.metadata import ModelMetadata
+
+    folder = Path(args.model_dir)
+    meta = ModelMetadata.load(folder)
+    print(json.dumps({
+        "family": meta.family,
+        "sample_rate": meta.sample_rate,
+        "audio_pcm_scale": meta.audio_pcm_scale,
+        "special_token_ids": meta.special_token_ids,
+        "languages": [p.code for p in meta.supported_languages],
+        "weights_bytes": (folder / WEIGHTS_FILENAME).stat().st_size,
+    }, indent=2))
+    return 0
+
+
+def cmd_quantize(args) -> int:
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime.artifact import load_model, save_model
+
+    params, meta = load_model(Path(args.model_dir), args.device)
+    qparams = quantize_pytree(params, bits=args.bits, block=args.block,
+                              refine_iters=args.refine_iters, pack=args.pack,
+                              min_size=args.min_size, quantize_embeddings=args.quantize_embeddings)
+    meta.extra["quantization"] = {"bits": args.bits, "block": args.block,
+                                  "algorithm": args.algorithm}
+    save_model(Path(args.out), qparams, meta)
+    _copy_artifact_assets(Path(args.model_dir), Path(args.out))
+    print(f"quantized ({args.bits}-bit {args.algorithm}, block {args.block}) -> {args.out}")
+    return 0
+
+
+def _copy_artifact_assets(src: Path, dst: Path) -> None:
+    """Carry every companion file (tokenizer, vocab, ...) into a derived
+    artifact."""
+    skip = {"weights.safetensors", "metadata.json"}
+    for f in src.iterdir():
+        if f.is_file() and f.name not in skip and not (dst / f.name).exists():
+            shutil.copy2(f, dst / f.name)
+
+
+def cmd_align(args) -> int:
+    sess = _build_session(Path(args.model_dir), device=args.device)
+    if not hasattr(sess, "align"):
+        raise SystemExit("model artifact is not a forced-aligner family")
+    for item in sess.align(args.audio, args.text, language=args.language):
+        print(f"{item['start_ms']:>8d} {item['end_ms']:>8d}  {item['text']}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """HTTP serving: the micro-batched endpoint, or with ``--continuous`` the
+    continuous-batching one (LLM and AED families)."""
+    sess = _build_session(Path(args.model_dir), language=args.language, device=args.device)
+    if args.continuous:
+        if not (hasattr(sess, "prompt_embeds") or hasattr(sess, "continuous_prefill")):
+            raise SystemExit(
+                f"--continuous serves the LLM families (qwen_asr, fun_asr_nano_llm) and the "
+                f"AED family (whisper); {type(sess).__name__} has neither surface — rerun "
+                "without --continuous")
+        from asr_tpu_torch.parallel.llm_server import serve_continuous
+
+        serve_continuous(sess, host=args.host, port=args.port, n_slots=args.slots,
+                         language=args.language, context=args.context, kv_dtype=args.kv_dtype,
+                         steps_per_tick=max(args.steps_per_tick, 1))
+        return 0
+    if not hasattr(sess, "_forward"):
+        raise SystemExit(f"family {type(sess).__name__} has no batchable window forward; serve "
+                         "supports the offline (windowed) and LLM families")
+    from asr_tpu_torch.parallel.http_server import serve_forever
+
+    serve_forever(sess, host=args.host, port=args.port, max_batch=args.max_batch,
+                  max_wait_ms=args.max_wait_ms, language=args.language)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="asr_tpu_torch")
+    parser.add_argument("--platform", default="cuda", choices=("cuda", "gpu", "cpu"),
+                        help="torch device: the CUDA card (default; fails where none is "
+                             "visible) or cpu")
+    parser.add_argument("--quant-mm", default=None, choices=("bf16", "f32"),
+                        help="matmul mode for quantized weights: bf16 (serving default, "
+                             "tensor cores) or f32 (the exact product of x and the "
+                             "dequantized weight)")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("transcribe", help="transcribe audio files with a model artifact")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--language", default=None)
+    p.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
+                   help="serving cast of the plain weights (norms/softmax stay f32)")
+    p.add_argument("audio", nargs="+")
+    p.set_defaults(fn=cmd_transcribe)
+
+    p = sub.add_parser("align", help="forced-align a transcript against audio (word timestamps)")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--text", required=True, help="transcript to align")
+    p.add_argument("--language", default=None,
+                   help="unit-splitter language (e.g. japanese); default space/CJK")
+    p.add_argument("audio")
+    p.set_defaults(fn=cmd_align)
+
+    p = sub.add_parser("inspect", help="print a model artifact's metadata")
+    p.add_argument("--model-dir", required=True)
+    p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser("quantize", help="weight-only quantize an artifact")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--bits", type=int, default=8, choices=(2, 4, 8))
+    p.add_argument("--block", type=int, default=128)
+    p.add_argument("--refine-iters", type=int, default=2)
+    p.add_argument("--quantize-embeddings", action="store_true",
+                   help="also quantize embed tables into gather-dequant leaves "
+                        "(LLM-decoder families)")
+    p.add_argument("--min-size", type=int, default=1 << 16,
+                   help="skip linear weights with fewer elements than this")
+    p.add_argument("--algorithm", default="rtn", choices=("rtn",),
+                   help="block fit: round-to-nearest")
+    p.add_argument("--pack", action="store_true",
+                   help="pack 4-bit weights two-per-byte / 2-bit four-per-byte")
+    p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("serve", help="HTTP transcription endpoint (micro-batched)")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--language", default=None)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-wait-ms", type=float, default=5.0)
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous batching for the LLM and AED families: requests join "
+                        "and leave one running decode batch mid-flight "
+                        "(parallel/llm_server.py) instead of lockstep micro-batches")
+    p.add_argument("--slots", type=int, default=8, help="concurrent decode slots for --continuous")
+    p.add_argument("--kv-dtype", choices=("f32", "bf16"), default="f32", dest="kv_dtype",
+                   help="--continuous KV-cache storage dtype; bf16 halves per-step cache traffic")
+    p.add_argument("--context", default="", help="fixed hot-word/context prompt for --continuous")
+    p.add_argument("--steps-per-tick", type=int, default=1, dest="steps_per_tick",
+                   help="--continuous decode steps per host synchronisation")
+    p.set_defaults(fn=cmd_serve)
+
+    args = parser.parse_args(argv)
+    if args.quant_mm:
+        from asr_tpu_torch.ops.quant_matmul import set_quant_config
+
+        set_quant_config(mm=args.quant_mm)
+    args.device = _device(args.platform)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

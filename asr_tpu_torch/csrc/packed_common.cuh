@@ -54,7 +54,11 @@
 
 #include <cooperative_groups.h>
 
+// Internal linkage in every library that includes this header (the
+// anonymous namespace), as in aed_step.cuh and qwen_common.cuh: see
+// quant_matmul_int8.cu.
 namespace packed {
+namespace {
 
 namespace cg = cooperative_groups;
 
@@ -484,4 +488,5 @@ int launch_bf16(const Args& a, int bn, int bm, cudaStream_t st) {
   return static_cast<int>(err);
 }
 
+}  // namespace
 }  // namespace packed

@@ -85,7 +85,12 @@
 
 #include "packed_common.cuh"
 
+// Internal linkage (the anonymous namespace): with two libraries of this
+// design loaded in one process, an externally visible launch_tile would be
+// shared between them, and with it its "attribute already set" static, so
+// the second library's kernel would never get its shared-memory limit.
 namespace i8 {
+namespace {
 
 namespace cg = cooperative_groups;
 using packed::bf16x2_bits;
@@ -621,6 +626,7 @@ cudaError_t launch_plan(const Args& a, int bn, int bm, int walk, cudaStream_t st
   return cudaErrorInvalidValue;
 }
 
+}  // namespace
 }  // namespace i8
 
 namespace {

@@ -42,13 +42,17 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(source: Path, flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, str]:
+def build(source: Path, flags: tuple[str, ...] = NVCC_FLAGS, salt: str = "") -> tuple[Path, str]:
     """Compile ``source`` once per content (its headers too) and flags; return
-    (library, nvcc log)."""
+    (library, nvcc log). A non-empty ``salt`` enters the hash, so the same
+    source builds into a second library of its own (the check that two
+    libraries of one design work side by side in one process)."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(flags).encode())
+    if salt:
+        h.update(b"salt:" + salt.encode())
     digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}-{digest}.so"
     log = lib.with_suffix(".log")

@@ -117,38 +117,37 @@ def quant_dense_p2_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
     return x @ w
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel (once per source and flags); return (library, nvcc log)."""
-    return nvcc_build.build(SOURCE, NVCC_FLAGS)
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            lib.quant_matmul_int8.argtypes = INT8_ARGTYPES
-            lib.quant_matmul_int8.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
 # x, q, scale, zero, out, workspace; M, K, N, block, bf16, splits, BN, BM; stream
 PACKED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # the same, then walk (the int8 kernel's large-M schedule); stream
 INT8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
+def load_library(source: Path, salt: str = ""):
+    """Build (once) and load the int8, int4 or int2 kernel's library, its C
+    entry typed. The wrappers use the unsalted build; a ``salt`` loads a
+    second library of the same source beside it (the linkage check:
+    chip_smoke.py phase 25 and the card tests)."""
+    path, _ = nvcc_build.build(source, NVCC_FLAGS, salt=salt)
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, source.stem)
+    fn.argtypes = INT8_ARGTYPES if source == SOURCE else PACKED_ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = load_library(SOURCE)
+    return _lib
+
+
 def _load_packed(source: Path, name: str):
     with _lib_lock:
         if name not in _packed_libs:
-            path, _ = nvcc_build.build(source, NVCC_FLAGS)
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, name)
-            fn.argtypes = PACKED_ARGTYPES
-            fn.restype = ctypes.c_int
-            _packed_libs[name] = lib
+            _packed_libs[name] = load_library(source)
     return _packed_libs[name]
 
 
@@ -266,11 +265,14 @@ def check_packed_shapes(parts: int, x_shape, q_shape, scale_shape, zero_shape, b
 
 
 def _packed_launch(name: str, parts: int, x: torch.Tensor, q: torch.Tensor,
-                   scale: torch.Tensor, zero: torch.Tensor, block: int, mm: str) -> torch.Tensor:
+                   scale: torch.Tensor, zero: torch.Tensor, block: int, mm: str,
+                   lib=None) -> torch.Tensor:
     """Checks and launch shared by the int4 (``parts`` = 2) and int2
     (``parts`` = 4) kernels; returns the (M, N) f32 output. bf16 mode runs
     :func:`packed_plan`'s split with a :func:`packed_workspace`; f32 mode
-    takes the CUDA-core kernel, which needs neither."""
+    takes the CUDA-core kernel, which needs neither. ``lib``: another
+    library of the same source (:func:`load_library`) instead of the
+    wrapper's."""
     mm = _check_mm(mm)
     _check_operands(name, x, q, scale, zero)
     check_packed_shapes(parts, x.shape, q.shape, scale.shape, zero.shape, block)
@@ -280,7 +282,7 @@ def _packed_launch(name: str, parts: int, x: torch.Tensor, q: torch.Tensor,
     n = q.shape[1]
     if m == 0 or n == 0:
         return torch.empty((m, n), device=x.device, dtype=torch.float32)
-    lib = _load_packed(SOURCE_INT4 if parts == 2 else SOURCE_INT2, name)
+    lib = lib or _load_packed(SOURCE_INT4 if parts == 2 else SOURCE_INT2, name)
     s, bn, bm = packed_plan(m, k, n, parts, block) if mm == "bf16" else (1, 0, 0)
     # one allocation: the output, then (bf16) the workspace at a 16-byte boundary
     out_words = -(-m * n // 4) * 4
@@ -338,6 +340,19 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     default) with an :func:`int8_workspace`; f32 mode takes the CUDA-core
     kernel, which needs neither."""
     global LAUNCHES
+    out = _int8_launch(x, q, scale, zero, block, mm, plan)
+    if out.numel():
+        with _count_lock:
+            LAUNCHES += 1
+    return out
+
+
+def _int8_launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                 block: int, mm: str, plan: tuple[int, int, int, bool] | None = None,
+                 lib=None) -> torch.Tensor:
+    """Checks and launch of the int8 kernel; returns the (M, N) f32 output.
+    ``lib``: another library of the same source (:func:`load_library`)
+    instead of the wrapper's."""
     mm = _check_mm(mm)
     _check_operands("quant_matmul_int8", x, q, scale, zero)
     m, k = x.shape
@@ -353,7 +368,7 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError("quant_matmul_int8 in bf16 mode needs 16-byte aligned q, scale and zero (cp.async)")
     if m == 0 or n == 0:
         return torch.empty((m, n), device=x.device, dtype=torch.float32)
-    lib = _load()
+    lib = lib or _load()
     v, bn, bm, walk = (plan or int8_plan(m, k, n, block)) if mm == "bf16" else (1, 0, 0, False)
     # one allocation: the output, then (bf16) the workspace at a 16-byte boundary
     out_words = -(-m * n // 4) * 4
@@ -370,8 +385,6 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             err = lib.quant_matmul_int8(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul_int8 launch failed: CUDA error {err}")
-    with _count_lock:
-        LAUNCHES += 1
     return out
 
 

@@ -27,6 +27,7 @@ tied-head copy runs the LM head through the quantized kernels
 (every width but 4, 2-bit tables included), or, for 4-bit tables,
 nibble-packed to ``(D/2, V_pad)`` with V padded to a 2048 multiple. The
 kquant and hqq objectives and dynamic int8 are not ported yet.
+:func:`cast_pytree` is the serving cast of plain trees.
 """
 
 from __future__ import annotations
@@ -340,4 +341,19 @@ def dequantize_pytree(params):
         return {k: dequantize_pytree(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(dequantize_pytree(v) for v in params)
+    return params
+
+
+def cast_pytree(params, dtype):
+    """Serving cast (``--dtype``): every floating tensor of a plain parameter
+    tree to ``dtype`` (a ``torch.dtype`` or its name, e.g. ``"bfloat16"``).
+    Quantized leaves stay as they are: the kernels take their f32 scales and
+    zero points (the JAX package casts those too)."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if isinstance(params, torch.Tensor):
+        return params.to(dtype) if params.is_floating_point() else params
+    if isinstance(params, dict):
+        return {k: cast_pytree(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(cast_pytree(v, dtype) for v in params)
     return params

@@ -193,3 +193,32 @@ def load_model(folder: str | Path, device="cuda") -> tuple[Any, ModelMetadata]:
     for alias, canon in meta.extra.get("weight_aliases", {}).items():
         flat[alias] = flat[canon]
     return params_from_flat(flat, device), meta
+
+
+def load_tokenizer(folder: str | Path, meta: ModelMetadata):
+    """The decoder of an artifact's tokenizer file (``meta.tokenizer``:
+    ``{"kind", "file"}``), or None when the metadata names none or the file
+    is missing. Kinds: ``sentencepiece``, ``vocab_txt`` (with
+    ``extra["decode_mode"]``), ``json``, ``firered_dict`` and ``tiktoken``
+    are pure Python; ``hf`` needs the ``tokenizers`` package and raises
+    without it."""
+    from asr_tpu_torch.runtime import tokenizer as tok
+
+    kind = meta.tokenizer.get("kind", "")
+    file = meta.tokenizer.get("file", "")
+    path = Path(folder) / file if file else None
+    if not path or not path.exists():
+        return None
+    if kind == "sentencepiece":
+        return tok.SentencePieceDecoder(path)
+    if kind == "vocab_txt":
+        return tok.VocabTxtDecoder(path, meta.extra.get("decode_mode", "zh"))
+    if kind == "hf":
+        return tok.HFTokenizerDecoder(path)
+    if kind == "json":
+        return tok.JsonVocabDecoder(path)
+    if kind == "firered_dict":
+        return tok.FireRedDictDecoder(path)
+    if kind == "tiktoken":
+        return tok.TiktokenVocabDecoder(path)
+    return None

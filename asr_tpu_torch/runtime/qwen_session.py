@@ -30,11 +30,12 @@ import torch
 
 from asr_tpu_torch.decode.ar import DecodeConfig
 from asr_tpu_torch.layers.qwen3 import fuse_params
+from asr_tpu_torch.models import fun_asr_nano as fn
 from asr_tpu_torch.models import qwen_asr as qa
 from asr_tpu_torch.ops.fused_decode import stack_decode_params
 from asr_tpu_torch.ops.quant_matmul import _resolve_mm
 from asr_tpu_torch.runtime import audio as audio_io
-from asr_tpu_torch.runtime.artifact import load_model
+from asr_tpu_torch.runtime.artifact import load_model, load_tokenizer
 from asr_tpu_torch.runtime.metadata import config_from_dict
 from asr_tpu_torch.runtime.session import TranscribeResult
 
@@ -265,19 +266,127 @@ class QwenAsrSession:
         return parse_asr_output(raw)[1]
 
 
+class FunAsrNanoLlmSession:
+    """Fun-ASR-Nano's LLM decode path: the SANM encoder's audio tokens
+    spliced into a Qwen3 chat prompt [head | context text + suffix | audio |
+    tail], one call for the encoder, the prefill and the decode.
+
+    Counterpart of ``asr_tpu/runtime/qwen_session.py``'s class (without the
+    ``mesh=`` runner), with :class:`QwenAsrSession`'s prompt template, batch
+    routes and continuous serving surface: on a CUDA card in the ``bf16``
+    mode a q4-packed LLM stacks for the fused step, so batch 1 decodes one
+    kernel call a step and the continuous server runs the multi-slot
+    kernel."""
+
+    pcm_scale = 32768.0  # the SANM front end consumes int16-range PCM
+
+    def __init__(self, params, llm_params, cfg, tokenizer=None,
+                 template: QwenPromptTemplate | None = None, max_new_tokens: int = 256,
+                 strategy: str = "greedy", penalty: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, max_seconds: float = 30.0, fuse: bool = True):
+        if fuse:
+            llm_params = fuse_params(llm_params, cfg.llm)
+        self.params = params
+        self.llm_params = llm_params
+        self.cfg = cfg
+        self.device = _params_device(llm_params)
+        self.stacked = None
+        if self.device.type == "cuda" and _resolve_mm(None) == "bf16":
+            self.stacked = stack_decode_params(llm_params, cfg.llm)
+        self.tokenizer = tokenizer
+        self.template = template or QwenPromptTemplate()
+        self.decode_cfg = DecodeConfig(max_new_tokens=max_new_tokens, eot_id=cfg.eot_id,
+                                       strategy=strategy, penalty=penalty, top_k=top_k,
+                                       top_p=top_p)
+        self.max_samples = int(max_seconds * cfg.sample_rate)
+
+    def _prompt_ids(self, context: str) -> dict:
+        query = self.tokenizer.encode(context) if (context and self.tokenizer) else []
+
+        def mk(ids):
+            return torch.tensor([list(ids)], dtype=torch.int64).reshape(1, len(ids))
+
+        # head and suffix make one segment before the audio in this family
+        return {"head": mk(self.template.head_ids),
+                "query": mk(tuple(query) + tuple(self.template.suffix_ids)),
+                "tail": mk(self.template.tail_ids)}
+
+    def _batch_ids(self, prompt: dict, b: int) -> dict:
+        return {k: v.to(self.device).repeat(b, 1) for k, v in prompt.items()}
+
+    @property
+    def window_samples(self) -> int:
+        return self.max_samples
+
+    @property
+    def sample_rate(self) -> int:
+        return self.cfg.sample_rate
+
+    @property
+    def llm_cfg(self):
+        """The LLM decoder's config (the continuous server's engine needs it)."""
+        return self.cfg.llm
+
+    @torch.inference_mode()
+    def prompt_embeds(self, samples, context: str = "", language: str | None = None):
+        """One request's prompt embeds (L, H) and valid length, as
+        :meth:`QwenAsrSession.prompt_embeds` (the audio pads to
+        ``max_samples``); this family has no language prompt."""
+        if language:
+            raise KeyError("Fun-ASR-Nano has no language prompt catalog")
+        s = np.asarray(samples, np.float32)[: self.max_samples]
+        buf = np.zeros((1, self.max_samples), np.float32)
+        buf[0, : len(s)] = s
+        embeds, valid = fn.prompt_embeds_llm(
+            self.params, self.llm_params, self.cfg, torch.from_numpy(buf).to(self.device),
+            torch.tensor([len(s)], device=self.device), self._batch_ids(self._prompt_ids(context), 1))
+        return embeds[0], int(valid[0])
+
+    def transcribe(self, audio, context: str = "",
+                   generator: torch.Generator | None = None) -> TranscribeResult:
+        return self.transcribe_batch([audio], context=context, generator=generator)[0]
+
+    def transcribe_batch(self, items, context: str = "",
+                         generator: torch.Generator | None = None) -> list[TranscribeResult]:
+        """N audio files/arrays -> one batched encoder, prefill and lockstep
+        decode; batch 1 takes the fused step when it is stacked."""
+        prompt = self._prompt_ids(context)
+
+        def run(audio, valid, b):
+            return fn.forward_llm(self.params, self.llm_params, self.cfg, audio, valid,
+                                  self._batch_ids(prompt, b), self.decode_cfg, generator,
+                                  stacked=self.stacked if b == 1 else None)
+
+        ids_rows, valid, elapsed, b = _batched_llm_call(
+            items, max_samples=self.max_samples, sample_rate=self.cfg.sample_rate,
+            pcm_scale=self.pcm_scale, run=run, eot_id=self.cfg.eot_id, device=self.device)
+        return [TranscribeResult(text=self.tokenizer.decode(ids) if self.tokenizer else "",
+                                 token_ids=ids, audio_seconds=float(valid[i]) / self.cfg.sample_rate,
+                                 elapsed_seconds=elapsed, batch_size=b)
+                for i, ids in enumerate(ids_rows)]
+
+
 def load_qwen_session(folder: str | Path, device="cuda", tokenizer=None,
                       **session_kw) -> QwenAsrSession:
     """Artifact folder (``metadata.json`` family ``qwen_asr``, config under
     ``extra["config"]``, weights under ``tower/`` and ``llm/``) -> a session
     on ``device``, with the prompt template and language catalog read from
-    the metadata extras."""
+    the metadata extras and, unless ``tokenizer`` is given, the artifact's
+    tokenizer file (``runtime/artifact.load_tokenizer``)."""
     params, meta = load_model(folder, device)
     if meta.family != "qwen_asr":
         raise ValueError(f"expected a qwen_asr artifact, got family {meta.family!r}")
     cfg = config_from_dict(qa.QwenAsrConfig, meta.extra.get("config", {}))
-    tpl = QwenPromptTemplate(head_ids=tuple(meta.extra.get("prompt_head_ids", [])),
-                             suffix_ids=tuple(meta.extra.get("prompt_suffix_ids", [])),
-                             tail_ids=tuple(meta.extra.get("prompt_tail_ids", [])))
-    return QwenAsrSession(params["tower"], params["llm"], cfg, tokenizer=tokenizer, template=tpl,
+    if tokenizer is None:
+        tokenizer = load_tokenizer(folder, meta)
+    return QwenAsrSession(params["tower"], params["llm"], cfg, tokenizer=tokenizer,
+                          template=prompt_template(meta),
                           language_prompt_ids=meta.extra.get("language_prompt_ids") or {},
                           metadata=meta, **session_kw)
+
+
+def prompt_template(meta) -> QwenPromptTemplate:
+    """The prompt template an artifact's metadata extras carry."""
+    return QwenPromptTemplate(head_ids=tuple(meta.extra.get("prompt_head_ids", [])),
+                              suffix_ids=tuple(meta.extra.get("prompt_suffix_ids", [])),
+                              tail_ids=tuple(meta.extra.get("prompt_tail_ids", [])))

@@ -3,7 +3,8 @@
 Counterpart of ``asr_tpu/runtime/session.py`` (``SenseVoiceSession``
 without the ``mesh=`` data-parallel runner): long audio is cut into fixed
 windows, the windows run as one padded batch in a single forward, and the
-per-window token ids are concatenated in order.
+per-window token ids are concatenated in order; ``transcribe_batch`` runs
+many short files as one padded forward.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from asr_tpu_torch.models import sensevoice as sv
 from asr_tpu_torch.runtime import audio as audio_io
-from asr_tpu_torch.runtime.artifact import load_model
+from asr_tpu_torch.runtime.artifact import load_model, load_tokenizer
 from asr_tpu_torch.runtime.metadata import ModelMetadata, config_from_dict
 
 
@@ -106,6 +107,32 @@ class SenseVoiceSession:
         return TranscribeResult(text=text, token_ids=ids, audio_seconds=n / self.cfg.sample_rate,
                                 elapsed_seconds=elapsed)
 
+    def transcribe_batch(self, paths, language: str = "auto", n_threads: int = 0) -> list[TranscribeResult]:
+        """Many short files -> one padded forward: the parallel batch loader
+        fills a fixed (N, window) buffer and every file rides the same
+        forward; files longer than one window fall back to the windowed
+        :meth:`transcribe`."""
+        buf, valid = audio_io.load_audio_batch(paths, self.cfg.sample_rate, self.window_samples,
+                                               n_threads=n_threads)
+        valid_clip = np.minimum(valid, self.window_samples)
+        t0 = time.perf_counter()
+        toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
+                                     torch.from_numpy(valid_clip).to(self.device), language)
+        toks = toks.cpu().numpy()  # waits for the device
+        counts = counts.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        results = []
+        for i, path in enumerate(paths):
+            if valid[i] > self.window_samples:
+                results.append(self.transcribe(path, language=language))
+                continue
+            ids = [int(t) for t in toks[i, : counts[i]]]
+            results.append(TranscribeResult(
+                text=self.tokenizer.decode(ids) if self.tokenizer is not None else "",
+                token_ids=ids, audio_seconds=float(valid[i]) / self.cfg.sample_rate,
+                elapsed_seconds=elapsed, batch_size=len(paths)))
+        return results
+
     def warmup(self) -> None:
         self.transcribe(np.zeros(self.window_samples, dtype=np.float32))
 
@@ -121,9 +148,12 @@ class SenseVoiceSession:
 
 def load_session(folder: str | Path, device="cuda", tokenizer=None, **session_kw) -> SenseVoiceSession:
     """Artifact folder (``metadata.json`` family ``sensevoice``, its config
-    under ``extra["config"]``) -> a session on ``device``."""
+    under ``extra["config"]``) -> a session on ``device``, decoding with
+    ``tokenizer`` or else the artifact's tokenizer file (:func:`load_tokenizer`)."""
     params, meta = load_model(folder, device)
     if meta.family != "sensevoice":
         raise ValueError(f"expected a sensevoice artifact, got family {meta.family!r}")
     cfg = config_from_dict(sv.SenseVoiceConfig, meta.extra.get("config", {}))
+    if tokenizer is None:
+        tokenizer = load_tokenizer(folder, meta)
     return SenseVoiceSession(params, cfg, tokenizer=tokenizer, metadata=meta, **session_kw)

@@ -32,7 +32,7 @@ from asr_tpu_torch.models import whisper as wh
 from asr_tpu_torch.ops.fused_aed_step import stack_whisper_step_params
 from asr_tpu_torch.ops.quant_matmul import _resolve_mm
 from asr_tpu_torch.runtime import audio as audio_io
-from asr_tpu_torch.runtime.artifact import load_model
+from asr_tpu_torch.runtime.artifact import load_model, load_tokenizer
 from asr_tpu_torch.runtime.metadata import config_from_dict
 from asr_tpu_torch.runtime.session import TranscribeResult, bucket_windows
 
@@ -186,10 +186,13 @@ def load_whisper_session(folder: str | Path, device="cuda", tokenizer=None,
                          **session_kw) -> WhisperSession:
     """Artifact folder (``metadata.json`` family ``whisper``, config under
     ``extra["config"]``) -> a session on ``device``, with the suppress lists
-    and the language map read from the metadata."""
+    and the language map read from the metadata and, unless ``tokenizer`` is
+    given, the artifact's tokenizer file (``runtime/artifact.load_tokenizer``)."""
     params, meta = load_model(folder, device)
     if meta.family != "whisper":
         raise ValueError(f"expected a whisper artifact, got family {meta.family!r}")
+    if tokenizer is None:
+        tokenizer = load_tokenizer(folder, meta)
     cfg = config_from_dict(wh.WhisperConfig, meta.extra.get("config", {}))
     scfg = WhisperSessionConfig(
         suppress_ids=tuple(meta.extra.get("suppress_tokens", [])),

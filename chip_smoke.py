@@ -75,7 +75,7 @@ the batch-1 kernel; (19) its time at B = 2, 4, 8 against the plain
 version's, in turns, with its bound and, for each B and cache type, a
 profile by part, launches a step and graph device time; (20)
 continuous serving of phase 16's artifact over HTTP: 17 concurrent requests
-of 5-30 s with staggered starts on 8 slots, every decode step through the
+of 5-30 s (a 96-token budget) with staggered starts on 8 slots, every decode step through the
 multi-slot kernel, each request's ids against the same request alone
 through the batcher (bitwise) and against ``session.transcribe`` (a
 teacher-forced replay where they differ), the serving numbers, and two
@@ -89,9 +89,27 @@ replay with plain matmuls on the dequantized weights, one 30 s window's
 numbers, and the q2 logits against plain matmuls; (23) the q2 session
 behind the HTTP micro-batcher, 5 requests in batches of 4 (the int2 kernel
 at M = 4); (24) continuous serving of the q2 artifact on the rowwise route,
-9 concurrent requests on 8 slots with a 96-token budget, each request's ids
+5 concurrent requests on 8 slots with a 96-token budget, each request's ids
 bitwise equal to it alone through the batcher and against
-``session.transcribe``.
+``session.transcribe``; (25) the int8, int4 and int2 sources each built under
+two cache keys and both libraries loaded in this process, a bf16 call
+through each at a decode and a prefill shape, outputs bitwise equal; (26)
+``python -m asr_tpu_torch inspect`` and ``transcribe`` in subprocesses on
+phase 4's artifact folder with a vocab_txt tokenizer file: each file's
+printed text the decode of ``session.transcribe``'s ids, and two files at
+once (``transcribe_batch``) each with the ids of the file alone, or a top-2
+margin below 1e-3 of max|logit| where not; (27) Fun-ASR-Nano with its LLM
+head at full width (q8 encoder and adaptor, packed-q4 Qwen3-0.6B, 4-bit tied
+head) through an artifact folder and the command line's ``_build_session``:
+20 s on the fused route (text the decode of the ids), a replay with plain
+matmuls on the dequantized weights, the prefill logits against plain, a 30
+s window's numbers, and ``transcribe_batch`` of 4 on the lockstep route;
+(28) its CTC head on a 45 s file through a ``fun_asr_nano`` artifact, and
+9 concurrent requests to the continuous server on 8 slots (bf16 caches, a
+96-token budget), each bitwise equal to it alone through the batcher; (29)
+Qwen3-ForcedAligner-0.6B (q8 tower, packed-q4 LLM, f32 class head) aligning
+a 12-word text to 20 s: monotone timestamps, buckets against a replay with
+plain matmuls on the dequantized weights, ms per call.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -106,7 +124,13 @@ Qwen3 step once per decode step, the int4 kernel 113 times a prefill and
 never the batch-1 step; every LLM pass of the q2 model (a prefill, a
 per-weight step, a rowwise step of all slots) launches the int2 kernel 112
 times (28 x 4 linears) and the int8 kernel once (the 2-bit tied head), and
-neither the int4 kernel nor a fused step.
+neither the int4 kernel nor a fused step; one Fun-ASR-Nano LLM window
+launches the int8 kernel 290 times (280 encoder + 10 adaptor linears), the
+int4 kernel 113 times and the fused Qwen3 step once per decode step, its
+CTC forward the int8 kernel 291 times (280 + 11 head linears), its
+continuous serving the multi-slot step once per decode step; one aligner
+pass launches the int8 kernel 195 times (the tower) and the int4 kernel 196
+times (28 x 7 unfused linears).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -191,19 +215,23 @@ def phase_device(torch) -> str:
     return card
 
 
-def phase_build(sources) -> None:
-    """Build every kernel's library at once, one nvcc per source."""
+def phase_build(sources, salted=()) -> None:
+    """Build every kernel's library at once, one nvcc per source, and the
+    second libraries of ``salted`` (sources built under the cache key of
+    :data:`LINKAGE_SALT`, for phase 25) beside them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from asr_tpu_torch.ops import nvcc_build
 
-    def timed(source):
+    def timed(job):
+        source, salt = job
         t0 = time.perf_counter()
-        lib, log = nvcc_build.build(source)
+        lib, log = nvcc_build.build(source, salt=salt)
         return lib, log, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(timed, sources))
+    jobs = [(source, "") for source in sources] + [(source, LINKAGE_SALT) for source in salted]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(timed, jobs))
     for lib, log, secs in built:
         print(f"[2 build] {lib.relative_to(ROOT)} in {secs:.2f} s (nvcc {' '.join(nvcc_build.NVCC_FLAGS)})")
         for line in log.splitlines():
@@ -213,6 +241,48 @@ def phase_build(sources) -> None:
             spills = [ln.strip() for ln in log.splitlines()
                       if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
             check(not spills, f"{lib.name} spills registers: {spills}")
+
+
+# ── 25. linkage: two libraries of one kernel source in one process ────────
+LINKAGE_SALT = "linkage"
+# (source attribute of quant_matmul, packed parts or 0 for int8, K, N, decode M, prefill M)
+LINKAGE_CASES = (("SOURCE", 0, 1280, 5120, 1, 1500), ("SOURCE_INT4", 2, 1024, 6144, 1, 432),
+                 ("SOURCE_INT2", 4, 1024, 6144, 1, 432))
+
+
+def phase_linkage(torch, qm, quantize_linear, card: str) -> dict:
+    """[25] The int8, int4 and int2 sources each built under two cache keys
+    (the wrapper's library and a salted second one), both loaded in this
+    process: a bf16 call through each at a decode and a prefill shape must
+    launch and give bitwise equal outputs. With the kernels' launch helpers
+    externally visible, the second library shared the first's "attribute
+    already set" static and its bf16 launch failed (CUDA error 1)."""
+    g = torch.Generator(device=DEV).manual_seed(25)
+    out = {}
+    for attr, parts, k, n, m_dec, m_pre in LINKAGE_CASES:
+        source = getattr(qm, attr)
+        second = qm.load_library(source, LINKAGE_SALT)
+        bits = {0: 8, 2: 4, 4: 2}[parts]
+        leaf = quantize_linear(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5, bits, 128,
+                               pack=parts > 0)
+        for m in (m_dec, m_pre):
+            x = torch.randn((m, k), generator=g, device=DEV)
+            args = (x, leaf.q, leaf.scale, leaf.zero, 128, "bf16")
+            if parts:
+                name = source.stem
+                first = qm._packed_launch(name, parts, *args)
+                other = qm._packed_launch(name, parts, *args, lib=second)
+            else:
+                first = qm._int8_launch(*args)
+                other = qm._int8_launch(*args, lib=second)
+            torch.cuda.synchronize()
+            check(torch.equal(first, other), f"{source.name} at M={m} K={k} N={n}: the two libraries' "
+                  "bf16 outputs differ")
+            out[(source.stem, m)] = True
+        print(f"[25 linkage] {source.name}: the wrapper's library and a second build ({LINKAGE_SALT!r}) "
+              f"in one process, bf16 at M={m_dec} and M={m_pre} (K={k}, N={n}): both launch, outputs "
+              f"bitwise equal  [{card}]")
+    return out
 
 
 def int8_paths() -> dict:
@@ -246,7 +316,33 @@ def int8_paths() -> dict:
                            (rows, t, q.output_dim, 128): 1}
     for m in (1, 4, 8):
         paths[f"q2_head_m{m}"] = {(m, q.llm.hidden, pad(q.llm.vocab_size), 128): 1}
+    # Fun-ASR-Nano q8: the SANM encoder (SenseVoiceSmall's blocks without its
+    # CTC head) at a 30 s window's LFR rows, then the adaptor (LLM path: one
+    # window, and the lockstep batch of FUN_BATCH) or the CTC head (the two
+    # windows of a 45 s file in one forward). The aligner's q8 tower is the
+    # Qwen3-ASR tower at the same rows (qwen_tower).
+    from asr_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
+
+    fc = FunAsrNanoConfig()
+    enc = {kn: c for kn, c in SLICE_SHAPES.items() if kn[1] != 25055}
+    def head(d_in, d, ffn, blocks, *extra):  # linear1, linear2, the MHA blocks' four linears
+        return [(d_in, d, 1), (d, d, 1), *[(d, n, blocks) for n in (3 * d, d, ffn)], (ffn, d, blocks), *extra]
+
+    adaptor = head(fc.hidden, fc.adaptor_hidden, fc.adaptor_ffn, fc.adaptor_blocks)
+    ctc = head(fc.hidden, fc.ctc_hidden, fc.ctc_ffn, fc.ctc_blocks, (fc.ctc_hidden, fc.ctc_vocab, 1))
+    rows = fun_lfr_rows(fc)
+    for name, m, top in (("fun_llm", rows, adaptor), (f"fun_llm_b{FUN_BATCH}", FUN_BATCH * rows, adaptor),
+                         ("fun_ctc_45s", 2 * rows, ctc)):
+        calls = {}
+        for k, n, b, c in [*((k, n, b, c) for (k, n, b), c in enc.items()), *((k, n, 128, c) for k, n, c in top)]:
+            calls[(m, k, n, b)] = calls.get((m, k, n, b), 0) + c
+        paths[name] = calls
     return paths
+
+
+def fun_lfr_rows(cfg) -> int:
+    """LFR rows of one 30 s Fun-ASR-Nano window (the sessions pad to it)."""
+    return -(-cfg.fbank.num_frames(30 * cfg.sample_rate) // cfg.lfr_n)
 
 
 def qwen_tower_rows(cfg) -> int:
@@ -1341,13 +1437,15 @@ def packed_library_call(torch, u, scale, zero, x):
     return lambda: torch._weight_int4pack_mm(xb, packed, 128, sz)
 
 
-def phase_packed(torch, qm, quantize_linear, bits: int, m_prefill: int, card: str) -> dict:
+def phase_packed(torch, qm, quantize_linear, bits: int, m_prefill: int, card: str,
+                 m_more: tuple = ()) -> dict:
     """[14] the packed-int4 kernel at every shape of the q4 path, [21] the
     packed-int2 kernel at every shape of the q2 path: against the plain
-    version at M = 1, 2, 4, 8, 16, 17 and the prefill's rows, both modes;
-    rows of every batched call bitwise equal to the row alone; at M = 1, 4,
-    8 and the prefill's rows, device time (CUDA graph) in turns with the
-    plain version, and PyTorch's int4 call as the yardstick in bf16."""
+    version at M = 1, 2, 4, 8, 16, 17, the prefill's rows and ``m_more``
+    (other paths' prefill rows), both modes; rows of every batched call
+    bitwise equal to the row alone; at M = 1, 4, 8 and the prefill's rows,
+    device time (CUDA graph) in turns with the plain version, and PyTorch's
+    int4 call as the yardstick in bf16."""
     from asr_tpu_torch.quant.quantize import unpack2_quarters, unpack4_halves
 
     if bits == 4:
@@ -1364,7 +1462,7 @@ def phase_packed(torch, qm, quantize_linear, bits: int, m_prefill: int, card: st
         check(leaf.packed and tuple(leaf.q.shape) == (k * bits // 8, n), f"K={k} N={n} did not pack")
         off = 0 if bits == 4 else 6  # 2-bit values 0..3 -> nibbles 6..9
         u, zero = unpack(leaf.q) + off, leaf.zero + off
-        for m in (*PACKED_CHECK_M, m_prefill):
+        for m in (*PACKED_CHECK_M, m_prefill, *m_more):
             x = torch.randn((m, k), generator=g, device=DEV)
             for mm in ("f32", "bf16"):
                 args = (x, leaf.q, leaf.scale, leaf.zero, 128, mm)
@@ -1956,6 +2054,8 @@ QWEN_MULTI_TIMED_POS = 440
 QWEN_CONT_SLOTS = 8
 QWEN_CONT_SECONDS = (5.0, 30.0)  # 17 requests of one window each, lengths drawn from this range
 QWEN_CONT_REQUESTS = 17
+QWEN_CONT_BUDGET = 96  # new tokens a window on the continuous server (the run-time limit: each
+#                        request differing from session.transcribe is replayed on the per-weight route)
 HEAD_KEYS = ("wh", "h_s", "h_zs")
 
 
@@ -2146,7 +2246,7 @@ def qwen_replay_gap(torch, session, audio, ids: list) -> float:
 
 def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, card: str) -> dict:
     """[20] Continuous Qwen3-ASR-0.6B q4 serving over HTTP (phase 16's
-    artifact, 8 slots, bf16 caches, the 256-token budget): 17 concurrent
+    artifact, 8 slots, bf16 caches, a QWEN_CONT_BUDGET-token budget): 17 concurrent
     requests of 5-30 s with staggered starts, every decode step of every
     slot one multi-slot kernel launch; then two requests on the rowwise
     route."""
@@ -2156,7 +2256,7 @@ def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, ca
     from asr_tpu_torch.runtime.qwen_session import load_qwen_session
 
     qm.set_quant_config(mm="bf16")
-    session = load_qwen_session(folder, DEV)  # phase 16's artifact
+    session = load_qwen_session(folder, DEV, max_new_tokens=QWEN_CONT_BUDGET)  # phase 16's artifact
     check(session.stacked is not None, "the session did not stack the q4 LLM")
     cfg = session.cfg
     rng = np.random.default_rng(20)
@@ -2294,7 +2394,7 @@ def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, ca
 # calls have it: q|k|v, o, gate|up and down in each of the 28 layers. The
 # 2-bit tied head stays centered int8 and runs through the int8 kernel.
 QWEN_P2_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1024): 28}
-Q2_CONT_REQUESTS = 9
+Q2_CONT_REQUESTS = 5
 Q2_CONT_SECONDS = (5.0, 30.0)
 Q2_CONT_BUDGET = 96  # new tokens a window on the continuous rowwise route
 
@@ -2420,7 +2520,7 @@ def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
 
 def phase_qwen_q2_continuous(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
     """[24] Continuous serving of the q2 artifact over HTTP on the rowwise
-    route (8 slots, bf16 caches, a 96-token budget): 9 concurrent requests
+    route (8 slots, bf16 caches, a 96-token budget): 5 concurrent requests
     of 5-30 s with staggered starts, every step's linears through the int2
     kernel at M = 8; each request's ids against the same request alone
     through the batcher (bitwise) and against session.transcribe (a
@@ -2528,6 +2628,578 @@ def phase_qwen_q2_continuous(torch, np, qm, fd, fdm, folder: str, card: str) -> 
             "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak, "equal": equal, "wall_s": wall}
 
 
+# ── 26-29. the command line, Fun-ASR-Nano and the Qwen3 forced aligner ─────
+CLI_SECONDS = (5.0, 7.0)  # two files shorter than one 8 s SenseVoice window
+FUN_HEAD = (5, 2, 6)  # Fun-ASR-Nano prompt ids: head and suffix before the audio, tail after
+FUN_BATCH = 4  # the lockstep batch of transcribe_batch
+FUN_BUDGET = 96  # new tokens a window in the lockstep batch and on the continuous server
+FUN_CONT_REQUESTS = 9
+FUN_CONT_SECONDS = (5.0, 30.0)
+CONT_PREFILL_ROWS = 1024  # the continuous batcher's prefill bucket of a Fun-ASR-Nano prompt
+ALIGN_TEXT = "the quick brown fox jumps over the lazy dog and then sleeps"  # 12 words
+ALIGN_SECONDS = 20.0
+ALIGN_CHAR_BASE = 1000  # a character's token id: ALIGN_CHAR_BASE + its code point mod 4096
+
+
+class CharTokenizer:
+    """A pure-Python character-level encoder for the aligner's transcript."""
+
+    def encode(self, text: str) -> list[int]:
+        return [ALIGN_CHAR_BASE + ord(c) % 4096 for c in text]
+
+
+def write_vocab(path: Path, n: int) -> None:
+    """A vocab_txt tokenizer file of ``n`` entries: id i decodes to "w<i>"."""
+    path.write_text("".join(f"w{i}\n" for i in range(n)), encoding="utf-8")
+
+
+def vocab_ids(text: str) -> list[int]:
+    """The ids behind a write_vocab decode ("w3w17" -> [3, 17])."""
+    return [int(t) for t in text.split("w")[1:]]
+
+
+def fun_prefill_rows(cfg) -> int:
+    """Rows of one Fun-ASR-Nano LLM prefill (the static prompt buffer): the
+    prompt ids and every adaptor row of the padded 30 s window."""
+    return sum(FUN_HEAD) + fun_lfr_rows(cfg)
+
+
+def aligner_prefill_rows(cfg, n_text: int) -> int:
+    """Rows of one aligner pass: audio start, the tower's rows of the padded
+    30 s window, audio end, the text and timestamp ids."""
+    return 1 + qwen_tower_rows(cfg.asr) + 1 + n_text
+
+
+def fun_aligner_prefill_rows() -> tuple:
+    """The int4 kernel's rows on phases 27-29's LLM passes (phase 14 checks
+    them): a Fun-ASR-Nano prefill, the lockstep batch's, the continuous
+    batcher's bucket, and the aligner's pass over ALIGN_TEXT."""
+    from asr_tpu_torch.models.forced_aligner import ForcedAlignerConfig
+    from asr_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
+
+    m = fun_prefill_rows(FunAsrNanoConfig())
+    n_text = sum(len(w) + 1 for w in ALIGN_TEXT.split())
+    return m, FUN_BATCH * m, CONT_PREFILL_ROWS, aligner_prefill_rows(ForcedAlignerConfig(), n_text)
+
+
+def fun_metadata(cfg, family: str):
+    """A Fun-ASR-Nano artifact's metadata: the config, chat-template-sized
+    prompt ids (the LLM head) and a vocab_txt tokenizer file."""
+    from asr_tpu_torch.runtime.artifact import ModelMetadata
+
+    head, suffix, tail = FUN_HEAD
+    special = cfg.llm.vocab_size - 292  # <|im_start|> = 151644 in the 151936-token vocab
+    return ModelMetadata(family=family, tokenizer={"kind": "vocab_txt", "file": "tokens.txt"}, extra={
+        "config": dataclasses.asdict(cfg), "prompt_head_ids": list(range(special, special + head)),
+        "prompt_suffix_ids": list(range(special + 25, special + 25 + suffix)),
+        "prompt_tail_ids": list(range(special + 26, special + 26 + tail))})
+
+
+def run_cli(*argv) -> tuple[str, float]:
+    """``python -m asr_tpu_torch argv`` from the checkout: (stdout, seconds);
+    a non-zero exit fails the phase."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "asr_tpu_torch", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"python -m asr_tpu_torch {' '.join(argv)} exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t
+
+
+def phase_cli(torch, np, qm, folder: str, card: str) -> dict:
+    """[26] ``python -m asr_tpu_torch`` in subprocesses on phase 4's
+    SenseVoiceSmall q8 artifact folder, given a vocab_txt tokenizer file:
+    ``inspect``; ``transcribe`` of each of two files, whose printed text must
+    be the tokenizer's decode of ``session.transcribe``'s ids; and of both at
+    once (the ``transcribe_batch`` route: one padded forward), whose ids per
+    file must be the file's alone or differ only where the file's logits
+    have a top-2 margin below 1e-3 of max|logit|."""
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.runtime.audio import load_audio
+    from asr_tpu_torch.runtime.metadata import ModelMetadata, config_from_dict
+    from asr_tpu_torch.runtime.session import load_session
+    from asr_tpu_torch.runtime.tokenizer import VocabTxtDecoder
+
+    meta = ModelMetadata.load(folder)
+    cfg = config_from_dict(sv.SenseVoiceConfig, meta.extra["config"])
+    write_vocab(Path(folder) / "tokens.txt", cfg.vocab_size)
+    meta.tokenizer = {"kind": "vocab_txt", "file": "tokens.txt"}
+    meta.save(folder)
+    rng = np.random.default_rng(26)
+    files = []
+    for i, secs in enumerate(CLI_SECONDS):
+        path = Path(folder) / f"cli_{i}.wav"
+        path.write_bytes(wav_bytes(np.round(rng.standard_normal(int(secs * 16000)) * 2000)))
+        files.append(str(path))
+    out, t_inspect = run_cli("inspect", "--model-dir", folder)
+    info = json.loads(out)
+    check(info["family"] == "sensevoice" and info["weights_bytes"] > 0, f"inspect printed {info}")
+    alone = [run_cli("transcribe", "--model-dir", folder, f) for f in files]
+    both, t_both = run_cli("transcribe", "--model-dir", folder, *files)
+
+    qm.set_quant_config(mm="bf16")  # the command line's default mode
+    session = load_session(folder, DEV)
+    check(isinstance(session.tokenizer, VocabTxtDecoder), "load_session did not read the artifact's tokenizer")
+    tok = session.tokenizer
+    want = [session.transcribe(f).token_ids for f in files]
+    for f, (out, secs), ids in zip(files, alone, want):
+        text = out.strip().splitlines()[1]
+        check(bool(ids) and text == tok.decode(ids), f"{f}: the command line printed {text[:80]!r}, not the "
+              f"decode of session.transcribe's {len(ids)} ids")
+        print(f"[26 cli] transcribe {Path(f).name}: {len(ids)} ids, text = the tokenizer's decode of "
+              f"session.transcribe's ids ({secs:.2f} s in a subprocess)  [{card}]")
+    texts = both.strip().splitlines()[1::2]
+    check(len(texts) == len(files), f"two files printed {len(texts)} texts")
+    same = 0
+    for f, text, ids, secs in zip(files, texts, want, CLI_SECONDS):
+        got = vocab_ids(text)
+        check(text == tok.decode(got), "a printed text is not a decode of its ids")
+        if got == ids:
+            same += 1
+            continue
+        audio = torch.from_numpy(load_audio(f, 16000)).to(DEV)[None]
+        with torch.inference_mode():
+            logits, vs = sv.encode_logits(session.params, cfg, audio, torch.tensor([audio.shape[1]], device=DEV),
+                                          torch.zeros(1, dtype=torch.int64, device=DEV))
+        low = (logits_margin(logits[0, : int(vs[0])]).min() / logits.abs().max()).item()
+        print(f"[26 cli] {Path(f).name}: the batch route's ids differ from the file alone; smallest top-2 "
+              f"margin {low:.3e} of max|logit|")
+        check(low <= MARGIN, f"{f}: batch ids differ with every top-2 margin above {MARGIN} of max|logit|")
+    print(f"[26 cli] inspect in {t_inspect:.2f} s; transcribe of both files (transcribe_batch: one forward) "
+          f"in {t_both:.2f} s, ids equal to each file alone for {same}/{len(files)}  [{card}]")
+    del session
+    torch.cuda.empty_cache()
+    return {"equal": same, "inspect_s": t_inspect, "batch_s": t_both}
+
+
+def fun_replay(torch, session, audio, ids: list, params=None, llm=None) -> list:
+    """Teacher-force one window's generated ids through the per-weight route
+    of (params, llm) (the session's own weights by default): per id, (the
+    gap between the best logit and the id's, the top-2 margin, both shares
+    of max|logit|, and the argmax)."""
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import fun_asr_nano as fn
+    from asr_tpu_torch.models import qwen_asr as qa
+
+    cfg, lcfg = session.cfg, session.cfg.llm
+    params, llm = params or session.params, llm or session.llm_params
+    rows = []
+    with torch.inference_mode():
+        buf = torch.zeros((1, session.window_samples), device=DEV)
+        buf[0, : len(audio)] = torch.from_numpy(audio).to(DEV)
+        embeds, valid = fn.prompt_embeds_llm(params, llm, cfg, buf, torch.tensor([len(audio)], device=DEV),
+                                             session._batch_ids(session._prompt_ids(""), 1))
+        state, shift, t_max, logits = qa.left_prefill(llm, qa.QwenAsrConfig(llm=lcfg, eot_id=cfg.eot_id),
+                                                      embeds, valid, session.decode_cfg.max_new_tokens)
+        lf = embeds.shape[1]
+        for j, tok in enumerate(ids):
+            lg = logits[0, : lcfg.vocab_size]
+            scale = lg.abs().max().item()
+            rows.append(((lg.max() - lg[tok]).item() / scale, logits_margin(lg).item() / scale, int(lg.argmax())))
+            if j + 1 == len(ids):
+                break
+            pos = lf + j
+            tk = torch.tensor([[tok]], device=DEV)
+            h, state = qwen3.decoder_pass(llm, lcfg, llm["embed"][tk], state, pos,
+                                          qwen3.left_step_bias(shift, pos, t_max), pos_offset=shift)
+            logits = qwen3.logits_from_hidden(llm, lcfg, h[:, -1])
+    return rows
+
+
+def fun_window_numbers(torch, np, session, card: str) -> dict:
+    """One 30 s Fun-ASR-Nano window on the fused route: encoder + adaptor
+    time and prefill time (synchronized host clock, the mean of three: the
+    encoder's 290 linears are host-paced), ms per token, RTF and peak
+    memory."""
+    from asr_tpu_torch.models import fun_asr_nano as fn
+    from asr_tpu_torch.models import qwen_asr as qa
+
+    cfg = session.cfg
+    out = {}
+    audio30 = (np.random.default_rng(27).standard_normal(30 * 16000) * 2000).astype(np.float32)
+    a30, v30 = torch.from_numpy(audio30).to(DEV)[None], torch.tensor([len(audio30)], device=DEV)
+    ids = session._batch_ids(session._prompt_ids(""), 1)
+
+    def prefill():
+        embeds, valid = fn.prompt_embeds_llm(session.params, session.llm_params, cfg, a30, v30, ids)
+        return qa.left_prefill(session.llm_params, qa.QwenAsrConfig(llm=cfg.llm), embeds, valid,
+                               session.decode_cfg.max_new_tokens)
+
+    with torch.inference_mode():
+        prefill()
+        t_enc = sum(synced(torch, lambda: fn.audio_embeds(session.params, cfg, a30, v30))[1] for _ in range(3)) / 3
+        t_pre = sum(synced(torch, prefill)[1] for _ in range(3)) / 3
+    out["encoder_ms"] = t_enc * 1e3
+    out["prefill_ms"] = (t_pre - t_enc) * 1e3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = session.transcribe(audio30)
+    out["rtf_30s"] = res.rtf
+    out["window_ms"] = res.elapsed_seconds * 1e3
+    out["steps_30s"] = qwen_counts(session, res.token_ids) - 1
+    out["ms_per_token"] = (res.elapsed_seconds - t_pre) * 1e3 / max(out["steps_30s"], 1)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[27 numbers] one 30 s window: {out['window_ms']:.1f} ms, RTF {out['rtf_30s']:.5f}; encoder + "
+          f"adaptor {out['encoder_ms']:.2f} ms ({fun_lfr_rows(cfg)} LFR rows), prefill {out['prefill_ms']:.2f} ms "
+          f"({fun_prefill_rows(cfg)} rows), {out['steps_30s']} decode steps at {out['ms_per_token']:.3f} ms per "
+          f"token (fused route, host wall); peak memory {out['peak_mib']:.0f} MiB  [{card}]")
+    return out
+
+
+def phase_fun_llm(torch, np, qm, fd, folder: str, card: str) -> dict:
+    """[27] Fun-ASR-Nano-2512 with its LLM head at full width (q8 encoder and
+    adaptor, packed-q4 LLM, 4-bit quantized tied embeddings) through an
+    artifact folder and the command line's ``_build_session``: 20 s on the
+    fused route with its launch counts, its ids replayed with plain matmuls
+    on the dequantized weights, the prefill logits (mm=f32) against plain
+    within 1e-3 of max|logit|, one 30 s window's numbers, then
+    ``transcribe_batch`` of FUN_BATCH files (the lockstep per-weight route,
+    the int4 kernel at M = FUN_BATCH)."""
+    import copy
+
+    from asr_tpu_torch.cli import _build_session
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import fun_asr_nano as fn
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+    from asr_tpu_torch.runtime.artifact import save_model
+    from asr_tpu_torch.runtime.qwen_session import FunAsrNanoLlmSession
+
+    cfg = fn.FunAsrNanoConfig()
+    lcfg = cfg.llm
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(27)
+    enc = quantize_pytree(fn.init_params(cfg, g), bits=8)
+    llm = quantize_pytree(qwen3.init_params(lcfg, g), bits=4, pack=True, quantize_embeddings=True)
+    save_model(folder, {"encoder": enc, "llm": llm}, fun_metadata(cfg, "fun_asr_nano_llm"))
+    write_vocab(Path(folder) / "tokens.txt", lcfg.vocab_size)
+    size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
+    del enc, llm
+    torch.cuda.empty_cache()
+    qm.set_quant_config(mm="bf16")  # the serving mode; the session stacks for the fused step
+    session = _build_session(Path(folder), device=torch.device(DEV))
+    check(isinstance(session, FunAsrNanoLlmSession) and session.stacked is not None
+          and "wh" in session.stacked, "the session did not stack the q4 LLM and its head")
+    tok = session.tokenizer
+    check(tok is not None, "_build_session did not read the artifact's tokenizer")
+    n_enc = 4 * (cfg.num_encoders0 + cfg.num_encoders + cfg.num_tp_encoders)
+    n_adaptor = 2 + 4 * cfg.adaptor_blocks
+    n_prefill = 4 * lcfg.num_layers + 1
+    print(f"[27 fun_llm] Fun-ASR-Nano (q8 encoder + adaptor, packed-q4 Qwen3-0.6B, 4-bit tied head): init + "
+          f"quantize + artifact ({size_mb:.1f} MB) round trip in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(27)
+    audio20 = (rng.standard_normal(20 * 16000) * 2000).astype(np.float32)
+    session.transcribe(audio20[:16000])  # warm-up
+    torch.cuda.synchronize()
+
+    qm.LAUNCHES = qm.LAUNCHES_INT4 = fd.LAUNCHES = 0  # the Fun-ASR-Nano LLM path starts here
+    res = session.transcribe(audio20)
+    int8, int4, fused = qm.LAUNCHES, qm.LAUNCHES_INT4, fd.LAUNCHES  # and ends here
+    ids = res.token_ids
+    steps = qwen_counts(session, ids) - 1
+    check(fused == steps > 0, f"{fused} fused launches for {steps} decode steps")
+    check(int4 == n_prefill, f"{int4} int4 launches, not {n_prefill} (the prefill's linears and the first logits)")
+    check(int8 == n_enc + n_adaptor, f"{int8} int8 launches, not the encoder's {n_enc} + the adaptor's {n_adaptor}")
+    check(bool(res.text) and res.text == tok.decode(ids), "the text is not the decode of the ids")
+    print(f"[27 fun_llm] 20 s -> {len(ids)} tokens in {res.elapsed_seconds * 1e3:.1f} ms; fused launches {fused} "
+          f"(= decode steps), int4 {int4} ({lcfg.num_layers} x 4 + the first logits), int8 {int8} (encoder "
+          f"{n_enc} + adaptor {n_adaptor}); text = the decode of the ids ({len(res.text)} chars)  [{card}]")
+
+    # The generated ids replayed with plain matmuls on the dequantized weights
+    # (f32 caches). The fused route rounds its matvec inputs to bf16 and keeps
+    # bf16 caches, so it is held as phase 16 holds it: argmax equal wherever
+    # the replay's top-2 margin is above QWEN_REPLAY_MARGIN.
+    dense_enc, dense_llm = dequantize_pytree(session.params), dequantize_pytree(session.llm_params)
+    rows = fun_replay(torch, session, audio20, ids, dense_enc, dense_llm)
+    sure = [r for r in rows if r[1] > QWEN_REPLAY_MARGIN]
+    flips = sum(r[2] != t for r, t in zip(rows, ids) if r[1] > QWEN_REPLAY_MARGIN)
+    worst = max(r[0] for r in rows)
+    near = sum(r[0] <= MARGIN for r in rows)
+    print(f"[27 check] replay with plain matmuls on the dequantized weights: argmax = the generated id at "
+          f"{len(sure) - flips}/{len(sure)} ids above a {QWEN_REPLAY_MARGIN} top-2 margin; every id within "
+          f"{worst:.2e} of max|logit| of the replay's best ({near}/{len(rows)} within {MARGIN})")
+    check(flips == 0, f"{flips} ids differ from the plain replay's argmax above a {QWEN_REPLAY_MARGIN} margin")
+    check(worst <= QWEN_REPLAY_MARGIN, f"an id {worst:.2e} of max|logit| below the plain replay's best")
+
+    # The prefill logits (mm=f32, the exact product) against plain matmuls.
+    qm.set_quant_config(mm="f32")
+    a8 = torch.from_numpy(audio20[: 8 * 16000]).to(DEV)[None]
+    v8 = torch.tensor([8 * 16000], device=DEV)
+    pids = session._batch_ids(session._prompt_ids(""), 1)
+    qcfg = qa.QwenAsrConfig(llm=lcfg)
+    with torch.inference_mode():
+        lq = qa.left_prefill(session.llm_params, qcfg, *fn.prompt_embeds_llm(
+            session.params, session.llm_params, cfg, a8, v8, pids), 1)[3]
+        lp = qa.left_prefill(dense_llm, qcfg, *fn.prompt_embeds_llm(dense_enc, dense_llm, cfg, a8, v8, pids), 1)[3]
+    qm.set_quant_config(mm="bf16")
+    del dense_enc, dense_llm
+    torch.cuda.empty_cache()
+    diff, scale = (lq - lp).abs().max().item(), lp.abs().max().item()
+    check(bool(torch.isfinite(lq).all()) and diff <= 1e-3 * scale, f"q4 prefill logits vs plain: {diff} > 1e-3 * {scale}")
+    print(f"[27 check] q8 encoder + q4 LLM mm=f32 prefill logits (8 s) vs plain f32 matmuls on the dequantized "
+          f"weights: max diff {diff:.3e} (max|logit| {scale:.3e}, {diff / scale:.2e} of it)")
+
+    out = {"int8": int8, "int4": int4, "fused": fused, "steps": steps}
+    out.update(fun_window_numbers(torch, np, session, card))
+
+    # transcribe_batch: one lockstep batch of FUN_BATCH files (the per-weight route).
+    bsess = copy.copy(session)
+    bsess.decode_cfg = dataclasses.replace(session.decode_cfg, max_new_tokens=FUN_BUDGET)
+    seconds = rng.uniform(5.0, 30.0, size=FUN_BATCH)
+    clips = [(rng.standard_normal(int(s * 16000)) * 2000).astype(np.float32) for s in seconds]
+    qm.LAUNCHES = qm.LAUNCHES_INT4 = fd.LAUNCHES = 0  # the batch path starts here
+    results = bsess.transcribe_batch(clips)
+    b_int8, b_int4, b_fused = qm.LAUNCHES, qm.LAUNCHES_INT4, fd.LAUNCHES  # and ends here
+    check(b_fused == 0, f"the batch-{FUN_BATCH} route launched the fused kernel {b_fused} times")
+    check(b_int8 == n_enc + n_adaptor, f"{b_int8} int8 launches for one batched encoder")
+    check(b_int4 % n_prefill == 0 and b_int4 > 0, f"{b_int4} int4 launches is not a multiple of {n_prefill}")
+    equal, gap = 0, 0.0
+    for clip, r in zip(clips, results):
+        check(bool(r.text) and r.text == tok.decode(r.token_ids), "a batch row's text is not its ids' decode")
+        with torch.inference_mode():
+            buf = torch.zeros((1, bsess.window_samples), device=DEV)
+            buf[0, : len(clip)] = torch.from_numpy(clip).to(DEV)
+            tokens, counts, starts = fn.forward_llm(bsess.params, bsess.llm_params, cfg, buf,
+                                                    torch.tensor([len(clip)], device=DEV),
+                                                    bsess._batch_ids(bsess._prompt_ids(""), 1), bsess.decode_cfg)
+        v, c = int(starts[0]), int(counts[0])
+        alone = [int(t) for t in tokens[0, v : v + c].tolist() if t != cfg.eot_id]
+        if alone == r.token_ids:
+            equal += 1
+            continue
+        gap = max(gap, max(row[0] for row in fun_replay(torch, bsess, clip, r.token_ids)))
+        check(gap <= MARGIN, f"a batch row's id is {gap:.2e} of max|logit| below the per-weight route's best")
+    print(f"[27 batch] transcribe_batch of {FUN_BATCH} ({', '.join(f'{s:.1f}' for s in seconds)} s, "
+          f"{FUN_BUDGET}-token budget) in {results[0].elapsed_seconds * 1e3:.1f} ms: int4 {b_int4} "
+          f"({b_int4 // n_prefill} passes x {n_prefill} at M = {FUN_BATCH}, the prefill at M = "
+          f"{FUN_BATCH} x {fun_prefill_rows(cfg)}), int8 {b_int8}, fused {b_fused}; ids equal to the per-weight "
+          f"route alone for {equal}/{FUN_BATCH} rows (the rest within {gap:.2e} of max|logit| of its best)  [{card}]")
+    out.update(batch_int8=b_int8, batch_int4=b_int4, batch_equal=equal)
+    return out, session
+
+
+def phase_fun_ctc_continuous(torch, np, qm, fd, fdm, folder: str, session, card: str) -> dict:
+    """[28] Fun-ASR-Nano's CTC head through a ``fun_asr_nano`` artifact folder
+    (phase 27's q8 encoder) and ``_build_session``: a 45 s file (two windows,
+    one forward) with its launches, RTF and text, and its q8 logits (mm=f32)
+    against plain matmuls; then continuous serving of phase 27's LLM session
+    over HTTP (8 slots, bf16 caches, a FUN_BUDGET-token budget): 9 concurrent
+    requests of 5-30 s, every decode step one multi-slot kernel launch, each
+    request's ids bitwise equal to it alone through the batcher."""
+    import copy
+
+    from asr_tpu_torch.cli import _build_session
+    from asr_tpu_torch.models import fun_asr_nano as fn
+    from asr_tpu_torch.parallel.llm_server import start_background_continuous
+    from asr_tpu_torch.quant.quantize import dequantize_pytree
+    from asr_tpu_torch.runtime.artifact import save_model
+    from asr_tpu_torch.runtime.transducer_session import FunAsrNanoCtcSession
+
+    cfg = session.cfg
+    save_model(folder, session.params, fun_metadata(cfg, "fun_asr_nano"))
+    write_vocab(Path(folder) / "tokens.txt", cfg.ctc_vocab)
+    qm.set_quant_config(mm="bf16")
+    ctc = _build_session(Path(folder), device=torch.device(DEV))
+    check(isinstance(ctc, FunAsrNanoCtcSession) and ctc.tokenizer is not None, "not a CTC session with a tokenizer")
+    n_ctc = 4 * (cfg.num_encoders0 + cfg.num_encoders + cfg.num_tp_encoders) + 3 + 4 * cfg.ctc_blocks
+    rng = np.random.default_rng(28)
+    audio45 = (rng.standard_normal(45 * 16000) * 2000).astype(np.float32)
+    ctc.transcribe(audio45[:16000])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qm.LAUNCHES = 0  # the CTC path starts here
+    res = ctc.transcribe(audio45)
+    ctc_int8 = qm.LAUNCHES  # and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(ctc_int8 == n_ctc, f"{ctc_int8} int8 launches, not {n_ctc} (encoder + CTC head, one forward)")
+    check(bool(res.text) and res.text == ctc.tokenizer.decode(res.token_ids), "CTC text is not the ids' decode")
+    print(f"[28 fun_ctc] 45 s (2 windows, one forward) -> {len(res.token_ids)} tokens in "
+          f"{res.elapsed_seconds * 1e3:.1f} ms, RTF {res.rtf:.5f}; int8 launches {ctc_int8}; peak memory "
+          f"{peak:.0f} MiB  [{card}]")
+    # The q8 CTC logits (mm=f32) against plain matmuls on the dequantized weights.
+    qm.set_quant_config(mm="f32")
+    w = ctc.window_samples
+    a = torch.zeros((2, w), device=DEV)
+    a[0] = torch.from_numpy(audio45[:w]).to(DEV)
+    a[1, : len(audio45) - w] = torch.from_numpy(audio45[w:]).to(DEV)
+    v = torch.tensor([w, len(audio45) - w], device=DEV)
+    dense = dequantize_pytree(ctc.params)
+    with torch.inference_mode():
+        enc, vl, _ = fn.encode(ctc.params, cfg, a, v)
+        lq = fn.ctc_logits(ctc.params, cfg, enc, vl)
+        enc, _, _ = fn.encode(dense, cfg, a, v)
+        lp = fn.ctc_logits(dense, cfg, enc, vl)
+    qm.set_quant_config(mm="bf16")
+    del dense
+    diff, scale = (lq - lp).abs().max().item(), lp.abs().max().item()
+    check(bool(torch.isfinite(lq).all()) and diff <= 1e-3 * scale, f"CTC logits vs plain: {diff} > 1e-3 * {scale}")
+    frames = torch.arange(lq.shape[1], device=DEV)[None, :] < vl[:, None]
+    sure = frames & (logits_margin(lp) > MARGIN * scale)
+    check(bool((lq.argmax(-1) == lp.argmax(-1))[sure].all()), "CTC argmax differs above a 1e-3 margin")
+    print(f"[28 check] q8 mm=f32 CTC logits vs plain f32: max diff {diff:.3e} (max|logit| {scale:.3e}), argmax "
+          f"equal on {int(sure.sum())} frames, {int((frames & ~sure).sum())} under the margin")
+    del ctc, lq, lp
+    torch.cuda.empty_cache()
+
+    # Continuous serving of the LLM session.
+    csess = copy.copy(session)
+    csess.decode_cfg = dataclasses.replace(session.decode_cfg, max_new_tokens=FUN_BUDGET)
+    tok = csess.tokenizer
+    seconds = rng.uniform(*FUN_CONT_SECONDS, size=FUN_CONT_REQUESTS)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 2000).astype(np.int16) for s in seconds]
+    delays = rng.uniform(0.0, 0.2, size=len(clips))
+    httpd, srv, thread = start_background_continuous(csess, n_slots=QWEN_CONT_SLOTS, kv_dtype="bf16")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: list = [None] * len(clips)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qm.LAUNCHES = qm.LAUNCHES_INT4 = fd.LAUNCHES = fdm.LAUNCHES = 0  # the serving path starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_clip, args=(base, c, float(delays[i]), results, i))
+                   for i, c in enumerate(clips)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        int8, int4, fused, multi = qm.LAUNCHES, qm.LAUNCHES_INT4, fd.LAUNCHES, fdm.LAUNCHES  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        thread.join(timeout=60)
+    n_enc = 4 * (cfg.num_encoders0 + cfg.num_encoders + cfg.num_tp_encoders) + 2 + 4 * cfg.adaptor_blocks
+    n_prefill = 4 * cfg.llm.num_layers + 1
+    check(health["ok"] and health["step_kernel"] == "fused" and health["decoder"] == "llm", f"healthz: {health}")
+    check(health["requests_served"] == len(clips) and health["slots_active"] == 0, f"healthz: {health}")
+    check(multi == health["decode_steps"] > 0, f"{multi} multi-slot launches for {health['decode_steps']} steps")
+    check(fused == 0, f"the batch-1 kernel was launched {fused} times")
+    check(int8 == len(clips) * n_enc, f"{int8} int8 launches, not {len(clips)} x {n_enc}")
+    check(int4 == len(clips) * n_prefill, f"{int4} int4 launches, not {len(clips)} prefills x {n_prefill}")
+    bat, eot = srv.batcher, cfg.eot_id
+    with torch.inference_mode():
+        for i, clip in enumerate(clips):
+            check(results[i] is not None and results[i][0] == 200, f"request {i}: {results[i]}")
+            got = results[i][1]
+            check(bool(got["text"]) and got["text"] == tok.decode(got["token_ids"]),
+                  f"request {i}: the text is not the decode of its ids")
+            emb, valid = csess.prompt_embeds(clip.astype(np.float32))
+            slot = bat.try_submit(emb, valid)
+            while bat.is_active(slot):
+                bat.step()
+            alone = [t for t in bat.take_result(slot) if t != eot]
+            check(alone == got["token_ids"], f"request {i}: the served ids differ from the request alone "
+                  "through the batcher")
+    lat = np.array([r[2] for r in results])
+    toks, step_s = health["tokens_generated"], health["step_latency_avg_s"]
+    agg = toks / (health["decode_steps"] * step_s) if step_s else 0.0
+    print(f"[28 serve] {len(clips)} requests ({seconds.min():.1f}-{seconds.max():.1f} s, {QWEN_CONT_SLOTS} slots, "
+          f"bf16 caches of {bat.t_max} rows, {FUN_BUDGET}-token budget) in {wall:.2f} s: multi-slot launches "
+          f"{multi} (= decode_steps), batch-1 {fused}, int4 {int4} ({len(clips)} prefills x {n_prefill} at M = "
+          f"{CONT_PREFILL_ROWS}), int8 {int8}; every request's ids bitwise equal to it alone through the "
+          f"batcher, texts = the decode of the ids  [{card}]")
+    print(f"[28 numbers] decode {toks} tokens: {agg:.0f} tokens/s over step time ({toks / wall:.0f} end to end); "
+          f"average step {step_s * 1e3:.3f} ms; completion p50 {np.percentile(lat, 50):.2f} s, p95 "
+          f"{np.percentile(lat, 95):.2f} s (client side); peak memory {peak:.0f} MiB  [{card}]")
+    del csess, srv, bat
+    torch.cuda.empty_cache()
+    return {"ctc_int8": ctc_int8, "ctc_rtf": res.rtf, "launches": multi, "int8": int8, "int4": int4,
+            "tokens": toks, "agg_tok_s": agg, "step_ms": step_s * 1e3, "wall_s": wall}
+
+
+def phase_aligner(torch, np, qm, card: str) -> dict:
+    """[29] Qwen3-ForcedAligner-0.6B at full width (q8 tower, packed-q4 LLM
+    with 4-bit embeddings, f32 class head) through QwenAlignerSession: a 20 s
+    file and a 12-word text, a character-level encoder as the tokenizer. In
+    mm=f32 the launch counts, monotone timestamps, and each bucket against
+    the argmax of a replay with plain matmuls on the dequantized weights
+    wherever its top-2 margin is above 1e-3 of max|logit|; then ms per
+    ``align`` call in the bf16 mode."""
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import forced_aligner as fa
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+    from asr_tpu_torch.runtime.aligner_session import QwenAlignerSession
+
+    cfg = fa.ForcedAlignerConfig()
+    lcfg = cfg.asr.llm
+    g = torch.Generator(device=DEV).manual_seed(29)
+    tower = quantize_pytree(qa.init_tower_params(cfg.asr, g), bits=8)
+    llm = quantize_pytree(qwen3.init_params(lcfg, g), bits=4, pack=True, quantize_embeddings=True)
+    head = {"w": torch.randn((lcfg.hidden, cfg.classify_num), generator=g, device=DEV) * lcfg.hidden ** -0.5}
+    special = {"timestamp": lcfg.vocab_size - 200, "audio_start": lcfg.vocab_size - 201,
+               "audio_end": lcfg.vocab_size - 202}
+    sess = QwenAlignerSession(tower, llm, head, cfg, tokenizer=CharTokenizer(), special_ids=special)
+    audio = (np.random.default_rng(29).standard_normal(int(ALIGN_SECONDS * 16000)) * 0.1).astype(np.float32)
+    words = ALIGN_TEXT.split()
+    qm.set_quant_config(mm="f32")
+    sess.align(audio[:16000], "warm up")
+    torch.cuda.synchronize()
+    qm.LAUNCHES = qm.LAUNCHES_INT4 = 0  # the aligner's path starts here
+    out = sess.align(audio, ALIGN_TEXT)
+    int8, int4 = qm.LAUNCHES, qm.LAUNCHES_INT4  # and ends here
+    n_tower = 6 * cfg.asr.tower_layers + 3
+    check(int8 == n_tower, f"{int8} int8 launches, not the tower's {n_tower}")
+    check(int4 == 7 * lcfg.num_layers, f"{int4} int4 launches, not {lcfg.num_layers} x 7 (the unfused linears)")
+    check([o["text"] for o in out] == words, f"aligned units {[o['text'] for o in out]}")
+    starts = [o["start_ms"] for o in out]
+    check(all(a <= b for a, b in zip(starts, starts[1:])) and all(o["start_ms"] <= o["end_ms"] for o in out),
+          f"timestamps not monotone: {out}")
+
+    # The buckets against plain matmuls on the dequantized weights.
+    text_ids, ts = [], []
+    for w in words:
+        text_ids.extend(CharTokenizer().encode(w))
+        ts.append(len(text_ids))
+        text_ids.append(special["timestamp"])
+    dense_tower, dense_llm = dequantize_pytree(tower), dequantize_pytree(llm)
+    buf = torch.zeros((1, sess.max_samples), device=DEV)
+    buf[0, : len(audio)] = torch.from_numpy(audio).to(DEV)
+    args = (buf, torch.tensor([len(audio)], device=DEV))
+    tid = torch.tensor([text_ids], device=DEV)
+    with torch.inference_mode():
+        _, eq, vq = fa.prompt_for(tower, llm, cfg, *args, sess._embed(special["audio_start"]),
+                                  sess._embed(special["audio_end"]), tid)
+        lq = fa.align_logits(llm, head, cfg, eq, vq)[0]
+        emb = lambda i: dense_llm["embed"][torch.tensor([[i]], device=DEV)]  # noqa: E731
+        _, ep, vp = fa.prompt_for(dense_tower, dense_llm, cfg, *args, emb(special["audio_start"]),
+                                  emb(special["audio_end"]), tid)
+        lp = fa.align_logits(dense_llm, head, cfg, ep, vp)[0]
+    del dense_tower, dense_llm
+    torch.cuda.empty_cache()
+    offset = int(vq[0]) - len(text_ids)
+    pos = torch.tensor([offset + p for p in ts], device=DEV)
+    bq, bp = lq[pos].argmax(-1), lp[pos].argmax(-1)
+    margin = logits_margin(lp[pos]) / lp[pos].abs().amax(-1)
+    sure = margin > MARGIN
+    check(bool((bq == bp)[sure].all()), f"buckets {bq.tolist()} vs the plain replay's {bp.tolist()} above a "
+          f"{MARGIN} margin")
+    check(fa.word_timestamps(words, bq.tolist(), 1, cfg.segment_ms) == out,
+          "the session's timestamps are not the checked buckets'")
+    rows = aligner_prefill_rows(cfg, len(text_ids))
+    check(eq.shape[1] == rows, f"the pass ran {eq.shape[1]} rows, not {rows}")
+    print(f"[29 aligner] Qwen3-ForcedAligner-0.6B (q8 tower, packed-q4 LLM, f32 head of {cfg.classify_num}): "
+          f"{ALIGN_SECONDS:.0f} s, {len(words)} words -> monotone timestamps {starts[0]}..{out[-1]['end_ms']} ms; "
+          f"int8 {int8} (the tower), int4 {int4} ({lcfg.num_layers} x 7 at M = {rows}); buckets = the plain "
+          f"replay's argmax at {int(sure.sum())}/{len(ts)} positions above a {MARGIN} margin  [{card}]")
+    qm.set_quant_config(mm="bf16")
+    sess.align(audio, ALIGN_TEXT)
+    calls = 3
+    _, secs = synced(torch, lambda: [sess.align(audio, ALIGN_TEXT) for _ in range(calls)])
+    ms = secs * 1e3 / calls
+    print(f"[29 numbers] align (bf16 mode): {ms:.1f} ms per call ({ALIGN_SECONDS:.0f} s of audio, {rows} LLM rows; "
+          f"RTF {ms / (ALIGN_SECONDS * 1e3):.5f})  [{card}]")
+    del sess, tower, llm
+    torch.cuda.empty_cache()
+    return {"int8": int8, "int4": int4, "ms": ms, "sure": int(sure.sum())}
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2562,8 +3234,9 @@ def main() -> int:
     check(len(nvcc_build.SOURCES) == 7 and {qm.SOURCE, qm.SOURCE_INT4, qm.SOURCE_INT2, fs.SOURCE,
                                              fm.SOURCE, fd.SOURCE, fdm.SOURCE} == set(nvcc_build.SOURCES),
           f"expected the seven kernel sources, found {[p.name for p in nvcc_build.SOURCES]}")
-    phase_build(nvcc_build.SOURCES)
+    phase_build(nvcc_build.SOURCES, salted=(qm.SOURCE, qm.SOURCE_INT4, qm.SOURCE_INT2))
     kern = phase_kernel_vs_plain(torch, qm, quantize_linear, card)
+    print(f"[t] phases 1-3: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # ── 4. model: full geometry, q8, artifact round trip, session ─────────
     cfg = sv.SenseVoiceConfig()
@@ -2572,10 +3245,10 @@ def main() -> int:
     t0 = time.perf_counter()
     params32 = sv.init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
     q8 = quantize_pytree(params32, bits=8, block=128)
-    with tempfile.TemporaryDirectory() as tmp:
-        save_model(tmp, q8, ModelMetadata(family="sensevoice", extra={"config": dataclasses.asdict(cfg)}))
-        size_mb = (Path(tmp) / "weights.safetensors").stat().st_size / 1e6
-        session = load_session(tmp, DEV, window_seconds=WINDOW_S)
+    sv_dir = tempfile.TemporaryDirectory()  # kept for the command line (phase 26)
+    save_model(sv_dir.name, q8, ModelMetadata(family="sensevoice", extra={"config": dataclasses.asdict(cfg)}))
+    size_mb = (Path(sv_dir.name) / "weights.safetensors").stat().st_size / 1e6
+    session = load_session(sv_dir.name, DEV, window_seconds=WINDOW_S)
     del q8
     params, cfg = session.params, session.cfg
     qm.set_quant_config(mm="f32")
@@ -2718,6 +3391,7 @@ def main() -> int:
 
     del dense, lq, lp, session, params, params32
     torch.cuda.empty_cache()
+    print(f"[t] phases 4-6: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # ── 8-10. Whisper-Large-v3-Turbo q8, the fused decode-step kernel ─────
     fused = phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card)
@@ -2731,11 +3405,13 @@ def main() -> int:
         multi = phase_multi(torch, fs, fm, wh, quantize_pytree, fused, card)
         aed_mv = phase_aed_matvec(torch, fs, card)
         serve = phase_continuous(torch, np, qm, fs, fm, whisper_dir, wnum, card)
+    print(f"[t] phases 8-13: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # ── 14-17. Qwen3-ASR-0.6B q4, the int4 kernel, the fused Qwen3 step ────
     from asr_tpu_torch.models.qwen_asr import QwenAsrConfig
 
-    p4 = phase_packed(torch, qm, quantize_linear, 4, qwen_prefill_rows(QwenAsrConfig()), card)
+    p4 = phase_packed(torch, qm, quantize_linear, 4, qwen_prefill_rows(QwenAsrConfig()), card,
+                      m_more=fun_aligner_prefill_rows())
     dec = phase_decode_vs_plain(torch, fd, qwen3, quantize_pytree, card)
     step_mv = phase_step_matvec(torch, fd, card)
     with tempfile.TemporaryDirectory() as qwen_dir:
@@ -2746,6 +3422,7 @@ def main() -> int:
         mtimes = phase_decode_multi_times(torch, fd, fdm, mdec.pop("stacked"), mdec.pop("cfg"),
                                           {c: dec["times"][c]["ms"] for c in dec["times"]}, card)
         qcont = phase_qwen_continuous(torch, np, qm, fd, fdm, qwen_dir, qrun, card)
+    print(f"[t] phases 14-20: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # ── 21-24. Qwen3-ASR-0.6B with a packed-int2 LLM, the int2 kernel ──────
     p2 = phase_packed(torch, qm, quantize_linear, 2, qwen_prefill_rows(QwenAsrConfig()), card)
@@ -2753,6 +3430,24 @@ def main() -> int:
         q2run = phase_qwen_q2(torch, np, qm, fd, fdm, q2_dir, card)
         q2serve = phase_qwen_serve(torch, np, qm, fd, q2_dir, card, label="23")
         q2cont = phase_qwen_q2_continuous(torch, np, qm, fd, fdm, q2_dir, card)
+    print(f"[t] phases 21-24: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
+    # ── 25. the int8 and packed kernels' linkage ────────────────────────────
+    phase_linkage(torch, qm, quantize_linear, card)
+    print(f"[t] phase 25: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
+    # ── 26-29. the command line, Fun-ASR-Nano, the forced aligner ───────────
+    phase_cli(torch, np, qm, sv_dir.name, card)
+    sv_dir.cleanup()
+    print(f"[t] phase 26: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    with tempfile.TemporaryDirectory() as fun_dir, tempfile.TemporaryDirectory() as ctc_dir:
+        frun, fun_session = phase_fun_llm(torch, np, qm, fd, fun_dir, card)
+        fcont = phase_fun_ctc_continuous(torch, np, qm, fd, fdm, ctc_dir, fun_session, card)
+        del fun_session
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[t] phases 27-28: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    arun = phase_aligner(torch, np, qm, card)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -2767,11 +3462,15 @@ def main() -> int:
         "source": "asr_tpu_torch/csrc/quant_matmul_int8.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:115",
         "launches": (launches + wrun_int8 + serve["int8"] + qrun["int8"] + qserve["int8"] + qcont["int8"]
-                     + q2run["int8"] + q2serve["int8"] + q2cont["int8"]),
+                     + q2run["int8"] + q2serve["int8"] + q2cont["int8"] + frun["int8"] + frun["batch_int8"]
+                     + fcont["ctc_int8"] + fcont["int8"] + arun["int8"]),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
-                             "qwen_q2_serve": q2serve["int8"], "qwen_q2_continuous": q2cont["int8"]},
+                             "qwen_q2_serve": q2serve["int8"], "qwen_q2_continuous": q2cont["int8"],
+                             "fun_llm": frun["int8"], "fun_llm_batch": frun["batch_int8"],
+                             "fun_ctc": fcont["ctc_int8"], "fun_continuous": fcont["int8"],
+                             "aligner": arun["int8"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2832,9 +3531,12 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int4.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:493",
-        "launches": qrun["int4"] + qserve["int4"] + qcont["int4"],
+        "launches": (qrun["int4"] + qserve["int4"] + qcont["int4"] + frun["int4"] + frun["batch_int4"]
+                     + fcont["int4"] + arun["int4"]),
         "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"],
-                             "qwen_continuous": qcont["int4"]},
+                             "qwen_continuous": qcont["int4"], "fun_llm": frun["int4"],
+                             "fun_llm_batch": frun["batch_int4"], "fun_continuous": fcont["int4"],
+                             "aligner": arun["int4"]},
         "max_abs_err": p4["max_abs_err"],
         "ms": p4["per_prefill"]["bf16"]["ms"],
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
@@ -2853,8 +3555,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_decode.cu",
         "replaces": "asr_tpu/ops/fused_decode.py:310",
-        "launches": qrun["fused"],
-        "launches_by_path": {"qwen": qrun["fused"], "qwen_serve": 0, "qwen_continuous": 0},
+        "launches": qrun["fused"] + frun["fused"],
+        "launches_by_path": {"qwen": qrun["fused"], "qwen_serve": 0, "qwen_continuous": 0,
+                             "fun_llm": frun["fused"]},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["times"]["bfloat16"]["ms"],
         "plain_ms": dec["times"]["bfloat16"]["plain_ms"],
@@ -2875,8 +3578,8 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_decode_multi.cu",
         "replaces": "asr_tpu/ops/fused_decode_multi.py:92",
-        "launches": qcont["launches"],
-        "launches_by_path": {"qwen_continuous": qcont["launches"]},
+        "launches": qcont["launches"] + fcont["launches"],
+        "launches_by_path": {"qwen_continuous": qcont["launches"], "fun_continuous": fcont["launches"]},
         "max_abs_err": mdec["max_abs_err"],
         "ms": q_t["ms"],
         "plain_ms": q_t["plain_ms"],

@@ -1,0 +1,314 @@
+"""PyTorch port: the ``python -m asr_tpu_torch`` command line against the
+JAX package's (``asr_tpu/cli.py``) on tiny artifact folders that the port's
+``save_model`` writes, with ``--platform cpu``: ``inspect``, ``transcribe``
+(one file and several: the ``transcribe_batch`` route), the ``quantize``
+round trip, ``align``, ``serve``'s dispatch, the unknown-family refusal, the
+card default, and the artifact tokenizers (``_build_tokenizer``) of all six kinds, each
+decoding as the JAX package's copy does.
+
+Both command lines run f32 matmuls on the same weights, so the printed
+token text is equal line by line (the timing columns differ).
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import wave
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from asr_tpu import cli as jcli
+from asr_tpu.ops import quant_matmul as jqm
+from asr_tpu.runtime import metadata as jmeta
+from asr_tpu_torch import cli
+from asr_tpu_torch.layers import qwen3 as tq3
+from asr_tpu_torch.models import forced_aligner as tfa
+from asr_tpu_torch.models import fun_asr_nano as tfn
+from asr_tpu_torch.models import qwen_asr as tqa
+from asr_tpu_torch.models import sensevoice as tsv
+from asr_tpu_torch.ops import quant_matmul as tqm
+from asr_tpu_torch.quant.quantize import cast_pytree
+from asr_tpu_torch.runtime.artifact import ModelMetadata, read_safetensors, save_model
+
+REPO = Path(__file__).resolve().parent.parent
+SV = dict(vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48, num_encoders0=1,
+          num_encoders=1, num_tp_encoders=1, fsmn_kernel=5)
+LLM = dict(vocab_size=120, hidden=48, num_layers=1, num_heads=4, num_kv_heads=2, head_dim=16,
+           ffn_dim=64, rope_theta=1e4)
+FN = dict(hidden=32, num_heads=4, head_dim=8, ffn_dim=48, num_encoders0=1, num_encoders=1,
+          num_tp_encoders=1, fsmn_kernel=5, adaptor_hidden=48, adaptor_blocks=1, adaptor_heads=4,
+          adaptor_ffn=64, ctc_hidden=32, ctc_blocks=1, ctc_heads=4, ctc_ffn=48, ctc_vocab=64,
+          eot_id=7)
+TOWER = dict(n_mels=16, tower_dim=32, tower_layers=1, tower_heads=4, tower_ffn=48,
+             downsample_hidden=8, chunks_per_window=2, output_dim=48, eot_id=-1)
+
+
+@pytest.fixture(autouse=True)
+def _restore_modes():
+    """Both command lines set their package's process-wide matmul mode."""
+    prev, jprev, threads = tqm._CONFIG["mm"], dict(jqm._CONFIG), torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    tqm._CONFIG["mm"] = prev
+    jqm._CONFIG.update(jprev)
+    torch.set_num_threads(threads)
+
+
+def _g(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _vocab_txt(folder: Path, n: int) -> dict:
+    (folder / "vocab.txt").write_text("".join(f"t{i}\n" for i in range(n)), encoding="utf-8")
+    return {"kind": "vocab_txt", "file": "vocab.txt"}
+
+
+def _sensevoice(folder: Path) -> Path:
+    cfg = tsv.SenseVoiceConfig(**SV)
+    folder.mkdir()
+    meta = ModelMetadata(family="sensevoice", tokenizer=_vocab_txt(folder, 64),
+                         extra={"config": dataclasses.asdict(cfg)})
+    save_model(folder, tsv.init_params(cfg, _g(0), "cpu"), meta)
+    return folder
+
+
+def _fun_asr_nano(folder: Path, head: str) -> Path:
+    cfg = tfn.FunAsrNanoConfig(**FN, llm=tq3.Qwen3Config(**LLM))
+    folder.mkdir()
+    enc = tfn.init_params(cfg, _g(1), "cpu")
+    params = enc if head == "ctc" else {"encoder": enc, "llm": tq3.init_params(cfg.llm, _g(2), "cpu")}
+    meta = ModelMetadata(family="fun_asr_nano" if head == "ctc" else "fun_asr_nano_llm",
+                         tokenizer=_vocab_txt(folder, 120),
+                         extra={"config": dataclasses.asdict(cfg), "prompt_head_ids": [1, 2],
+                                "prompt_suffix_ids": [3], "prompt_tail_ids": [4, 5]})
+    save_model(folder, params, meta)
+    return folder
+
+
+def _wav(path: Path, n: int, seed: int, scale: float = 2000.0) -> str:
+    pcm = np.clip(np.random.default_rng(seed).standard_normal(n) * scale, -32768, 32767)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.astype(np.int16).tobytes())
+    return str(path)
+
+
+def _text_lines(out: str) -> list[str]:
+    """Every file's text line (the second of its two), and its audio length."""
+    lines = out.strip().splitlines()
+    return [(a.split("\t")[0], a.split("\t")[1].split(",")[0], b)
+            for a, b in zip(lines[::2], lines[1::2])]
+
+
+def _both(capsys, argv: list[str]) -> tuple[str, str]:
+    assert cli.main(["--platform", "cpu", "--quant-mm", "f32", *argv]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(["--compile-cache", "", "--quant-mm", "f32", *argv]) == 0
+    return got, capsys.readouterr().out
+
+
+def test_inspect_matches_jax(tmp_path, capsys):
+    folder = _sensevoice(tmp_path / "sv")
+    got, want = _both(capsys, ["inspect", "--model-dir", str(folder)])
+    assert json.loads(got) == json.loads(want)
+    assert json.loads(got)["family"] == "sensevoice"
+
+
+@pytest.mark.parametrize("family", ["sensevoice", "fun_asr_nano", "fun_asr_nano_llm"])
+def test_transcribe_one_and_several_files_match_jax(tmp_path, capsys, family):
+    folder = (_sensevoice(tmp_path / "m") if family == "sensevoice"
+              else _fun_asr_nano(tmp_path / "m", "ctc" if family == "fun_asr_nano" else "llm"))
+    files = [_wav(tmp_path / f"{i}.wav", n, i) for i, n in enumerate((12000, 20000))]
+    for audio in (files[:1], files):
+        got, want = _both(capsys, ["transcribe", "--model-dir", str(folder), *audio])
+        assert _text_lines(got) == _text_lines(want)
+        assert len(_text_lines(got)) == len(audio)
+        assert all(t.startswith("t") for _, _, t in _text_lines(got))  # decoded text, not ids
+
+
+def test_transcribe_batch_route_gives_each_file_its_own_ids(tmp_path, capsys):
+    folder = _sensevoice(tmp_path / "sv")
+    files = [_wav(tmp_path / f"{i}.wav", n, 10 + i) for i, n in enumerate((9000, 30000, 140000))]
+    assert cli.main(["--platform", "cpu", "transcribe", "--model-dir", str(folder), *files]) == 0
+    together = _text_lines(capsys.readouterr().out)
+    for f, line in zip(files, together):
+        assert cli.main(["--platform", "cpu", "transcribe", "--model-dir", str(folder), f]) == 0
+        assert _text_lines(capsys.readouterr().out) == [line]
+    assert cli.main(["--platform", "cpu", "transcribe", "--dtype", "float32", "--model-dir",
+                     str(folder), files[0]]) == 0
+    assert _text_lines(capsys.readouterr().out) == together[:1]
+
+
+def test_quantize_round_trip_matches_jax(tmp_path, capsys):
+    folder = _sensevoice(tmp_path / "sv")
+    argv = ["quantize", "--model-dir", str(folder), "--bits", "8", "--min-size", "0",
+            "--refine-iters", "0"]
+    assert cli.main(["--platform", "cpu", *argv, "--out", str(tmp_path / "t")]) == 0
+    assert jcli.main(["--compile-cache", "", *argv, "--out", str(tmp_path / "j")]) == 0
+    capsys.readouterr()
+    got, want = read_safetensors(tmp_path / "t" / "weights.safetensors"), read_safetensors(
+        tmp_path / "j" / "weights.safetensors")
+    assert sorted(got) == sorted(want) and any("__quant__" in k for k in got)
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    tmeta = ModelMetadata.load(tmp_path / "t")
+    assert tmeta.extra["quantization"] == jmeta.ModelMetadata.load(tmp_path / "j").extra["quantization"]
+    assert (tmp_path / "t" / "vocab.txt").read_text() == (folder / "vocab.txt").read_text()
+    wav = _wav(tmp_path / "a.wav", 16000, 3)
+    got, want = _both(capsys, ["transcribe", "--model-dir", str(tmp_path / "t"), wav])
+    assert _text_lines(got) == _text_lines(want)
+
+
+def _aligner(folder: Path) -> Path:
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    cfg = tfa.ForcedAlignerConfig(asr=tqa.QwenAsrConfig(**TOWER, llm=tq3.Qwen3Config(**LLM)),
+                                  classify_num=25)
+    folder.mkdir()
+    g = _g(3)
+    params = {"tower": tqa.init_tower_params(cfg.asr, g, "cpu"),
+              "llm": tq3.init_params(cfg.asr.llm, g, "cpu"),
+              "head": {"w": torch.randn((48, 25), generator=g) * 0.1}}
+    words = ["[UNK]", "hello", "world", "again", "he", "llo"]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(str(folder / "tokenizer.json"))
+    meta = ModelMetadata(family="qwen_aligner", tokenizer={"kind": "hf", "file": "tokenizer.json"},
+                         special_token_ids={"timestamp": 110, "audio_start": 111, "audio_end": 112},
+                         extra={"config": dataclasses.asdict(cfg), "timestamp_tokens_per_word": 2})
+    save_model(folder, params, meta)
+    return folder
+
+
+def test_align_matches_jax(tmp_path, capsys):
+    folder = _aligner(tmp_path / "fa")
+    wav = _wav(tmp_path / "a.wav", 28000, 4, scale=3000.0)
+    got, want = _both(capsys, ["align", "--model-dir", str(folder), "--text", "hello, world again",
+                               wav])
+    assert got == want
+    assert [line.split()[-1] for line in got.strip().splitlines()] == ["hello", "world", "again"]
+    folder_sv = _sensevoice(tmp_path / "sv")
+    with pytest.raises(SystemExit, match="forced-aligner"):
+        cli.main(["--platform", "cpu", "align", "--model-dir", str(folder_sv), "--text", "x", wav])
+
+
+def test_serve_dispatch(tmp_path, monkeypatch):
+    from asr_tpu_torch.parallel import http_server, llm_server
+
+    calls = []
+    monkeypatch.setattr(http_server, "serve_forever", lambda sess, **kw: calls.append(("mb", sess, kw)))
+    monkeypatch.setattr(llm_server, "serve_continuous", lambda sess, **kw: calls.append(("cont", sess, kw)))
+    sv = _sensevoice(tmp_path / "sv")
+    llm = _fun_asr_nano(tmp_path / "llm", "llm")
+    assert cli.main(["--platform", "cpu", "serve", "--model-dir", str(sv), "--max-batch", "4"]) == 0
+    assert cli.main(["--platform", "cpu", "serve", "--model-dir", str(llm), "--continuous",
+                     "--slots", "3", "--kv-dtype", "bf16", "--steps-per-tick", "2"]) == 0
+    (k1, s1, kw1), (k2, s2, kw2) = calls
+    assert k1 == "mb" and type(s1).__name__ == "SenseVoiceSession"
+    assert kw1 == {"host": "127.0.0.1", "port": 8000, "max_batch": 4, "max_wait_ms": 5.0,
+                   "language": None}
+    assert k2 == "cont" and type(s2).__name__ == "FunAsrNanoLlmSession"
+    assert kw2 == {"host": "127.0.0.1", "port": 8000, "n_slots": 3, "language": None, "context": "",
+                   "kv_dtype": "bf16", "steps_per_tick": 2}
+    with pytest.raises(SystemExit, match="--continuous serves"):
+        cli.main(["--platform", "cpu", "serve", "--model-dir", str(sv), "--continuous"])
+
+
+def test_unknown_family_and_the_card_default(tmp_path, monkeypatch):
+    """A family the port has no session for (paraformer: the JAX package
+    has one) and one neither package knows raise the JAX package's refusal."""
+    for family in ("paraformer", "no_such_family"):
+        folder = tmp_path / family
+        folder.mkdir()
+        save_model(folder, {"w": torch.zeros(2)}, ModelMetadata(family=family))
+        with pytest.raises(SystemExit, match=f"no session wired for family '{family}'"):
+            cli.main(["--platform", "cpu", "transcribe", "--model-dir", str(folder), "x.wav"])
+    with pytest.raises(SystemExit, match="no session wired for family 'no_such_family'"):
+        jcli.main(["--compile-cache", "", "transcribe", "--model-dir", str(folder), "x.wav"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["inspect", "--model-dir", str(folder)],
+                 ["--platform", "gpu", "inspect", "--model-dir", str(folder)]):
+        with pytest.raises(SystemExit, match="no CUDA card"):
+            cli.main(argv)
+
+
+def test_cast_pytree_matches_jax():
+    from asr_tpu.quant.quantize import cast_pytree as jcast
+    from asr_tpu.runtime import artifact as jart
+    from asr_tpu_torch.runtime import artifact as tart
+
+    tree = {"a": np.ones((2, 3), np.float32), "b": [np.arange(4, dtype=np.int32)],
+            "c": {"d": np.zeros(5, np.float32)}}
+    got = cast_pytree(tart.params_from_flat(tart.flatten_pytree(tree), "cpu"), "bfloat16")
+    got = {"a": got["a"].dtype, "b/0": got["b"][0].dtype, "c/d": got["c"]["d"].dtype}
+    want = jart.flatten_pytree(jcast(jax.tree.map(jax.numpy.asarray, tree), jax.numpy.bfloat16))
+    assert {k: str(v).replace("torch.", "") for k, v in got.items()} == {
+        k: str(v.dtype) for k, v in want.items()}
+
+
+# ── artifact tokenizers (_build_tokenizer): six kinds ─────────────────────
+def _tokenizer_files(folder: Path) -> dict:
+    import base64
+
+    from test_runtime import _sp_piece
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    folder.mkdir(exist_ok=True)
+    (folder / "sp.model").write_bytes(b"".join([
+        _sp_piece("<unk>", 0.0, 2), _sp_piece("<s>", 0.0, 3), _sp_piece("▁hello", -1.0),
+        _sp_piece("▁wor", -2.0), _sp_piece("ld", -3.0), _sp_piece("<0xE4>", 0.0, 6),
+        _sp_piece("<0xB8>", 0.0, 6), _sp_piece("<0xAD>", 0.0, 6), _sp_piece("<|zh|>", 0.0, 4)]))
+    (folder / "vocab.txt").write_text("<blank>\n你\n好\n</s>\nab@@\ncd\n", encoding="utf-8")
+    tok = Tokenizer(models.WordLevel({"[UNK]": 0, "hello": 1, "world": 2}, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(str(folder / "tokenizer.json"))
+    (folder / "vocab.json").write_text(json.dumps({"a": 0, "Ã¤": 1, "b": 2}), encoding="utf-8")
+    (folder / "dict.txt").write_text("<blank> 0\n<unk> 1\n你 2\n▁he 3\nllo 4\n<space> 5\n",
+                                     encoding="utf-8")
+    (folder / "tiktoken.txt").write_text("".join(
+        f"{base64.b64encode(t).decode()} {i}\n" for i, t in enumerate([b"he", b"llo", b" w", "中".encode()])))
+    return {"sentencepiece": ("sp.model", [2, 3, 4, 5, 6, 7, 8, 1]),
+            "vocab_txt": ("vocab.txt", [1, 2, 0, 4, 5, 3]),
+            "hf": ("tokenizer.json", [1, 2, 0]),
+            "json": ("vocab.json", [0, 1, 2, 9]),
+            "firered_dict": ("dict.txt", [3, 4, 5, 2, 0, 1]),
+            "tiktoken": ("tiktoken.txt", [0, 1, 2, 3, 5, 6, 4000])}
+
+
+@pytest.mark.parametrize("kind", ["sentencepiece", "vocab_txt", "hf", "json", "firered_dict",
+                                  "tiktoken"])
+@pytest.mark.parametrize("decode_mode", ["zh", "en"])
+def test_build_tokenizer_decodes_as_jax(tmp_path, kind, decode_mode):
+    file, ids = _tokenizer_files(tmp_path)[kind]
+    extra = {"decode_mode": decode_mode}
+    tok = cli._build_tokenizer(tmp_path, ModelMetadata(family="x", tokenizer={"kind": kind, "file": file},
+                                                       extra=extra))
+    jtok = jcli._build_tokenizer(tmp_path, jmeta.ModelMetadata(
+        family="x", tokenizer={"kind": kind, "file": file}, extra=extra))
+    assert type(tok).__name__ == type(jtok).__name__
+    assert tok.decode(ids) == jtok.decode(ids)
+    assert tok.decode(ids)
+
+
+def test_build_tokenizer_returns_none_without_a_file(tmp_path):
+    _tokenizer_files(tmp_path)
+    for tokenizer in ({}, {"kind": "vocab_txt", "file": "missing.txt"},
+                      {"kind": "unknown", "file": "vocab.txt"}):
+        assert cli._build_tokenizer(tmp_path, ModelMetadata(family="x", tokenizer=tokenizer)) is None
+
+
+def test_module_help_runs():
+    proc = subprocess.run([sys.executable, "-m", "asr_tpu_torch", "--help"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for word in ("transcribe", "inspect", "quantize", "align", "serve", "--platform", "--quant-mm"):
+        assert word in proc.stdout
+    for word in ("build", "parity", "bench", "serve-stream", "--compile-cache", "--quant-kernel"):
+        assert word not in proc.stdout

@@ -19,8 +19,10 @@ step against its plain version and, slot by slot, bitwise against the
 batch-1 kernel (at B = 2, 8, 17 and 32 with parked slots too), its
 wrapper's checks, and its launch count in a continuous Qwen3-ASR serving
 run; the two steps' shared tensor-core matvec alone against its plain
-version at the five Qwen3-ASR-0.6B shapes for 1-32 rows. Each test skips
-where no card is present.
+version at the five Qwen3-ASR-0.6B shapes for 1-32 rows; the int8, int4
+and int2 sources each built twice (two cache keys) and both libraries
+launched side by side in one process. Each test skips where no card is
+present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -1014,3 +1016,35 @@ def test_qwen_continuous_serving_launches_multi_kernel_once_per_step():
     assert st["step_kernel"] == "fused" and st["decoder"] == "llm" and st["requests_served"] == 3
     assert fdm.LAUNCHES - before_m == st["decode_steps"] > 0
     assert fd.LAUNCHES == before_f
+
+
+# (source attribute of quant_matmul, packed parts or 0 for int8, K, N): a
+# decode (M = 1) and a prefill (M = 432) call through each of two libraries.
+LINKAGE_CASES = [("SOURCE", 0, 1280, 5120), ("SOURCE_INT4", 2, 1024, 6144),
+                 ("SOURCE_INT2", 4, 1024, 6144)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attr,parts,k,n", LINKAGE_CASES)
+def test_two_libraries_of_one_source_launch_side_by_side(attr, parts, k, n):
+    """The same source built under two cache keys and both libraries loaded
+    in this process: bf16 calls through each launch and agree bitwise (the
+    kernels' launch helpers have internal linkage, so the second library
+    sets its own kernels' shared-memory limit)."""
+    _need_card()
+    source = getattr(qm, attr)
+    second = qm.load_library(source, salt="linkage-test")
+    g = torch.Generator(device="cuda").manual_seed(k + n + parts)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5,
+                           {0: 8, 2: 4, 4: 2}[parts], 128, pack=parts > 0)
+    for m in (1, 432):
+        x = torch.randn((m, k), generator=g, device="cuda")
+        args = (x, leaf.q, leaf.scale, leaf.zero, 128, "bf16")
+        if parts:
+            first = qm._packed_launch(source.stem, parts, *args)
+            other = qm._packed_launch(source.stem, parts, *args, lib=second)
+        else:
+            first = qm._int8_launch(*args)
+            other = qm._int8_launch(*args, lib=second)
+        torch.cuda.synchronize()
+        assert torch.equal(first, other)

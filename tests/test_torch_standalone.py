@@ -2,8 +2,10 @@
 ``chip_smoke.py`` nor ``chip_ab_step.py`` imports JAX or anything of the JAX
 package ``asr_tpu``; the host modules the port keeps its own copies of (metadata, audio ingest, the
 FLAC decoder, mel banks, window-text joining, RoPE tables, Qwen output
-parsing) agree with the originals on the same inputs; the loaders run on
-the card unless the caller asks for the CPU.
+parsing, the tokenizers and the demo-audio registry) agree with the
+originals on the same inputs; the loaders and the command line run on the
+card unless the caller asks for the CPU, and the command line imports
+neither JAX nor the JAX package.
 
 Both packages' audio and FLAC paths prefer their native C++ layers (the
 port keeps its own copy, ``asr_tpu_torch/native``); the comparisons of the
@@ -110,6 +112,24 @@ leaf2 = quantize_linear(torch.randn(512, 128), bits=2, pack=True)
 assert leaf2.packed and qm.quant_dense(torch.randn(3, 512), leaf2).shape == (3, 128)
 from asr_tpu_torch.runtime import audio as taudio
 assert taudio.resample(np.ones(4410, np.float32), 44100, 16000).shape == (1600,)
+from asr_tpu_torch.models import forced_aligner as fa, fun_asr_nano as fn
+from asr_tpu_torch.runtime.aligner_session import QwenAlignerSession
+from asr_tpu_torch.runtime.qwen_session import FunAsrNanoLlmSession
+from asr_tpu_torch.runtime.transducer_session import FunAsrNanoCtcSession
+qm.set_quant_config(mm="f32")
+fcfg = fn.FunAsrNanoConfig(hidden=32, num_heads=4, head_dim=8, ffn_dim=48, num_encoders0=1,
+                           num_encoders=1, num_tp_encoders=1, fsmn_kernel=5, adaptor_hidden=256,
+                           adaptor_blocks=1, adaptor_heads=4, adaptor_ffn=64, ctc_hidden=32,
+                           ctc_blocks=1, ctc_heads=4, ctc_ffn=48, ctc_vocab=50, llm=lcfg, eot_id=-1)
+fparams = quantize_pytree(fn.init_params(fcfg, g, "cpu"), min_size=1024)
+assert FunAsrNanoCtcSession(fparams, fcfg, window_seconds=1.0).transcribe(np.ones(20000, np.float32))
+fsess = FunAsrNanoLlmSession(fparams, qllm, fcfg, max_new_tokens=2, max_seconds=1.0)
+assert len(fsess.transcribe(np.ones(9000, np.float32)).token_ids) == 3
+acfg = fa.ForcedAlignerConfig(asr=qcfg, classify_num=25)
+asess = QwenAlignerSession(qtower, qllm, {"w": torch.randn(256, 25)}, acfg,
+                           type("T", (), {"encode": lambda self, t: [7, 8]})(),
+                           {"timestamp": 10, "audio_start": 11, "audio_end": 12}, max_seconds=1.0)
+assert [w["text"] for w in asess.align(np.zeros(8000, np.float32), "a b")] == ["a", "b"]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
 assert not leaked, leaked
 print("STANDALONE_OK", len(out["token_ids"]))
@@ -119,8 +139,8 @@ print("STANDALONE_OK", len(out["token_ids"]))
 def test_port_runs_without_jax_or_the_jax_package():
     """Every module imported, the SenseVoice forward, a Whisper
     transcription, the continuous server, a q4 Qwen3-ASR transcription, a
-    packed-int2 product and a (native, where g++ builds it) resample, in a
-    fresh process."""
+    packed-int2 product, a (native, where g++ builds it) resample, both
+    Fun-ASR-Nano sessions and a forced alignment, in a fresh process."""
     proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -128,13 +148,69 @@ def test_port_runs_without_jax_or_the_jax_package():
 
 
 def test_loaders_default_to_the_card():
+    from asr_tpu_torch.cli import _build_session
     from asr_tpu_torch.runtime.artifact import load_model
     from asr_tpu_torch.runtime.qwen_session import load_qwen_session
     from asr_tpu_torch.runtime.session import load_session
     from asr_tpu_torch.runtime.whisper_session import load_whisper_session
 
-    for fn in (load_model, load_session, load_whisper_session, load_qwen_session):
+    for fn in (load_model, load_session, load_whisper_session, load_qwen_session, _build_session):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
+def test_cli_runs_without_jax_or_the_jax_package(tmp_path):
+    """``python -m asr_tpu_torch --platform cpu`` in a fresh process: inspect
+    and transcribe an artifact folder, with neither ``jax`` nor ``asr_tpu``
+    imported."""
+    import torch
+
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.runtime.artifact import ModelMetadata, save_model
+
+    cfg = sv.SenseVoiceConfig(vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
+                              num_encoders0=1, num_encoders=1, num_tp_encoders=1, fsmn_kernel=5)
+    (tmp_path / "vocab.txt").write_text("".join(f"w{i}\n" for i in range(64)))
+    save_model(tmp_path, sv.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+               ModelMetadata(family="sensevoice", tokenizer={"kind": "vocab_txt", "file": "vocab.txt"},
+                             extra={"config": dataclasses.asdict(cfg)}))
+    wav = tmp_path / "a.wav"
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.random.default_rng(0).standard_normal(12000) * 2000).astype(np.int16).tobytes())
+    script = ("import sys; from asr_tpu_torch.cli import main\n"
+              f"main(['--platform', 'cpu', 'inspect', '--model-dir', {str(tmp_path)!r}])\n"
+              f"main(['--platform', 'cpu', 'transcribe', '--model-dir', {str(tmp_path)!r}, {str(wav)!r}])\n"
+              "leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'asr_tpu'))\n"
+              "assert not leaked, leaked\nprint('CLI_OK')\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "CLI_OK" in proc.stdout and '"family": "sensevoice"' in proc.stdout
+    assert proc.stdout.splitlines()[-2].startswith("w")  # the decoded text line
+
+
+@pytest.mark.parametrize("name", ["tokenizer", "examples"])
+def test_host_copies_are_the_originals(name):
+    """``runtime/tokenizer.py`` and ``runtime/examples.py`` are the JAX
+    package's files, byte for byte apart from the package name in imports."""
+    got = (REPO / "asr_tpu_torch" / "runtime" / f"{name}.py").read_text()
+    want = (REPO / "asr_tpu" / "runtime" / f"{name}.py").read_text()
+    assert got == want.replace("from asr_tpu.", "from asr_tpu_torch.")
+
+
+def test_examples_registry_matches(tmp_path):
+    from asr_tpu.runtime import examples as jex
+    from asr_tpu_torch.runtime import examples as tex
+
+    for rel in ("en/test_sample.wav", "zh/zh-Shanghai.wav", "ja/ja.mp3"):
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes(b"")
+    assert tex.TEST_EXAMPLES_DIR == jex.TEST_EXAMPLES_DIR
+    for family in ("sensevoice", "whisper", "dolphin", "fun_asr_nano", "forced_aligner", "none"):
+        assert tex.model_audio_cases(family, tmp_path) == jex.model_audio_cases(family, tmp_path)
+    assert tex.model_audio_cases("sensevoice", tmp_path)[0] == ("en", tmp_path / "en/test_sample.wav")
 
 
 def _meta(mod):
