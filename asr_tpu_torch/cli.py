@@ -3,10 +3,11 @@ artifact folders (``python -m asr_tpu_torch``).
 
 Counterpart of ``asr_tpu/cli.py`` with the same subcommands' flags and
 defaults, for the families the port runs: ``sensevoice``, ``whisper``,
-``qwen_asr``, ``fun_asr_nano`` (the CTC head), ``fun_asr_nano_llm`` and
-``qwen_aligner``. ``--platform`` picks the torch device: the CUDA card by
-default (it raises where no card is visible), ``cpu`` when asked for.
-``--quant-mm`` sets the quantized kernels' matmul mode.
+``firered``, ``dolphin``, ``qwen_asr``, ``fun_asr_nano`` (the CTC head),
+``fun_asr_nano_llm`` and ``qwen_aligner``. ``--platform`` picks the torch
+device: the CUDA card by default (it raises where no card is visible),
+``cpu`` when asked for. ``--quant-mm`` sets the quantized kernels' matmul
+mode.
 
 Not here (they wait for later slices of the port): the ``build``,
 ``optimize``, ``parity``, ``bench`` and ``serve-stream`` subcommands,
@@ -25,8 +26,8 @@ import shutil
 import sys
 from pathlib import Path
 
-FAMILIES = ("sensevoice", "whisper", "qwen_asr", "fun_asr_nano", "fun_asr_nano_llm",
-            "qwen_aligner")
+FAMILIES = ("sensevoice", "whisper", "firered", "dolphin", "qwen_asr", "fun_asr_nano",
+            "fun_asr_nano_llm", "qwen_aligner")
 
 
 def _device(platform: str):
@@ -84,6 +85,20 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
                     if p.prompt_token_id is not None}
         return WhisperSession(params, config_from_dict(WhisperConfig, cfg_dict),
                               tokenizer=tokenizer, session_cfg=scfg, language_id_map=lang_map)
+
+    if family == "firered":
+        from asr_tpu_torch.models.firered import FireRedConfig
+        from asr_tpu_torch.runtime.transducer_session import FireRedSession
+
+        return FireRedSession(params, config_from_dict(FireRedConfig, cfg_dict), tokenizer=tokenizer)
+
+    if family == "dolphin":
+        from asr_tpu_torch.models.dolphin import DolphinConfig
+        from asr_tpu_torch.runtime.transducer_session import DolphinSession
+
+        return DolphinSession(params, config_from_dict(DolphinConfig, cfg_dict), tokenizer=tokenizer,
+                              language_catalog=meta.extra.get("dolphin_language_catalog") or {},
+                              language=language)
 
     if family == "fun_asr_nano":
         from asr_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
@@ -202,8 +217,8 @@ def cmd_serve(args) -> int:
         if not (hasattr(sess, "prompt_embeds") or hasattr(sess, "continuous_prefill")):
             raise SystemExit(
                 f"--continuous serves the LLM families (qwen_asr, fun_asr_nano_llm) and the "
-                f"AED family (whisper); {type(sess).__name__} has neither surface — rerun "
-                "without --continuous")
+                f"AED families (whisper, firered, dolphin); {type(sess).__name__} has neither "
+                "surface — rerun without --continuous")
         from asr_tpu_torch.parallel.llm_server import serve_continuous
 
         serve_continuous(sess, host=args.host, port=args.port, n_slots=args.slots,

@@ -7,6 +7,9 @@ plus the fresh row (which is written into the cache at ``pos`` in place),
 o-proj, LN + cross-q, cross-attention over the first ``tc_valid`` cross
 rows, cross-o, LN + exact-GELU MLP; then the final LN and the q8 tied head.
 
+:func:`fused_ar_decode` is the batch-1 decode loop of FireRed and Dolphin
+over it (Whisper keeps its own in ``models/whisper.py``).
+
 :func:`fused_aed_step` runs it on a CUDA tensor through the hand-written
 Hopper kernel ``asr_tpu_torch/csrc/fused_aed_step.cu`` (nvcc, ``sm_90a``,
 bound with ``ctypes``) or raises; on a CPU tensor it runs the plain PyTorch
@@ -536,3 +539,48 @@ def fused_whisper_step(stacked: dict, cfg, x, k_self, v_self, cross_k, cross_v, 
     """Whisper adapter for :func:`fused_aed_step` (geometry from cfg)."""
     return fused_aed_step(stacked, AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads), x,
                           k_self, v_self, cross_k, cross_v, pos, tc_valid=tc_valid)
+
+
+def fused_ar_decode(params: dict, cfg, state: dict, enc: torch.Tensor, enc_valid: torch.Tensor,
+                    first: torch.Tensor, buf: torch.Tensor, decode_cfg,
+                    generator: torch.Generator | None = None, stacked: dict | None = None,
+                    start_pos: int = 1):
+    """The batch-1 AR decode loop of the sqrt(d)-scaled-embedding AED
+    families (FireRed, Dolphin: their ``_decoder_pass`` input math
+    ``embed[token] * sqrt(d) + positions[pos]``, tied head), every step one
+    :func:`fused_aed_step` call over the utterance's ``enc_valid[0]`` cross
+    rows (at least one, as the multi-slot step clamps them).
+
+    The route applies to stacked weights at batch 1 in the bf16 mode;
+    otherwise this returns None and the caller runs the per-weight step
+    (batch > 1, the f32 mode). Else returns ``ar_decode``'s (tokens,
+    counts). Whisper keeps its own loop (``models/whisper.transcribe_window``):
+    its input math differs (unscaled embed + learned positions)."""
+    from asr_tpu_torch.decode.ar import ar_decode
+    from asr_tpu_torch.layers.conformer import absolute_positions
+    from asr_tpu_torch.ops.quant_matmul import _resolve_mm
+
+    if stacked is None or enc.shape[0] != 1 or _resolve_mm(None) != "bf16":
+        return None
+    d = cfg.d_model
+    geom = AedGeom(d, cfg.dec_ffn, cfg.dec_heads)
+    layers = state["layers"]
+    t_max, tc = layers[0]["self_k"].shape[1], layers[0]["cross_k"].shape[1]
+    # (NL, T, D) stacks, made once before the loop; the step writes the
+    # fresh self rows into kc / vc in place.
+    kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers])
+    vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers])
+    ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers])
+    cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers])
+    del state, layers
+    dec = params["decoder"]
+    pos_table = absolute_positions(cfg.max_target_positions, d, enc.device)
+    tc_valid = min(max(int(enc_valid[0]), 1), tc)
+
+    def fused_step_fn(st, token, pos):
+        x = dec["embed"][token[:, 0]] * (d ** 0.5) + pos_table[pos : pos + 1]
+        lg, _, _ = fused_aed_step(stacked, geom, x.to(torch.float32), kc, vc, ck, cv, pos,
+                                  tc_valid=tc_valid)
+        return lg[:, : cfg.vocab_size], st
+
+    return ar_decode(fused_step_fn, None, start_pos, first, buf, decode_cfg, generator)

@@ -1,8 +1,8 @@
 """Continuous batching for the AED encoder-decoder families.
 
-Counterpart of ``asr_tpu/parallel/aed_batcher.py`` (the Whisper half: the
-``"learned"`` input math). Requests join and leave a running decode batch
-mid-flight:
+Counterpart of ``asr_tpu/parallel/aed_batcher.py``: Whisper's ``"learned"``
+input math and FireRed's and Dolphin's ``"scaled_relpos"`` one. Requests
+join and leave a running decode batch mid-flight:
 
 - Decode state lives on the device at fixed shapes: per-slot self-KV and
   per-slot cross-KV (each request's own encoder output), with per-slot
@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from asr_tpu_torch.decode.ar import DecodeConfig
 from asr_tpu_torch.layers.attention import NEG_INF, mha
+from asr_tpu_torch.layers.conformer import absolute_positions
 from asr_tpu_torch.layers.norms import layer_norm
 from asr_tpu_torch.layers.transformer import dense, merge_heads, split_heads
 from asr_tpu_torch.ops.fused_aed_multi import fused_aed_step_multi, kernel_takes
@@ -71,16 +72,31 @@ def spec_for_whisper(cfg) -> AedEngineSpec:
         tc_max=cfg.max_source_positions, embed="learned")
 
 
+def spec_for_aed(cfg, tc_max: int) -> AedEngineSpec:
+    """FireRed / Dolphin: sqrt(d)-scaled embeds + reversed-relative PE."""
+    return AedEngineSpec(
+        d_model=cfg.d_model, ffn_dim=cfg.dec_ffn, num_heads=cfg.dec_heads,
+        vocab_size=cfg.vocab_size, t_max=cfg.max_target_positions,
+        tc_max=tc_max, embed="scaled_relpos")
+
+
 def _embed_rows(dec: dict, spec: AedEngineSpec, tokens: torch.Tensor,
                 pos: torch.Tensor) -> torch.Tensor:
-    """Family input math for one token per slot -> (B, D) f32 rows:
-    ``embed[token] + pos_table[pos]`` (Whisper)."""
-    if spec.embed != "learned":
-        raise NotImplementedError(
-            f"input math {spec.embed!r} (FireRed / Dolphin) comes with the port's "
-            "FireRed and Dolphin slice")
+    """Family input math for one token per slot -> (B, D) f32 rows.
+
+    learned: ``embed[token] + pos_table[pos]`` (Whisper,
+    ``models/whisper._decoder_pass``); scaled_relpos:
+    ``embed[token] * sqrt(d) + reversed-relative-PE[pos]``
+    (``models/firered._decoder_pass`` / ``models/dolphin._decoder_pass``)."""
     logical = torch.clamp(pos, 0, spec.t_max - 1).to(torch.int64)
-    return (dec["embed"][tokens] + dec["pos"][logical]).to(torch.float32)
+    if spec.embed == "learned":
+        x = dec["embed"][tokens] + dec["pos"][logical]
+    elif spec.embed == "scaled_relpos":
+        pos_table = absolute_positions(spec.t_max, spec.d_model, tokens.device)
+        x = dec["embed"][tokens] * (spec.d_model ** 0.5) + pos_table[logical]
+    else:
+        raise ValueError(f"unknown input math {spec.embed!r}")
+    return x.to(torch.float32)
 
 
 def aed_decoder_step_rowwise(dec: dict, spec: AedEngineSpec, x: torch.Tensor, state: dict,
@@ -144,7 +160,7 @@ class ContinuousAedBatcher(SlotEngine):
 
     Args:
       params: the family's params (``params["decoder"]`` holds the
-        ``layers/transformer.decoder_block`` blocks + embed/pos/ln[/out]).
+        ``layers/transformer.decoder_block`` blocks + embed/ln[/pos][/out]).
       spec: :class:`AedEngineSpec`.
       decode_cfg: strategy/penalty/sampling + ``max_new_tokens``, the solo
         ``ar_decode`` loop's semantics.
@@ -167,8 +183,8 @@ class ContinuousAedBatcher(SlotEngine):
         self.dec = params["decoder"]
         self.spec = spec
         self.kv_dtype = kv_dtype
-        self._init_slots(n_slots, decode_cfg, spec.t_max, spec.vocab_size, self.dec["pos"].device,
-                         seed, steps_per_tick, noise)
+        self._init_slots(n_slots, decode_cfg, spec.t_max, spec.vocab_size,
+                         self.dec["ln"]["scale"].device, seed, steps_per_tick, noise)
         self._geom = AedGeom(spec.d_model, spec.ffn_dim, spec.num_heads)
         self.stacked = (stacked if stacked is not None and kernel_takes(self._geom, self.n_slots)
                         else None)

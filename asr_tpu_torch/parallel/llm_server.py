@@ -1,5 +1,5 @@
-"""Continuous-batching HTTP serving (the LLM families: Qwen3-ASR; the AED
-families: Whisper).
+"""Continuous-batching HTTP serving (the LLM families: Qwen3-ASR,
+Fun-ASR-Nano; the AED families: Whisper, FireRed, Dolphin).
 
 Counterpart of ``asr_tpu/parallel/llm_server.py``. The micro-batched
 ``SessionServer`` (``http_server.py``) runs each batch to its end before the
@@ -64,8 +64,9 @@ class ContinuousSessionServer:
     ``llm_params``, ``llm_cfg``, ``decode_cfg``, ``window_samples``), as
     ``QwenAsrSession`` does, or the AED one (``continuous_prefill``,
     ``aed_engine_spec``, ``params``, ``decode_cfg``, ``window_samples``), as
-    ``WhisperSession`` does. With the session's stacked weights (q4 for the
-    LLM, q8 for AED) every decode step is one multi-slot kernel call
+    ``WhisperSession``, ``FireRedSession`` and ``DolphinSession`` do. With
+    the session's stacked weights (q4 for the LLM, q8 for AED) every decode
+    step is one multi-slot kernel call
     (``step_kernel`` "fused" in ``/healthz``), else the rowwise step
     ("rowwise": a q2 LLM, which does not stack, serves this way). An LLM engine's caches hold one prefill bucket of the
     session's (fixed) prompt length plus the token budget.

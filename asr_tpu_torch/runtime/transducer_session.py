@@ -3,10 +3,19 @@ decode, RTF.
 
 Counterpart of ``asr_tpu/runtime/transducer_session.py`` for the families
 the port runs so far: the shared windowed machinery (``_WindowedSession``,
-without the ``mesh=`` data-parallel runner) and Fun-ASR-Nano's fast CTC
-head (``FunAsrNanoCtcSession``). Each session wraps a model module's
-forward with the family's PCM convention; the parameters' device is the
-session's.
+without the ``mesh=`` data-parallel runner), the AED families FireRed
+(``FireRedSession``) and Dolphin (``DolphinSession``, with its language /
+region probes and catalog), and Fun-ASR-Nano's fast CTC head
+(``FunAsrNanoCtcSession``). Each session wraps a model module's forward
+with the family's PCM convention; the parameters' device is the session's.
+
+The AED sessions stack their q8 decoder for the fused step kernel
+(``ops/fused_aed_step.py``) where it runs (a CUDA card, the bf16 mode): a
+one-window transcription then runs every decode step as one kernel call.
+Their continuous-serving surface (``aed_engine_spec``,
+``continuous_prefill``) feeds ``parallel/llm_server.ContinuousSessionServer``,
+whose batcher steps every slot through the multi-slot kernel with the same
+stacked weights.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from asr_tpu_torch.layers.conformer import subsampled_length
 from asr_tpu_torch.runtime import audio as audio_io
 from asr_tpu_torch.runtime.session import TranscribeResult, bucket_windows
 
@@ -41,6 +51,33 @@ def _params_device(tree) -> torch.device:
         elif hasattr(node, "q"):  # a quantized leaf
             stack.append(node.q)
     return torch.device("cpu")
+
+
+def _aed_stacked(sess, cfg):
+    """Stacked q8 decoder weights for the fused AED step
+    (``ops/fused_aed_step.stack_aed_step_params``), or None: built only where
+    the kernel runs (parameters on a CUDA card, the bf16 mode), since the
+    stacked copy duplicates the q8 decoder and the (D, V_pad) head."""
+    if sess.device.type != "cuda" or not isinstance(sess.params, dict) \
+            or "decoder" not in sess.params:
+        return None
+    from asr_tpu_torch.ops.fused_aed_step import AedGeom, stack_aed_step_params
+    from asr_tpu_torch.ops.quant_matmul import _resolve_mm
+
+    if _resolve_mm(None) != "bf16":
+        return None
+    return stack_aed_step_params(sess.params["decoder"],
+                                 AedGeom(cfg.d_model, cfg.dec_ffn, cfg.dec_heads))
+
+
+def _one_window(sess, samples) -> tuple[torch.Tensor, torch.Tensor]:
+    """One zero-padded window of ``samples`` and its valid count, on the
+    session's device (a continuous request's prefill input)."""
+    s = np.asarray(samples, np.float32)[: sess.window_samples]
+    buf = np.zeros((1, sess.window_samples), np.float32)
+    buf[0, : len(s)] = s
+    return (torch.from_numpy(buf).to(sess.device),
+            torch.tensor([len(s)], dtype=torch.int64, device=sess.device))
 
 
 class _WindowedSession:
@@ -117,6 +154,160 @@ class _WindowedSession:
                                             audio_seconds=float(valid[i]) / self.sample_rate,
                                             elapsed_seconds=elapsed, batch_size=len(paths)))
         return results
+
+
+class FireRedSession(_WindowedSession):
+    """FireRedASR-AED offline: Kaldi int16-range PCM, 30 s windows, greedy /
+    penalty / sampling AR decode from [SOS] (the SOS slot is dropped from
+    the ids)."""
+
+    pcm_scale = 32768.0
+
+    def __init__(self, params, cfg, tokenizer=None, decode_cfg=None, **kw):
+        super().__init__(params, cfg, tokenizer, **kw)
+        from asr_tpu_torch.decode.ar import DecodeConfig
+
+        self.decode_cfg = decode_cfg or DecodeConfig(max_new_tokens=224, eot_id=cfg.eos_id,
+                                                     strategy="greedy")
+        self.stacked = _aed_stacked(self, cfg)
+
+    def _forward(self, params, audio, valid):
+        from asr_tpu_torch.models import firered as fr
+
+        toks, counts = fr.transcribe(params, self.cfg, audio, valid, self.decode_cfg,
+                                     stacked=self.stacked if audio.shape[0] == 1 else None)
+        return toks[:, 1:], counts  # drop the SOS slot
+
+    # ---- continuous-batching serving surface (parallel/llm_server.py) ----
+
+    def aed_engine_spec(self):
+        """The engine spec, its cross length computed on the host: the
+        fixed window's fbank frames, the lookahead pad and the two stem
+        convs (``models/firered.encode_from_mel``'s arithmetic)."""
+        from asr_tpu_torch.parallel.aed_batcher import spec_for_aed
+
+        t = self.cfg.fbank.num_frames(self.window_samples) + self.cfg.pad_lookahead
+        return spec_for_aed(self.cfg, subsampled_length(t))
+
+    @torch.inference_mode()
+    def continuous_prefill(self, samples, language: str | None = None) -> dict:
+        """One request's prefilled decode state for the continuous AED engine
+        (``models/firered.prefill_window`` on one window); FireRed takes no
+        language."""
+        from asr_tpu_torch.models import firered as fr
+
+        audio, valid = _one_window(self, samples)
+        pre = fr.prefill_window(self.params, self.cfg, audio, valid, self.decode_cfg)
+        return {"state": pre["state"], "p_len": 1, "logits0": pre["logits0"],
+                "tc_valid": int(pre["enc_valid"][0]), "skip": False}
+
+
+class DolphinSession(_WindowedSession):
+    """Dolphin offline AED with language / region auto-probe: prompt [sos,
+    lang, region] where -1 / -2 ask for the probed language / region token;
+    the ids start after the prompt. ``last_language`` / ``last_region`` hold
+    the probes of the last call."""
+
+    pcm_scale = 32768.0
+    window_seconds = 30.0
+
+    def __init__(self, params, cfg, tokenizer=None, decode_cfg=None, language_id: int = -1,
+                 region_id: int = -2, language_catalog: dict | None = None,
+                 language: str | None = None, **kw):
+        super().__init__(params, cfg, tokenizer, **kw)
+        from asr_tpu_torch.decode.ar import DecodeConfig
+
+        self.decode_cfg = decode_cfg or DecodeConfig(max_new_tokens=224, eot_id=cfg.eos_id,
+                                                     strategy="greedy")
+        self.stacked = _aed_stacked(self, cfg)
+        # ``language_catalog``: the artifact's two-level token catalog
+        # (``dolphin_language_catalog``). ``language`` takes "ja",
+        # "Japanese", "zh-SICHUAN" or "Chinese-Sichuan"-style names and
+        # resolves to forced prompt ids; -1 / -2 keep the probes.
+        self.language_catalog = language_catalog or {}
+        if language:
+            language_id, region_id = self.resolve_language(language)
+        self.language_id = language_id
+        self.region_id = region_id
+        self.last_language: int | None = None
+        self.last_region: int | None = None
+
+    def resolve_language(self, name: str) -> tuple[int, int]:
+        """Name -> (language token id, region token id or -2).
+
+        Takes a model code ("ja", "zh-SICHUAN"), an alias ("Japanese") or an
+        Alias-Region compound ("Chinese-Sichuan"). Raises KeyError listing
+        the catalog when it cannot resolve the name: forcing a language by
+        name never falls back to auto-detection."""
+        cat = self.language_catalog
+        langs = cat.get("languages") or {}
+        regions = cat.get("regions") or {}
+        aliases = {k.lower(): v for k, v in (cat.get("aliases") or {}).items()}
+        want = name.strip()
+        if want.lower() in ("auto", "auto-auto"):
+            return -1, -2
+        lang_part, _, region_part = want.partition("-")
+        code = aliases.get(lang_part.lower(), lang_part.lower())
+        if code not in langs:
+            raise KeyError(
+                f"language {name!r} not in this artifact's catalog "
+                f"(languages: {sorted(langs) or 'none — rebuild with --vocab'}; "
+                f"aliases: {sorted(cat.get('aliases') or {})})")
+        if not region_part or region_part.lower() == "auto":
+            return langs[code], -2
+        region = region_part.upper()
+        if region not in regions:
+            raise KeyError(f"region {region_part!r} not in this artifact's catalog "
+                           f"(regions: {sorted(regions)})")
+        return langs[code], regions[region]
+
+    def _prompt(self, batch: int, language: str | None = None) -> torch.Tensor:
+        lang_id, region_id = (self.resolve_language(language) if language
+                              else (self.language_id, self.region_id))
+        row = torch.tensor([[self.cfg.sos_id, lang_id, region_id]], dtype=torch.int64,
+                           device=self.device)
+        return row.expand(batch, -1).contiguous()
+
+    def _note_probes(self, out: dict) -> None:
+        if "language" in out:
+            self.last_language = int(out["language"][0])
+        if "region" in out:
+            self.last_region = int(out["region"][0])
+
+    def _forward(self, params, audio, valid):
+        from asr_tpu_torch.models import dolphin as dp
+
+        b = audio.shape[0]
+        prompt = self._prompt(b)
+        out = dp.transcribe(params, self.cfg, audio, valid, prompt, self.decode_cfg,
+                            stacked=self.stacked if b == 1 else None)
+        self._note_probes(out)
+        return out["tokens"][:, prompt.shape[1]:], out["counts"]
+
+    # ---- continuous-batching serving surface (parallel/llm_server.py) ----
+
+    def aed_engine_spec(self):
+        """The engine spec, its cross length computed on the host: the
+        fixed window's ``1 + S // hop`` mel frames through the two stem
+        convs (``models/dolphin.encode_from_mel``'s arithmetic); no encoder
+        runs, so no probe touches ``last_language`` / ``last_region``."""
+        from asr_tpu_torch.parallel.aed_batcher import spec_for_aed
+
+        return spec_for_aed(self.cfg, subsampled_length(self.cfg.mel.num_frames(self.window_samples)))
+
+    @torch.inference_mode()
+    def continuous_prefill(self, samples, language: str | None = None) -> dict:
+        """One request's prefilled decode state for the continuous AED engine
+        (``models/dolphin.prefill_window``: encoder, probes, the 3-id prompt);
+        ``language`` forces this request's prompt."""
+        from asr_tpu_torch.models import dolphin as dp
+
+        audio, valid = _one_window(self, samples)
+        pre = dp.prefill_window(self.params, self.cfg, audio, valid, self._prompt(1, language),
+                                self.decode_cfg)
+        self._note_probes(pre)
+        return {"state": pre["state"], "p_len": 3, "logits0": pre["logits0"],
+                "tc_valid": int(pre["enc_valid"][0]), "skip": False}
 
 
 class FunAsrNanoCtcSession(_WindowedSession):

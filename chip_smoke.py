@@ -11,7 +11,9 @@ the int8 dequant-matmul kernel against its plain PyTorch version at every
 int8 shape of the main paths (SenseVoiceSmall at M = 1096 and 137, the
 Whisper encoder and cross-KV at M = 1500, Whisper's per-weight step and
 head at M = 1 and 2, the Qwen3-ASR tower at a 30 s window's rows with
-``conv_out`` at K = 7680, the q2 head at M = 1, 4 and 8), both modes, rows
+``conv_out`` at K = 7680, the q2 head at M = 1, 4 and 8, the FireRed and
+Dolphin encoders at a 30 s window's rows with their rel-pos projections at
+2T - 1 rows, Dolphin's CTC head, both decoders' steps), both modes, rows
 of every batched call bitwise equal to the row alone, device time from a
 CUDA graph beside the host-launched time, the plain version's, the bound
 and a cuBLAS bf16 yardstick; then, for one weight of each split count, rows
@@ -109,7 +111,22 @@ s window's numbers, and ``transcribe_batch`` of 4 on the lockstep route;
 96-token budget), each bitwise equal to it alone through the batcher; (29)
 Qwen3-ForcedAligner-0.6B (q8 tower, packed-q4 LLM, f32 class head) aligning
 a 12-word text to 20 s: monotone timestamps, buckets against a replay with
-plain matmuls on the dequantized weights, ms per call.
+plain matmuls on the dequantized weights, ms per call; (30) the fused and
+multi-slot AED kernels at FireRedASR-AED-L's decoder geometry (16 layers
+at d 1280, a head of 8192 columns, 750 cross rows, bias-free
+o-projections) and Dolphin's (6 layers at d 512, 27648 columns, 749 cross
+rows), with phases 8 and 11's gates: f32 and bf16 caches, three
+positions, all and fewer valid cross rows, slots bitwise the batch-1
+kernel at B = 2 and 8, times beside their bounds and profiles; (31)
+FireRedASR-AED-L q8 at full width through an artifact folder with a
+firered_dict file and the command line's ``_build_session``: 20 s on the
+fused route, its ids against a teacher-forced replay with plain matmuls on
+the dequantized decoder, 45 s on the per-weight route, a 30 s window's
+numbers; (32) Dolphin the same, with both probes inside its vocabulary, a
+language forced by name through its catalog and its CTC head's RTF; (33)
+each of the two served continuously over HTTP, 9 requests on 8 slots with
+f32 caches, each request's ids bitwise equal to it alone through the
+batcher and checked against ``session.transcribe``.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -130,7 +147,14 @@ int4 kernel 113 times and the fused Qwen3 step once per decode step, its
 CTC forward the int8 kernel 291 times (280 + 11 head linears), its
 continuous serving the multi-slot step once per decode step; one aligner
 pass launches the int8 kernel 195 times (the tower) and the int4 kernel 196
-times (28 x 7 unfused linears).
+times (28 x 7 unfused linears); one FireRed window launches the int8 kernel
+338 times (the encoder's 177, the cross-KV's 32, the [SOS] prefill's 129)
+and the fused step once per decode step; one Dolphin window 316 times (the
+encoder's 145, two cross-KVs' 24, the two probes' and the prompt's 3 x 49)
+and the fused step once per decode step, its CTC head 146 (the encoder and
+the head); their continuous serving launches the multi-slot step once per
+decode step, the int8 kernel as often as the windows' prefills, and never
+the batch-1 step.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -337,6 +361,7 @@ def int8_paths() -> dict:
         for k, n, b, c in [*((k, n, b, c) for (k, n, b), c in enc.items()), *((k, n, 128, c) for k, n, c in top)]:
             calls[(m, k, n, b)] = calls.get((m, k, n, b), 0) + c
         paths[name] = calls
+    paths.update(aed_family_int8_paths())
     return paths
 
 
@@ -554,9 +579,27 @@ def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
     for key in ("ln1_s", "lnc_s", "ln2_s", "lnf_s"):
         stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
     geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
-    nl, d, t, tc, v = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, \
-        cfg.max_source_positions, cfg.vocab_size
     dec = params["decoder"]
+
+    def x_of(pos):
+        return (dec["embed"][torch.tensor([1000 + pos], device=DEV)] + dec["pos"][pos : pos + 1]).float()
+
+    out = fused_vs_plain(torch, fs, stacked, geom, cfg.decoder_layers, cfg.max_target_positions,
+                         cfg.max_source_positions, cfg.vocab_size, x_of, FUSED_TC, g, "8", card)
+    del params, stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_vs_plain(torch, fs, stacked, geom, nl: int, t: int, tc: int, v: int, x_of, tcs, g,
+                   label: str, card: str) -> dict:
+    """The fused-step kernel against its plain version on ``stacked``: f32
+    and bf16 caches of ``t`` self and ``tc`` cross rows, the positions of
+    FUSED_POS, ``tcs`` valid cross rows (``x_of(pos)``: the input row);
+    then, at the last position and ``tcs[0]``, the plain version on the host
+    against the card, the kernel's time in turns with its bound, and its
+    profile."""
+    d = geom.d_model
     rows, worst, times = [], 0.0, {}
     for cdt in (torch.float32, torch.bfloat16):
         ks = torch.randn((nl, t, d), generator=g, device=DEV).to(cdt)
@@ -564,8 +607,8 @@ def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
         ck = torch.randn((nl, tc, d), generator=g, device=DEV).to(cdt)
         cv = torch.randn((nl, tc, d), generator=g, device=DEV).to(cdt)
         for pos in FUSED_POS:
-            x = (dec["embed"][torch.tensor([1000 + pos], device=DEV)] + dec["pos"][pos : pos + 1]).float()
-            for tcv in FUSED_TC:
+            x = x_of(pos)
+            for tcv in tcs:
                 kk, vk, kp, vp = ks.clone(), vs.clone(), ks.clone(), vs.clone()
                 got, _, _ = fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv)
                 torch.cuda.synchronize()
@@ -585,14 +628,14 @@ def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
                 rows.append({"cache": str(cdt).split(".")[-1], "pos": pos, "tc_valid": tcv,
                              "max_abs_err": err, "max_abs_plain": ref, "row_err": row_err,
                              "row0_err": row0})
-                print(f"[8 fused] cache={rows[-1]['cache']:8s} pos={pos:3d} tc_valid={tcv:4d}: "
+                print(f"[{label} fused] cache={rows[-1]['cache']:8s} pos={pos:3d} tc_valid={tcv:4d}: "
                       f"logits err {err:.3e} (max|plain| {ref:.3e}, {err / ref:.2e} of it); "
                       f"written row err {row_err:.3e} (layer 0: {row0:.3e}, max|row| {row_ref:.3e})")
                 worst = max(worst, err)
                 check(err <= FUSED_LOGIT_TOL * ref, f"fused logits vs plain: {err} > {FUSED_LOGIT_TOL} * {ref}")
                 tol0 = ROW0_TOL[rows[-1]["cache"]]
                 check(row0 <= tol0 * row_ref, f"layer-0 row vs plain: {row0} > {tol0} * {row_ref}")
-        pos, tcv = FUSED_POS[-1], FUSED_TC[0]
+        pos, tcv = FUSED_POS[-1], tcs[0]
         # The plain version on the host CPU against the plain version on the
         # card: the same rounding points, other summation orders. How far
         # they drift apart is what bf16 rounding alone allows.
@@ -603,7 +646,7 @@ def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
         on_card, _, _ = fs.fused_aed_step_reference(stacked, geom, x, kk, vk, ck, cv, pos, tcv)
         drift = (on_host[:, :v] - on_card[:, :v].cpu()).abs().max().item()
         rows[-1]["plain_host_vs_card"] = drift
-        print(f"[8 fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: plain version on the host "
+        print(f"[{label} fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: plain version on the host "
               f"vs on the card: {drift:.3e} ({drift / on_card.abs().max().item():.2e} of max|logit|)")
         del host, on_host
         k_ms, p_ms = in_turns(
@@ -615,17 +658,15 @@ def phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card: str) -> dict:
         b_ms, b_by = bound(nbytes, flops)
         times[rows[-1]["cache"]] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bytes_per_s": rate,
                                     "flops": flops, "bound_ms": b_ms, "bound_by": b_by}
-        print(f"[8 fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: kernel {k_ms:.4f} ms, "
+        print(f"[{label} fused] cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms; {nbytes / 1e6:.1f} MB per step, {rate / 1e9:.0f} GB/s, "
               f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound {b_ms:.4f} ms ({b_by})  [{card}]")
-        unchained = fs.aed_plan(d, cfg.ffn_dim, stacked["wh"].shape[1], t, tc, pdl=False)
+        unchained = fs.aed_plan(d, geom.ffn_dim, stacked["wh"].shape[1], t, tc, pdl=False)
         prof = step_profile(
             torch, lambda: fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv),
             lambda: fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv, plan=unchained))
         times[rows[-1]["cache"]]["profile"] = prof
-        print_step_profile("8", f"cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}", prof, card)
-    del params, stacked
-    torch.cuda.empty_cache()
+        print_step_profile(label, f"cache={rows[-1]['cache']} pos={pos} tc_valid={tcv}", prof, card)
     return {"rows": rows, "max_abs_err": worst, "times": times}
 
 
@@ -1024,25 +1065,45 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
     for key in ("ln1_s", "lnc_s", "ln2_s", "lnf_s"):
         stacked[key] = 1 + 0.1 * torch.randn(stacked[key].shape, generator=g, device=DEV)
     geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
-    nl, d, t, tc, v = (cfg.decoder_layers, cfg.d_model, cfg.max_target_positions,
-                       cfg.max_source_positions, cfg.vocab_size)
     dec = params["decoder"]
+
+    def x_of(toks, pos_l):
+        return (dec["embed"][toks] + dec["pos"][torch.tensor([max(p, 0) for p in pos_l], device=DEV)]).float()
+
+    dims = (cfg.decoder_layers, cfg.max_target_positions, cfg.max_source_positions, cfg.vocab_size)
+    rows, worst = multi_vs_plain(torch, fs, fm, stacked, geom, *dims, x_of, FUSED_TC, g, MULTI_B, "11")
+    times = multi_times(torch, fs, fm, stacked, geom, *dims[:3], FUSED_TC[0],
+                        {c: fused["times"][c]["ms"] for c in fused["times"]}, g, MULTI_TIMED_B, "12", card)
+    del params, stacked
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": worst, "times": times}
+
+
+def multi_planes(torch, g, nl: int, bs: int, t: int, tc: int, d: int, cdt):
+    """Random (NL, B, rows, D) self k, self v, cross k and cross v planes."""
+    return [torch.randn((nl, bs, n, d), generator=g, device=DEV).to(cdt) for n in (t, t, tc, tc)]
+
+
+def multi_vs_plain(torch, fs, fm, stacked, geom, nl: int, t: int, tc: int, v: int, x_of, tcs, g,
+                   batches, label: str) -> tuple[list, float]:
+    """The multi-slot kernel against its plain version and, slot by slot,
+    bitwise against the batch-1 kernel (logits and written rows) at each B
+    of ``batches``, f32 and bf16 caches: positions from FUSED_POS with one
+    parked slot, valid cross rows from ``tcs`` (``x_of(tokens, positions)``:
+    the input rows). Returns (rows, the largest logits error)."""
+    d = geom.d_model
     worst, rows = 0.0, []
-
-    def planes(bs, cdt):
-        return [torch.randn((nl, bs, n, d), generator=g, device=DEV).to(cdt) for n in (t, t, tc, tc)]
-
-    for bs in MULTI_B:
+    for bs in batches:
         pos_l = [FUSED_POS[i % 3] for i in range(bs)]
         pos_l[bs // 2] = -1  # one parked slot
-        tc_l = [FUSED_TC[i % 2] for i in range(bs)]
+        tc_l = [tcs[i % len(tcs)] for i in range(bs)]
         toks = torch.tensor([(1000 + 7 * i) % v for i in range(bs)], device=DEV)
-        x = (dec["embed"][toks] + dec["pos"][torch.tensor([max(p, 0) for p in pos_l], device=DEV)]).float()
+        x = x_of(toks, pos_l)
         pos = torch.tensor(pos_l, dtype=torch.int32, device=DEV)
         tcv = torch.tensor(tc_l, dtype=torch.int32, device=DEV)
         for cdt in (torch.float32, torch.bfloat16):
             cache = str(cdt).split(".")[-1]
-            ks, vs, ck, cv = planes(bs, cdt)
+            ks, vs, ck, cv = multi_planes(torch, g, nl, bs, t, tc, d, cdt)
             kk, vk, kp, vp = ks.clone(), vs.clone(), ks.clone(), vs.clone()
             got, _, _ = fm.fused_aed_step_multi_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tcv)
             torch.cuda.synchronize()
@@ -1078,20 +1139,28 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
                       "caches are not bitwise the batch-1 kernel's")
             rows.append({"b": bs, "cache": cache, "max_abs_err": err, "max_abs_plain": ref,
                          "row0_rel": row0, "slots_bitwise_batch1": True})
-            print(f"[11 multi] B={bs} cache={cache:8s} pos={pos_l} tc_valid={tc_l}: logits err "
+            print(f"[{label} multi] B={bs} cache={cache:8s} pos={pos_l} tc_valid={tc_l}: logits err "
                   f"{err:.3e} ({err / ref:.2e} of max|plain|); layer-0 rows within {row0:.2e} of "
                   f"max|row|; every live slot bitwise the batch-1 kernel (logits and caches); other "
                   f"rows and the parked slot bitwise unchanged")
     torch.cuda.synchronize()
+    return rows, worst
 
+
+def multi_times(torch, fs, fm, stacked, geom, nl: int, t: int, tc: int, tc_t: int, one_ms: dict, g,
+                batches, label: str, card: str) -> dict:
+    """The multi-slot kernel's time against its plain version's, in turns,
+    at each B of ``batches`` (every slot at FUSED_POS[-1] with ``tc_t``
+    valid cross rows), f32 and bf16 caches, beside its bound and B times
+    the batch-1 kernel's ``one_ms[cache]``, each with a profile."""
+    d = geom.d_model
     times = {}
-    pos_t, tc_t = FUSED_POS[-1], FUSED_TC[0]
+    pos_t = FUSED_POS[-1]
     for cdt in (torch.float32, torch.bfloat16):
         cache = str(cdt).split(".")[-1]
-        one_ms = fused["times"][cache]["ms"]
-        unchained = fs.aed_plan(d, cfg.ffn_dim, stacked["wh"].shape[1], t, tc, pdl=False)
-        for bs in MULTI_TIMED_B:
-            ks, vs, ck, cv = planes(bs, cdt)
+        unchained = fs.aed_plan(d, geom.ffn_dim, stacked["wh"].shape[1], t, tc, pdl=False)
+        for bs in batches:
+            ks, vs, ck, cv = multi_planes(torch, g, nl, bs, t, tc, d, cdt)
             x = torch.randn((bs, d), generator=g, device=DEV) * 0.05
             pos = torch.full((bs,), pos_t, dtype=torch.int32, device=DEV)
             tcv = torch.full((bs,), tc_t, dtype=torch.int32, device=DEV)
@@ -1104,9 +1173,9 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
             b_ms, b_by = bound(nbytes, step_flops(stacked, nl, d, [(pos_t, tc_t)] * bs))
             rate = nbytes / (k_ms * 1e-3)
             times[(bs, cache)] = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes, "bound_ms": b_ms,
-                                  "bound_by": b_by, "batch1_ms": one_ms}
-            print(f"[12 multi] B={bs} cache={cache:8s} pos={pos_t} tc_valid={tc_t}: kernel {k_ms:.4f} ms a "
-                  f"step, {k_ms * 1e3 / bs:.1f} us a token (B x batch-1 kernel: {bs * one_ms:.4f} ms); "
+                                  "bound_by": b_by, "batch1_ms": one_ms[cache]}
+            print(f"[{label} multi] B={bs} cache={cache:8s} pos={pos_t} tc_valid={tc_t}: kernel {k_ms:.4f} ms a "
+                  f"step, {k_ms * 1e3 / bs:.1f} us a token (B x batch-1 kernel: {bs * one_ms[cache]:.4f} ms); "
                   f"plain {p_ms:.2f} ms; {nbytes / 1e6:.1f} MB a step, {rate / 1e9:.0f} GB/s, "
                   f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound {b_ms:.4f} ms ({b_by})  [{card}]")
             prof = step_profile(
@@ -1114,10 +1183,8 @@ def phase_multi(torch, fs, fm, wh, quantize_pytree, fused: dict, card: str) -> d
                 lambda: fm.fused_aed_step_multi_cuda(stacked, geom, x, ks, vs, ck, cv, pos, tcv,
                                                      plan=unchained))
             times[(bs, cache)]["profile"] = prof
-            print_step_profile("12", f"B={bs} cache={cache} pos={pos_t} tc_valid={tc_t}", prof, card)
-    del params, stacked
-    torch.cuda.empty_cache()
-    return {"rows": rows, "max_abs_err": worst, "times": times}
+            print_step_profile(label, f"B={bs} cache={cache} pos={pos_t} tc_valid={tc_t}", prof, card)
+    return times
 
 
 def post_clip(base: str, clip, delay: float, out: list, i: int) -> None:
@@ -1129,45 +1196,80 @@ def post_clip(base: str, clip, delay: float, out: list, i: int) -> None:
         out[i] = (resp.status, json.loads(resp.read()), time.perf_counter() - t)
 
 
-def replay_window(torch, fs, fm, wh, session, chunk, ids: list, acc: dict, label: str) -> int:
+def aed_adapter(torch, fs, session, mod=None):
+    """What a replay needs of an AED session: its decoder layers, step
+    geometry, end id, vocabulary, input row ``x_row(token (1, 1), pos)`` and
+    per-weight step ``step(state, token, pos, tc_valid) -> (logits, state)``.
+    ``mod``: None for Whisper (learned positions), else ``models.firered`` or
+    ``models.dolphin`` (sqrt(d)-scaled embeddings + sinusoid positions)."""
+    from types import SimpleNamespace
+
+    cfg, params = session.cfg, session.params
+    dec = params["decoder"]
+    if mod is None:
+        from asr_tpu_torch.models import whisper as wh
+
+        return SimpleNamespace(
+            nl=cfg.decoder_layers, geom=fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads),
+            eot=cfg.eot_id, vocab=cfg.vocab_size,
+            x_row=lambda tok, pos: (dec["embed"][tok[0]] + dec["pos"][pos : pos + 1]).float(),
+            step=lambda st, tok, pos, tcv: wh.step(params, cfg, st, tok, pos))
+    from asr_tpu_torch.layers.attention import attention_bias_from_lengths
+    from asr_tpu_torch.layers.conformer import absolute_positions
+
+    table = absolute_positions(cfg.max_target_positions, cfg.d_model, DEV)
+
+    def step(st, tok, pos, tcv):
+        tc = st["layers"][0]["cross_k"].shape[1]
+        bias = attention_bias_from_lengths(torch.tensor([tcv], device=DEV), tc)
+        logits, st = mod._decoder_pass(params, cfg, st, tok, pos, bias)
+        return logits[:, -1], st
+
+    return SimpleNamespace(
+        nl=cfg.dec_layers, geom=fs.AedGeom(cfg.d_model, cfg.dec_ffn, cfg.dec_heads), eot=cfg.eos_id,
+        vocab=cfg.vocab_size, step=step,
+        x_row=lambda tok, pos: (dec["embed"][tok[0]] * cfg.d_model ** 0.5 + table[pos : pos + 1]).float())
+
+
+def replay_window(torch, fs, fm, session, fam, chunk, ids: list, acc: dict, label: str) -> int:
     """Teacher-force one window's server ids (``ids`` starts at its first
     token) through the per-weight step and the multi-slot kernel (this
     window in slot 0, slot 1 parked), step by step: logits within
     TEACHER_TOL of max|logit|, argmax equal above the top-2 margin. The
-    window ends where the kernel picks EOT (the server drops it) or at the
-    budget. Returns how many of ``ids`` the window holds."""
+    window ends where the kernel picks the end id (the server drops it) or at
+    the budget. ``fam``: :func:`aed_adapter`'s. Returns how many of ``ids``
+    the window holds."""
     from asr_tpu_torch.decode.ar import select_token
 
-    cfg, params, dcfg = session.cfg, session.params, session.decode_cfg
-    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
-    dec = params["decoder"]
+    cfg, dcfg = session.cfg, session.decode_cfg
     with torch.inference_mode():
         pre = session.continuous_prefill(chunk)
         state, p_len = pre["state"], pre["p_len"]
         first = int(select_token(pre["logits0"], torch.zeros((1, 1), dtype=torch.int64, device=DEV),
                                  0, dcfg)[0])
-        if first == cfg.eot_id:  # an empty window
+        if first == fam.eot:  # an empty window
             return 0
         check(bool(ids) and ids[0] == first, f"{label}: the first token differs")
         layers = state["layers"]
         d, t_max, tc = cfg.d_model, cfg.max_target_positions, layers[0]["cross_k"].shape[1]
-        kc, vc = (torch.zeros((cfg.decoder_layers, 2, t_max, d), device=DEV) for _ in range(2))
-        ck, cv = (torch.zeros((cfg.decoder_layers, 2, tc, d), device=DEV) for _ in range(2))
+        kc, vc = (torch.zeros((fam.nl, 2, t_max, d), device=DEV) for _ in range(2))
+        ck, cv = (torch.zeros((fam.nl, 2, tc, d), device=DEV) for _ in range(2))
         for l, ls in enumerate(layers):
             for plane, key in ((kc, "self_k"), (vc, "self_v"), (ck, "cross_k"), (cv, "cross_v")):
                 plane[l, 0] = ls[key][0].reshape(-1, d)
-        tcv = torch.tensor([tc, tc], dtype=torch.int32, device=DEV)
+        tc_valid = min(max(pre["tc_valid"], 1), tc)
+        tcv = torch.tensor([tc_valid, tc_valid], dtype=torch.int32, device=DEV)
         j, ended = 0, False
         while j < dcfg.max_new_tokens and not ended:
             pos = p_len + j
             tok = torch.tensor([[ids[j]]], device=DEV)
-            want, state = wh.step(params, cfg, state, tok, pos)
+            want, state = fam.step(state, tok, pos, pre["tc_valid"])
             x = torch.zeros((2, d), device=DEV)
-            x[0] = (dec["embed"][tok[0]] + dec["pos"][pos : pos + 1])[0].float()
-            got, _, _ = fm.fused_aed_step_multi(session.stacked, geom, x, kc, vc, ck, cv,
+            x[0] = fam.x_row(tok, pos)[0]
+            got, _, _ = fm.fused_aed_step_multi(session.stacked, fam.geom, x, kc, vc, ck, cv,
                                                 torch.tensor([pos, -1], dtype=torch.int32, device=DEV),
                                                 tcv)
-            got = got[:1, : cfg.vocab_size]
+            got = got[:1, : fam.vocab]
             scale = want.abs().max().item()
             err = (got - want).abs().max().item()
             acc["worst_rel"] = max(acc["worst_rel"], err / scale)
@@ -1181,9 +1283,9 @@ def replay_window(torch, fs, fm, wh, session, chunk, ids: list, acc: dict, label
             acc["steps"] += 1
             nxt = int(got.argmax())
             j += 1
-            ended = nxt == cfg.eot_id  # the server drops the EOT
+            ended = nxt == fam.eot  # the server drops the end id
             if not ended:
-                check(j < len(ids), f"{label}: the server's ids end before the kernel's EOT")
+                check(j < len(ids), f"{label}: the server's ids end before the kernel's end id")
                 acc["same"] += ids[j] == nxt
     return j if ended else j + 1  # at the budget the window holds max_new + 1 ids
 
@@ -1193,7 +1295,6 @@ def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: st
     decode step through the multi-slot kernel."""
     import copy
 
-    from asr_tpu_torch.models import whisper as wh
     from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer, start_background_continuous
     from asr_tpu_torch.runtime.audio import iter_windows
     from asr_tpu_torch.runtime.whisper_session import load_whisper_session
@@ -1276,12 +1377,12 @@ def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: st
             replayed.append(i)
     # Where they differ, replay the server's ids teacher-forced, window by
     # window, through the per-weight step and the multi-slot kernel.
-    replay = {"steps": 0, "worst_rel": 0.0, "under": 0, "same": 0}
+    replay, fam = {"steps": 0, "worst_rel": 0.0, "under": 0, "same": 0}, aed_adapter(torch, fs, session)
     for i in replayed:
         audio = clips[i].astype(np.float32) / 32768.0
         ids, start = results[i][1]["token_ids"], 0
         for s0 in iter_windows(len(audio), w, w):
-            start += replay_window(torch, fs, fm, wh, session, audio[s0 : s0 + w], ids[start:],
+            start += replay_window(torch, fs, fm, session, fam, audio[s0 : s0 + w], ids[start:],
                                    replay, f"request {i}")
         check(start == len(ids), f"request {i}: the replay consumed {start} of {len(ids)} ids")
     print(f"[13 serve] {len(clips)} requests ({windows} windows, {SERVE_SLOTS} slots, f32 caches, "
@@ -3200,6 +3301,500 @@ def phase_aligner(torch, np, qm, card: str) -> dict:
     return {"int8": int8, "int4": int4, "ms": ms, "sure": int(sure.sum())}
 
 
+# ── 30-33. FireRedASR-AED-L and Dolphin on the AED kernels ────────────────
+FIRERED_GEOMETRY = (1280, 5120, 8192, 448, 750)  # D, F, V_pad, self and cross rows of a 30 s window
+DOLPHIN_GEOMETRY = (512, 2048, 27648, 448, 749)
+AED_FAMILY_TC = {"firered": (750, 512), "dolphin": (749, 301)}  # valid cross rows: all, and fewer
+AED_FAMILY_MULTI_B = (2, 8)
+# Dolphin's language and region spans inside its vocabulary (both probes
+# run), and a catalog with one language to force by name.
+DOLPHIN_SPANS = dict(language_token_start=27000, language_token_end=27100, region_token_start=27100,
+                     region_token_end=27200)
+DOLPHIN_CATALOG = {"languages": {"xx": 27005}, "regions": {"YY": 27105}, "aliases": {"Forced": "xx"}}
+AED_FAMILY_REQUESTS = 9
+AED_FAMILY_SECONDS = (5.0, 30.0)  # one window each, lengths drawn from this range
+
+
+def aed_family(name: str):
+    """(model module, full-width config) of FireRedASR-AED-L or Dolphin."""
+    from asr_tpu_torch.models import dolphin, firered
+
+    if name == "firered":
+        return firered, firered.FireRedConfig()
+    return dolphin, dolphin.DolphinConfig(**DOLPHIN_SPANS)
+
+
+def aed_family_int8_paths() -> dict:
+    """The int8 kernel's calls on the FireRed and Dolphin paths ({(M, K, N,
+    block): calls}): one 30 s window's encoder (FireRed: ffn w1 x2 + conv
+    pw1, ffn w2 x2, q|k|v|o, the rel-pos projection at 2T - 1 rows, conv
+    pw2, the stem's linear over 32 x 19 features in one block; Dolphin: ffn
+    w1 x2 + cgMLP proj1, ffn w2 x2, q|k|v|o, rel_k at 2T - 1 rows, proj2 +
+    merge, the stem's linear) and its cross-KV (2 a decoder layer; Dolphin
+    twice: the probes' state and the prompt's), Dolphin's CTC head, and the
+    decoder passes at M rows (a per-weight step at M = 1, 2; Dolphin's
+    prompt prefill at M = 3): 8 linears a decoder layer and the head."""
+    pad = lambda v: -(-v // 512) * 512
+
+    def add(calls, key, n):
+        calls[key] = calls.get(key, 0) + n
+
+    paths = {}
+    for name in ("firered", "dolphin"):
+        _, cfg = aed_family(name)
+        t, d, nl, el = (FIRERED_GEOMETRY if name == "firered" else DOLPHIN_GEOMETRY)[4], cfg.d_model, \
+            cfg.dec_layers, cfg.enc_layers
+        calls: dict = {}
+        if name == "firered":
+            sub = 32 * (((cfg.n_mels - 1) // 2 - 1) // 2)
+            add(calls, (t, d, 4 * d, 128), 3 * el)
+            add(calls, (t, 4 * d, d, 128), 2 * el)
+            add(calls, (t, d, d, 128), 4 * el + 2 * nl)
+            add(calls, (2 * t - 1, d, d, 128), el)
+            add(calls, (t, 2 * d, d, 128), el)
+            add(calls, (t, sub, d, sub if sub % 128 else 128), 1)
+        else:
+            add(calls, (t, d * (((cfg.mel.n_mels - 1) // 2 - 1) // 2), d, 128), 1)
+            add(calls, (t, d, cfg.enc_ffn, 128), 2 * el)
+            add(calls, (t, d, cfg.cgmlp_dim, 128), el)
+            add(calls, (t, cfg.enc_ffn, d, 128), 2 * el)
+            add(calls, (t, d, d, 128), 4 * el + 2 * 2 * nl)
+            add(calls, (2 * t - 1, d, d, 128), el)
+            add(calls, (t, cfg.cgmlp_dim // 2, d, 128), el)
+            add(calls, (t, 2 * d, d, 128), el)
+            paths["dolphin_ctc_head"] = {(t, d, cfg.vocab_size, 128): 1}
+        paths[f"{name}_encoder"] = calls
+        for m in ((1, 2) if name == "firered" else (1, 2, 3)):
+            step: dict = {}
+            for key, n in (((m, d, d, 128), 6 * nl), ((m, d, cfg.dec_ffn, 128), nl),
+                           ((m, cfg.dec_ffn, d, 128), nl), ((m, d, pad(cfg.vocab_size), 128), 1)):
+                add(step, key, n)
+            paths[f"{name}_{'prefill' if m == 3 else 'step'}_m{m}"] = step
+    return paths
+
+
+def aed_family_window_int8(name: str) -> tuple[int, int]:
+    """(int8 calls of one window before its first decode step, of one
+    per-weight step) on a FireRed / Dolphin session: the encoder, its
+    cross-KV and the decoder passes of the prefill (FireRed: [SOS]; Dolphin:
+    the language and region probes, then the prompt)."""
+    paths = aed_family_int8_paths()
+    per_step = sum(paths[f"{name}_step_m1"].values())
+    return sum(paths[f"{name}_encoder"].values()) + (1 if name == "firered" else 3) * per_step, per_step
+
+
+def randomize_decoder(torch, dec: dict, g) -> None:
+    """Random biases (where the checkpoint has them) and LayerNorm
+    parameters in an AED decoder (the init has zeros and ones), so that each
+    reaches the comparison; absent biases stay absent and stack as zeros."""
+    def norm(p):
+        p["scale"] = 1 + 0.1 * torch.randn(p["scale"].shape, generator=g, device=DEV)
+        p["bias"] = 0.1 * torch.randn(p["bias"].shape, generator=g, device=DEV)
+
+    for p in dec["blocks"]:
+        for key in ("ln1", "ln_cross", "ln2"):
+            norm(p[key])
+        for lin in (*p["attn"].values(), *p["cross"].values(), *p["mlp"].values()):
+            if "b" in lin:
+                lin["b"] = 0.1 * torch.randn(lin["b"].shape, generator=g, device=DEV)
+    norm(dec["ln"])
+
+
+def phase_aed_family_kernels(torch, fs, fm, quantize_pytree, card: str) -> dict:
+    """[30] The fused and multi-slot AED kernels at FireRedASR-AED-L's (16
+    layers at d 1280, a head of 8192 columns, 750 cross rows; o-projections
+    without a bias) and Dolphin's (6 layers at d 512, 8 heads, a head of
+    27648 columns, 749 cross rows) decoder geometry, random biases and
+    LayerNorms: the fused step against its plain version (phase 8's gates,
+    f32 and bf16 caches, three positions, all and fewer valid cross rows),
+    its time in turns beside its bound and its profile; the multi-slot step
+    against its plain version and, slot by slot, bitwise against the
+    batch-1 kernel at B = 2 and 8 with one parked slot (phase 11's gates),
+    and its time at B = 8."""
+    from asr_tpu_torch.layers.conformer import absolute_positions
+
+    out = {}
+    for name in ("firered", "dolphin"):
+        mod, cfg = aed_family(name)
+        cfg = dataclasses.replace(cfg, enc_layers=0)  # the decoder at full width
+        d, f, vp, t, tc = FIRERED_GEOMETRY if name == "firered" else DOLPHIN_GEOMETRY
+        g = torch.Generator(device=DEV).manual_seed(30)
+        params = mod.init_params(cfg, g)
+        randomize_decoder(torch, params["decoder"], g)
+        params = quantize_pytree(params, bits=8, block=128, quantize_embeddings=True)
+        geom = fs.AedGeom(cfg.d_model, cfg.dec_ffn, cfg.dec_heads)
+        stacked = fs.stack_aed_step_params(params["decoder"], geom)
+        check(stacked is not None and tuple(stacked["wh"].shape) == (d, vp) and geom.ffn_dim == f,
+              f"{name} q8 decoder did not stack at (D, V_pad) = {(d, vp)}")
+        dec, table = params["decoder"], absolute_positions(cfg.max_target_positions, d, DEV)
+
+        def x_of(toks, pos_l):
+            pos = torch.tensor([max(p, 0) for p in pos_l], device=DEV)
+            return (dec["embed"][toks] * d ** 0.5 + table[pos]).float()
+
+        def x_one(pos):
+            return x_of(torch.tensor([(1000 + pos) % cfg.vocab_size], device=DEV), [pos])
+
+        label = f"30 {name}"
+        dims = (cfg.dec_layers, t, tc, cfg.vocab_size)
+        fused = fused_vs_plain(torch, fs, stacked, geom, *dims, x_one, AED_FAMILY_TC[name], g, label, card)
+        rows, worst = multi_vs_plain(torch, fs, fm, stacked, geom, *dims, x_of, AED_FAMILY_TC[name], g,
+                                     AED_FAMILY_MULTI_B, label)
+        times = multi_times(torch, fs, fm, stacked, geom, *dims[:3], tc,
+                            {c: fused["times"][c]["ms"] for c in fused["times"]}, g,
+                            AED_FAMILY_MULTI_B[-1:], label, card)
+        out[name] = {"fused": fused, "multi_rows": rows, "multi_max_abs_err": worst, "multi_times": times}
+        del params, stacked, dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_firered_dict(path: Path, n: int) -> None:
+    """A firered_dict tokenizer file of ``n`` entries: id i decodes to "w<i>"
+    (ids 0-3 are its blank, unk, sos and eos, which decode to nothing)."""
+    special = ("<blank>", "<unk>", "<sos>", "<eos>")
+    path.write_text("".join(f"{special[i] if i < 4 else f'w{i}'} {i}\n" for i in range(n)),
+                    encoding="utf-8")
+
+
+def aed_family_prefill(torch, session, mod, audio, prompt=None, params=None) -> dict:
+    """One window's ``prefill_window`` on a FireRed / Dolphin session's
+    parameters, or ``params`` (Dolphin: ``prompt``, default the session's)."""
+    a = torch.zeros((1, session.window_samples), device=DEV)
+    a[0, : len(audio)] = torch.as_tensor(audio, dtype=torch.float32).to(DEV)
+    v = torch.tensor([min(len(audio), session.window_samples)], device=DEV)
+    if prompt is None and hasattr(session, "_prompt"):
+        prompt = session._prompt(1)
+    args = (a, v) if prompt is None else (a, v, prompt)
+    return mod.prefill_window(session.params if params is None else params, session.cfg, *args,
+                              session.decode_cfg)
+
+
+def aed_family_caches(torch, state: dict, d: int):
+    """The (NL, T, D) self and (NL, Tc, D) cross stacks of a batch-1 state."""
+    layers = state["layers"]
+    return [torch.stack([ls[k][0].reshape(-1, d) for ls in layers])
+            for k in ("self_k", "self_v", "cross_k", "cross_v")]
+
+
+def phase_aed_family(torch, np, qm, fs, name: str, folder: str, card: str) -> dict:
+    """[31] FireRedASR-AED-L / [32] Dolphin q8 at full width (random weights
+    from a seed, quantized on the card with the tied head) through an
+    artifact folder (a firered_dict / vocab_txt tokenizer file; Dolphin's
+    language catalog) and the command line's ``_build_session``: 20 s on the
+    fused route (one fused launch a decode step; the encoder, cross-KV and
+    prefill's int8 launches), its ids against a teacher-forced replay with
+    plain matmuls on the dequantized decoder; 45 s (two windows) on the
+    per-weight route; one 30 s window's encoder, prefill and per-token
+    times, RTF, peak memory, the host sync's share and launch counts.
+    Dolphin also forces its language through the catalog and times its CTC
+    head over a 30 s window."""
+    from asr_tpu_torch.cli import _build_session
+    from asr_tpu_torch.decode.ar import select_token
+    from asr_tpu_torch.layers.attention import attention_bias_from_lengths
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+    from asr_tpu_torch.runtime.artifact import ModelMetadata, save_model
+
+    label = "31 firered" if name == "firered" else "32 dolphin"
+    mod, cfg = aed_family(name)
+    qm.set_quant_config(mm="bf16")  # the serving mode; the session stacks for the fused step
+    t0 = time.perf_counter()
+    q8 = quantize_pytree(mod.init_params(cfg, torch.Generator(device=DEV).manual_seed(31)), bits=8,
+                         block=128, quantize_embeddings=True)
+    extra = {"config": dataclasses.asdict(cfg)}
+    if name == "firered":
+        write_firered_dict(Path(folder) / "dict.txt", cfg.vocab_size)
+        tok = {"kind": "firered_dict", "file": "dict.txt"}
+    else:
+        write_vocab(Path(folder) / "vocab.txt", cfg.vocab_size)
+        tok = {"kind": "vocab_txt", "file": "vocab.txt"}
+        extra["dolphin_language_catalog"] = DOLPHIN_CATALOG
+    save_model(folder, q8, ModelMetadata(family=name, tokenizer=tok, extra=extra))
+    size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
+    del q8
+    torch.cuda.empty_cache()
+    session = _build_session(Path(folder), device=DEV)
+    check(type(session).__name__ == ("FireRedSession" if name == "firered" else "DolphinSession"),
+          f"_build_session gave a {type(session).__name__}")
+    check(session.stacked is not None, "the session did not stack the q8 decoder for the fused step")
+    params, dcfg, d = session.params, session.decode_cfg, cfg.d_model
+    geom = fs.AedGeom(d, cfg.dec_ffn, cfg.dec_heads)
+    print(f"[{label}] q8 (config {type(cfg).__name__}() at full width): init + quantize + artifact "
+          f"({size_mb:.1f} MB) round trip in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(31)
+    audio20 = (rng.standard_normal(20 * 16000) * 2000).astype(np.float32)  # the int16 range
+    session.transcribe(audio20[:16000])  # warm-up: cuBLAS, cuDNN, the kernels' first launches
+    torch.cuda.synchronize()
+    per_win, per_step = aed_family_window_int8(name)
+
+    qm.LAUNCHES = fs.LAUNCHES = 0  # the path starts here
+    res = session.transcribe(audio20)
+    int8, fused = qm.LAUNCHES, fs.LAUNCHES  # and ends here
+    ids = res.token_ids
+    check(fused == len(ids) - 1 and fused > 0, f"{fused} fused launches for {len(ids)} generated tokens")
+    check(int8 == per_win, f"{int8} int8 launches, not {per_win} (encoder, cross-KV and prefill)")
+    check(res.text == session.tokenizer.decode(ids), "the text is not the decode of the ids")
+    print(f"[{label}] 20 s (1 window) -> {len(ids)} tokens in {res.elapsed_seconds * 1e3:.1f} ms; fused-step "
+          f"launches {fused} (= tokens - 1), int8 launches {int8}; ids {ids[:4]}..., text "
+          f"{res.text[:40]!r}  [{card}]")
+
+    # Teacher-forced: the generated ids through the kernel on the session's
+    # caches and through plain matmuls on the dequantized decoder.
+    dense = {**params, "decoder": dequantize_pytree(params["decoder"])}
+    with torch.inference_mode():
+        pre = aed_family_prefill(torch, session, mod, audio20)
+        p_len = 1 if name == "firered" else 3
+        check(int(select_token(pre["logits0"], torch.zeros((1, 1), dtype=torch.int64, device=DEV), 0,
+                               dcfg)[0]) == ids[0], "the first token differs from the session's")
+        # the dense prefill takes the session's resolved prompt (Dolphin's probes)
+        state = aed_family_prefill(torch, session, mod, audio20, pre.get("prompt"), dense)["state"]
+        kc, vc, ck, cv = aed_family_caches(torch, pre["state"], d)
+        tcv = int(pre["enc_valid"][0])
+        bias = attention_bias_from_lengths(pre["enc_valid"], pre["enc"].shape[1])
+        table_x = aed_adapter(torch, fs, session, mod).x_row
+        worst_rel, under, same, over, flips = 0.0, 0, 0, [], 0
+        for i, tok in enumerate(ids[:-1]):
+            pos = p_len + i
+            tk = torch.tensor([[tok]], device=DEV)
+            want, state = mod._decoder_pass(dense, cfg, state, tk, pos, bias)
+            want = want[:, -1]
+            got, _, _ = fs.fused_aed_step(session.stacked, geom, table_x(tk, pos), kc, vc, ck, cv, pos,
+                                          tc_valid=tcv)
+            got = got[:, : cfg.vocab_size]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            worst_rel = max(worst_rel, err / scale)
+            if err > TEACHER_TOL * scale:
+                over.append(i)
+            if logits_margin(want).item() > TEACHER_TOL * scale:
+                flips += int(got.argmax()) != int(want.argmax())
+            else:
+                under += 1
+            same += int(got.argmax()) == ids[i + 1]
+        del state, dense
+    steps = len(ids) - 1
+    print(f"[{label}] teacher-forced over {steps} steps: fused vs plain matmuls on the dequantized decoder "
+          f"max err {worst_rel:.3e} of max|logit| (bound {TEACHER_TOL}); {under} steps under the top-2 "
+          f"margin, {flips} argmax differences above it; fused argmax = generated id at {same}/{steps}")
+    check(not over, f"fused vs plain above {TEACHER_TOL} of max|logit| at steps {over[:10]}")
+    check(flips == 0, f"{flips} argmax differences above the {TEACHER_TOL} top-2 margin")
+    check(same == steps, f"the fused argmax is the session's id at only {same}/{steps} steps")
+
+    # Two windows: batched per-weight decode through the int8 kernel only.
+    audio45 = (rng.standard_normal(45 * 16000) * 2000).astype(np.float32)
+    before_q, before_f = qm.LAUNCHES, fs.LAUNCHES
+    res45 = session.transcribe(audio45)
+    dq = qm.LAUNCHES - before_q
+    check(fs.LAUNCHES == before_f, "the 2-window run launched the fused kernel")
+    check(dq > per_win and (dq - per_win) % per_step == 0,
+          f"2-window run: {dq} int8 launches is not {per_win} + {per_step} per step")
+    print(f"[{label}] 45 s (2 windows) -> {len(res45.token_ids)} tokens in {res45.elapsed_seconds * 1e3:.1f} ms; "
+          f"int8 launches {dq} ({(dq - per_win) // per_step} per-weight steps of {per_step}), fused 0  [{card}]")
+    out = {"int8": int8, "fused": fused, "steps": steps, "int8_45s": dq}
+
+    if name == "dolphin":  # the language forced by name through the catalog
+        forced = _build_session(Path(folder), language="Forced", device=DEV)
+        forced_id = DOLPHIN_CATALOG["languages"]["xx"]
+        check((forced.language_id, forced.region_id) == (forced_id, -2), "--language did not resolve")
+        with torch.inference_mode():
+            fp = aed_family_prefill(torch, forced, mod, audio20)
+        lang, region = int(fp["prompt"][0, 1]), int(fp["prompt"][0, 2])
+        spans = DOLPHIN_SPANS
+        check(lang == forced_id and spans["region_token_start"] <= region < spans["region_token_end"],
+              f"forced prompt {fp['prompt'].tolist()}")
+        check(spans["language_token_start"] <= session.last_language < spans["language_token_end"],
+              f"probed language {session.last_language} outside its span")
+        print(f"[{label}] language forced by name ('Forced' -> {forced_id}): prompt {fp['prompt'][0].tolist()} "
+              f"(the region probed); auto: language {session.last_language}, region {session.last_region}")
+        del forced, fp
+
+    # One 30 s window's numbers.
+    audio30 = (np.random.default_rng(32).standard_normal(30 * 16000) * 2000).astype(np.float32)
+    with torch.inference_mode():
+        a = torch.from_numpy(audio30)[None].to(DEV)
+        v = torch.tensor([len(audio30)], device=DEV)
+        mod.encode(params, cfg, a, v)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            mod.encode(params, cfg, a, v)
+        end.record()
+        torch.cuda.synchronize()
+        out["encoder_ms"] = start.elapsed_time(end) / 3
+        pre, t_pre = synced(torch, lambda: aed_family_prefill(torch, session, mod, audio30))
+        out["prefill_ms"] = t_pre * 1e3
+        # the decode loop with and without a stop test each step
+        kc, vc, ck, cv = aed_family_caches(torch, pre["state"], d)
+        tcv = int(pre["enc_valid"][0])
+        x_row = aed_adapter(torch, fs, session, mod).x_row
+        p_len = 1 if name == "firered" else 3
+        n = dcfg.max_new_tokens
+
+        def loop(sync: bool):
+            tok = torch.full((1, 1), 5, device=DEV)
+            for i in range(n):
+                lg, _, _ = fs.fused_aed_step(session.stacked, geom, x_row(tok, p_len + i), kc, vc, ck, cv,
+                                             p_len + i, tc_valid=tcv)
+                tok = torch.argmax(lg[:, : cfg.vocab_size], dim=-1, keepdim=True)
+                if sync:
+                    bool((tok == cfg.eos_id).all())
+
+        loop(False)
+        t_sync = min(synced(torch, lambda: loop(True))[1] for _ in range(2))
+        t_free = min(synced(torch, lambda: loop(False))[1] for _ in range(2))
+        out["fused_ms_per_token"] = t_sync * 1e3 / n
+        out["sync_share"] = (t_sync - t_free) / t_sync
+        del kc, vc, ck, cv, pre
+    gc.collect()  # the peak below counts what the earlier parts of the phase left alive
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qm.LAUNCHES = fs.LAUNCHES = 0
+    res30 = session.transcribe(audio30)
+    out.update({"rtf_30s": res30.rtf, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                "window_int8": qm.LAUNCHES, "window_fused": fs.LAUNCHES,
+                "window_tokens": len(res30.token_ids), "window_ms": res30.elapsed_seconds * 1e3})
+    check(out["window_fused"] == len(res30.token_ids) - 1 and out["window_int8"] == per_win,
+          f"30 s window launches: fused {out['window_fused']}, int8 {out['window_int8']}")
+    print(f"[{label} numbers] one 30 s window: encoder ({cfg.enc_layers} layers) {out['encoder_ms']:.2f} ms, "
+          f"prefill (encoder + cross-KV + {'[SOS]' if name == 'firered' else 'probes + prompt'}) "
+          f"{out['prefill_ms']:.1f} ms, fused decode {out['fused_ms_per_token']:.3f} ms per token over {n} steps "
+          f"(host sync {out['sync_share']:.1%} of it); session {out['window_ms']:.1f} ms for "
+          f"{out['window_tokens']} tokens, RTF {out['rtf_30s']:.5f}, peak memory {out['peak_mib']:.0f} MiB; "
+          f"launches: fused {out['window_fused']}, int8 {out['window_int8']}  [{card}]")
+    if name == "dolphin":  # the CTC head over one 30 s window
+        with torch.inference_mode():
+            def ctc():
+                enc, ev = mod.encode(params, cfg, a, v)
+                toks, counts = mod.ctc_decode(params, cfg, enc, ev)
+                return toks[0, : int(counts[0])]
+
+            ctc()
+            qm.LAUNCHES = 0
+            ctc_ids, t_ctc = synced(torch, ctc)
+            out["ctc_int8"] = qm.LAUNCHES
+            out["ctc_rtf"] = t_ctc / 30.0
+        check(out["ctc_int8"] == sum(aed_family_int8_paths()["dolphin_encoder"].values()) - 4 * cfg.dec_layers + 1,
+              f"{out['ctc_int8']} int8 launches for the encoder and the CTC head")
+        print(f"[{label} numbers] CTC head over one 30 s window: {t_ctc * 1e3:.1f} ms (encoder included), RTF "
+              f"{out['ctc_rtf']:.5f}, {len(ctc_ids)} ids, int8 launches {out['ctc_int8']}  [{card}]")
+    del session, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_aed_family_continuous(torch, np, qm, fs, fm, name: str, folder: str, card: str) -> dict:
+    """[33] Continuous serving of phase 31's (FireRed) / 32's (Dolphin)
+    artifact over HTTP: AED_FAMILY_REQUESTS concurrent one-window requests
+    with staggered starts on 8 slots with f32 caches, every decode step
+    through the multi-slot kernel and none through the batch-1 kernel; each
+    request's ids bitwise equal to it alone through the batcher, and equal to
+    ``session.transcribe`` or within the replay margin (a teacher-forced
+    replay through the per-weight step) where they differ."""
+    from asr_tpu_torch.cli import _build_session
+    from asr_tpu_torch.parallel.http_server import decode_audio_bytes
+    from asr_tpu_torch.parallel.llm_server import start_background_continuous
+    from asr_tpu_torch.runtime.audio import iter_windows
+
+    label = f"33 {name}"
+    mod, _ = aed_family(name)
+    qm.set_quant_config(mm="bf16")
+    session = _build_session(Path(folder), device=DEV)
+    check(session.stacked is not None, "the session did not stack the q8 decoder")
+    scale = np.float32(session.pcm_scale / 32768.0)
+    rng = np.random.default_rng(33)
+    seconds = rng.uniform(*AED_FAMILY_SECONDS, size=AED_FAMILY_REQUESTS)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16) for s in seconds]
+    delays = rng.uniform(0.0, 0.2, size=len(clips))
+    w = session.window_samples
+    windows = sum(len(iter_windows(len(c), w, w)) for c in clips)
+    check(session.aed_engine_spec().tc_max == AED_FAMILY_TC[name][0], "the engine's cross length")
+    httpd, srv, thread = start_background_continuous(session, n_slots=SERVE_SLOTS, kv_dtype="f32")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: list = [None] * len(clips)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qm.LAUNCHES = fs.LAUNCHES = fm.LAUNCHES = 0  # the serving path starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_clip, args=(base, c, float(delays[i]), results, i))
+                   for i, c in enumerate(clips)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        int8, fused, multi = qm.LAUNCHES, fs.LAUNCHES, fm.LAUNCHES  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        thread.join(timeout=60)
+    per_win, _ = aed_family_window_int8(name)
+    check(health["ok"] and health["step_kernel"] == "fused", f"healthz: {health}")
+    check(health["requests_served"] == windows, f"served {health['requests_served']} windows, not {windows}")
+    check(multi == health["decode_steps"] > 0, f"{multi} multi-slot launches for {health['decode_steps']} "
+          "decode steps")
+    check(fused == 0, f"the batch-1 kernel was launched {fused} times")
+    check(int8 == windows * per_win, f"{int8} int8 launches, not {windows} windows x {per_win}")
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"request {i}: {r}")
+    lat = np.array([r[2] for r in results])
+
+    # Each request alone through the same batcher: bitwise its served ids.
+    bat, eot = srv.batcher, session.decode_cfg.eot_id
+    with torch.inference_mode():
+        for i, clip in enumerate(clips):
+            samples = decode_audio_bytes(wav_bytes(clip), 16000) * scale
+            alone = []
+            for s0 in iter_windows(len(samples), w, w):
+                pre = session.continuous_prefill(samples[s0 : s0 + w])
+                slot = bat.try_submit(pre["state"], pre["p_len"], pre["logits0"], pre["tc_valid"])
+                while bat.is_active(slot):
+                    bat.step()
+                alone += [t for t in bat.take_result(slot) if t != eot]
+            check(alone == results[i][1]["token_ids"], f"request {i}: the served ids differ from the "
+                  "request run alone through the batcher")
+    # Against session.transcribe (the batch-1 kernel), with a replay where they differ.
+    equal, replay, fam = 0, {"steps": 0, "worst_rel": 0.0, "under": 0, "same": 0}, \
+        aed_adapter(torch, fs, session, mod)
+    for i, clip in enumerate(clips):
+        audio = clip.astype(np.float32) * scale
+        got = results[i][1]["token_ids"]
+        if got == [t for t in session.transcribe(audio).token_ids if t != eot]:
+            equal += 1
+            continue
+        start = 0
+        for s0 in iter_windows(len(audio), w, w):
+            start += replay_window(torch, fs, fm, session, fam, audio[s0 : s0 + w], got[start:], replay,
+                                   f"request {i}")
+        check(start == len(got), f"request {i}: the replay consumed {start} of {len(got)} ids")
+    toks = health["tokens_generated"]
+    step_s = health["step_latency_avg_s"]
+    agg = toks / (health["decode_steps"] * step_s) if step_s else 0.0
+    p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
+    print(f"[{label} serve] {len(clips)} requests ({seconds.min():.1f}-{seconds.max():.1f} s, {SERVE_SLOTS} slots, "
+          f"f32 caches, starts staggered 0-200 ms) in {wall:.2f} s; healthz {json.dumps(health)}")
+    print(f"[{label} serve] launches: multi-slot {multi} (= decode_steps {health['decode_steps']}), batch-1 "
+          f"{fused}, int8 {int8} ({windows} windows x {per_win}); every request's ids bitwise equal to it alone "
+          f"through the batcher; equal to session.transcribe for {equal}/{len(clips)} (replayed "
+          f"{replay['steps']} steps: within {replay['worst_rel']:.3e} of max|logit|, {replay['under']} under "
+          f"the margin)")
+    print(f"[{label} numbers] decode {toks} tokens: {agg:.0f} tokens/s over step time ({toks / wall:.0f} end to "
+          f"end); average step {step_s * 1e3:.3f} ms; completion p50 {p50:.2f} s, p95 {p95:.2f} s; average "
+          f"queue wait {health['queue_wait_avg_s']:.3f} s; peak memory {peak:.0f} MiB  [{card}]")
+    del session, srv, bat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": multi, "int8": int8, "tokens": toks, "agg_tok_s": agg, "e2e_tok_s": toks / wall,
+            "step_ms": step_s * 1e3, "p50_s": p50, "p95_s": p95, "equal": equal, "wall_s": wall,
+            "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak}
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3448,6 +4043,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"[t] phases 27-28: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
     arun = phase_aligner(torch, np, qm, card)
+    print(f"[t] phase 29: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
+    # ── 30-33. FireRedASR-AED-L and Dolphin on the AED kernels ─────────────
+    famk = phase_aed_family_kernels(torch, fs, fm, quantize_pytree, card)
+    fam_run, fam_cont = {}, {}
+    for name in ("firered", "dolphin"):
+        with tempfile.TemporaryDirectory() as fam_dir:
+            fam_run[name] = phase_aed_family(torch, np, qm, fs, name, fam_dir, card)
+            fam_cont[name] = phase_aed_family_continuous(torch, np, qm, fs, fm, name, fam_dir, card)
+    print(f"[t] phases 30-33: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -3463,14 +4068,19 @@ def main() -> int:
         "replaces": "asr_tpu/ops/quant_matmul.py:115",
         "launches": (launches + wrun_int8 + serve["int8"] + qrun["int8"] + qserve["int8"] + qcont["int8"]
                      + q2run["int8"] + q2serve["int8"] + q2cont["int8"] + frun["int8"] + frun["batch_int8"]
-                     + fcont["ctc_int8"] + fcont["int8"] + arun["int8"]),
+                     + fcont["ctc_int8"] + fcont["int8"] + arun["int8"]
+                     + sum(fam_run[n]["int8"] + fam_cont[n]["int8"] for n in fam_run)
+                     + fam_run["dolphin"]["ctc_int8"]),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
                              "qwen_q2_serve": q2serve["int8"], "qwen_q2_continuous": q2cont["int8"],
                              "fun_llm": frun["int8"], "fun_llm_batch": frun["batch_int8"],
                              "fun_ctc": fcont["ctc_int8"], "fun_continuous": fcont["int8"],
-                             "aligner": arun["int8"]},
+                             "aligner": arun["int8"], "firered": fam_run["firered"]["int8"],
+                             "firered_continuous": fam_cont["firered"]["int8"],
+                             "dolphin": fam_run["dolphin"]["int8"], "dolphin_ctc": fam_run["dolphin"]["ctc_int8"],
+                             "dolphin_continuous": fam_cont["dolphin"]["int8"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3490,7 +4100,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_aed_step.cu",
         "replaces": "asr_tpu/ops/fused_aed_step.py:302",
-        "launches": wrun_fused,
+        "launches": wrun_fused + sum(r["fused"] for r in fam_run.values()),
+        "launches_by_path": {"whisper": wrun_fused, "firered": fam_run["firered"]["fused"],
+                             "dolphin": fam_run["dolphin"]["fused"]},
         "max_abs_err": fused["max_abs_err"],
         "ms": f_t["ms"],
         "plain_ms": f_t["plain_ms"],
@@ -3505,12 +4117,20 @@ def main() -> int:
                   for cache, t in fused["times"].items()},
         "matvec_alone_ms": {name: {key: m[key] for key in ("ms", "gb_s", "bound_ms", "tile")}
                             for name, m in aed_mv.items()},
+        "geometries": {name: {cache: {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                              | {"graph_ms": t["profile"]["graph_ms"],
+                                 "launches_per_step": t["profile"]["launches_per_step"]}
+                              for cache, t in k["fused"]["times"].items()}
+                       | {"max_abs_err": k["fused"]["max_abs_err"]}
+                       for name, k in famk.items()},
     }, {
         "name": "fused_aed_multi",
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_aed_multi.cu",
         "replaces": "asr_tpu/ops/fused_aed_multi.py:90",
-        "launches": serve["launches"],
+        "launches": serve["launches"] + sum(r["launches"] for r in fam_cont.values()),
+        "launches_by_path": {"continuous": serve["launches"], "firered_continuous": fam_cont["firered"]["launches"],
+                             "dolphin_continuous": fam_cont["dolphin"]["launches"]},
         "max_abs_err": multi["max_abs_err"],
         "ms": m_t["ms"],
         "plain_ms": m_t["plain_ms"],
@@ -3526,6 +4146,11 @@ def main() -> int:
                                       "launches_per_step": t["profile"]["launches_per_step"],
                                       "bound_ms": t["bound_ms"]}
                   for (bs, cache), t in multi["times"].items()},
+        "geometries": {name: {f"B={bs} {cache}": {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                              | {"graph_ms": t["profile"]["graph_ms"]}
+                              for (bs, cache), t in k["multi_times"].items()}
+                       | {"max_abs_err": k["multi_max_abs_err"]}
+                       for name, k in famk.items()},
     }, {
         "name": "quant_matmul_int4",
         "route": "cuda",

@@ -157,8 +157,15 @@ def test_rowwise_step_matches_jax(wparams):
             want = np.asarray(b[key])
             np.testing.assert_allclose(a[key].numpy(), want, rtol=0, atol=TOL * np.abs(want).max())
         assert torch.equal(a["self_k"][2], old[2])  # the parked row wrote nowhere
-    with pytest.raises(NotImplementedError, match="FireRed"):
-        tab._embed_rows(tp["decoder"], tab.AedEngineSpec(32, 48, 4, 96, 24, 40, "scaled_relpos"),
+    # FireRed / Dolphin's input math (sqrt(d)-scaled embeddings + sinusoid
+    # positions) on the same decoder rows
+    jrel = jab._embed_rows(jp["decoder"], jab.AedEngineSpec(32, 48, 4, 96, 24, 40, "scaled_relpos"),
+                           jnp.asarray(toks + [5]), jnp.asarray(pos + [30]))
+    trel = tab._embed_rows(tp["decoder"], tab.AedEngineSpec(32, 48, 4, 96, 24, 40, "scaled_relpos"),
+                           torch.tensor(toks + [5]), torch.tensor(pos + [30]))
+    np.testing.assert_allclose(trel.numpy(), np.asarray(jrel), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="input math"):
+        tab._embed_rows(tp["decoder"], tab.AedEngineSpec(32, 48, 4, 96, 24, 40, "other"),
                         torch.tensor([1]), torch.tensor([0]))
 
 

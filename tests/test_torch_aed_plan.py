@@ -60,8 +60,14 @@ LOGIT_TOL = 1e-2
 TURBO = (1280, 5120, 52224, 448, 1500)
 TURBO_MATVECS = {"qkv": (1280, 3840), "so": (1280, 1280), "cq": (1280, 1280), "co": (1280, 1280),
                  "fc1": (1280, 5120), "fc2": (5120, 1280), "head": (1280, 52224)}
+# FireRedASR-AED-L (16 layers at the turbo width, a head of 7832 -> 8192
+# columns, 750 cross rows) and Dolphin (d 512, a head of 27588 -> 27648
+# columns, the embedding's 512 multiple; 749 cross rows: an odd count), and
+# Dolphin's head at 28160 columns, the width the TPU kernel re-pads it to.
+FIRERED = (1280, 5120, 8192, 448, 750)
+DOLPHIN = (512, 2048, 27648, 448, 749)
 GEOMETRIES = [TURBO, (256, 1024, 512, T_SELF, TC), (384, 1536, 5120, 448, 750),
-              (1024, 4096, 10240, 448, 1500)]
+              (1024, 4096, 10240, 448, 1500), FIRERED, (512, 2048, 28160, 448, 749), DOLPHIN]
 
 
 # ── the plan ────────────────────────────────────────────────────────────
@@ -122,6 +128,26 @@ def test_attention_chunks_cover_every_row_count_once(attn):
     for rows in range(t_rows + 1):
         nc = attn_chunks(rows, plan.attn_min_rows, plan.attn_max_chunks)
         assert 1 <= nc <= plan.attn_max_chunks == tfs.ATTN_MAX_CHUNKS
+        covered = np.zeros(rows, np.int64)
+        for c in range(nc):
+            r0, r1 = chunk_rows(rows, nc, c)
+            assert r1 - r0 <= cap
+            covered[r0:r1] += 1
+        assert (covered == 1).all(), rows
+
+
+@pytest.mark.parametrize("attn", ["self", "cross"])
+@pytest.mark.parametrize("geo", [FIRERED, DOLPHIN], ids=["firered", "dolphin"])
+def test_attention_chunks_cover_every_row_count_once_at_firered_and_dolphin(geo, attn):
+    """As above at FireRed's 750 and Dolphin's 749 cross rows: every row
+    count a slot can hold (tc_valid 1..Tc, the utterance's encoder rows)
+    splits into chunks the plan's score rows hold."""
+    plan = tfs.aed_plan(*geo)
+    t_rows = geo[3] if attn == "self" else geo[4]
+    cap = plan.self_cap if attn == "self" else plan.cross_cap
+    assert cap >= plan.attn_min_rows and cap * plan.attn_max_chunks >= t_rows
+    for rows in range(t_rows + 1):
+        nc = attn_chunks(rows, plan.attn_min_rows, plan.attn_max_chunks)
         covered = np.zeros(rows, np.int64)
         for c in range(nc):
             r0, r1 = chunk_rows(rows, nc, c)

@@ -3,8 +3,10 @@ JAX package's (``asr_tpu/cli.py``) on tiny artifact folders that the port's
 ``save_model`` writes, with ``--platform cpu``: ``inspect``, ``transcribe``
 (one file and several: the ``transcribe_batch`` route), the ``quantize``
 round trip, ``align``, ``serve``'s dispatch, the unknown-family refusal, the
-card default, and the artifact tokenizers (``_build_tokenizer``) of all six kinds, each
-decoding as the JAX package's copy does.
+card default, the AED families FireRed and Dolphin (``inspect`` and
+``transcribe``, Dolphin with ``--language``), and the artifact tokenizers
+(``_build_tokenizer``) of all six kinds, each decoding as the JAX package's
+copy does.
 
 Both command lines run f32 matmuls on the same weights, so the printed
 token text is equal line by line (the timing columns differ).
@@ -27,6 +29,8 @@ from asr_tpu.ops import quant_matmul as jqm
 from asr_tpu.runtime import metadata as jmeta
 from asr_tpu_torch import cli
 from asr_tpu_torch.layers import qwen3 as tq3
+from asr_tpu_torch.models import dolphin as tdp
+from asr_tpu_torch.models import firered as tfr
 from asr_tpu_torch.models import forced_aligner as tfa
 from asr_tpu_torch.models import fun_asr_nano as tfn
 from asr_tpu_torch.models import qwen_asr as tqa
@@ -46,6 +50,13 @@ FN = dict(hidden=32, num_heads=4, head_dim=8, ffn_dim=48, num_encoders0=1, num_e
           eot_id=7)
 TOWER = dict(n_mels=16, tower_dim=32, tower_layers=1, tower_heads=4, tower_ffn=48,
              downsample_hidden=8, chunks_per_window=2, output_dim=48, eot_id=-1)
+FR = dict(vocab_size=64, d_model=64, enc_layers=1, enc_heads=4, conv_kernel=5, dec_layers=1,
+          dec_heads=4, dec_ffn=96, sos_id=1, eos_id=2)
+DP = dict(vocab_size=64, d_model=64, enc_layers=1, enc_heads=4, enc_ffn=96, cgmlp_dim=96,
+          csgu_kernel=5, fusion_kernel=3, dec_layers=1, dec_heads=4, dec_ffn=96, sos_id=1, eos_id=2,
+          language_token_start=40, language_token_end=45, region_token_start=45, region_token_end=50)
+DP_CATALOG = {"languages": {"ja": 41, "zh": 43}, "regions": {"SICHUAN": 47},
+              "aliases": {"Japanese": "ja", "Chinese": "zh"}}
 
 
 @pytest.fixture(autouse=True)
@@ -86,6 +97,28 @@ def _fun_asr_nano(folder: Path, head: str) -> Path:
                          tokenizer=_vocab_txt(folder, 120),
                          extra={"config": dataclasses.asdict(cfg), "prompt_head_ids": [1, 2],
                                 "prompt_suffix_ids": [3], "prompt_tail_ids": [4, 5]})
+    save_model(folder, params, meta)
+    return folder
+
+
+def _aed(folder: Path, family: str) -> Path:
+    """A tiny FireRed artifact with a ``firered_dict`` file, or a Dolphin one
+    with a ``vocab_txt`` file and a language catalog."""
+    folder.mkdir()
+    if family == "firered":
+        cfg = tfr.FireRedConfig(**FR)
+        params = tfr.init_params(cfg, _g(4), "cpu")
+        (folder / "dict.txt").write_text("<blank> 0\n<unk> 1\n<sos> 2\n<eos> 3\n"
+                                         + "".join(f"w{i} {i}\n" for i in range(4, 64)),
+                                         encoding="utf-8")
+        meta = ModelMetadata(family="firered", tokenizer={"kind": "firered_dict", "file": "dict.txt"},
+                             extra={"config": dataclasses.asdict(cfg)})
+    else:
+        cfg = tdp.DolphinConfig(**DP)
+        params = tdp.init_params(cfg, _g(5), "cpu")
+        meta = ModelMetadata(family="dolphin", tokenizer=_vocab_txt(folder, 64),
+                             extra={"config": dataclasses.asdict(cfg),
+                                    "dolphin_language_catalog": DP_CATALOG})
     save_model(folder, params, meta)
     return folder
 
@@ -131,6 +164,30 @@ def test_transcribe_one_and_several_files_match_jax(tmp_path, capsys, family):
         assert _text_lines(got) == _text_lines(want)
         assert len(_text_lines(got)) == len(audio)
         assert all(t.startswith("t") for _, _, t in _text_lines(got))  # decoded text, not ids
+
+
+@pytest.mark.parametrize("family,language", [("firered", None), ("dolphin", None),
+                                             ("dolphin", "Chinese-Sichuan")])
+def test_aed_families_transcribe_and_inspect(tmp_path, capsys, family, language):
+    """``inspect`` prints what the JAX command line prints; ``transcribe``
+    prints, for each file, the decode of ``session.transcribe``'s ids (the
+    session ``_build_session`` makes, on the CPU in f32); Dolphin forces its
+    language through the catalog with ``--language``."""
+    folder = _aed(tmp_path / "m", family)
+    got, want = _both(capsys, ["inspect", "--model-dir", str(folder)])
+    assert json.loads(got) == json.loads(want) and json.loads(got)["family"] == family
+    files = [_wav(tmp_path / f"{i}.wav", n, 20 + i) for i, n in enumerate((12000, 20000))]
+    lang = ["--language", language] if language else []
+    assert cli.main(["--platform", "cpu", "--quant-mm", "f32", "transcribe", *lang, "--model-dir",
+                     str(folder), *files]) == 0
+    lines = _text_lines(capsys.readouterr().out)
+    sess = cli._build_session(folder, language=language, device="cpu")
+    assert type(sess).__name__ == {"firered": "FireRedSession", "dolphin": "DolphinSession"}[family]
+    if language:
+        assert (sess.language_id, sess.region_id) == (43, 47)
+    for f, (name, _, text) in zip(files, lines):
+        ids = sess.transcribe(f).token_ids
+        assert name == f and ids and text == sess.tokenizer.decode(ids)
 
 
 def test_transcribe_batch_route_gives_each_file_its_own_ids(tmp_path, capsys):
@@ -219,6 +276,19 @@ def test_serve_dispatch(tmp_path, monkeypatch):
                    "kv_dtype": "bf16", "steps_per_tick": 2}
     with pytest.raises(SystemExit, match="--continuous serves"):
         cli.main(["--platform", "cpu", "serve", "--model-dir", str(sv), "--continuous"])
+
+
+def test_serve_continuous_takes_the_aed_families(tmp_path, monkeypatch):
+    from asr_tpu_torch.parallel import llm_server
+
+    calls = []
+    monkeypatch.setattr(llm_server, "serve_continuous", lambda sess, **kw: calls.append((sess, kw)))
+    for family in ("firered", "dolphin"):
+        folder = _aed(tmp_path / family, family)
+        assert cli.main(["--platform", "cpu", "serve", "--model-dir", str(folder), "--continuous",
+                         "--slots", "2"]) == 0
+    assert [type(sess).__name__ for sess, _ in calls] == ["FireRedSession", "DolphinSession"]
+    assert all(kw["n_slots"] == 2 and hasattr(sess, "continuous_prefill") for sess, kw in calls)
 
 
 def test_unknown_family_and_the_card_default(tmp_path, monkeypatch):

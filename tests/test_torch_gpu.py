@@ -21,8 +21,11 @@ wrapper's checks, and its launch count in a continuous Qwen3-ASR serving
 run; the two steps' shared tensor-core matvec alone against its plain
 version at the five Qwen3-ASR-0.6B shapes for 1-32 rows; the int8, int4
 and int2 sources each built twice (two cache keys) and both libraries
-launched side by side in one process. Each test skips where no card is
-present.
+launched side by side in one process; the fused and multi-slot AED steps
+at FireRedASR-AED-L's and Dolphin's decoder geometry (slots bitwise the
+batch-1 kernel), and tiny FireRed and Dolphin sessions' launch counts on
+the batch-1, per-weight and continuous routes. Each test skips where no
+card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -1048,3 +1051,151 @@ def test_two_libraries_of_one_source_launch_side_by_side(attr, parts, k, n):
             other = qm._int8_launch(*args, lib=second)
         torch.cuda.synchronize()
         assert torch.equal(first, other)
+
+
+# ── FireRedASR-AED-L and Dolphin on the AED steps ───────────────────────
+# Their decoders at full width (FireRed: 16 layers at d 1280, a head of 8192
+# columns, bias-free o-projections; Dolphin: 6 layers at d 512, 27648
+# columns) with 750 / 749 cross rows (an odd count), the tolerances of the
+# Whisper tests above; and tiny sessions of both families, whose batch-1
+# decode launches the fused step once a step and whose continuous serving
+# launches the multi-slot step once a step.
+FAMILIES = {"firered": (750, 512), "dolphin": (749, 301)}  # cross rows, and fewer valid
+
+
+def _family_setup(name, tiny=False, seed=0):
+    from asr_tpu_torch.layers.conformer import absolute_positions
+    from asr_tpu_torch.models import dolphin, firered
+    from asr_tpu_torch.ops import fused_aed_step as fs
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+
+    mod = firered if name == "firered" else dolphin
+    kw = {"enc_layers": 0} if not tiny else dict(
+        vocab_size=300, d_model=256, enc_layers=1, enc_heads=4, dec_layers=2, dec_heads=4, dec_ffn=512,
+        max_target_positions=32, **({} if name == "firered" else dict(
+            enc_ffn=256, cgmlp_dim=512, sos_id=298, eos_id=299, language_token_start=200,
+            language_token_end=250, region_token_start=250, region_token_end=290)))
+    cfg = (firered.FireRedConfig if name == "firered" else dolphin.DolphinConfig)(**kw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = mod.init_params(cfg, g)
+    for p in params["decoder"]["blocks"]:  # random biases where the checkpoint has them
+        for lin in (*p["attn"].values(), *p["cross"].values(), *p["mlp"].values()):
+            if "b" in lin:
+                lin["b"] = 0.1 * torch.randn(lin["b"].shape, generator=g, device="cuda")
+    params = quantize_pytree(params, bits=8, block=128, quantize_embeddings=True,
+                             **({"min_size": 0} if tiny else {}))
+    geom = fs.AedGeom(cfg.d_model, cfg.dec_ffn, cfg.dec_heads)
+    stacked = fs.stack_aed_step_params(params["decoder"], geom)
+    assert stacked is not None
+    table = absolute_positions(cfg.max_target_positions, cfg.d_model, torch.device("cuda"))
+
+    def x_of(toks, pos):
+        return (params["decoder"]["embed"][toks] * cfg.d_model ** 0.5 + table[pos]).float()
+
+    return fs, mod, cfg, params, stacked, geom, x_of, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_fused_step_kernel_at_firered_and_dolphin_geometry(name, cache):
+    _need_card()
+    fs, mod, cfg, params, stacked, geom, x_of, g = _family_setup(name)
+    nl, d, t, v = cfg.dec_layers, cfg.d_model, cfg.max_target_positions, cfg.vocab_size
+    tc = FAMILIES[name][0]
+    if name == "firered":  # no o bias: zeros in the stacked biases
+        assert not stacked["ba"][:, 0, 3 * d : 4 * d].any() and not stacked["ba"][:, 0, 5 * d : 6 * d].any()
+    ks, vs = (torch.randn((nl, t, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    ck, cv = (torch.randn((nl, tc, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    for pos in (0, 3, t - 1):
+        x = x_of(torch.tensor([7 + pos], device="cuda"), torch.tensor([pos], device="cuda"))
+        for tc_valid in FAMILIES[name]:
+            kk, vk, kp, vp = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+            got, _, _ = fs.fused_aed_step_cuda(stacked, geom, x, kk, vk, ck, cv, pos, tc_valid)
+            torch.cuda.synchronize()
+            want, _, _ = fs.fused_aed_step_reference(stacked, geom, x, kp, vp, ck, cv, pos, tc_valid)
+            assert (got[:, :v] - want[:, :v]).abs().max().item() <= 1e-2 * want[:, :v].abs().max().item()
+            assert (got[:, v:] == 0).all()
+            keep = torch.arange(t, device="cuda") != pos
+            assert torch.equal(kk[:, keep], ks[:, keep]) and torch.equal(vk[:, keep], vs[:, keep])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_multi_slots_bitwise_batch1_at_firered_and_dolphin_geometry(name, cache):
+    _need_card()
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+
+    fs, mod, cfg, params, stacked, geom, x_of, g = _family_setup(name, seed=1)
+    nl, d, t, v = cfg.dec_layers, cfg.d_model, cfg.max_target_positions, cfg.vocab_size
+    tc = FAMILIES[name][0]
+    for bs in (2, 8):
+        pos_l = [(3, 200, t - 1)[i % 3] for i in range(bs)]
+        pos_l[bs // 2] = -1
+        tc_l = [FAMILIES[name][i % 2] for i in range(bs)]
+        x = x_of(torch.arange(bs, device="cuda") + 11, torch.tensor([max(p, 0) for p in pos_l], device="cuda"))
+        ks, vs = (torch.randn((nl, bs, t, d), generator=g, device="cuda").to(cache) for _ in range(2))
+        ck, cv = (torch.randn((nl, bs, tc, d), generator=g, device="cuda").to(cache) for _ in range(2))
+        kk, vk = ks.clone(), vs.clone()
+        got, _, _ = fm.fused_aed_step_multi_cuda(stacked, geom, x, kk, vk, ck, cv,
+                                                 torch.tensor(pos_l, dtype=torch.int32, device="cuda"),
+                                                 torch.tensor(tc_l, dtype=torch.int32, device="cuda"))
+        for b, p in enumerate(pos_l):
+            if p < 0:
+                assert torch.equal(kk[:, b], ks[:, b]) and torch.equal(vk[:, b], vs[:, b])
+                continue
+            kb, vb = ks[:, b].contiguous(), vs[:, b].contiguous()
+            one, _, _ = fs.fused_aed_step_cuda(stacked, geom, x[b : b + 1], kb, vb, ck[:, b].contiguous(),
+                                               cv[:, b].contiguous(), p, tc_l[b])
+            assert torch.equal(got[b : b + 1], one)
+            assert torch.equal(kk[:, b], kb) and torch.equal(vk[:, b], vb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_sessions_launch_the_fused_and_multi_steps_once_per_step(name):
+    """A tiny q8 FireRed / Dolphin session in the bf16 mode stacks its
+    decoder; one window launches the fused step once a decode step and the
+    int8 kernel for the encoder, cross-KV and prefill only; two windows take
+    the per-weight route; continuous serving launches the multi-slot step
+    once a decode step and the batch-1 step never."""
+    _need_card()
+    import numpy as np
+
+    from asr_tpu_torch.decode.ar import DecodeConfig
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+    from asr_tpu_torch.parallel.aed_batcher import ContinuousAedBatcher
+    from asr_tpu_torch.runtime import transducer_session as ts
+
+    fs, mod, cfg, params, stacked, geom, x_of, g = _family_setup(name, tiny=True, seed=2)
+    mm = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="bf16")
+    try:
+        cls = ts.FireRedSession if name == "firered" else ts.DolphinSession
+        sess = cls(params, cfg, decode_cfg=DecodeConfig(max_new_tokens=10, eot_id=-1), window_seconds=0.5)
+        assert sess.stacked is not None
+        audio = np.random.default_rng(0).standard_normal(7000).astype(np.float32) * 2000
+        before_f, before_q = fs.LAUNCHES, qm.LAUNCHES
+        res = sess.transcribe(audio)
+        assert fs.LAUNCHES - before_f == len(res.token_ids) - 1 == 10
+        # one encoder layer's linears and the stem's (FireRed 11 + 1, Dolphin
+        # 12 + 1), the cross-KV (Dolphin's twice: the probes' and the
+        # prompt's), the prefill's passes (Dolphin: two probes and the prompt)
+        enc, cross, passes = (12, 4, 1) if name == "firered" else (13, 8, 3)
+        assert qm.LAUNCHES - before_q == enc + cross + passes * (8 * 2 + 1)
+        before_f = fs.LAUNCHES
+        sess.transcribe(np.concatenate([audio, audio]))  # 2 windows: the per-weight route
+        assert fs.LAUNCHES == before_f
+        bat = ContinuousAedBatcher(params, sess.aed_engine_spec(), sess.decode_cfg, n_slots=2,
+                                   stacked=sess.stacked)
+        before_m, steps = fm.LAUNCHES, 0
+        for a in (audio, audio[:5000]):
+            pre = sess.continuous_prefill(a)
+            bat.try_submit(pre["state"], pre["p_len"], pre["logits0"], pre["tc_valid"])
+        while bat.n_active:
+            bat.step()
+            steps += 1
+        assert fm.LAUNCHES - before_m == steps > 0 and fs.LAUNCHES == before_f
+    finally:
+        qm._CONFIG["mm"] = mm

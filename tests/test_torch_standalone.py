@@ -130,6 +130,23 @@ asess = QwenAlignerSession(qtower, qllm, {"w": torch.randn(256, 25)}, acfg,
                            type("T", (), {"encode": lambda self, t: [7, 8]})(),
                            {"timestamp": 10, "audio_start": 11, "audio_end": 12}, max_seconds=1.0)
 assert [w["text"] for w in asess.align(np.zeros(8000, np.float32), "a b")] == ["a", "b"]
+from asr_tpu_torch.decode.ar import DecodeConfig
+from asr_tpu_torch.models import dolphin as dp, firered as fr
+from asr_tpu_torch.runtime.transducer_session import DolphinSession, FireRedSession
+frcfg = fr.FireRedConfig(vocab_size=64, d_model=256, enc_layers=1, enc_heads=4, conv_kernel=5,
+                         dec_layers=1, dec_heads=4, dec_ffn=256, max_target_positions=16)
+frp = quantize_pytree(fr.init_params(frcfg, g, "cpu"), min_size=4096, quantize_embeddings=True)
+dc = DecodeConfig(max_new_tokens=3, eot_id=-1)
+assert len(FireRedSession(frp, frcfg, decode_cfg=dc, window_seconds=0.5).transcribe(
+    np.ones(9000, np.float32)).token_ids) == 8
+dpcfg = dp.DolphinConfig(vocab_size=64, d_model=256, enc_layers=1, enc_heads=4, enc_ffn=256,
+                         cgmlp_dim=256, csgu_kernel=5, dec_layers=1, dec_heads=4, dec_ffn=256,
+                         sos_id=1, eos_id=2, language_token_start=40, language_token_end=44,
+                         max_target_positions=16)
+dsess = DolphinSession(quantize_pytree(dp.init_params(dpcfg, g, "cpu"), min_size=4096), dpcfg,
+                       decode_cfg=dc, window_seconds=0.5)
+assert len(dsess.transcribe(np.ones(5000, np.float32)).token_ids) == 4
+assert 40 <= dsess.last_language < 44 and dsess.last_region is None
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
 assert not leaked, leaked
 print("STANDALONE_OK", len(out["token_ids"]))
@@ -140,7 +157,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     """Every module imported, the SenseVoice forward, a Whisper
     transcription, the continuous server, a q4 Qwen3-ASR transcription, a
     packed-int2 product, a (native, where g++ builds it) resample, both
-    Fun-ASR-Nano sessions and a forced alignment, in a fresh process."""
+    Fun-ASR-Nano sessions, a forced alignment and the q8 FireRed and Dolphin
+    sessions (Dolphin probing its language), in a fresh process."""
     proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
