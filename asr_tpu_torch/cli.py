@@ -3,8 +3,9 @@ artifact folders (``python -m asr_tpu_torch``).
 
 Counterpart of ``asr_tpu/cli.py`` with the same subcommands' flags and
 defaults, for the families the port runs: ``sensevoice``, ``whisper``,
-``firered``, ``dolphin``, ``qwen_asr``, ``fun_asr_nano`` (the CTC head),
-``fun_asr_nano_llm`` and ``qwen_aligner``. ``--platform`` picks the torch
+``paraformer``, ``parakeet``, ``nemotron`` (``--language`` resolves to its
+prompt id), ``firered``, ``dolphin``, ``qwen_asr``, ``fun_asr_nano`` (the
+CTC head), ``fun_asr_nano_llm`` and ``qwen_aligner``. ``--platform`` picks the torch
 device: the CUDA card by default (it raises where no card is visible),
 ``cpu`` when asked for. ``--quant-mm`` sets the quantized kernels' matmul
 mode.
@@ -26,8 +27,8 @@ import shutil
 import sys
 from pathlib import Path
 
-FAMILIES = ("sensevoice", "whisper", "firered", "dolphin", "qwen_asr", "fun_asr_nano",
-            "fun_asr_nano_llm", "qwen_aligner")
+FAMILIES = ("sensevoice", "whisper", "paraformer", "parakeet", "nemotron", "firered", "dolphin",
+            "qwen_asr", "fun_asr_nano", "fun_asr_nano_llm", "qwen_aligner")
 
 
 def _device(platform: str):
@@ -85,6 +86,29 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
                     if p.prompt_token_id is not None}
         return WhisperSession(params, config_from_dict(WhisperConfig, cfg_dict),
                               tokenizer=tokenizer, session_cfg=scfg, language_id_map=lang_map)
+
+    if family == "paraformer":
+        from asr_tpu_torch.models.paraformer import ParaformerConfig
+        from asr_tpu_torch.runtime.transducer_session import ParaformerSession
+
+        return ParaformerSession(params, config_from_dict(ParaformerConfig, cfg_dict), tokenizer=tokenizer)
+
+    if family == "parakeet":
+        from asr_tpu_torch.models.parakeet import ParakeetConfig
+        from asr_tpu_torch.runtime.transducer_session import ParakeetSession
+
+        return ParakeetSession(params, config_from_dict(ParakeetConfig, cfg_dict), tokenizer=tokenizer)
+
+    if family == "nemotron":
+        from asr_tpu_torch.models.nemotron import NemotronConfig
+        from asr_tpu_torch.runtime.transducer_session import NemotronSession
+
+        prompt_id = 0
+        if language:
+            prof = meta.resolve_language(language)
+            prompt_id = prof.prompt_token_id if prof.prompt_token_id is not None else (prof.index or 0)
+        return NemotronSession(params, config_from_dict(NemotronConfig, cfg_dict), tokenizer=tokenizer,
+                               prompt_id=prompt_id)
 
     if family == "firered":
         from asr_tpu_torch.models.firered import FireRedConfig

@@ -1,11 +1,14 @@
 """Offline windowed sessions: fixed windows, one batched forward, tokenizer
 decode, RTF.
 
-Counterpart of ``asr_tpu/runtime/transducer_session.py`` for the families
-the port runs so far: the shared windowed machinery (``_WindowedSession``,
-without the ``mesh=`` data-parallel runner), the AED families FireRed
-(``FireRedSession``) and Dolphin (``DolphinSession``, with its language /
-region probes and catalog), and Fun-ASR-Nano's fast CTC head
+Counterpart of ``asr_tpu/runtime/transducer_session.py`` for every offline
+windowed family: the shared windowed machinery (``_WindowedSession``,
+without the ``mesh=`` data-parallel runner), the transducers Parakeet-TDT
+(``ParakeetSession``, 24 s windows) and Nemotron (``NemotronSession``, a
+prompt id, language tags stripped from the text), the AED families
+FireRed (``FireRedSession``) and Dolphin (``DolphinSession``, with its
+language / region probes and catalog), Paraformer (``ParaformerSession``,
+CIF + non-AR decoder) and Fun-ASR-Nano's fast CTC head
 (``FunAsrNanoCtcSession``). Each session wraps a model module's forward
 with the family's PCM convention; the parameters' device is the session's.
 
@@ -154,6 +157,53 @@ class _WindowedSession:
                                             audio_seconds=float(valid[i]) / self.sample_rate,
                                             elapsed_seconds=elapsed, batch_size=len(paths)))
         return results
+
+
+class ParakeetSession(_WindowedSession):
+    """Parakeet-TDT offline; NeMo's [-1, 1] PCM (``mel.input_scale`` in the
+    config), 24 s windows."""
+
+    window_seconds = 24.0
+
+    def _forward(self, params, audio, valid):
+        from asr_tpu_torch.models import parakeet as pk
+
+        return pk.forward(params, self.cfg, audio, valid)
+
+
+class NemotronSession(_WindowedSession):
+    """Nemotron offline RNN-T with a multilingual prompt id; emitted
+    ``<xx>`` language tags are stripped from the text."""
+
+    def __init__(self, params, cfg, tokenizer=None, prompt_id: int = 0, **kw):
+        super().__init__(params, cfg, tokenizer, **kw)
+        self.prompt_id = prompt_id
+
+    def _forward(self, params, audio, valid):
+        from asr_tpu_torch.models import nemotron as nm
+
+        pid = torch.full((audio.shape[0],), self.prompt_id, dtype=torch.int64, device=audio.device)
+        return nm.forward(params, self.cfg, audio, valid, pid)
+
+    def _postprocess(self, text: str) -> str:
+        return strip_language_tags(text)
+
+
+class ParaformerSession(_WindowedSession):
+    """Paraformer non-streaming: Kaldi int16-range PCM, 30 s windows, at
+    most ``max_tokens`` CIF tokens a window."""
+
+    pcm_scale = 32768.0
+    window_seconds = 30.0
+
+    def __init__(self, params, cfg, tokenizer=None, max_tokens: int = 256, **kw):
+        super().__init__(params, cfg, tokenizer, **kw)
+        self.max_tokens = max_tokens
+
+    def _forward(self, params, audio, valid):
+        from asr_tpu_torch.models import paraformer as pf
+
+        return pf.forward(params, self.cfg, audio, valid, max_tokens=self.max_tokens)
 
 
 class FireRedSession(_WindowedSession):

@@ -126,7 +126,18 @@ numbers; (32) Dolphin the same, with both probes inside its vocabulary, a
 language forced by name through its catalog and its CTC head's RTF; (33)
 each of the two served continuously over HTTP, 9 requests on 8 slots with
 f32 caches, each request's ids bitwise equal to it alone through the
-batcher and checked against ``session.transcribe``.
+batcher and checked against ``session.transcribe``; (34) Paraformer-large,
+(35) Parakeet-TDT-0.6B and (36) Nemotron-0.6B q8 at full width through an
+artifact folder and ``_build_session``: in mm=f32 the encoder output and
+every greedy step's joint logits (Paraformer: the decoder's over the fired
+embeddings) against plain matmuls on the dequantized weights within 1e-3
+of max|plain| and the ids the plain argmax above the margin; RTF of a
+batch of 8 x 8 s in f32 and q8; one window (30 / 24 / 30 s) through the
+session in the serving mode with its encoder, decode (tokens, steps, host
+syncs, ms a step; Paraformer's CIF scan) timed apart, RTF and peak memory;
+and, as part of (26), ``python -m asr_tpu_torch transcribe`` on each
+artifact (Nemotron with ``--language``), its text the decode of
+``session.transcribe``'s ids.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -154,7 +165,10 @@ encoder's 145, two cross-KVs' 24, the two probes' and the prompt's 3 x 49)
 and the fused step once per decode step, its CTC head 146 (the encoder and
 the head); their continuous serving launches the multi-slot step once per
 decode step, the int8 kernel as often as the windows' prefills, and never
-the batch-1 step.
+the batch-1 step. One Paraformer window launches the int8 kernel 283
+times (the encoder's 200, the decoder's 83), a Parakeet window 266 (the
+encoder) + 2 a greedy step, a Nemotron window 267 + 2 a greedy step; the
+transducer loops read ``all(done)`` on the host once every 8 steps.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -362,6 +376,7 @@ def int8_paths() -> dict:
             calls[(m, k, n, b)] = calls.get((m, k, n, b), 0) + c
         paths[name] = calls
     paths.update(aed_family_int8_paths())
+    paths.update(offline_int8_paths())
     return paths
 
 
@@ -3795,6 +3810,380 @@ def phase_aed_family_continuous(torch, np, qm, fs, fm, name: str, folder: str, c
             "queue_wait_s": health["queue_wait_avg_s"], "peak_mib": peak}
 
 
+# ── 34-36. Paraformer-large, Parakeet-TDT-0.6B and Nemotron-0.6B offline ──
+OFFLINE_FAMILIES = ("paraformer", "parakeet", "nemotron")
+OFFLINE_WINDOW_S = {"paraformer": 30.0, "parakeet": 24.0, "nemotron": 30.0}  # each session's window
+OFFLINE_PCM = {"paraformer": 2000.0, "parakeet": 0.1, "nemotron": 0.1}  # int16 range / NeMo's [-1, 1]
+OFFLINE_BENCH = (8, 8.0, 128)  # batch, seconds, max_tokens: tools/bench_matrix.py's geometry
+OFFLINE_TIMED = 3  # timed forwards of each batch-8 variant
+PARAFORMER_MAX_TOKENS = 256  # ParaformerSession's default
+NEMOTRON_LANGUAGE = ("en", 3)  # a language profile and its prompt id, forced through --language
+
+
+def offline_family(name: str):
+    """(model module, full-width config) of Paraformer-large, Parakeet-TDT-0.6B or Nemotron-0.6B."""
+    from asr_tpu_torch.models import nemotron, paraformer, parakeet
+
+    mod = {"paraformer": paraformer, "parakeet": parakeet, "nemotron": nemotron}[name]
+    cfg = {"paraformer": paraformer.ParaformerConfig, "parakeet": parakeet.ParakeetConfig,
+           "nemotron": nemotron.NemotronConfig}[name]()
+    return mod, cfg
+
+
+def offline_rows(name: str, cfg, seconds: float) -> tuple[int, int]:
+    """(rows of the encoder's first linear, rows of its blocks) for one
+    window of ``seconds``: LFR frames (Paraformer), the 8x subsampling's
+    frames (Parakeet), the causal pre-encode's frames before and after
+    ``drop_extra`` (Nemotron)."""
+    samples = int(seconds * cfg.sample_rate)
+    if name == "paraformer":
+        t = -(-cfg.fbank.num_frames(samples) // cfg.lfr_n)
+        return t, t
+    t = cfg.mel.num_frames(samples)
+    if name == "parakeet":
+        for _ in range(3):
+            t = (t + 2 - 3) // 2 + 1
+        return t, t
+    t = (t + 2 + cfg.pre_encode_cache + 1 - 3) // 2 + 1
+    for _ in range(2):
+        t = (t + 2 + 1 - 3) // 2 + 1
+    return t, t - cfg.drop_extra
+
+
+def offline_int8_paths() -> dict:
+    """The int8 kernel's calls on the three offline paths ({(M, K, N, block):
+    calls}): one window of each session (Paraformer 30 s with the decoder at
+    256 token rows and the cross K|V over the encoder's rows; Parakeet 24 s;
+    Nemotron 30 s, its pre-encode linear before ``drop_extra``) and a batch
+    of 8 x 8 s (bench_matrix's geometry, 128 token rows a window); the
+    conformers' rel-pos projection at 2T - 1 rows for any batch; a greedy
+    step's two joint linears at M = batch (Parakeet's head 8198 columns:
+    8193 tokens and 5 durations; Nemotron's joint 8193)."""
+    def add(calls, key, n):
+        calls[key] = calls.get(key, 0) + n
+
+    paths = {}
+    for name in OFFLINE_FAMILIES:
+        _, cfg = offline_family(name)
+        for label, b, secs, tokens in (("window", 1, OFFLINE_WINDOW_S[name], PARAFORMER_MAX_TOKENS),
+                                       (f"b{OFFLINE_BENCH[0]}", OFFLINE_BENCH[0], OFFLINE_BENCH[1],
+                                        OFFLINE_BENCH[2])):
+            r0, t = offline_rows(name, cfg, secs)
+            m, calls = b * t, {}
+            if name == "paraformer":
+                h, f, fs, ne, nd = cfg.hidden, cfg.ffn_dim, cfg.feature_size, cfg.num_encoders, cfg.num_decoders
+                md, nf = b * tokens, cfg.num_decoders + cfg.num_decoder_ffn
+                add(calls, (m, fs, 3 * h, fs if fs % 128 else 128), cfg.num_encoders0)
+                add(calls, (m, h, 3 * h, 128), ne)
+                add(calls, (m, h, h, 128), cfg.num_encoders0 + ne)
+                add(calls, (m, h, f, 128), cfg.num_encoders0 + ne)
+                add(calls, (m, f, h, 128), cfg.num_encoders0 + ne)
+                add(calls, (md, h, f, 128), nf)
+                add(calls, (md, f, h, 128), nf)
+                add(calls, (md, h, h, 128), 2 * nd)
+                add(calls, (m, h, 2 * h, 128), nd)
+                add(calls, (md, h, cfg.vocab_size, 128), 1)
+                paths[f"paraformer_{label}"] = calls
+                continue
+            d, f, nl, ch = cfg.d_model, cfg.ffn_dim, cfg.num_layers, cfg.sub_channels
+            freq = cfg.mel.n_mels
+            for _ in range(3):
+                freq = (freq + 2 + (1 if name == "nemotron" else 0) - 3) // 2 + 1
+            add(calls, (b * r0, ch * freq, d, 128), 1)
+            add(calls, (m, d, f, 128), 2 * nl)
+            add(calls, (m, f, d, 128), 2 * nl)
+            add(calls, (m, d, d, 128), 5 * nl)
+            add(calls, (2 * t - 1, d, d, 128), nl)
+            add(calls, (m, d, 2 * d, 128), nl)
+            if name == "parakeet":
+                hid, cols = cfg.dec_hidden, cfg.vocab_size + cfg.num_durations
+                add(calls, (m, d, hid, 128), 1)
+            else:
+                hid, cols = cfg.joint_hidden, cfg.vocab_size + 1
+                add(calls, (m, cfg.prompt_hidden, cfg.prompt_hidden, 128), 1)
+                add(calls, (m, cfg.prompt_hidden, hid, 128), 1)
+            paths[f"{name}_{label}_encoder"] = calls
+            paths[f"{name}_{label}_step"] = {(b, hid, hid, 128): 1, (b, hid, cols, 128): 1}
+    return paths
+
+
+def offline_window_int8(name: str) -> int:
+    """int8 calls of one window's forward before its greedy loop (the
+    encoder; Paraformer: its whole forward)."""
+    paths = offline_int8_paths()
+    return sum(paths[f"{name}_window" + ("" if name == "paraformer" else "_encoder")].values())
+
+
+def top2_share(logits):
+    """Each row's top-2 logit margin as a share of the row's max|logit|."""
+    return logits_margin(logits) / logits.abs().amax(-1).clamp(min=1e-30)
+
+
+def offline_replay(torch, mod, name, params, plain, enc, valid, cfg, max_tokens: int) -> dict:
+    """The greedy loop on ``params`` (the int8 kernel) with every step's
+    inputs recorded, then each step's joint on ``plain`` (plain matmuls on
+    the dequantized weights) from the same inputs: the largest logit gap as
+    a share of max|logit|, the steps whose plain top-2 margin is above
+    MARGIN and whose argmax differs from the kernel's, and the ids."""
+    from asr_tpu_torch.decode.rnnt import rnnt_greedy
+    from asr_tpu_torch.decode.tdt import tdt_greedy
+
+    rec = []
+
+    def step(token, h, c, enc_frame):
+        out = mod.joint_step(params, token, h, c, enc_frame)
+        rec.append((token, h, c, enc_frame, out))
+        return out
+
+    b = enc.shape[0]
+    hid = cfg.dec_hidden if name == "parakeet" else cfg.pred_hidden
+    h0 = torch.zeros((cfg.lstm_layers, b, hid), device=DEV)
+    if name == "parakeet":
+        ids, counts = tdt_greedy(step, enc, valid, h0, h0.clone(), cfg.blank_id, cfg.blank_id, cfg.durations,
+                                 max_tokens, eos_id=cfg.eos_id)
+    else:
+        ids, counts = rnnt_greedy(step, enc, valid, h0, h0.clone(), cfg.blank_id, cfg.blank_id, max_tokens,
+                                  cfg.max_symbols_per_frame)
+    worst, flips, under = 0.0, 0, 0
+    for token, h, c, enc_frame, out in rec:
+        want = mod.joint_step(plain, token, h, c, enc_frame)
+        for got_l, want_l in zip(out[:-2], want[:-2]):  # token (and duration) logits
+            worst = max(worst, ((got_l - want_l).abs().max() / want_l.abs().max()).item())
+            sure = top2_share(want_l) > MARGIN
+            flips += int(((got_l.argmax(-1) != want_l.argmax(-1)) & sure).sum())
+            under += int((~sure).sum())
+    return {"ids": ids, "counts": counts, "steps": len(rec), "worst": worst, "flips": flips, "under": under}
+
+
+def offline_metadata(name: str, cfg):
+    """An artifact's metadata: the config, a vocab_txt tokenizer over the
+    token logits' columns (Nemotron: one language profile)."""
+    from asr_tpu_torch.runtime.artifact import ModelMetadata
+    from asr_tpu_torch.runtime.metadata import LanguageProfile
+
+    langs = [LanguageProfile(NEMOTRON_LANGUAGE[0], "English", prompt_token_id=NEMOTRON_LANGUAGE[1])]
+    return ModelMetadata(family=name, tokenizer={"kind": "vocab_txt", "file": "tokens.txt"},
+                         supported_languages=langs if name == "nemotron" else [],
+                         extra={"config": dataclasses.asdict(cfg)})
+
+
+def phase_offline(torch, np, qm, name: str, folder: str, card: str) -> dict:
+    """[34] Paraformer-large / [35] Parakeet-TDT-0.6B / [36] Nemotron-0.6B at
+    full width, random weights from a seed, q8 by ``quantize_pytree(bits=8,
+    block=128)`` on the card, through an artifact folder (a vocab_txt file)
+    and the command line's ``_build_session``. (a) mm=f32, one window: the
+    encoder output and the logits (every greedy step's joint from the same
+    inputs; Paraformer's decoder over the same fired embeddings) against
+    plain matmuls on the dequantized weights within 1e-3 of max|plain|, the
+    ids the plain argmax wherever its top-2 margin is above 1e-3 of
+    max|logit|, and the int8 launches counted. (c) A batch of 8 x 8 s (128
+    tokens a window), f32 weights and q8 in both modes: RTF; run before (b),
+    so that (b)'s peak memory counts the session alone. (b) The serving
+    mode (bf16): one window through ``session.transcribe`` (its int8
+    launches: the main path), with the front end + encoder, the decode
+    (tokens, steps, host syncs, ms a step, and with a host sync every step;
+    Paraformer: predictor, the CIF scan, the decoder) timed apart, RTF and
+    peak memory. Then [26 cli]: ``python
+    -m asr_tpu_torch transcribe`` of a 5 s file on the artifact (Nemotron
+    with ``--language``), its text the decode of ``session.transcribe``'s ids."""
+    from asr_tpu_torch.cli import _build_session
+    from asr_tpu_torch.decode import cif, tdt
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+    from asr_tpu_torch.runtime.artifact import save_model
+
+    label = {"paraformer": "34 paraformer", "parakeet": "35 parakeet", "nemotron": "36 nemotron"}[name]
+    mod, cfg = offline_family(name)
+    t0 = time.perf_counter()
+    params32 = mod.init_params(cfg, torch.Generator(device=DEV).manual_seed(34 + OFFLINE_FAMILIES.index(name)))
+    q8 = quantize_pytree(params32, bits=8, block=128)
+    cols = cfg.vocab_size + (1 if name == "nemotron" else 0)
+    write_vocab(Path(folder) / "tokens.txt", cols)
+    save_model(folder, q8, offline_metadata(name, cfg))
+    size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
+    del q8
+    session = _build_session(Path(folder), device=DEV)
+    check(type(session).__name__ == f"{name.capitalize()}Session", f"_build_session gave a {type(session).__name__}")
+    params = session.params
+    print(f"[{label}] q8 (config {type(cfg).__name__}() at full width): init + quantize + artifact "
+          f"({size_mb:.1f} MB) round trip in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(34)
+    win = OFFLINE_WINDOW_S[name]
+    audio = (rng.standard_normal(int(win * 16000)) * OFFLINE_PCM[name]).astype(np.float32)
+    a = torch.from_numpy(audio).to(DEV)[None]
+    v = torch.tensor([a.shape[1]], device=DEV)
+    extra = (torch.tensor([session.prompt_id], device=DEV),) if name == "nemotron" else ()
+    per_win = offline_window_int8(name)
+    out = {}
+
+    # (a) mm=f32: q8 against plain matmuls on the dequantized weights.
+    qm.set_quant_config(mm="f32")
+    plain = dequantize_pytree(params)
+    with torch.inference_mode():
+        mod.forward(params, cfg, a, v, *extra)  # warm-up
+        before = qm.LAUNCHES
+        if name == "paraformer":
+            _, feats, vl = mod.frontend_features(params, cfg, a, v)
+            enc = mod.encode(params, cfg, feats, vl)
+            enc_n = qm.LAUNCHES - before
+            enc_p = mod.encode(plain, cfg, feats, vl)
+            emb, cnt = cif.cif_fire(mod.predict_alphas(params, cfg, enc, vl), enc, vl, PARAFORMER_MAX_TOKENS,
+                                    cfg.tail_threshold)
+            lq = mod.decode_tokens(params, cfg, emb, cnt, enc, vl)
+            lp = mod.decode_tokens(plain, cfg, emb, cnt, enc, vl)
+            n = int(cnt[0])
+            lq, lp = lq[0, :n], lp[0, :n]
+            worst = ((lq - lp).abs().max() / lp.abs().max()).item()
+            sure = top2_share(lp) > MARGIN
+            flips, under, steps = int(((lq.argmax(-1) != lp.argmax(-1)) & sure).sum()), int((~sure).sum()), n
+            ids, counts = mod.forward(params, cfg, a, v, max_tokens=PARAFORMER_MAX_TOKENS)
+            check(torch.equal(ids[0, :n], lq.argmax(-1).to(ids.dtype)) and int(counts[0]) == n,
+                  "the forward's ids are not its decoder's argmax")
+            launches = qm.LAUNCHES - before
+            check(launches == 2 * per_win, f"{launches} int8 launches for the checked pieces and a forward, "
+                  f"not 2 x {per_win}")
+        else:
+            enc, ev = mod.encode(params, cfg, a, v, *extra)
+            enc_n = qm.LAUNCHES - before
+            enc_p = mod.encode(plain, cfg, a, v, *extra)[0]
+            before = qm.LAUNCHES
+            rep = offline_replay(torch, mod, name, params, plain, enc, ev, cfg, 256)
+            check(qm.LAUNCHES - before == 2 * rep["steps"], f"{qm.LAUNCHES - before} int8 launches for "
+                  f"{rep['steps']} greedy steps, not 2 a step")
+            ids, counts = mod.forward(params, cfg, a, v, *extra)
+            check(torch.equal(ids, rep["ids"]) and torch.equal(counts, rep["counts"]),
+                  "the forward's ids differ from the recorded loop's")
+            worst, flips, under, steps, n = rep["worst"], rep["flips"], rep["under"], rep["steps"], int(counts[0])
+        dec_n = 5 * cfg.num_decoders + 2 * cfg.num_decoder_ffn + 1 if name == "paraformer" else 0
+        check(enc_n == per_win - dec_n,
+              f"{enc_n} int8 launches for the encoder")
+        enc_err = ((enc - enc_p).abs().max() / enc_p.abs().max()).item()
+    check(bool(torch.isfinite(enc).all()), "non-finite encoder output")
+    print(f"[{label} check] mm=f32, one {win:.0f} s window: encoder vs plain {enc_err:.3e} of max|plain| "
+          f"({enc.shape[1]} rows, {enc_n} int8 launches); logits over {steps} "
+          f"{'decoder rows' if name == 'paraformer' else 'greedy steps'} vs plain within {worst:.3e} of "
+          f"max|logit|; {n} ids, argmax = plain's wherever the top-2 margin is above {MARGIN} ({under} rows "
+          f"under it, {flips} differing above it)  [{card}]")
+    check(enc_err <= 1e-3 and worst <= 1e-3, f"q8 vs plain: encoder {enc_err}, logits {worst} (bound 1e-3)")
+    check(flips == 0 and n > 0, f"{flips} argmax differences above the margin, {n} ids")
+    out.update({"enc_err": enc_err, "logit_err": worst, "ids": n, "check_steps": steps})
+    del plain, enc_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) batch 8 x 8 s: f32 weights, q8 in both modes (before (b), whose peak counts the session alone).
+    bsz, secs, tokens = OFFLINE_BENCH
+    ab = torch.from_numpy((rng.standard_normal((bsz, int(secs * 16000))) * OFFLINE_PCM[name])
+                          .astype(np.float32)).to(DEV)
+    vb = torch.full((bsz,), ab.shape[1], device=DEV)
+    eb = (torch.zeros(bsz, dtype=torch.int64, device=DEV),) if name == "nemotron" else ()
+    rtf = {}
+    for what, p, mm in (("f32", params32, "f32"), ("q8 mm=bf16", params, "bf16"), ("q8 mm=f32", params, "f32")):
+        qm.set_quant_config(mm=mm)
+        with torch.inference_mode():
+            mod.forward(p, cfg, ab, vb, *eb, max_tokens=tokens)
+            _, t = synced(torch, lambda: [mod.forward(p, cfg, ab, vb, *eb, max_tokens=tokens)
+                                          for _ in range(OFFLINE_TIMED)])
+        rtf[what] = t / (OFFLINE_TIMED * bsz * secs)
+    out["rtf_b8"] = rtf
+    print(f"[{label} numbers] RTF batch {bsz} x {secs:.0f} s ({tokens} tokens a window, {OFFLINE_TIMED} forwards): "
+          + ", ".join(f"{k} {r:.6f}" for k, r in rtf.items()) + f"  [{card}]")
+    qm.set_quant_config(mm="bf16")
+    del params32, ab
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the serving mode: one window through the session, its parts timed apart.
+    qm.set_quant_config(mm="bf16")
+    session.transcribe(audio[:16000])  # warm-up
+    with torch.inference_mode():
+        if name == "paraformer":
+            def front():
+                _, feats, vl = mod.frontend_features(params, cfg, a, v)
+                return mod.encode(params, cfg, feats, vl), vl
+
+            (enc, vl), t_enc = synced(torch, front)
+            alphas, t_pred = synced(torch, lambda: mod.predict_alphas(params, cfg, enc, vl))
+            (emb, cnt), t_cif = synced(torch, lambda: cif.cif_fire(alphas, enc, vl, PARAFORMER_MAX_TOKENS,
+                                                                   cfg.tail_threshold))
+            _, t_dec = synced(torch, lambda: mod.decode_tokens(params, cfg, emb, cnt, enc, vl))
+            out.update({"encoder_ms": t_enc * 1e3, "predictor_ms": t_pred * 1e3, "cif_ms": t_cif * 1e3,
+                        "cif_steps": enc.shape[1] + 1, "decoder_ms": t_dec * 1e3, "tokens": int(cnt[0])})
+        else:
+            (enc, ev), t_enc = synced(torch, lambda: mod.encode(params, cfg, a, v, *extra))
+            from asr_tpu_torch.decode.rnnt import rnnt_greedy
+
+            period = tdt.SYNC_EVERY
+            hid = cfg.dec_hidden if name == "parakeet" else cfg.pred_hidden
+            h0 = torch.zeros((cfg.lstm_layers, 1, hid), device=DEV)
+            for k, key in ((1, "_k1"), (period, "")):  # a host sync every step, then the module's period
+                calls, syncs = [], tdt.SYNCS
+
+                def step(token, h, c, enc_frame):
+                    calls.append(1)
+                    return mod.joint_step(params, token, h, c, enc_frame)
+
+                if name == "parakeet":
+                    run = lambda: tdt.tdt_greedy(step, enc, ev, h0, h0.clone(), cfg.blank_id, cfg.blank_id,
+                                                 cfg.durations, 256, eos_id=cfg.eos_id)
+                else:
+                    run = lambda: rnnt_greedy(step, enc, ev, h0, h0.clone(), cfg.blank_id, cfg.blank_id, 256,
+                                              cfg.max_symbols_per_frame)
+                tdt.SYNC_EVERY = k
+                try:
+                    (_, cnt), t_dec = synced(torch, run)
+                finally:
+                    tdt.SYNC_EVERY = period
+                out.update({f"decode_ms{key}": t_dec * 1e3, f"steps{key}": len(calls),
+                            f"syncs{key}": tdt.SYNCS - syncs, f"ms_per_step{key}": t_dec * 1e3 / len(calls),
+                            "tokens": int(cnt[0])})
+            out["encoder_ms"] = t_enc * 1e3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    syncs = tdt.SYNCS
+    qm.LAUNCHES = 0  # the main path starts here
+    res = session.transcribe(audio)
+    out["int8"] = qm.LAUNCHES  # and ends here
+    out.update({"rtf": res.rtf, "window_ms": res.elapsed_seconds * 1e3, "peak_mib": torch.cuda.max_memory_allocated()
+                / 2**20, "window_syncs": tdt.SYNCS - syncs, "window_ids": len(res.token_ids)})
+    want = per_win if name == "paraformer" else per_win + 2 * out["steps"]
+    check(out["int8"] == want and res.text == session.tokenizer.decode(res.token_ids),
+          f"one window launched the int8 kernel {out['int8']} times, not {want}")
+    if name == "paraformer":
+        print(f"[{label} numbers] one {win:.0f} s window (bf16 mode): front end + encoder {out['encoder_ms']:.2f} ms "
+              f"({enc.shape[1]} LFR rows), predictor {out['predictor_ms']:.2f} ms, CIF scan "
+              f"{out['cif_ms']:.2f} ms ({out['cif_steps']} sequential steps, host-launched), decoder "
+              f"{out['decoder_ms']:.2f} ms ({out['tokens']} tokens); session {out['window_ms']:.1f} ms, RTF "
+              f"{out['rtf']:.5f}, peak memory {out['peak_mib']:.0f} MiB; int8 launches {out['int8']}  [{card}]")
+    else:
+        print(f"[{label} numbers] one {win:.0f} s window (bf16 mode): front end + encoder {out['encoder_ms']:.2f} ms "
+              f"({enc.shape[1]} frames); greedy decode {out['decode_ms']:.2f} ms: {out['tokens']} tokens in "
+              f"{out['steps']} steps, {out['syncs']} host syncs (one every {tdt.SYNC_EVERY} steps), "
+              f"{out['ms_per_step']:.3f} ms a step (syncing every step: {out['decode_ms_k1']:.2f} ms, "
+              f"{out['syncs_k1']} syncs, {out['ms_per_step_k1']:.3f} ms a step); session {out['window_ms']:.1f} ms, "
+              f"RTF {out['rtf']:.5f}, {out['window_syncs']} syncs, peak memory {out['peak_mib']:.0f} MiB; int8 "
+              f"launches {out['int8']}  [{card}]")
+
+    # [26 cli] the command line on this artifact.
+    wav = Path(folder) / "cli.wav"
+    wav.write_bytes(wav_bytes(np.round(rng.standard_normal(5 * 16000) * 2000)))
+    lang = ["--language", NEMOTRON_LANGUAGE[0]] if name == "nemotron" else []
+    text_out, secs_cli = run_cli("transcribe", *lang, "--model-dir", folder, str(wav))
+    cli_session = _build_session(Path(folder), language=lang[1] if lang else None, device=DEV)
+    if name == "nemotron":
+        check(cli_session.prompt_id == NEMOTRON_LANGUAGE[1], f"--language gave prompt {cli_session.prompt_id}")
+    ids = cli_session.transcribe(str(wav)).token_ids
+    text = text_out.strip().splitlines()[1]
+    check(bool(ids) and text == cli_session.tokenizer.decode(ids), f"{name}: the command line printed "
+          f"{text[:80]!r}, not the decode of session.transcribe's {len(ids)} ids")
+    print(f"[26 cli] {name}: transcribe {wav.name}{' --language ' + lang[1] if lang else ''}: {len(ids)} ids, "
+          f"text = the tokenizer's decode of session.transcribe's ids ({secs_cli:.2f} s in a subprocess)  [{card}]")
+    del session, cli_session, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4054,6 +4443,13 @@ def main() -> int:
             fam_cont[name] = phase_aed_family_continuous(torch, np, qm, fs, fm, name, fam_dir, card)
     print(f"[t] phases 30-33: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
+    # ── 34-36. Paraformer, Parakeet and Nemotron offline; their command line (26) ──
+    off_run = {}
+    for name in OFFLINE_FAMILIES:
+        with tempfile.TemporaryDirectory() as off_dir:
+            off_run[name] = phase_offline(torch, np, qm, name, off_dir, card)
+    print(f"[t] phases 34-36: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     k_ms, p_ms = kern["per_forward"]["bf16"]
@@ -4070,7 +4466,7 @@ def main() -> int:
                      + q2run["int8"] + q2serve["int8"] + q2cont["int8"] + frun["int8"] + frun["batch_int8"]
                      + fcont["ctc_int8"] + fcont["int8"] + arun["int8"]
                      + sum(fam_run[n]["int8"] + fam_cont[n]["int8"] for n in fam_run)
-                     + fam_run["dolphin"]["ctc_int8"]),
+                     + fam_run["dolphin"]["ctc_int8"] + sum(r["int8"] for r in off_run.values())),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
@@ -4080,7 +4476,11 @@ def main() -> int:
                              "aligner": arun["int8"], "firered": fam_run["firered"]["int8"],
                              "firered_continuous": fam_cont["firered"]["int8"],
                              "dolphin": fam_run["dolphin"]["int8"], "dolphin_ctc": fam_run["dolphin"]["ctc_int8"],
-                             "dolphin_continuous": fam_cont["dolphin"]["int8"]},
+                             "dolphin_continuous": fam_cont["dolphin"]["int8"],
+                             **{name: r["int8"] for name, r in off_run.items()}},
+        "offline_paths": "Paraformer-large (K = 560 in one block, N = 8404 head), Parakeet-TDT-0.6B "
+                     "(joint head N = 8198) and Nemotron-0.6B (joint N = 8193) q8; greedy steps at M = 1 and 8, "
+                     "rel-pos projections at 2T - 1 rows (per_path_ms: *_window*, *_b8*)",
         "max_abs_err": kern["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,

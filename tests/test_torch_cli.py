@@ -4,9 +4,11 @@ JAX package's (``asr_tpu/cli.py``) on tiny artifact folders that the port's
 (one file and several: the ``transcribe_batch`` route), the ``quantize``
 round trip, ``align``, ``serve``'s dispatch, the unknown-family refusal, the
 card default, the AED families FireRed and Dolphin (``inspect`` and
-``transcribe``, Dolphin with ``--language``), and the artifact tokenizers
-(``_build_tokenizer``) of all six kinds, each decoding as the JAX package's
-copy does.
+``transcribe``, Dolphin with ``--language``), the offline families
+Paraformer, Parakeet and Nemotron (``inspect``, ``transcribe``, Nemotron
+with ``--language`` resolved to its prompt id, Parakeet through
+``quantize``), and the artifact tokenizers (``_build_tokenizer``) of all
+six kinds, each decoding as the JAX package's copy does.
 
 Both command lines run f32 matmuls on the same weights, so the printed
 token text is equal line by line (the timing columns differ).
@@ -32,12 +34,17 @@ from asr_tpu_torch.layers import qwen3 as tq3
 from asr_tpu_torch.models import dolphin as tdp
 from asr_tpu_torch.models import firered as tfr
 from asr_tpu_torch.models import forced_aligner as tfa
+from asr_tpu_torch.frontend.nemo_mel import NemoMelConfig
 from asr_tpu_torch.models import fun_asr_nano as tfn
+from asr_tpu_torch.models import nemotron as tnm
+from asr_tpu_torch.models import paraformer as tpf
+from asr_tpu_torch.models import parakeet as tpk
 from asr_tpu_torch.models import qwen_asr as tqa
 from asr_tpu_torch.models import sensevoice as tsv
 from asr_tpu_torch.ops import quant_matmul as tqm
 from asr_tpu_torch.quant.quantize import cast_pytree
 from asr_tpu_torch.runtime.artifact import ModelMetadata, read_safetensors, save_model
+from asr_tpu_torch.runtime.metadata import LanguageProfile
 
 REPO = Path(__file__).resolve().parent.parent
 SV = dict(vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48, num_encoders0=1,
@@ -57,6 +64,15 @@ DP = dict(vocab_size=64, d_model=64, enc_layers=1, enc_heads=4, enc_ffn=96, cgml
           language_token_start=40, language_token_end=45, region_token_start=45, region_token_end=50)
 DP_CATALOG = {"languages": {"ja": 41, "zh": 43}, "regions": {"SICHUAN": 47},
               "aliases": {"Japanese": "ja", "Chinese": "zh"}}
+PF = dict(vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48, num_encoders0=1, num_encoders=1,
+          num_decoders=1, num_decoder_ffn=1, fsmn_kernel=5, predictor_kernel=3)
+PK = dict(vocab_size=40, blank_id=39, d_model=32, num_layers=1, num_heads=4, ffn_dim=48, conv_kernel=5,
+          sub_channels=8, dec_hidden=32, lstm_layers=1, mel=NemoMelConfig(n_mels=80))
+NM = dict(vocab_size=30, d_model=32, num_layers=1, num_heads=4, ffn_dim=48, conv_kernel=5, sub_channels=8,
+          pred_hidden=32, joint_hidden=32, prompt_hidden=32, lstm_layers=1, num_prompts=8, left_context=6,
+          right_context=3, mel=NemoMelConfig(n_mels=80))
+NM_LANGUAGES = [{"code": "en", "description": "English", "prompt_token_id": 3},
+                {"code": "de", "description": "German", "aliases": ["deutsch"], "index": 5}]
 
 
 @pytest.fixture(autouse=True)
@@ -120,6 +136,20 @@ def _aed(folder: Path, family: str) -> Path:
                              extra={"config": dataclasses.asdict(cfg),
                                     "dolphin_language_catalog": DP_CATALOG})
     save_model(folder, params, meta)
+    return folder
+
+
+def _offline(folder: Path, family: str) -> Path:
+    """A tiny Paraformer, Parakeet or Nemotron artifact with a ``vocab_txt``
+    file (Nemotron: two languages, one by prompt id, one by table row)."""
+    folder.mkdir()
+    mod, kw, seed = {"paraformer": (tpf, PF, 6), "parakeet": (tpk, PK, 7), "nemotron": (tnm, NM, 8)}[family]
+    cfg = {"paraformer": tpf.ParaformerConfig, "parakeet": tpk.ParakeetConfig,
+           "nemotron": tnm.NemotronConfig}[family](**kw)
+    langs = [LanguageProfile(**{**p, "aliases": tuple(p.get("aliases", ()))}) for p in NM_LANGUAGES]
+    meta = ModelMetadata(family=family, tokenizer=_vocab_txt(folder, 64), extra={"config": dataclasses.asdict(cfg)},
+                         supported_languages=langs if family == "nemotron" else [])
+    save_model(folder, mod.init_params(cfg, _g(seed), "cpu"), meta)
     return folder
 
 
@@ -188,6 +218,49 @@ def test_aed_families_transcribe_and_inspect(tmp_path, capsys, family, language)
     for f, (name, _, text) in zip(files, lines):
         ids = sess.transcribe(f).token_ids
         assert name == f and ids and text == sess.tokenizer.decode(ids)
+
+
+@pytest.mark.parametrize("family,language", [("paraformer", None), ("parakeet", None), ("nemotron", None),
+                                             ("nemotron", "deutsch")])
+def test_offline_families_transcribe_and_inspect_as_jax(tmp_path, capsys, family, language):
+    """``inspect`` and ``transcribe`` of two files (one batched forward)
+    print what the JAX command line prints; each text is the decode of
+    ``session.transcribe``'s ids; Nemotron's ``--language`` resolves through
+    the metadata to a prompt id (a profile's ``prompt_token_id``, else its
+    ``index``), as the JAX command line resolves it."""
+    folder = _offline(tmp_path / "m", family)
+    got, want = _both(capsys, ["inspect", "--model-dir", str(folder)])
+    assert json.loads(got) == json.loads(want) and json.loads(got)["family"] == family
+    files = [_wav(tmp_path / f"{i}.wav", n, 30 + i) for i, n in enumerate((12000, 20000))]
+    lang = ["--language", language] if language else []
+    got, want = _both(capsys, ["transcribe", *lang, "--model-dir", str(folder), *files])
+    assert _text_lines(got) == _text_lines(want) and len(_text_lines(got)) == 2
+    sess = cli._build_session(folder, language=language, device="cpu")
+    assert type(sess).__name__ == f"{family.capitalize()}Session"
+    if family == "nemotron":
+        jsess = jcli._build_session(folder, language=language)
+        assert sess.prompt_id == jsess.prompt_id == (5 if language else 0)
+    for f, (name, _, text) in zip(files, _text_lines(got)):
+        ids = sess.transcribe(f).token_ids
+        assert name == f and ids and text == sess.tokenizer.decode(ids)
+
+
+def test_parakeet_quantize_keeps_the_lstm_f32_and_transcribes_as_jax(tmp_path, capsys):
+    folder = _offline(tmp_path / "pk", "parakeet")
+    argv = ["quantize", "--model-dir", str(folder), "--bits", "8", "--min-size", "1024",
+            "--refine-iters", "0"]
+    assert cli.main(["--platform", "cpu", *argv, "--out", str(tmp_path / "t")]) == 0
+    assert jcli.main(["--compile-cache", "", *argv, "--out", str(tmp_path / "j")]) == 0
+    capsys.readouterr()
+    got, want = read_safetensors(tmp_path / "t" / "weights.safetensors"), read_safetensors(
+        tmp_path / "j" / "weights.safetensors")
+    assert sorted(got) == sorted(want)
+    assert "decoder/head/w/__quant__/q" in got and "decoder/lstm/0/w_ih" in got
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    wav = _wav(tmp_path / "a.wav", 16000, 3)
+    got, want = _both(capsys, ["transcribe", "--model-dir", str(tmp_path / "t"), wav])
+    assert _text_lines(got) == _text_lines(want)
 
 
 def test_transcribe_batch_route_gives_each_file_its_own_ids(tmp_path, capsys):
@@ -292,9 +365,10 @@ def test_serve_continuous_takes_the_aed_families(tmp_path, monkeypatch):
 
 
 def test_unknown_family_and_the_card_default(tmp_path, monkeypatch):
-    """A family the port has no session for (paraformer: the JAX package
-    has one) and one neither package knows raise the JAX package's refusal."""
-    for family in ("paraformer", "no_such_family"):
+    """A family the port has no session for (x_asr: the JAX package has a
+    streaming one) and one neither package knows raise the JAX package's
+    refusal."""
+    for family in ("x_asr", "no_such_family"):
         folder = tmp_path / family
         folder.mkdir()
         save_model(folder, {"w": torch.zeros(2)}, ModelMetadata(family=family))

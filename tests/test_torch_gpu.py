@@ -23,9 +23,12 @@ version at the five Qwen3-ASR-0.6B shapes for 1-32 rows; the int8, int4
 and int2 sources each built twice (two cache keys) and both libraries
 launched side by side in one process; the fused and multi-slot AED steps
 at FireRedASR-AED-L's and Dolphin's decoder geometry (slots bitwise the
-batch-1 kernel), and tiny FireRed and Dolphin sessions' launch counts on
-the batch-1, per-weight and continuous routes. Each test skips where no
-card is present.
+batch-1 kernel), tiny FireRed and Dolphin sessions' launch counts on
+the batch-1, per-weight and continuous routes, and small q8 Paraformer,
+Parakeet and Nemotron models (encoder and joint / decoder logits against
+plain matmuls on the dequantized weights, int8 launches a forward, one
+host read of the greedy loop's stop flags a chunk of steps), with TF32
+off. Each test skips where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
@@ -1199,3 +1202,87 @@ def test_family_sessions_launch_the_fused_and_multi_steps_once_per_step(name):
         assert fm.LAUNCHES - before_m == steps > 0 and fs.LAUNCHES == before_f
     finally:
         qm._CONFIG["mm"] = mm
+
+
+# Tiny Paraformer, Parakeet and Nemotron geometries whose linears all
+# quantize (min_size 1024): int8 launches of one encoder pass.
+OFFLINE = {
+    "paraformer": dict(vocab_size=300, hidden=128, num_heads=4, head_dim=32, ffn_dim=256, num_encoders0=1,
+                       num_encoders=2, num_decoders=2, num_decoder_ffn=1, fsmn_kernel=5),
+    "parakeet": dict(vocab_size=300, blank_id=299, d_model=128, num_layers=2, num_heads=4, ffn_dim=256,
+                     sub_channels=32, dec_hidden=64, lstm_layers=2),
+    "nemotron": dict(vocab_size=299, d_model=128, num_layers=2, num_heads=4, ffn_dim=256, sub_channels=32,
+                     pred_hidden=64, joint_hidden=64, prompt_hidden=64, lstm_layers=2, num_prompts=8),
+}
+OFFLINE_ENCODER_INT8 = {"paraformer": 4 * 3, "parakeet": 1 + 11 * 2 + 1, "nemotron": 1 + 11 * 2 + 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("name", list(OFFLINE))
+def test_offline_family_q8_forward_matches_plain_version(name, mm):
+    """Each family's q8 encoder and its joint / decoder logits on the card
+    (every linear through the int8 kernel) against the same code on the
+    dequantized weights (plain matmuls) within 1e-3 of max|plain| (f32
+    mode; 1e-2 in bf16 mode, the rounding of x); a forward launches the
+    kernel once a linear: the encoder's, then 2 a greedy step (transducers)
+    or the decoder's 5 a block, 2 an FFN block and the head (Paraformer)."""
+    _need_card()
+    from asr_tpu_torch.decode import tdt
+    from asr_tpu_torch.models import nemotron as nm, paraformer as pf, parakeet as pk
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+
+    mod = {"paraformer": pf, "parakeet": pk, "nemotron": nm}[name]
+    cfg = {"paraformer": pf.ParaformerConfig, "parakeet": pk.ParakeetConfig,
+           "nemotron": nm.NemotronConfig}[name](**OFFLINE[name])
+    g = torch.Generator(device="cuda").manual_seed(13)
+    params = quantize_pytree(mod.init_params(cfg, g), bits=8, block=128, min_size=1024)
+    plain = dequantize_pytree(params)
+    tol = 1e-3 if mm == "f32" else 1e-2
+    prev = qm._CONFIG["mm"]
+    qm.set_quant_config(mm=mm)
+
+    def close(got, want):
+        assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+    try:
+        b, n = 2, 48000
+        scale = 2000.0 if name == "paraformer" else 0.1
+        audio = torch.randn((b, n), generator=g, device="cuda") * scale
+        valid = torch.tensor([n, 30000], device="cuda")
+        with torch.inference_mode():
+            if name == "paraformer":
+                _, feats, vl = pf.frontend_features(params, cfg, audio, valid)
+                before = qm.LAUNCHES
+                enc = pf.encode(params, cfg, feats, vl)
+                assert qm.LAUNCHES - before == OFFLINE_ENCODER_INT8[name]
+                close(enc, pf.encode(plain, cfg, feats, vl))
+                emb, cnt = pf.cif_fire(pf.predict_alphas(params, cfg, enc, vl), enc, vl, 64)
+                before = qm.LAUNCHES
+                logits = pf.decode_tokens(params, cfg, emb, cnt, enc, vl)
+                assert qm.LAUNCHES - before == 5 * 2 + 2 + 1
+                close(logits, pf.decode_tokens(plain, cfg, emb, cnt, enc, vl))
+                before = qm.LAUNCHES
+                ids, counts = pf.forward(params, cfg, audio, valid, max_tokens=64)
+                assert qm.LAUNCHES - before == OFFLINE_ENCODER_INT8[name] + 13 and int(counts.min()) > 0
+                return
+            pid = torch.tensor([1, 6], device="cuda")
+            extra = (pid,) if name == "nemotron" else ()
+            before = qm.LAUNCHES
+            enc, ev = mod.encode(params, cfg, audio, valid, *extra)
+            assert qm.LAUNCHES - before == OFFLINE_ENCODER_INT8[name]
+            close(enc, mod.encode(plain, cfg, audio, valid, *extra)[0])
+            hid = cfg.dec_hidden if name == "parakeet" else cfg.pred_hidden
+            h = torch.randn((cfg.lstm_layers, b, hid), generator=g, device="cuda")
+            tok = torch.tensor([5, cfg.blank_id], device="cuda")
+            got = mod.joint_step(params, tok, h, h, enc[:, 3])
+            want = mod.joint_step(plain, tok, h, h, enc[:, 3])
+            close(got[0], want[0])
+            before, syncs = qm.LAUNCHES, tdt.SYNCS
+            ids, counts = mod.forward(params, cfg, audio, valid, *extra, max_tokens=32)
+            steps = (qm.LAUNCHES - before - OFFLINE_ENCODER_INT8[name]) // 2
+            assert qm.LAUNCHES - before == OFFLINE_ENCODER_INT8[name] + 2 * steps and steps > 0
+            assert -(-steps // tdt.SYNC_EVERY) == tdt.SYNCS - syncs  # one host read a chunk of steps
+            assert int(counts.min()) > 0
+    finally:
+        qm._CONFIG["mm"] = prev

@@ -147,6 +147,25 @@ dsess = DolphinSession(quantize_pytree(dp.init_params(dpcfg, g, "cpu"), min_size
                        decode_cfg=dc, window_seconds=0.5)
 assert len(dsess.transcribe(np.ones(5000, np.float32)).token_ids) == 4
 assert 40 <= dsess.last_language < 44 and dsess.last_region is None
+from asr_tpu_torch.frontend.nemo_mel import NemoMelConfig
+from asr_tpu_torch.models import nemotron as nm, paraformer as pf, parakeet as pk
+from asr_tpu_torch.runtime.transducer_session import NemotronSession, ParaformerSession, ParakeetSession
+pfcfg = pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48, num_encoders0=1,
+                            num_encoders=1, num_decoders=1, fsmn_kernel=5)
+pfs = ParaformerSession(quantize_pytree(pf.init_params(pfcfg, g, "cpu"), min_size=1024), pfcfg,
+                        max_tokens=8, window_seconds=0.5)
+assert pfs.transcribe(np.random.default_rng(1).standard_normal(9000).astype(np.float32) * 3000)
+pkcfg = pk.ParakeetConfig(vocab_size=40, blank_id=39, d_model=32, num_layers=1, num_heads=4, ffn_dim=48,
+                          sub_channels=8, dec_hidden=32, lstm_layers=1, mel=NemoMelConfig(n_mels=80))
+pks = ParakeetSession(quantize_pytree(pk.init_params(pkcfg, g, "cpu"), min_size=1024), pkcfg,
+                      window_seconds=0.5)
+assert pks.transcribe(np.random.default_rng(2).standard_normal(9000).astype(np.float32) * 0.1).token_ids
+nmcfg = nm.NemotronConfig(vocab_size=30, d_model=32, num_layers=1, num_heads=4, ffn_dim=48, sub_channels=8,
+                          pred_hidden=32, joint_hidden=32, prompt_hidden=32, lstm_layers=1, num_prompts=8,
+                          mel=NemoMelConfig(n_mels=80))
+nms = NemotronSession(quantize_pytree(nm.init_params(nmcfg, g, "cpu"), min_size=1024), nmcfg, prompt_id=3,
+                      window_seconds=0.5)
+assert nms.transcribe(np.random.default_rng(3).standard_normal(9000).astype(np.float32) * 0.1).token_ids
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
 assert not leaked, leaked
 print("STANDALONE_OK", len(out["token_ids"]))
@@ -157,8 +176,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     """Every module imported, the SenseVoice forward, a Whisper
     transcription, the continuous server, a q4 Qwen3-ASR transcription, a
     packed-int2 product, a (native, where g++ builds it) resample, both
-    Fun-ASR-Nano sessions, a forced alignment and the q8 FireRed and Dolphin
-    sessions (Dolphin probing its language), in a fresh process."""
+    Fun-ASR-Nano sessions, a forced alignment, the q8 FireRed and Dolphin
+    sessions (Dolphin probing its language) and the q8 Paraformer, Parakeet
+    and Nemotron sessions, in a fresh process."""
     proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -207,6 +227,55 @@ def test_cli_runs_without_jax_or_the_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "CLI_OK" in proc.stdout and '"family": "sensevoice"' in proc.stdout
     assert proc.stdout.splitlines()[-2].startswith("w")  # the decoded text line
+
+
+def test_offline_family_clis_run_without_jax_or_the_jax_package(tmp_path):
+    """``python -m asr_tpu_torch --platform cpu transcribe`` of a Paraformer,
+    a Parakeet and a Nemotron artifact (Nemotron with ``--language``) in one
+    fresh process, with neither ``jax`` nor ``asr_tpu`` imported."""
+    import torch
+
+    from asr_tpu_torch.frontend.nemo_mel import NemoMelConfig
+    from asr_tpu_torch.models import nemotron as nm, paraformer as pf, parakeet as pk
+    from asr_tpu_torch.runtime.artifact import ModelMetadata, save_model
+    from asr_tpu_torch.runtime.metadata import LanguageProfile
+
+    mel = NemoMelConfig(n_mels=80)
+    models = {
+        "paraformer": (pf, pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
+                                               num_encoders0=1, num_encoders=1, num_decoders=1, fsmn_kernel=5)),
+        "parakeet": (pk, pk.ParakeetConfig(vocab_size=40, blank_id=39, d_model=32, num_layers=1, num_heads=4,
+                                           ffn_dim=48, sub_channels=8, dec_hidden=32, lstm_layers=1, mel=mel)),
+        "nemotron": (nm, nm.NemotronConfig(vocab_size=30, d_model=32, num_layers=1, num_heads=4, ffn_dim=48,
+                                           sub_channels=8, pred_hidden=32, joint_hidden=32, prompt_hidden=32,
+                                           lstm_layers=1, num_prompts=8, mel=mel)),
+    }
+    wav = tmp_path / "a.wav"
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.random.default_rng(1).standard_normal(12000) * 2000).astype(np.int16).tobytes())
+    lines = ["import sys; from asr_tpu_torch.cli import main"]
+    for family, (mod, cfg) in models.items():
+        folder = tmp_path / family
+        folder.mkdir()
+        (folder / "vocab.txt").write_text("".join(f"w{i}\n" for i in range(64)))
+        save_model(folder, mod.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+                   ModelMetadata(family=family, tokenizer={"kind": "vocab_txt", "file": "vocab.txt"},
+                                 supported_languages=[LanguageProfile("de", "German", index=5)],
+                                 extra={"config": dataclasses.asdict(cfg)}))
+        lang = ", '--language', 'de'" if family == "nemotron" else ""
+        lines.append(f"main(['--platform', 'cpu', 'transcribe'{lang}, '--model-dir', {str(folder)!r}, "
+                     f"{str(wav)!r}])")
+    lines += ["leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'asr_tpu'))",
+              "assert not leaked, leaked", "print('CLI_OK')"]
+    proc = subprocess.run([sys.executable, "-c", "\n".join(lines)], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout.splitlines()
+    assert out[-1] == "CLI_OK" and len(out) == 7
+    assert all(text.startswith("w") for text in out[1:6:2])  # three decoded text lines
 
 
 @pytest.mark.parametrize("name", ["tokenizer", "examples"])
