@@ -1,21 +1,25 @@
-"""Command line: transcribe, inspect, quantize, align and serve over model
-artifact folders (``python -m asr_tpu_torch``).
+"""Command line: transcribe, inspect, quantize, align, serve and
+serve-stream over model artifact folders (``python -m asr_tpu_torch``).
 
 Counterpart of ``asr_tpu/cli.py`` with the same subcommands' flags and
 defaults, for the families the port runs: ``sensevoice``, ``whisper``,
 ``paraformer``, ``parakeet``, ``nemotron`` (``--language`` resolves to its
 prompt id), ``firered``, ``dolphin``, ``qwen_asr``, ``fun_asr_nano`` (the
-CTC head), ``fun_asr_nano_llm`` and ``qwen_aligner``. ``--platform`` picks the torch
-device: the CUDA card by default (it raises where no card is visible),
-``cpu`` when asked for. ``--quant-mm`` sets the quantized kernels' matmul
-mode.
+CTC head), ``fun_asr_nano_llm``, ``qwen_aligner`` and the streaming
+families ``paraformer_streaming``, ``nemotron_streaming`` (``--language``
+as for ``nemotron``), ``dolphin_streaming`` (with its language catalog) and
+``x_asr`` / ``zipformer``. ``serve-stream`` serves a streaming artifact
+over chunked HTTP, N streams as one batched step a tick
+(``parallel/stream_server.py`` over ``streaming/multistream.py``).
+``--platform`` picks the torch device: the CUDA card by default (it raises
+where no card is visible), ``cpu`` when asked for. ``--quant-mm`` sets the
+quantized kernels' matmul mode.
 
 Not here (they wait for later slices of the port): the ``build``,
-``optimize``, ``parity``, ``bench`` and ``serve-stream`` subcommands,
-``--profile``, ``quantize --algorithm kquant|hqq|dynamic`` and
-``--reorder``, data and tensor parallelism (``--data-parallel``,
-``--tensor-parallel``), and the XLA / TPU options ``--compile-cache`` and
-``--quant-kernel``.
+``optimize``, ``parity`` and ``bench`` subcommands, ``--profile``,
+``quantize --algorithm kquant|hqq|dynamic`` and ``--reorder``, data and
+tensor parallelism (``--data-parallel``, ``--tensor-parallel``), and the
+XLA / TPU options ``--compile-cache`` and ``--quant-kernel``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import sys
 from pathlib import Path
 
 FAMILIES = ("sensevoice", "whisper", "paraformer", "parakeet", "nemotron", "firered", "dolphin",
-            "qwen_asr", "fun_asr_nano", "fun_asr_nano_llm", "qwen_aligner")
+            "qwen_asr", "fun_asr_nano", "fun_asr_nano_llm", "qwen_aligner", "paraformer_streaming",
+            "nemotron_streaming", "dolphin_streaming", "x_asr", "zipformer")
 
 
 def _device(platform: str):
@@ -49,6 +54,38 @@ def _build_tokenizer(folder: Path, meta):
     from asr_tpu_torch.runtime.artifact import load_tokenizer
 
     return load_tokenizer(folder, meta)
+
+
+def _prompt_id(meta, language: str | None) -> int:
+    """Nemotron's prompt id for ``--language``: the resolved profile's
+    ``prompt_token_id``, else its ``index``; 0 without a language."""
+    if not language:
+        return 0
+    prof = meta.resolve_language(language)
+    return prof.prompt_token_id if prof.prompt_token_id is not None else (prof.index or 0)
+
+
+def _stream_config(family: str, cfg_dict: dict):
+    """A streaming family's config from the artifact's ``config``: the full
+    stream config (``{"base": ...}``) or just the base model's."""
+    from asr_tpu_torch.runtime.metadata import config_from_dict
+
+    if family in ("x_asr", "zipformer"):
+        from asr_tpu_torch.models.zipformer import ZipformerConfig
+
+        return config_from_dict(ZipformerConfig, cfg_dict)
+    if family == "paraformer_streaming":
+        from asr_tpu_torch.models.paraformer import ParaformerConfig as Base
+        from asr_tpu_torch.streaming.paraformer_online import ParaformerStreamConfig as Stream
+    elif family == "nemotron_streaming":
+        from asr_tpu_torch.models.nemotron import NemotronConfig as Base
+        from asr_tpu_torch.streaming.nemotron_stream import NemotronStreamConfig as Stream
+    else:
+        from asr_tpu_torch.models.dolphin import DolphinConfig as Base
+        from asr_tpu_torch.streaming.dolphin_stream import DolphinStreamConfig as Stream
+    if "base" in cfg_dict:
+        return config_from_dict(Stream, cfg_dict)
+    return Stream(base=config_from_dict(Base, cfg_dict))
 
 
 def _build_session(folder: Path, language: str | None = None, dtype: str | None = None,
@@ -93,6 +130,29 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
 
         return ParaformerSession(params, config_from_dict(ParaformerConfig, cfg_dict), tokenizer=tokenizer)
 
+    if family == "paraformer_streaming":
+        from asr_tpu_torch.runtime.streaming_session import ParaformerStreamingSession
+
+        return ParaformerStreamingSession(params, _stream_config(family, cfg_dict), tokenizer=tokenizer)
+
+    if family == "nemotron_streaming":
+        from asr_tpu_torch.runtime.streaming_session import NemotronStreamingSession
+
+        return NemotronStreamingSession(params, _stream_config(family, cfg_dict), tokenizer=tokenizer,
+                                        prompt_id=_prompt_id(meta, language))
+
+    if family == "dolphin_streaming":
+        from asr_tpu_torch.runtime.streaming_session import DolphinStreamingSession
+
+        return DolphinStreamingSession(params, _stream_config(family, cfg_dict), tokenizer=tokenizer,
+                                       language_catalog=meta.extra.get("dolphin_language_catalog") or {},
+                                       language=language)
+
+    if family in ("x_asr", "zipformer"):
+        from asr_tpu_torch.runtime.streaming_session import XasrStreamingSession
+
+        return XasrStreamingSession(params, _stream_config(family, cfg_dict), tokenizer=tokenizer)
+
     if family == "parakeet":
         from asr_tpu_torch.models.parakeet import ParakeetConfig
         from asr_tpu_torch.runtime.transducer_session import ParakeetSession
@@ -103,12 +163,8 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
         from asr_tpu_torch.models.nemotron import NemotronConfig
         from asr_tpu_torch.runtime.transducer_session import NemotronSession
 
-        prompt_id = 0
-        if language:
-            prof = meta.resolve_language(language)
-            prompt_id = prof.prompt_token_id if prof.prompt_token_id is not None else (prof.index or 0)
         return NemotronSession(params, config_from_dict(NemotronConfig, cfg_dict), tokenizer=tokenizer,
-                               prompt_id=prompt_id)
+                               prompt_id=_prompt_id(meta, language))
 
     if family == "firered":
         from asr_tpu_torch.models.firered import FireRedConfig
@@ -259,6 +315,72 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_serve_stream(args) -> int:
+    """Real-time streaming endpoint: N concurrent chunked-HTTP connections,
+    one batched step of every stream a tick (``parallel/stream_server.py``).
+    Per family: the window, the advance, the PCM scale, the tail pad and the
+    drain rule of its session."""
+    import numpy as np
+
+    from asr_tpu_torch.parallel.stream_server import serve_streams
+    from asr_tpu_torch.runtime.artifact import load_model
+    from asr_tpu_torch.streaming import multistream as ms
+
+    params, meta = load_model(Path(args.model_dir), args.device)
+    family = meta.family
+    cfg_dict = meta.extra.get("config", {})
+    n = args.streams
+    extract = None
+    advance = None
+    pcm_scale = 32768.0
+    tail_pad = 0
+    drain_min = 1
+
+    if family == "paraformer_streaming":
+        scfg = _stream_config(family, cfg_dict)
+        runner = ms.paraformer_multistream(params, scfg, n)
+        chunk = scfg.chunk_samples
+    elif family == "nemotron_streaming":
+        scfg = _stream_config(family, cfg_dict)
+        runner = ms.nemotron_multistream(params, scfg, n)
+        chunk = scfg.window_samples
+        pcm_scale = 1.0  # the NeMo mel takes [-1, 1] PCM
+    elif family in ("x_asr", "zipformer"):
+        cfg = _stream_config(family, cfg_dict)
+        runner = ms.zipformer_multistream(params, cfg, n)
+        chunk, advance = cfg.window_samples, cfg.advance_samples
+        # the session's 0.3 s zero tail; stop once a full window no longer
+        # fits (the file-mode snip-edges front pad needs lookahead a live
+        # stream does not have and is not applied)
+        tail_pad = int(0.3 * 16000)
+        drain_min = chunk
+    elif family == "dolphin_streaming":
+        scfg = _stream_config(family, cfg_dict)
+        runner = ms.dolphin_multistream(params, scfg, n)
+        chunk, advance = scfg.window_samples, scfg.advance_samples
+        drain_min = advance  # the session fires while pos + adv <= n
+        blank = 0
+
+        def extract(outs, i, st):  # per-slot cross-chunk CTC collapse
+            prev = st.get("last", blank)
+            new = []
+            for t in np.asarray(outs["ctc_ids"][i]):
+                t = int(t)
+                if t != blank and t != prev:
+                    new.append(t)
+                prev = t
+            st["last"] = prev
+            return new
+    else:
+        raise SystemExit(f"serve-stream supports the streaming families (paraformer_streaming, "
+                         f"nemotron_streaming, x_asr, dolphin_streaming); artifact is {family!r}")
+
+    serve_streams(runner, chunk, host=args.host, port=args.port, extract=extract, pcm_scale=pcm_scale,
+                  advance_samples=advance, tail_pad_samples=tail_pad, drain_min_samples=drain_min,
+                  ticks_per_sync=max(args.ticks_per_sync or 1, 1))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="asr_tpu_torch")
     parser.add_argument("--platform", default="cuda", choices=("cuda", "gpu", "cpu"),
@@ -325,6 +447,17 @@ def main(argv=None) -> int:
     p.add_argument("--steps-per-tick", type=int, default=1, dest="steps_per_tick",
                    help="--continuous decode steps per host synchronisation")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("serve-stream", help="real-time streaming endpoint: N concurrent chunked-HTTP "
+                                            "PCM connections, one batched step a tick")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8001)
+    p.add_argument("--streams", type=int, default=8, help="concurrent stream slots (the step's batch)")
+    p.add_argument("--ticks-per-sync", type=int, default=1,
+                   help="chunk ticks launched back to back before one host read of their outputs; "
+                        "results then emit in K-chunk batches (token streams identical)")
+    p.set_defaults(fn=cmd_serve_stream)
 
     args = parser.parse_args(argv)
     if args.quant_mm:

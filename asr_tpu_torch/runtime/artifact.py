@@ -128,8 +128,12 @@ def params_from_flat(flat: dict[str, np.ndarray], device) -> Any:
     def num(a) -> int:  # a stored scalar, 0-d or of shape (1,)
         return int(np.asarray(a).reshape(-1)[0])
 
-    def build(node):
+    def build(node, key=""):
         if not isinstance(node, dict):
+            if key.endswith("log_scale") and np.shape(node) == (1,):
+                # a 0-d scalar (Zipformer's BiasNorm scales), stored as (1,) by the
+                # JAX package's flatten (np.ascontiguousarray has ndim >= 1)
+                return put(node).reshape(())
             return put(node)
         if "__qembed__" in node and len(node) == 1:
             q = node["__qembed__"]
@@ -148,7 +152,7 @@ def params_from_flat(flat: dict[str, np.ndarray], device) -> Any:
         keys = list(node.keys())
         if keys and all(k.isdigit() for k in keys):
             return [build(node[str(i)]) for i in range(len(keys))]
-        return {k: build(v) for k, v in node.items()}
+        return {k: build(v, k) for k, v in node.items()}
 
     return build(root)
 

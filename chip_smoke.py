@@ -137,7 +137,27 @@ session in the serving mode with its encoder, decode (tokens, steps, host
 syncs, ms a step; Paraformer's CIF scan) timed apart, RTF and peak memory;
 and, as part of (26), ``python -m asr_tpu_torch transcribe`` on each
 artifact (Nemotron with ``--language``), its text the decode of
-``session.transcribe``'s ids.
+``session.transcribe``'s ids; (37) streaming Paraformer, (38) Nemotron,
+(39) Dolphin and (40) X-ASR Zipformer2 q8 at full width
+(``ParaformerStreamConfig()``, ``NemotronStreamConfig()``,
+``DolphinStreamConfig()``, ``ZipformerConfig()``) through an artifact
+folder and ``_build_session``: in mm=f32, the first 32 windows of 30 s
+(Dolphin 32 s) chunk by chunk from the session's state, each window's
+encoder output and every decision's logits against
+plain matmuls on the dequantized weights within 1e-3 of max|plain| and the
+ids the plain argmax above the margin, a window's int8 calls recorded
+against ``stream_int8_calls``; in the serving mode the main path's
+launches over 30 s (Dolphin's 32 s past its 752-frame history,
+Paraformer's 60 chunks past its position table), per-chunk latency p50 /
+p95 against the chunk's duration, RTF and peak memory, and the first 10 s
+with f32 weights; (41) each family's
+runner at 8 slots: staggered starts and a reset, every slot's ids against
+the session alone (bitwise, or the state rule), inactive slots bitwise
+untouched, ``step_n`` at K = 4 = K = 1, the tick latency at N = 1 and 8
+(Dolphin also with f32 weights); (42) ``serve-stream`` through the command
+line: a ninth connection 503, 8 concurrent chunked-HTTP connections of
+8-10 s, each bitwise its windows replayed in its slot and against the
+session, ``/healthz``'s ``tick_latency_max_s`` and ``sync_latency_max_s``.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -169,6 +189,9 @@ the batch-1 step. One Paraformer window launches the int8 kernel 283
 times (the encoder's 200, the decoder's 83), a Parakeet window 266 (the
 encoder) + 2 a greedy step, a Nemotron window 267 + 2 a greedy step; the
 transducer loops read ``all(done)`` on the host once every 8 steps.
+A streaming chunk launches it as ``stream_int8_calls`` counts: Paraformer
+200 (+ 83 on a fire), Nemotron 243 + 2 a greedy step, Dolphin 146 (+ 48 a
+rescoring pass), X-ASR 261 (257 encoder calls and 4 decoder projections).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -377,6 +400,7 @@ def int8_paths() -> dict:
         paths[name] = calls
     paths.update(aed_family_int8_paths())
     paths.update(offline_int8_paths())
+    paths.update(stream_int8_paths())
     return paths
 
 
@@ -2825,8 +2849,8 @@ def run_cli(*argv) -> tuple[str, float]:
 def phase_cli(torch, np, qm, folder: str, card: str) -> dict:
     """[26] ``python -m asr_tpu_torch`` in subprocesses on phase 4's
     SenseVoiceSmall q8 artifact folder, given a vocab_txt tokenizer file:
-    ``inspect``; ``transcribe`` of each of two files, whose printed text must
-    be the tokenizer's decode of ``session.transcribe``'s ids; and of both at
+    ``inspect``; ``transcribe`` of the first of two files, whose printed text
+    must be the tokenizer's decode of ``session.transcribe``'s ids; and of both at
     once (the ``transcribe_batch`` route: one padded forward), whose ids per
     file must be the file's alone or differ only where the file's logits
     have a top-2 margin below 1e-3 of max|logit|."""
@@ -2850,7 +2874,7 @@ def phase_cli(torch, np, qm, folder: str, card: str) -> dict:
     out, t_inspect = run_cli("inspect", "--model-dir", folder)
     info = json.loads(out)
     check(info["family"] == "sensevoice" and info["weights_bytes"] > 0, f"inspect printed {info}")
-    alone = [run_cli("transcribe", "--model-dir", folder, f) for f in files]
+    alone = [run_cli("transcribe", "--model-dir", folder, f) for f in files[:1]]  # one file (run time)
     both, t_both = run_cli("transcribe", "--model-dir", folder, *files)
 
     qm.set_quant_config(mm="bf16")  # the command line's default mode
@@ -4184,6 +4208,885 @@ def phase_offline(torch, np, qm, name: str, folder: str, card: str) -> dict:
     return out
 
 
+STREAM_FAMILIES = ("paraformer", "nemotron", "dolphin", "zipformer")
+STREAM_ARTIFACT = {"paraformer": "paraformer_streaming", "nemotron": "nemotron_streaming",
+                   "dolphin": "dolphin_streaming", "zipformer": "x_asr"}
+STREAM_PHASE = {"paraformer": 37, "nemotron": 38, "dolphin": 39, "zipformer": 40}
+# Dolphin's 30 s fill 736 of its 752 history frames: 32 s take the last windows past the clamp.
+STREAM_SECONDS = {"paraformer": 30.0, "nemotron": 30.0, "dolphin": 32.0, "zipformer": 30.0}
+STREAM_PCM = {"paraformer": 2000.0, "nemotron": 0.1, "dolphin": 2000.0, "zipformer": 2000.0}
+STREAM_SLOTS = 8
+STREAM_WINDOWS = 6       # windows of each slot's stream in phase 41
+STREAM_RESET = (3, 4)    # phase 41: slot 3 is reset before tick 4 and restarts its stream
+STREAM_TIMED_TICKS = 10  # timed ticks at N = 1 and N = 8
+STREAM_K = 4             # ticks a host read in step_n (phase 41) and --ticks-per-sync (phase 42)
+STREAM_SERVE_SECONDS = (8.0, 10.0)
+STREAM_CHECK_WINDOWS = 32  # windows of the mm=f32 check (the run-time limit)
+STREAM_F32_SECONDS = 10.0  # audio of the f32-weights session run (the run-time limit)
+
+
+def stream_family(name: str):
+    """(stream config, init_params(generator)) of a streaming family at full
+    width: ParaformerStreamConfig(), NemotronStreamConfig(),
+    DolphinStreamConfig(), ZipformerConfig()."""
+    from asr_tpu_torch.models import dolphin, nemotron, paraformer, zipformer
+    from asr_tpu_torch.streaming import dolphin_stream, nemotron_stream, paraformer_online
+
+    if name == "zipformer":
+        cfg = zipformer.ZipformerConfig()
+        return cfg, lambda g: zipformer.init_params(cfg, g)
+    mod, cfg = {"paraformer": (paraformer, paraformer_online.ParaformerStreamConfig()),
+                "nemotron": (nemotron, nemotron_stream.NemotronStreamConfig()),
+                "dolphin": (dolphin, dolphin_stream.DolphinStreamConfig())}[name]
+    return cfg, lambda g: mod.init_params(cfg.base, g)
+
+
+def stream_window(name: str, cfg) -> tuple[int, int]:
+    """(window samples, advance) of a family's step."""
+    if name == "paraformer":
+        return cfg.chunk_samples, cfg.chunk_samples
+    if name == "nemotron":
+        return cfg.window_samples, cfg.window_samples
+    return cfg.window_samples, cfg.advance_samples
+
+
+def stream_int8_calls(name: str, cfg, n: int) -> dict:
+    """The int8 kernel's calls of one chunk's step at ``n`` streams, by part:
+    {"step": the encoder (Paraformer: its encoder; Zipformer: with the
+    greedy search's decoder projection, one a frame), "decoder": Paraformer's
+    decoder on a fire, "greedy": one Nemotron greedy step, "once": the
+    position-key projection of a session or runner, "rescore": one Dolphin
+    rescoring pass at M = n (the prompt pass at M = 3)} -> {(M, K, N,
+    block): calls}. A linear is q8 when K N >= 65536 (``quantize_pytree``'s
+    default), its block 128 where K is a multiple of 128, else K."""
+    def add(calls, m, k, nn, count=1):
+        if k * nn >= 1 << 16:
+            key = (m, k, nn, 128 if k % 128 == 0 else k)
+            calls[key] = calls.get(key, 0) + count
+
+    parts = {"step": {}, "decoder": {}, "greedy": {}, "once": {}, "rescore": {}}
+    step = parts["step"]
+    if name == "paraformer":
+        b = cfg.base
+        h, f, m, md = b.hidden, b.ffn_dim, n * cfg.chunk_positions, n * cfg.max_fires
+        add(step, m, b.feature_size, 3 * h, b.num_encoders0)
+        add(step, m, h, 3 * h, b.num_encoders)
+        for k, nn in ((h, h), (h, f), (f, h)):
+            add(step, m, k, nn, b.num_encoders0 + b.num_encoders)
+        dec = parts["decoder"]
+        nf = b.num_decoders + b.num_decoder_ffn
+        add(dec, md, h, f, nf)
+        add(dec, md, f, h, nf)
+        add(dec, md, h, h, 2 * b.num_decoders)
+        add(dec, m, h, 2 * h, b.num_decoders)
+        add(dec, md, h, b.vocab_size)
+    elif name == "nemotron":
+        b = cfg.base
+        d, f, nl = b.d_model, b.ffn_dim, b.num_layers
+        freq = b.mel.n_mels
+        for _ in range(3):
+            freq = (freq + 2 + 1 - 3) // 2 + 1
+        m = n * cfg.chunk
+        add(step, n * (cfg.chunk + b.drop_extra), b.sub_channels * freq, d)
+        add(step, m, d, f, 2 * nl)
+        add(step, m, f, d, 2 * nl)
+        add(step, m, d, d, 3 * nl)
+        add(step, n * cfg.kv_len, d, d, 2 * nl)
+        add(step, m, d, 2 * d, nl)
+        add(step, m, b.prompt_hidden, b.prompt_hidden)
+        add(step, m, b.prompt_hidden, b.joint_hidden)
+        add(parts["greedy"], n, b.pred_hidden, b.joint_hidden)
+        add(parts["greedy"], n, b.joint_hidden, b.vocab_size + 1)
+        add(parts["once"], 2 * cfg.kv_len - 1, d, d, nl)
+    elif name == "dolphin":
+        b = cfg.base
+        d, m = b.d_model, n * cfg.chunk_frames
+        sub_freq = ((b.mel.n_mels - 1) // 2 - 1) // 2
+        add(step, m, d * sub_freq, d)
+        add(step, m, d, b.enc_ffn, 2 * b.enc_layers)
+        add(step, m, b.enc_ffn, d, 2 * b.enc_layers)
+        add(step, m, d, d, 4 * b.enc_layers)
+        add(step, m, d, b.cgmlp_dim, b.enc_layers)
+        add(step, m, b.cgmlp_dim // 2, d, b.enc_layers)
+        add(step, m, 2 * d, d, b.enc_layers)
+        add(step, m, d, b.vocab_size)
+        add(step, m, d, d, 2 * b.dec_layers)
+        add(parts["once"], cfg.max_frames, d, d, b.enc_layers)
+        res = parts["rescore"]
+        add(res, n, d, d, 6 * b.dec_layers)
+        add(res, n, d, b.dec_ffn, b.dec_layers)
+        add(res, n, b.dec_ffn, d, b.dec_layers)
+    else:
+        add(step, n * cfg.chunk_size, cfg.sub_layer3 * cfg.embed_width, cfg.encoder_dim[0])
+        for s in range(cfg.num_stacks):
+            g = cfg.stack_geom(s)
+            d, f, h, hid, m = g["dim"], g["ffn"], g["heads"], g["hidden"], n * g["seq"]
+            for k, nn in ((d, 2 * h * g["qhd"] + h * g["phd"]), (d, f * 3 // 4), (f * 3 // 4, d), (d, f), (f, d),
+                          (d, f * 5 // 4), (f * 5 // 4, d), (d, 3 * hid), (hid, d), (d, h * g["vhd"]),
+                          (d, h * g["vhd"]), (h * g["vhd"], d), (h * g["vhd"], d), (d, 2 * d), (d, 2 * d),
+                          (d, d), (d, d)):
+                add(step, m, k, nn, cfg.num_encoder_layers[s])
+        frames = cfg.chunk_size // cfg.output_downsampling_factor
+        add(step, n * frames, cfg.output_dim, cfg.joiner_dim)
+        add(step, n, cfg.decoder_dim, cfg.joiner_dim, frames)
+    return parts
+
+
+def stream_int8_paths() -> dict:
+    """The streaming paths' int8 calls for phase 3: one chunk of each family
+    at N = 1 and at the runner's 8 slots (Paraformer with its decoder,
+    Nemotron with one greedy step), the once-a-session projections, and a
+    Dolphin rescoring pass (the prompt at M = 3, a step at M = 1)."""
+    paths = {}
+    for name in STREAM_FAMILIES:
+        cfg, _ = stream_family(name)
+        for n in (1, STREAM_SLOTS):
+            parts = stream_int8_calls(name, cfg, n)
+            calls = {}
+            for part in ("step", "decoder", "greedy"):
+                for key, c in parts[part].items():
+                    calls[key] = calls.get(key, 0) + c
+            paths[f"stream_{name}_n{n}"] = calls
+            if n == 1 and parts["once"]:
+                paths[f"stream_{name}_once"] = parts["once"]
+        if name == "dolphin":
+            for m in (3, 1):
+                paths[f"stream_dolphin_rescore_m{m}"] = stream_int8_calls(name, cfg, m)["rescore"]
+    return paths
+
+
+def stream_metadata(name: str, cfg):
+    from asr_tpu_torch.runtime.artifact import ModelMetadata
+
+    return ModelMetadata(family=STREAM_ARTIFACT[name], tokenizer={"kind": "vocab_txt", "file": "tokens.txt"},
+                         extra={"config": dataclasses.asdict(cfg)})
+
+
+def stream_vocab(name: str, cfg) -> int:
+    return {"paraformer": lambda: cfg.base.vocab_size, "nemotron": lambda: cfg.base.vocab_size + 1,
+            "dolphin": lambda: cfg.base.vocab_size, "zipformer": lambda: cfg.vocab_size}[name]()
+
+
+def stream_push(name: str, session, window) -> list:
+    """One window through a family's session -> the ids it emits."""
+    if name in ("paraformer", "nemotron"):
+        return session.push_chunk(window)
+    return session.push_window(window)
+
+
+def stream_audio_windows(name: str, cfg, audio) -> list:
+    """The windows a session's ``transcribe`` feeds (X-ASR: after its
+    snip-edges and tail pads; Paraformer: the last chunk's pad as the
+    session draws it)."""
+    import numpy as np
+
+    from asr_tpu_torch.runtime.streaming_session import snip_edges_false_pad
+
+    w, adv = stream_window(name, cfg)
+    if name == "zipformer":
+        fb = cfg.fbank
+        audio = np.concatenate([snip_edges_false_pad(audio, fb.win_length, fb.hop_length),
+                                np.zeros(int(0.3 * fb.sample_rate), np.float32)])
+        starts = [p for p in range(0, len(audio) - w + 1, adv)] or [0]
+    elif name == "dolphin":
+        starts = [p for p in range(0, len(audio) - adv + 1, adv)] or [0]
+    else:
+        starts = list(range(0, len(audio), w))
+    rng = np.random.default_rng(0)
+    out = []
+    for p in starts:
+        win = np.zeros(w, np.float32)
+        part = audio[p : p + w]
+        win[: len(part)] = part
+        if name == "paraformer" and len(part) < w:
+            rms = float(np.sqrt(np.mean(np.square(part)))) if len(part) else 1.0
+            win[len(part) :] = rng.standard_normal(w - len(part)) * max(rms, 1e-3)
+        out.append(win)
+    return out
+
+
+def stream_chunk_check(torch, name: str, cfg, params, plain, ctx: dict, state, window):
+    """One window on ``params`` from ``state`` (a session's N = 1 state),
+    with the same inputs replayed on ``plain``: (state', ids, encoder
+    output gap as a share of max|plain|, decisions [(logits, plain
+    logits)]). The decisions are every argmax the step takes: Paraformer's
+    decoder rows, each Nemotron greedy step's joint (run with a host read
+    every step, so no step follows the stop), Dolphin's CTC frames, each
+    X-ASR frame's joiner."""
+    from asr_tpu_torch.decode import tdt
+    from asr_tpu_torch.layers.transformer import dense
+    from asr_tpu_torch.models import zipformer as zf
+    from asr_tpu_torch.streaming import dolphin_stream as ds, nemotron_stream as ns, paraformer_online as po
+
+    w = torch.from_numpy(window).to(DEV)[None]
+    decisions, ids = [], []
+
+    def gap(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    if name == "paraformer":
+        st, fired, count, enc = po.encoder_step(params, cfg, state, w)
+        enc_p = po.encoder_step(plain, cfg, state, w)[3]
+        n = int(count[0])
+        if n:
+            st2, lq, _ = po.decoder_step(params, cfg, st, enc, fired, count, return_logits=True)
+            lp = po.decoder_step(plain, cfg, st, enc, fired, count, return_logits=True)[1]
+            decisions.append((lq[0, :n], lp[0, :n]))
+            ids = lq[0, :n].argmax(-1).tolist()
+            st = st2
+        return st, ids, gap(enc, enc_p), decisions
+    if name == "nemotron":
+        pid = torch.zeros(1, dtype=torch.int64, device=DEV)
+        st, enc = ns.encoder_step(params, cfg, state, w, pid, ctx["rel_k"])
+        enc_p = ns.encoder_step(plain, cfg, state, w, pid, ctx["rel_k_plain"])[1]
+        rec, orig, period = [], ns.joint_step, tdt.SYNC_EVERY
+
+        def joint(p, token, h, c, frame):
+            out = orig(p, token, h, c, frame)
+            rec.append((token, h, c, frame, out[0]))
+            return out
+
+        ns.joint_step, tdt.SYNC_EVERY = joint, 1
+        try:
+            st, out, count = ns.rnnt_stream_step(params, cfg, st, enc)
+        finally:
+            ns.joint_step, tdt.SYNC_EVERY = orig, period
+        for token, h, c, frame, lq in rec:
+            decisions.append((lq, orig(plain, token, h, c, frame)[0]))
+        return st, out[0, : int(count[0])].tolist(), gap(enc, enc_p), decisions
+    if name == "dolphin":
+        st, ctc, enc = ds.encoder_step(params, cfg, state, w, ctx["rel_k"])
+        enc_p = ds.encoder_step(plain, cfg, state, w, ctx["rel_k_plain"])[2]
+        decisions.append((dense(enc, params["ctc"])[0], dense(enc, plain["ctc"])[0]))
+        return st, ctc[0].tolist(), gap(enc, enc_p), decisions
+    st, enc = zf.encoder_step(params, cfg, state, w)
+    enc_p = zf.encoder_step(plain, cfg, state, w)[1]
+    joiner = zf._joiner_weight(params["joiner"]["out"]["w"])
+    context = st["context"]
+    for f in range(enc.shape[1]):
+        lq = torch.tanh(enc[:, f] + zf.decoder_out(params, cfg, context)) @ joiner + params["joiner"]["out"]["b"]
+        lp = torch.tanh(enc[:, f] + zf.decoder_out(plain, cfg, context)) @ joiner + params["joiner"]["out"]["b"]
+        decisions.append((lq[0], lp[0]))
+        tok = lq.argmax(-1)
+        if int(tok[0]) != cfg.blank_id:
+            context = torch.cat([context[:, 1:], tok[:, None]], dim=1)
+    st, out, count = zf.greedy_chunk(params, cfg, st, enc)
+    check(torch.equal(st["context"], context), "X-ASR greedy_chunk's context differs from the replay's")
+    return st, out[0, : int(count[0])].tolist(), gap(enc, enc_p), decisions
+
+
+def decision_gaps(decisions) -> tuple[float, int, int, int]:
+    """(largest logit gap as a share of max|plain logit|, argmax differences
+    where the plain top-2 margin is above MARGIN, decisions under it, all)."""
+    worst, flips, under, total = 0.0, 0, 0, 0
+    for lq, lp in decisions:
+        lq, lp = lq.reshape(-1, lq.shape[-1]), lp.reshape(-1, lp.shape[-1])
+        worst = max(worst, ((lq - lp).abs().max() / lp.abs().max()).item())
+        sure = top2_share(lp) > MARGIN
+        flips += int(((lq.argmax(-1) != lp.argmax(-1)) & sure).sum())
+        under += int((~sure).sum())
+        total += lq.shape[0]
+    return worst, flips, under, total
+
+
+def stream_ctx(torch, name: str, cfg, params) -> dict:
+    """A family's once-a-session constants on ``params`` (the position keys)."""
+    from asr_tpu_torch.streaming import dolphin_stream as ds, nemotron_stream as ns
+
+    with torch.inference_mode():
+        if name == "nemotron":
+            return {"rel_k": ns.precompute_rel_k(params, cfg)}
+        if name == "dolphin":
+            return {"rel_k": ds.precompute_rel_k(params, cfg)}
+    return {}
+
+
+def timed_transcribe(name: str, session, audio):
+    """``session.transcribe(audio)`` with each push (which ends in its host
+    read of the ids) and Dolphin's final rescoring timed on the host clock
+    -> (result, {per-chunk p50 / p95 / max ms, total ms, rescoring ms})."""
+    import numpy as np
+
+    times, extra = [], [0.0]
+    push_name = "push_chunk" if name in ("paraformer", "nemotron") else "push_window"
+    push, finalize = getattr(session, push_name), getattr(session, "finalize", None)
+
+    def timed_push(win):
+        t = time.perf_counter()
+        out = push(win)
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_finalize(*a):
+        t = time.perf_counter()
+        out = finalize(*a)
+        extra[0] = (time.perf_counter() - t) * 1e3
+        return out
+
+    setattr(session, push_name, timed_push)
+    if finalize is not None:
+        session.finalize = timed_finalize
+    try:
+        res = session.transcribe(audio)
+    finally:
+        delattr(session, push_name)
+        if finalize is not None:
+            del session.finalize
+    arr = np.asarray(times)
+    return res, {"p50_ms": float(np.percentile(arr, 50)), "p95_ms": float(np.percentile(arr, 95)),
+                 "max_ms": float(arr.max()), "total_ms": float(arr.sum()) + extra[0], "rescore_ms": extra[0],
+                 "chunks": len(times)}
+
+
+def phase_stream(torch, np, qm, name: str, folder: str, card: str) -> dict:
+    """[37 paraformer] / [38 nemotron] / [39 dolphin] / [40 x-asr]: a
+    streaming family at full width, random weights from a seed, q8 by
+    ``quantize_pytree(bits=8, block=128)``, through an artifact folder and
+    the command line's ``_build_session``. (a) mm=f32: the first
+    STREAM_CHECK_WINDOWS windows of 30 s (Dolphin 32 s) chunk by chunk
+    from the session's state, each window's encoder output
+    and every decision's logits (Paraformer's decoder rows, Nemotron's
+    greedy joints, Dolphin's CTC frames, X-ASR's joiner frames; Dolphin's
+    rescoring decode replayed teacher-forced) against plain matmuls on the
+    dequantized weights from the same inputs within 1e-3 of max|plain|, and
+    every id the plain argmax wherever its top-2 margin is above MARGIN;
+    the int8 calls of a chunk, recorded, equal to ``stream_int8_calls``.
+    (b) The serving mode (bf16): the same audio through
+    ``session.transcribe`` (the main path: its int8 launches, host syncs,
+    ids), each push timed (per-chunk p50 / p95 against the chunk's
+    duration, RTF, peak memory); (c) the first STREAM_F32_SECONDS with f32
+    weights."""
+    from asr_tpu_torch.cli import _build_session
+    from asr_tpu_torch.decode import tdt
+    from asr_tpu_torch.quant.quantize import dequantize_pytree, quantize_pytree
+    from asr_tpu_torch.runtime.artifact import save_model
+    from asr_tpu_torch.streaming import dolphin_stream as ds, nemotron_stream as ns, paraformer_online as po
+
+    label = f"{STREAM_PHASE[name]} {name} stream"
+    cfg, init = stream_family(name)
+    t0 = time.perf_counter()
+    params32 = init(torch.Generator(device=DEV).manual_seed(37 + STREAM_FAMILIES.index(name)))
+    q8 = quantize_pytree(params32, bits=8, block=128)
+    write_vocab(Path(folder) / "tokens.txt", stream_vocab(name, cfg))
+    save_model(folder, q8, stream_metadata(name, cfg))
+    size_mb = (Path(folder) / "weights.safetensors").stat().st_size / 1e6
+    del q8
+    session = _build_session(Path(folder), device=DEV)
+    want_cls = {"paraformer": "ParaformerStreamingSession", "nemotron": "NemotronStreamingSession",
+                "dolphin": "DolphinStreamingSession", "zipformer": "XasrStreamingSession"}[name]
+    check(type(session).__name__ == want_cls, f"_build_session gave a {type(session).__name__}")
+    params = session.params
+    print(f"[{label}] q8 (config {type(cfg).__name__}() at full width): init + quantize + artifact "
+          f"({size_mb:.1f} MB) round trip in {time.perf_counter() - t0:.2f} s")
+    secs = STREAM_SECONDS[name]
+    rng = np.random.default_rng(37)
+    audio = (rng.standard_normal(int(secs * 16000)) * STREAM_PCM[name]).astype(np.float32)
+    windows = stream_audio_windows(name, cfg, audio)
+    w, adv = stream_window(name, cfg)
+    chunk_ms = adv / 16.0
+    per = stream_int8_calls(name, cfg, 1)
+    out = {"windows": len(windows), "chunk_ms": chunk_ms}
+
+    # (a) mm=f32: q8 against plain matmuls on the dequantized weights, chunk by chunk.
+    qm.set_quant_config(mm="f32")
+    plain = dequantize_pytree(params)
+    ctx = stream_ctx(torch, name, cfg, params)
+    ctx.update({f"{k}_plain": v for k, v in stream_ctx(torch, name, cfg, plain).items()})
+    shapes, orig_int8 = [], qm.quant_matmul_int8
+
+    def recording(x, *a, **kw):
+        shapes.append((x.shape[0], x.shape[1], a[0].shape[1], a[3]))
+        return orig_int8(x, *a, **kw)
+
+    session.reset()
+    qm.quant_matmul_int8 = recording
+    try:
+        first_ids = stream_push(name, session, windows[0])  # one window through the session, recorded
+    finally:
+        qm.quant_matmul_int8 = orig_int8
+    enc_worst, decisions, ids_all = 0.0, [], []
+    with torch.inference_mode():
+        session.reset()
+        state = session.state
+        for win in windows[:STREAM_CHECK_WINDOWS]:
+            state, ids, enc_gap, dec = stream_chunk_check(torch, name, cfg, params, plain, ctx, state, win)
+            enc_worst = max(enc_worst, enc_gap)
+            decisions += dec
+            ids_all.append(ids)
+            check(bool(torch.isfinite(dec[0][0]).all()) if dec else True, "non-finite logits")
+        if name == "dolphin":
+            from asr_tpu_torch.models.dolphin import _decoder_pass
+            from asr_tpu_torch.layers.attention import NEG_INF
+
+            prompt = torch.tensor([[cfg.base.sos_id, -1, -2]], device=DEV)
+            toks, counts = ds.rescore_decode(params, cfg, state, prompt, session.decode_cfg)
+            n_tok = int(counts[0])
+            seq = toks[:, : 3 + n_tok]
+            zero = torch.zeros((), device=DEV)
+            bias = torch.where(torch.arange(cfg.max_frames, device=DEV)[None] < state["valid"][:1, None], zero,
+                               NEG_INF)[:, None, None, :]
+
+            def forced(p):
+                shape = (1, cfg.base.max_target_positions, cfg.base.dec_heads, cfg.base.head_dim)
+                layers = tuple({"cross_k": state["cross_k"][:1, li], "cross_v": state["cross_v"][:1, li],
+                                "self_k": torch.zeros(shape, device=DEV), "self_v": torch.zeros(shape, device=DEV)}
+                               for li in range(cfg.base.dec_layers))
+                return _decoder_pass(p, cfg.base, {"layers": layers}, seq, 0, bias)[0][0, 2 : 2 + n_tok]
+
+            lq, lp = forced(params), forced(plain)
+            off = lq.argmax(-1) != seq[0, 3 : 3 + n_tok]  # one pass against the step-by-step decode
+            check(bool((top2_share(lq)[off] <= MARGIN).all()), "the teacher-forced rescoring logits' argmax "
+                  "differs from a decoded id with a top-2 margin above MARGIN")
+            decisions.append((lq, lp))
+            out["rescored_ids"] = n_tok
+    want_calls = {}
+    for part in ("step",) + (("decoder",) if name == "paraformer" and first_ids else ()):
+        for key, c in per[part].items():
+            want_calls[key] = want_calls.get(key, 0) + c
+    got_calls = {}
+    for key in shapes:
+        got_calls[key] = got_calls.get(key, 0) + 1
+    if name == "nemotron":  # the greedy steps of the first window: two a step
+        steps = sum(got_calls.get(k, 0) for k in per["greedy"]) // len(per["greedy"])
+        for key in per["greedy"]:
+            want_calls[key] = want_calls.get(key, 0) + steps
+    check(got_calls == want_calls, f"the first window's int8 calls {sorted(got_calls.items())} differ from "
+          f"stream_int8_calls' {sorted(want_calls.items())}")
+    worst, flips, under, total = decision_gaps(decisions)
+    n_check = min(len(windows), STREAM_CHECK_WINDOWS)
+    print(f"[{label} check] mm=f32, the first {n_check} of {len(windows)} windows: encoder vs plain {enc_worst:.3e} of "
+          f"max|plain|; {total} decisions' logits vs plain within {worst:.3e} of max|logit|; "
+          f"{sum(len(i) for i in ids_all)} ids, argmax = plain's wherever the top-2 margin is above {MARGIN} "
+          f"({under} under it, {flips} differing above it); int8 calls of a window = stream_int8_calls "
+          f"({sum(want_calls.values())})  [{card}]")
+    check(enc_worst <= 1e-3 and worst <= 1e-3, f"q8 vs plain: encoder {enc_worst}, logits {worst} (bound 1e-3)")
+    check(flips == 0 and total > 0, f"{flips} argmax differences above the margin over {total} decisions")
+    out.update({"enc_err": enc_worst, "logit_err": worst, "decisions": total})
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the serving mode: the main path, then each push timed.
+    qm.set_quant_config(mm="bf16")
+    session.transcribe(audio[: 2 * w])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, orig_joint = [], ns.joint_step
+    passes, orig_pass = [], ds._decoder_pass
+    fires, orig_dec = [], po.decoder_step
+    ns.joint_step = lambda *a: steps.append(1) or orig_joint(*a)
+    ds._decoder_pass = lambda *a: passes.append(1) or orig_pass(*a)
+    po.decoder_step = lambda *a, **kw: fires.append(1) or orig_dec(*a, **kw)
+    syncs = tdt.SYNCS
+    try:
+        qm.LAUNCHES = 0  # the main path starts here
+        res, bf = timed_transcribe(name, session, audio)
+        out["int8"] = qm.LAUNCHES  # and ends here
+    finally:
+        ns.joint_step, ds._decoder_pass, po.decoder_step = orig_joint, orig_pass, orig_dec
+    out["syncs"] = tdt.SYNCS - syncs if name == "nemotron" else len(windows)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["ids"] = len(res.token_ids)
+    fired = len(fires)
+    want = (sum(per["step"].values()) * len(windows) + sum(per["decoder"].values()) * fired
+            + sum(per["greedy"].values()) * len(steps)
+            + (sum(stream_int8_calls(name, cfg, 1)["rescore"].values()) * len(passes)))
+    check(out["int8"] == want, f"{name}: {out['int8']} int8 launches on the main path, not {want}")
+    check(res.text == session.tokenizer.decode(res.token_ids), "the text is not the decode of the ids")
+    kw = {"prompt_id": session.prompt_id} if name == "nemotron" else {}
+    f32 = timed_transcribe(name, type(session)(params32, cfg, **kw), audio[: int(STREAM_F32_SECONDS * 16000)])[1]
+    out.update({"bf16": bf, "f32": f32, "steps": len(steps), "passes": len(passes), "fired": fired})
+    print(f"[{label} numbers] {secs:.0f} s, {len(windows)} chunks of {chunk_ms:.0f} ms: q8 serving mode (bf16) "
+          f"per chunk p50 {bf['p50_ms']:.2f} ms, p95 {bf['p95_ms']:.2f} ms, max {bf['max_ms']:.2f} ms (chunk "
+          f"{chunk_ms:.0f} ms), RTF {bf['total_ms'] / (secs * 1e3):.5f}"
+          + (f", rescoring {bf['rescore_ms']:.1f} ms ({len(passes)} passes)" if name == "dolphin" else "")
+          + f"; f32 weights (first {STREAM_F32_SECONDS:.0f} s) p50 {f32['p50_ms']:.2f} ms, p95 {f32['p95_ms']:.2f} "
+          f"ms, RTF {f32['total_ms'] / (STREAM_F32_SECONDS * 1e3):.5f}; main path: {out['ids']} ids, int8 launches {out['int8']}"
+          + (f" ({len(steps)} greedy steps)" if name == "nemotron" else "")
+          + (f" ({fired} chunks fired)" if name == "paraformer" else "")
+          + f", host syncs {out['syncs']}, peak memory {out['peak_mib']:.0f} MiB  [{card}]")
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["session"] = session
+    return out
+
+
+def stream_schedule(n_windows: int) -> list:
+    """Phase 41's ticks: slot i starts at tick i // 2 and runs its windows
+    in order; slot STREAM_RESET[0] is reset before tick STREAM_RESET[1] and
+    restarts from its first window. -> per tick, per slot: a window index
+    or None (inactive)."""
+    ticks, pos, starts = [], [0] * STREAM_SLOTS, [i // 2 for i in range(STREAM_SLOTS)]
+    t = 0
+    while True:
+        if t == STREAM_RESET[1]:
+            pos[STREAM_RESET[0]] = 0
+        row = []
+        for i in range(STREAM_SLOTS):
+            if t >= starts[i] and pos[i] < n_windows:
+                row.append(pos[i])
+                pos[i] += 1
+            else:
+                row.append(None)
+        if all(r is None for r in row):
+            return ticks
+        ticks.append(row)
+        t += 1
+
+
+def runner_ids(name: str, outs: dict, i: int, st: dict) -> list:
+    """Slot i's emitted ids of one tick (Dolphin: collapsed across ticks)."""
+    if name == "dolphin":
+        prev, new = st.get("last", 0), []
+        for t in outs["ctc_ids"][i].tolist():
+            if t != 0 and t != prev:
+                new.append(t)
+            prev = t
+        st["last"] = prev
+        return new
+    return outs["ids"][i][: int(outs["count"][i])].tolist()
+
+
+def make_runner(name: str, params, cfg, n: int):
+    from asr_tpu_torch.streaming import multistream as ms
+
+    return {"paraformer": ms.paraformer_multistream, "nemotron": ms.nemotron_multistream,
+            "dolphin": ms.dolphin_multistream, "zipformer": ms.zipformer_multistream}[name](params, cfg, n)
+
+
+def near_tie(torch, name: str, cfg, session, windows, t: int) -> float:
+    """The smallest top-2 margin (a share of max|logit|) of the decisions
+    the session takes at window t, alone from the start (the margin rule
+    for a batched run that emits other ids there)."""
+    ctx = stream_ctx(torch, name, cfg, session.params)
+    ctx.update({f"{k}_plain": v for k, v in ctx.items()})
+    session.reset()
+    with torch.inference_mode():
+        for win in windows[:t]:
+            stream_push(name, session, win)
+        dec = stream_chunk_check(torch, name, cfg, session.params, session.params, ctx, session.state,
+                                 windows[t])[3]
+    return min((top2_share(lq.reshape(-1, lq.shape[-1])).min().item() for lq, _ in dec), default=float("inf"))
+
+
+STATE_TOL = 1e-3  # a slot's state against the session's before their first differing window
+
+
+def state_gap(torch, states, i: int, session_state) -> float:
+    """Slot i of a runner's state against a session's (N = 1) state: the
+    largest float gap as a share of the leaf's max|session|; inf where an
+    integer leaf (a counter, a token, a context) differs."""
+    worst = 0.0
+    for x, y in zip(_leaves(states), _leaves(session_state)):
+        x, y = x[i], y[0]
+        if not y.is_floating_point():
+            if not torch.equal(x, y):
+                return float("inf")
+            continue
+        worst = max(worst, ((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item())
+    return worst
+
+
+def compare_alone(torch, name: str, cfg, session, streams: list, got: list, label: str, state_before) -> int:
+    """Each stream's per-window ids (``got``) against the session alone on
+    the same windows. Where they differ, the margin rule: before the first
+    differing window the batched slot's state (``state_before(i, t)``: a
+    runner's states, slot i) must equal the session's within STATE_TOL of
+    max|session| (counters exactly), so the ids part where a decision's
+    top-2 margin is within rounding; the smallest margin of the window's
+    decisions is printed. Returns the streams equal throughout."""
+    equal = 0
+    for i, (windows, ids) in enumerate(zip(streams, got)):
+        session.reset()
+        alone = [stream_push(name, session, win) for win in windows]
+        if alone == ids:
+            equal += 1
+            continue
+        t = next(k for k, (a, b) in enumerate(zip(alone, ids)) if a != b)
+        session.reset()
+        for win in windows[:t]:
+            stream_push(name, session, win)
+        gap = state_gap(torch, state_before(i, t), i, session.state)
+        margin = near_tie(torch, name, cfg, session, windows, t)
+        print(f"[{label}] stream {i}: ids differ from the session alone from window {t} of {len(windows)}; the "
+              f"states before it within {gap:.3e} of max|session|; smallest top-2 margin of that window's "
+              f"decisions {margin:.3e} of max|logit|")
+        check(gap <= STATE_TOL, f"stream {i}: the batched state before window {t} is {gap} from the session's")
+    return equal
+
+
+def phase_stream_multi(torch, np, qm, name: str, run: dict, card: str) -> dict:
+    """[41] A family's runner at N = 8 (mm=f32), staggered starts
+    (slot i joins at tick i // 2; inactive slots ride the batch) and one
+    reset: each slot's ids against its stream through the session alone
+    (:func:`compare_alone`), inactive slots' state bitwise untouched,
+    ``step_n`` at K = 4 the same ids as K = 1; then, in the serving mode
+    (bf16), the tick latency at N = 1 and N = 8 (Dolphin: q8 and f32
+    weights)."""
+    session = run["session"]
+    params, cfg = session.params, session.cfg
+    label = f"41 {name}"
+    # the ids in mm=f32: the bf16 mode rounds x, which turns f32 rounding gaps between batch
+    # shapes into bf16 ulps; the tick latency below is the serving mode's
+    qm.set_quant_config(mm="f32")
+    w, adv = stream_window(name, cfg)
+    rng = np.random.default_rng(41)
+    streams = []
+    for i in range(STREAM_SLOTS):
+        audio = (rng.standard_normal(adv * (STREAM_WINDOWS - 1) + w) * STREAM_PCM[name]).astype(np.float32)
+        streams.append([audio[k * adv : k * adv + w] for k in range(STREAM_WINDOWS)])
+    ticks = stream_schedule(STREAM_WINDOWS)
+
+    def run_ticks(k: int, stop: int | None = None):
+        runner = make_runner(name, params, cfg, STREAM_SLOTS)
+        got = [[] for _ in range(STREAM_SLOTS)]
+        ext = [{} for _ in range(STREAM_SLOTS)]
+        untouched = 0 if stop is None else 2
+        qm.LAUNCHES = 0
+        for t0 in range(0, len(ticks) if stop is None else stop, k):
+            burst = ticks[t0 : t0 + k]
+            if t0 <= STREAM_RESET[1] < t0 + k:
+                check(t0 == STREAM_RESET[1], "the reset falls inside a burst")
+                runner.reset(STREAM_RESET[0])
+                got[STREAM_RESET[0]], ext[STREAM_RESET[0]] = [], {}
+            chunks = np.zeros((len(burst), STREAM_SLOTS, w), np.float32)
+            active = np.zeros((len(burst), STREAM_SLOTS), bool)
+            for b, row in enumerate(burst):
+                for i, pos in enumerate(row):
+                    if pos is not None:
+                        chunks[b, i], active[b, i] = streams[i][pos], True
+            idle = [i for i in range(STREAM_SLOTS) if not active[:, i].any()]
+            before = None
+            if idle and untouched < 2:
+                before = [[leaf[i].clone() for i in idle] for leaf in _leaves(runner.states)]
+            if k == 1:
+                outs = [runner.step(chunks[0], active[0])]
+            else:
+                stacked = runner.step_n(chunks, active)
+                outs = [{kk: v[b] for kk, v in stacked.items()} for b in range(len(burst))]
+            if before is not None:
+                after = [[leaf[i] for i in idle] for leaf in _leaves(runner.states)]
+                check(all(torch.equal(x, y) for xs, ys in zip(before, after) for x, y in zip(xs, ys)),
+                      f"an inactive slot's state changed at tick {t0}")
+                untouched += 1
+            for b, row in enumerate(burst):
+                for i, pos in enumerate(row):
+                    if pos is not None:
+                        got[i].append(runner_ids(name, outs[b], i, ext[i]))
+        return got, qm.LAUNCHES, runner
+
+    got1, launches, _ = run_ticks(1)
+    got4, _, _ = run_ticks(STREAM_K)
+    check(got4 == got1, f"step_n at K = {STREAM_K} gave other ids than K = 1")
+
+    def state_before(i, t):  # the runner's states before the tick of slot i's (last) window t
+        return run_ticks(1, stop=max(k for k, row in enumerate(ticks) if row[i] == t))[2].states
+
+    with torch.inference_mode():
+        equal = compare_alone(torch, name, cfg, session, streams, got1, label, state_before)
+    out = {"bitwise_slots": equal, "ticks": len(ticks), "int8": launches}
+
+    def tick_ms(p, n):
+        runner = make_runner(name, p, cfg, n)
+        chunks = np.stack([streams[i % STREAM_SLOTS][0] for i in range(n)])
+        for _ in range(2):
+            runner.step(chunks)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(STREAM_TIMED_TICKS):
+            runner.step(chunks)
+        return (time.perf_counter() - t) * 1e3 / STREAM_TIMED_TICKS
+
+    qm.set_quant_config(mm="bf16")
+    times = {n: tick_ms(params, n) for n in (1, STREAM_SLOTS)}
+    out["tick_ms"] = times
+    f32_txt = ""
+    if name == "dolphin":
+        cfg32, init = stream_family(name)
+        p32 = init(torch.Generator(device=DEV).manual_seed(39))
+        out["tick_ms_f32"] = {n: tick_ms(p32, n) for n in (1, STREAM_SLOTS)}
+        del p32
+        f32_txt = (f"; f32 weights: N=1 {out['tick_ms_f32'][1]:.2f} ms, N={STREAM_SLOTS} "
+                   f"{out['tick_ms_f32'][STREAM_SLOTS]:.2f} ms (q8 / f32 at N={STREAM_SLOTS}: "
+                   f"{times[STREAM_SLOTS] / out['tick_ms_f32'][STREAM_SLOTS]:.3f})")
+    print(f"[{label}] runner at N={STREAM_SLOTS}: {len(ticks)} ticks, staggered starts, slot {STREAM_RESET[0]} "
+          f"reset at tick {STREAM_RESET[1]}: {equal} of {STREAM_SLOTS} slots bitwise = the session alone (the "
+          f"rest within the margin rule), inactive slots' state bitwise untouched, step_n K={STREAM_K} ids = K=1; "
+          f"{launches} int8 launches; tick latency (q8, bf16 mode, host read included): N=1 {times[1]:.2f} ms, "
+          f"N={STREAM_SLOTS} {times[STREAM_SLOTS]:.2f} ms ({times[STREAM_SLOTS] / STREAM_SLOTS:.2f} ms a stream, "
+          f"{times[1] * STREAM_SLOTS / times[STREAM_SLOTS]:.2f}x the streams a second of N=1){f32_txt}  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree) -> list:
+    from asr_tpu_torch.streaming.multistream import tree_map
+
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def server_windows(srv, audio) -> list:
+    """The windows the stream server feeds one connection whose audio has
+    all arrived: every ``advance`` from 0 while at least ``drain_min``
+    samples remain of the audio and the tail pad, zero-padded to the
+    window (``StreamingServer._gather_subtick``'s rule)."""
+    import numpy as np
+
+    buf = np.concatenate([audio.astype(np.float32) * srv.pcm_gain, np.zeros(srv.tail_pad, np.float32)])
+    out, pos = [], 0
+    while len(buf) - pos >= srv.drain_min:
+        win = np.zeros(srv.chunk, np.float32)
+        part = buf[pos : pos + srv.chunk]
+        win[: len(part)] = part
+        out.append(win)
+        pos += srv.advance
+    return out
+
+
+def phase_stream_serve(torch, np, qm, name: str, folder: str, run: dict, card: str) -> dict:
+    """[42] ``serve-stream`` through the command line (``cli.main``, in
+    process, with ``serve_streams`` started in the background) on the
+    family's artifact, 8 slots, ``--ticks-per-sync 4``, ``--quant-mm f32``
+    (as phase 41's ids): a ninth connection
+    gets 503 while 8 hold their slots; then 8 concurrent chunked-HTTP
+    connections of 8-10 s each through ``stream_pcm_over_http``, each
+    connection's events bitwise its windows (those the server forms)
+    replayed in its slot of an 8-slot runner, and the session's ids on the
+    same windows (:func:`compare_alone`); ``/healthz`` reports
+    ``tick_latency_max_s`` and ``sync_latency_max_s``, the second at least
+    the first."""
+    import socket
+
+    from asr_tpu_torch import cli
+    from asr_tpu_torch.parallel import stream_server as sserv
+
+    session = run["session"]
+    label = f"42 {name}"
+    started = {}
+    orig = sserv.serve_streams
+
+    def background(runner, chunk, host="127.0.0.1", port=0, **kw):
+        started["httpd"], started["srv"], started["thread"] = sserv.start_stream_background(
+            runner, chunk, host=host, port=port, **kw)
+
+    sserv.serve_streams = background
+    try:
+        cli.main(["--quant-mm", "f32", "serve-stream", "--model-dir", folder, "--streams", str(STREAM_SLOTS),
+                  "--ticks-per-sync", str(STREAM_K), "--port", "0"])
+    finally:
+        sserv.serve_streams = orig
+    httpd, srv = started["httpd"], started["srv"]
+    port = httpd.server_address[1]
+    head = b"POST /stream HTTP/1.1\r\nHost: x\r\nTransfer-Encoding: chunked\r\n\r\n"
+    out = {}
+    try:
+        holds = []
+        for _ in range(STREAM_SLOTS):
+            s = socket.create_connection(("127.0.0.1", port), timeout=60)
+            s.sendall(head)
+            check(s.recv(64).startswith(b"HTTP/1.1 200"), "a slot was refused")
+            holds.append(s)
+        ninth = socket.create_connection(("127.0.0.1", port), timeout=60)
+        ninth.sendall(head)
+        status = ninth.recv(64)
+        ninth.close()
+        check(status.startswith(b"HTTP/1.1 503"), f"the ninth connection got {status[:40]!r}, not 503")
+        for s in holds:
+            s.sendall(b"0\r\n\r\n")
+            buf = b""
+            while b"\r\n0\r\n\r\n" not in buf:
+                piece = s.recv(65536)
+                if not piece:
+                    break
+                buf += piece
+            s.close()
+        rng = np.random.default_rng(42)
+        lengths = rng.uniform(*STREAM_SERVE_SECONDS, size=STREAM_SLOTS)
+        scale = 3000.0 if name == "nemotron" else STREAM_PCM[name]  # int16 PCM on the wire
+        pcms = [np.clip(np.round(rng.standard_normal(int(s * 16000)) * scale), -32768, 32767).astype(np.int16)
+                for s in lengths]
+        results, latency = [None] * STREAM_SLOTS, [0.0] * STREAM_SLOTS
+
+        def client(i):
+            t = time.perf_counter()
+            results[i] = sserv.stream_pcm_over_http("127.0.0.1", port, pcms[i], send_chunk=6400, timeout=300)
+            latency[i] = time.perf_counter() - t
+
+        qm.LAUNCHES = 0
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(STREAM_SLOTS)]
+        t_all = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t_all
+        out["int8"] = qm.LAUNCHES
+        check(not any(t.is_alive() for t in threads), "a stream did not finish")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        started["thread"].join(timeout=60)
+    streams, got = [], []
+    for i in range(STREAM_SLOTS):
+        evs = results[i]
+        check(bool(evs) and evs[-1].get("done") and not any("error" in e for e in evs), f"stream {i}: {evs[-3:]}")
+        windows = server_windows(srv, pcms[i].astype(np.float32))
+        check(evs[-1]["ticks"] == len(windows), f"stream {i}: {evs[-1]['ticks']} ticks for {len(windows)} windows")
+        per_window = [[] for _ in windows]
+        for e in evs:
+            if "ids" in e:
+                per_window[e["tick"] - 1] = e["ids"]  # an event's tick is its window's 1-based index
+        streams.append(windows)
+        got.append(per_window)
+    params, cfg = session.params, session.cfg
+
+    def replay(upto=None):
+        """Every connection's windows in its own slot of a fresh 8-slot
+        runner, window t at tick t (the server's batch shape: each slot's
+        rows bitwise whatever the others hold); ``upto`` (slot, t) stops
+        before that slot's window t."""
+        runner, ids, ext = make_runner(name, params, cfg, STREAM_SLOTS), [[] for _ in streams], [{} for _ in streams]
+        for t in range(max(len(w) for w in streams) if upto is None else upto[1]):
+            chunks = np.zeros((STREAM_SLOTS, srv.chunk), np.float32)
+            active = np.array([t < len(w) for w in streams])
+            for i, w in enumerate(streams):
+                if active[i]:
+                    chunks[i] = w[t]
+            outs = runner.step(chunks, active)
+            for i in np.flatnonzero(active):
+                ids[i].append(runner_ids(name, outs, i, ext[i]))
+        return runner, ids
+
+    replayed = replay()[1]
+    for i in range(STREAM_SLOTS):
+        check(replayed[i] == got[i], f"connection {i}: the served ids differ from its windows replayed in slot "
+              f"{i} of an {STREAM_SLOTS}-slot runner")
+    with torch.inference_mode():
+        equal = compare_alone(torch, name, cfg, session, streams, got, label,
+                              lambda i, t: replay((i, t))[0].states)
+    check(health["ok"] and health["slots_active"] == 0, f"healthz {health}")
+    check("sync_latency_max_s" in health and "tick_latency_max_s" in health, f"healthz {health}")
+    check(health["sync_latency_max_s"] >= health["tick_latency_max_s"] > 0, f"healthz {health}")
+    out.update({"equal": equal, "health": health, "wall_s": wall, "latency_s": latency})
+    audio_s = float(sum(lengths))
+    print(f"[{label}] serve-stream --streams {STREAM_SLOTS} --ticks-per-sync {STREAM_K}: a ninth connection "
+          f"got 503; {STREAM_SLOTS} concurrent connections of {min(lengths):.1f}-{max(lengths):.1f} s "
+          f"({audio_s:.1f} s of audio) in {wall:.2f} s (per connection {min(latency):.2f}-{max(latency):.2f} s), "
+          f"{equal} of {STREAM_SLOTS} with the session's ids bitwise (the rest within the margin rule); "
+          f"int8 launches {out['int8']}; healthz ticks {health['ticks']}, syncs {health['device_syncs']}, tick "
+          f"latency avg {health['tick_latency_avg_s'] * 1e3:.2f} ms, max per subtick "
+          f"{health['tick_latency_max_s'] * 1e3:.2f} ms, max per sync {health['sync_latency_max_s'] * 1e3:.2f} ms"
+          f"  [{card}]")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4450,6 +5353,18 @@ def main() -> int:
             off_run[name] = phase_offline(torch, np, qm, name, off_dir, card)
     print(f"[t] phases 34-36: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
+    # ── 37-42. streaming: the four families, their runners at 8 slots, serve-stream ──
+    st_run, st_multi, st_serve = {}, {}, {}
+    for name in STREAM_FAMILIES:
+        with tempfile.TemporaryDirectory() as st_dir:
+            st_run[name] = phase_stream(torch, np, qm, name, st_dir, card)
+            st_multi[name] = phase_stream_multi(torch, np, qm, name, st_run[name], card)
+            st_serve[name] = phase_stream_serve(torch, np, qm, name, st_dir, st_run[name], card)
+            del st_run[name]["session"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[t] phases 37-42 {name}: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     k_ms, p_ms = kern["per_forward"]["bf16"]
@@ -4466,7 +5381,8 @@ def main() -> int:
                      + q2run["int8"] + q2serve["int8"] + q2cont["int8"] + frun["int8"] + frun["batch_int8"]
                      + fcont["ctc_int8"] + fcont["int8"] + arun["int8"]
                      + sum(fam_run[n]["int8"] + fam_cont[n]["int8"] for n in fam_run)
-                     + fam_run["dolphin"]["ctc_int8"] + sum(r["int8"] for r in off_run.values())),
+                     + fam_run["dolphin"]["ctc_int8"] + sum(r["int8"] for r in off_run.values())
+                     + sum(r[n]["int8"] for r in (st_run, st_multi, st_serve) for n in STREAM_FAMILIES)),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
@@ -4477,7 +5393,14 @@ def main() -> int:
                              "firered_continuous": fam_cont["firered"]["int8"],
                              "dolphin": fam_run["dolphin"]["int8"], "dolphin_ctc": fam_run["dolphin"]["ctc_int8"],
                              "dolphin_continuous": fam_cont["dolphin"]["int8"],
-                             **{name: r["int8"] for name, r in off_run.items()}},
+                             **{name: r["int8"] for name, r in off_run.items()},
+                             **{f"{name}_stream": r["int8"] for name, r in st_run.items()},
+                             **{f"{name}_stream_runner": r["int8"] for name, r in st_multi.items()},
+                             **{f"{name}_serve_stream": r["int8"] for name, r in st_serve.items()}},
+        "streaming_paths": "Paraformer (M = 13 encoder, 10 decoder rows a stream), Nemotron (14 query, 84 "
+                           "key/value, 16 pre-encode rows, greedy M = 1), Dolphin (16; rescoring M = 3 and 1) and "
+                           "X-ASR Zipformer2 (8, 4, 2, 1 rows by stack) streaming q8, at 1 and 8 streams "
+                           "(per_path_ms: stream_*)",
         "offline_paths": "Paraformer-large (K = 560 in one block, N = 8404 head), Parakeet-TDT-0.6B "
                      "(joint head N = 8198) and Nemotron-0.6B (joint N = 8193) q8; greedy steps at M = 1 and 8, "
                      "rel-pos projections at 2T - 1 rows (per_path_ms: *_window*, *_b8*)",

@@ -7,8 +7,12 @@ card default, the AED families FireRed and Dolphin (``inspect`` and
 ``transcribe``, Dolphin with ``--language``), the offline families
 Paraformer, Parakeet and Nemotron (``inspect``, ``transcribe``, Nemotron
 with ``--language`` resolved to its prompt id, Parakeet through
-``quantize``), and the artifact tokenizers (``_build_tokenizer``) of all
-six kinds, each decoding as the JAX package's copy does.
+``quantize``), the streaming families Paraformer, Nemotron (with
+``--language``), Dolphin (with its catalog) and X-ASR (``inspect``,
+``transcribe``, ``quantize``, and ``serve-stream``'s per-family settings
+and a subprocess answering a stream), and the artifact tokenizers
+(``_build_tokenizer``) of all six kinds, each decoding as the JAX package's
+copy does.
 
 Both command lines run f32 matmuls on the same weights, so the printed
 token text is equal line by line (the timing columns differ).
@@ -18,6 +22,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import time
 import wave
 from pathlib import Path
 
@@ -41,6 +46,7 @@ from asr_tpu_torch.models import paraformer as tpf
 from asr_tpu_torch.models import parakeet as tpk
 from asr_tpu_torch.models import qwen_asr as tqa
 from asr_tpu_torch.models import sensevoice as tsv
+from asr_tpu_torch.models import zipformer as tzf
 from asr_tpu_torch.ops import quant_matmul as tqm
 from asr_tpu_torch.quant.quantize import cast_pytree
 from asr_tpu_torch.runtime.artifact import ModelMetadata, read_safetensors, save_model
@@ -71,6 +77,10 @@ PK = dict(vocab_size=40, blank_id=39, d_model=32, num_layers=1, num_heads=4, ffn
 NM = dict(vocab_size=30, d_model=32, num_layers=1, num_heads=4, ffn_dim=48, conv_kernel=5, sub_channels=8,
           pred_hidden=32, joint_hidden=32, prompt_hidden=32, lstm_layers=1, num_prompts=8, left_context=6,
           right_context=3, mel=NemoMelConfig(n_mels=80))
+ZF = dict(vocab_size=40, downsampling_factor=(1, 2), num_encoder_layers=(1, 1), encoder_dim=(32, 48),
+          query_head_dim=(8, 8), pos_head_dim=(4, 4), value_head_dim=(8, 8), num_heads=(2, 2),
+          feedforward_dim=(48, 64), cnn_module_kernel=(7, 7), left_context_frames=16, sub_layer1=4,
+          sub_layer2=8, sub_layer3=16, decoder_dim=16, joiner_dim=16, decoder_conv_groups=4)
 NM_LANGUAGES = [{"code": "en", "description": "English", "prompt_token_id": 3},
                 {"code": "de", "description": "German", "aliases": ["deutsch"], "index": 5}]
 
@@ -351,6 +361,166 @@ def test_serve_dispatch(tmp_path, monkeypatch):
         cli.main(["--platform", "cpu", "serve", "--model-dir", str(sv), "--continuous"])
 
 
+def _streaming(folder: Path, family: str) -> Path:
+    """A tiny streaming artifact with a ``vocab_txt`` file: Paraformer,
+    Nemotron (its two languages), Dolphin (its catalog; a 64-frame history)
+    or X-ASR."""
+    from asr_tpu_torch.streaming import dolphin_stream as tds
+
+    folder.mkdir()
+    langs = []
+    extra = {}
+    if family == "paraformer_streaming":
+        cfg = tpf.ParaformerConfig(**PF)
+        params = tpf.init_params(cfg, _g(9), "cpu")
+    elif family == "nemotron_streaming":
+        cfg = tnm.NemotronConfig(**NM)
+        params = tnm.init_params(cfg, _g(10), "cpu")
+        langs = [LanguageProfile(**{**p, "aliases": tuple(p.get("aliases", ()))}) for p in NM_LANGUAGES]
+    elif family == "dolphin_streaming":
+        cfg = tds.DolphinStreamConfig(base=tdp.DolphinConfig(**DP), chunk_frames=8, max_frames=64)
+        params = tdp.init_params(cfg.base, _g(11), "cpu")
+        extra["dolphin_language_catalog"] = DP_CATALOG
+    else:
+        cfg = tzf.ZipformerConfig(**ZF)
+        params = tzf.init_params(cfg, _g(12), "cpu")
+    meta = ModelMetadata(family=family, tokenizer=_vocab_txt(folder, 64), supported_languages=langs,
+                         extra={"config": dataclasses.asdict(cfg), **extra})
+    save_model(folder, params, meta)
+    return folder
+
+
+STREAMING = [("paraformer_streaming", None), ("nemotron_streaming", None), ("nemotron_streaming", "deutsch"),
+             ("dolphin_streaming", None), ("dolphin_streaming", "Chinese-Sichuan"), ("x_asr", None)]
+
+
+@pytest.mark.parametrize("family,language", STREAMING)
+def test_streaming_families_transcribe_and_inspect_as_jax(tmp_path, capsys, family, language):
+    """``inspect`` and ``transcribe`` print what the JAX command line prints
+    (the streaming session chunk by chunk); each text is the decode of the
+    session's ids; Nemotron's ``--language`` resolves to a prompt id and
+    Dolphin's through its catalog, as in the JAX command line."""
+    folder = _streaming(tmp_path / "m", family)
+    got, want = _both(capsys, ["inspect", "--model-dir", str(folder)])
+    assert json.loads(got) == json.loads(want) and json.loads(got)["family"] == family
+    scale = 300.0 if family == "nemotron_streaming" else 2000.0
+    files = [_wav(tmp_path / f"{i}.wav", n, 40 + i, scale) for i, n in enumerate((12000, 20000))]
+    lang = ["--language", language] if language else []
+    got, want = _both(capsys, ["transcribe", *lang, "--model-dir", str(folder), *files])
+    assert _text_lines(got) == _text_lines(want) and len(_text_lines(got)) == 2
+    sess = cli._build_session(folder, language=language, device="cpu")
+    jsess = jcli._build_session(folder, language=language)
+    assert type(sess).__name__ == type(jsess).__name__
+    if family == "nemotron_streaming":
+        assert sess.prompt_id == jsess.prompt_id == (5 if language else 0)
+    if family == "dolphin_streaming":
+        assert (sess.language_id, sess.region_id) == (jsess.language_id, jsess.region_id)
+    for f, (name, _, text) in zip(files, _text_lines(got)):
+        ids = sess.transcribe(f).token_ids
+        assert name == f and text == sess.tokenizer.decode(ids)
+    assert any(t for _, _, t in _text_lines(got))
+
+
+@pytest.mark.parametrize("family", ["paraformer_streaming", "x_asr"])
+def test_streaming_quantize_matches_jax_and_transcribes(tmp_path, capsys, family):
+    """``quantize`` of a streaming artifact writes the JAX command line's
+    bytes; the q8 artifact transcribes as the JAX command line does."""
+    folder = _streaming(tmp_path / "m", family)
+    argv = ["quantize", "--model-dir", str(folder), "--bits", "8", "--min-size", "1024", "--refine-iters", "0"]
+    assert cli.main(["--platform", "cpu", *argv, "--out", str(tmp_path / "t")]) == 0
+    assert jcli.main(["--compile-cache", "", *argv, "--out", str(tmp_path / "j")]) == 0
+    capsys.readouterr()
+    got = read_safetensors(tmp_path / "t" / "weights.safetensors")
+    want = read_safetensors(tmp_path / "j" / "weights.safetensors")
+    assert sorted(got) == sorted(want) and any("__quant__" in k for k in got)
+    for k in got:
+        np.testing.assert_array_equal(got[k].reshape(want[k].shape), want[k], err_msg=k)
+    wav = _wav(tmp_path / "a.wav", 16000, 50)
+    t_out, j_out = _both(capsys, ["transcribe", "--model-dir", str(tmp_path / "t"), wav])
+    assert _text_lines(t_out) == _text_lines(j_out)
+
+
+def _serve_stream_settings(monkeypatch, main, module, argv):
+    calls = []
+    monkeypatch.setattr(module, "serve_streams", lambda runner, chunk, **kw: calls.append((runner, chunk, kw)))
+    assert main(argv) == 0
+    (runner, chunk, kw), = calls
+    return runner, chunk, {k: v for k, v in kw.items() if k != "extract"}, kw["extract"]
+
+
+@pytest.mark.parametrize("family", ["paraformer_streaming", "nemotron_streaming", "dolphin_streaming", "x_asr"])
+def test_serve_stream_settings_match_jax(tmp_path, monkeypatch, family):
+    """Each family's window, advance, PCM scale, tail pad, drain rule and
+    extract, and the flags, as the JAX command line sets them."""
+    from asr_tpu.parallel import stream_server as jss_mod
+    from asr_tpu_torch.parallel import stream_server as tss_mod
+
+    folder = _streaming(tmp_path / "m", family)
+    argv = ["serve-stream", "--model-dir", str(folder), "--streams", "3", "--ticks-per-sync", "2", "--port", "0"]
+    runner, chunk, kw, extract = _serve_stream_settings(monkeypatch, cli.main, tss_mod,
+                                                        ["--platform", "cpu", *argv])
+    jrunner, jchunk, jkw, jextract = _serve_stream_settings(monkeypatch, jcli.main, jss_mod,
+                                                            ["--compile-cache", "", *argv])
+    assert (chunk, kw) == (jchunk, jkw) and kw["ticks_per_sync"] == 2 and kw["port"] == 0
+    assert runner.n_streams == jrunner.n_streams == 3
+    assert (extract is None) == (jextract is None) == (family != "dolphin_streaming")
+    if extract is not None:
+        outs = {"ctc_ids": np.array([[0, 5, 5, 0, 7], [3, 3, 0, 0, 4]])}
+        for i in range(2):
+            st, jst = {"last": 5}, {"last": 5}
+            assert extract(outs, i, st) == jextract(outs, i, jst) and st == jst
+    with pytest.raises(SystemExit, match="serve-stream supports the streaming families"):
+        cli.main(["--platform", "cpu", "serve-stream", "--model-dir", str(_offline(tmp_path / "p", "paraformer"))])
+
+
+def test_serve_stream_subprocess_answers_a_stream_without_jax(tmp_path):
+    """``serve-stream --platform cpu`` in a fresh process answers one
+    chunked-HTTP stream with the session's ids, and the process, once
+    serving, holds neither ``jax`` nor ``asr_tpu`` (it prints the modules
+    it would leak)."""
+    import select
+
+    from asr_tpu_torch.parallel.stream_server import stream_pcm_over_http
+
+    folder = _streaming(tmp_path / "m", "paraformer_streaming")
+    script = ("import sys, threading\n"
+              "from asr_tpu_torch.cli import main\n"
+              "t = threading.Thread(target=main, args=(sys.argv[1:],), daemon=True)\n"
+              "t.start()\n"
+              "import time\n"
+              "while not any(m == 'asr_tpu_torch.parallel.stream_server' for m in sys.modules): time.sleep(0.05)\n"
+              "time.sleep(0.5)\n"
+              "print('LEAKED', sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'asr_tpu')),"
+              " flush=True)\n"
+              "t.join()\n")
+    proc = subprocess.Popen([sys.executable, "-u", "-c", script, "--platform", "cpu", "serve-stream",
+                             "--model-dir", str(folder), "--port", "0", "--streams", "2"],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port, leaked = None, None
+        deadline = time.time() + 120
+        while (port is None or leaked is None) and time.time() < deadline:
+            ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+            if not ready:
+                assert proc.poll() is None, proc.stderr.read()
+                continue
+            line = proc.stdout.readline()
+            if line.startswith("streaming on http://"):
+                port = int(line.split(":")[2].split()[0])
+            elif line.startswith("LEAKED"):
+                leaked = line.split(" ", 1)[1].strip()
+        assert port and leaked == "[]", (port, leaked)
+        pcm = (np.random.default_rng(60).standard_normal(3 * 8000) * 2000).astype(np.int16)
+        evs = stream_pcm_over_http("127.0.0.1", port, pcm, send_chunk=4096)
+        assert evs and evs[-1].get("done"), evs
+        sess = cli._build_session(folder, device="cpu")
+        want = [sess.push_chunk(pcm[i * 8000 : (i + 1) * 8000].astype(np.float32)) for i in range(3)]
+        assert [e["ids"] for e in evs if "ids" in e] == [ids for ids in want if ids]
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
 def test_serve_continuous_takes_the_aed_families(tmp_path, monkeypatch):
     from asr_tpu_torch.parallel import llm_server
 
@@ -365,10 +535,9 @@ def test_serve_continuous_takes_the_aed_families(tmp_path, monkeypatch):
 
 
 def test_unknown_family_and_the_card_default(tmp_path, monkeypatch):
-    """A family the port has no session for (x_asr: the JAX package has a
-    streaming one) and one neither package knows raise the JAX package's
-    refusal."""
-    for family in ("x_asr", "no_such_family"):
+    """A family neither package knows raises the JAX package's refusal (the
+    port now wires every family the JAX package does)."""
+    for family in ("no_such_family",):
         folder = tmp_path / family
         folder.mkdir()
         save_model(folder, {"w": torch.zeros(2)}, ModelMetadata(family=family))
@@ -452,7 +621,8 @@ def test_module_help_runs():
     proc = subprocess.run([sys.executable, "-m", "asr_tpu_torch", "--help"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    for word in ("transcribe", "inspect", "quantize", "align", "serve", "--platform", "--quant-mm"):
+    for word in ("transcribe", "inspect", "quantize", "align", "serve", "serve-stream", "--platform",
+                 "--quant-mm"):
         assert word in proc.stdout
-    for word in ("build", "parity", "bench", "serve-stream", "--compile-cache", "--quant-kernel"):
+    for word in ("build", "parity", "bench", "--compile-cache", "--quant-kernel"):
         assert word not in proc.stdout

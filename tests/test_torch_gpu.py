@@ -1286,3 +1286,118 @@ def test_offline_family_q8_forward_matches_plain_version(name, mm):
             assert int(counts.min()) > 0
     finally:
         qm._CONFIG["mm"] = prev
+
+
+# ── streaming (the int8 kernel at the streaming paths' row counts) ────────
+# One stream is 1-16 rows a call (Zipformer 8, 4, 2, 1 by stack; Paraformer
+# 13 encoder positions; Nemotron 14 query and 84 key/value rows; Dolphin
+# 16), eight slots eight times as many; a weight of each family's widths.
+STREAM_SHAPES = [(560, 1536, 560), (512, 8404, 128), (1024, 4096, 128), (640, 8193, 128),
+                 (1024, 512, 128), (768, 2048, 128), (192, 384, 192)]
+STREAM_M = (1, 2, 4, 8, 13, 14, 16, 84)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n,block", STREAM_SHAPES)
+def test_int8_at_the_streaming_row_counts_rows_bitwise_alone(k, n, block, mm):
+    """Against the plain version within 1e-4 of max|plain| at every
+    streaming row count and its eight-slot multiple; each row of a call
+    bitwise the row alone."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(k * 3 + n)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, 8, 128)
+    assert leaf.block == block
+    x = torch.randn((8 * max(STREAM_M), k), generator=g, device="cuda")
+    alone = {}
+    for m in sorted({*STREAM_M, *(8 * m for m in STREAM_M)}):
+        args = (x[:m].contiguous(), leaf.q, leaf.scale, leaf.zero, block, mm)
+        got = qm.quant_matmul_int8(*args)
+        want = qm.quant_dense_reference(*args)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        for r in sorted({0, m // 2, m - 1}):
+            if r not in alone:
+                alone[r] = qm.quant_matmul_int8(x[r : r + 1].contiguous(), *args[1:])[0]
+            assert torch.equal(alone[r], got[r]), (m, r)
+
+
+def _stream_family(name, device, g):
+    """A tiny q8 streaming family on ``device``: (session, a runner of 3
+    slots, chunk samples, PCM scale)."""
+    from asr_tpu_torch.frontend.nemo_mel import NemoMelConfig
+    from asr_tpu_torch.models import dolphin as dp, nemotron as nm, paraformer as pf, zipformer as zf
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime import streaming_session as ss
+    from asr_tpu_torch.streaming import dolphin_stream as ds, multistream as ms, nemotron_stream as ns
+    from asr_tpu_torch.streaming import paraformer_online as po
+
+    if name == "paraformer":
+        cfg = po.ParaformerStreamConfig(base=pf.ParaformerConfig(
+            vocab_size=300, hidden=256, num_heads=4, head_dim=64, ffn_dim=512, num_encoders0=1, num_encoders=2,
+            num_decoders=2, fsmn_kernel=11))
+        p = quantize_pytree(pf.init_params(cfg.base, g, "cpu"), min_size=1024)
+        p = _to(p, device)
+        return ss.ParaformerStreamingSession(p, cfg), ms.paraformer_multistream(p, cfg, 3), cfg.chunk_samples, 2000.0
+    if name == "nemotron":
+        cfg = ns.NemotronStreamConfig(base=nm.NemotronConfig(
+            vocab_size=300, d_model=256, num_layers=2, num_heads=4, ffn_dim=512, sub_channels=32, pred_hidden=128,
+            joint_hidden=128, prompt_hidden=128, lstm_layers=1, num_prompts=8, mel=NemoMelConfig(n_mels=128)))
+        p = _to(quantize_pytree(nm.init_params(cfg.base, g, "cpu"), min_size=1024), device)
+        return ss.NemotronStreamingSession(p, cfg), ms.nemotron_multistream(p, cfg, 3), cfg.window_samples, 0.1
+    if name == "dolphin":
+        cfg = ds.DolphinStreamConfig(base=dp.DolphinConfig(
+            vocab_size=300, d_model=256, enc_layers=2, enc_heads=4, enc_ffn=512, cgmlp_dim=512, dec_layers=2,
+            dec_heads=4, dec_ffn=512, sos_id=298, eos_id=299, max_target_positions=32), max_frames=64)
+        p = _to(quantize_pytree(dp.init_params(cfg.base, g, "cpu"), min_size=1024), device)
+        return ss.DolphinStreamingSession(p, cfg), ms.dolphin_multistream(p, cfg, 3), cfg.window_samples, 2000.0
+    cfg = zf.ZipformerConfig(vocab_size=300, downsampling_factor=(1, 2, 4), num_encoder_layers=(1, 1, 1),
+                             encoder_dim=(128, 192, 256), query_head_dim=(32,) * 3, pos_head_dim=(4,) * 3,
+                             value_head_dim=(12,) * 3, num_heads=(4,) * 3, feedforward_dim=(256, 384, 512),
+                             cnn_module_kernel=(15,) * 3, decoder_dim=128, joiner_dim=128, decoder_conv_groups=32)
+    p = _to(quantize_pytree(zf.init_params(cfg, g, "cpu"), min_size=1024), device)
+    return ss.XasrStreamingSession(p, cfg), ms.zipformer_multistream(p, cfg, 3), cfg.window_samples, 2000.0
+
+
+def _to(tree, device):
+    from asr_tpu_torch.runtime import artifact as art
+
+    return art.params_from_flat(art.flatten_pytree(tree), device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["paraformer", "nemotron", "dolphin", "zipformer"])
+def test_streaming_session_on_the_card_matches_the_cpu(name):
+    """A tiny q8 streaming session (mm=f32) on the card against the same
+    session on the CPU's plain path: the ids equal, each chunk's runner
+    outputs equal, and the runner's float state within 1e-3 of max|CPU|;
+    the card's runner launches the int8 kernel on every tick."""
+    _need_card()
+    import numpy as np
+
+    from asr_tpu_torch.streaming import multistream as ms
+
+    prev = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="f32")
+    try:
+        card = _stream_family(name, "cuda", torch.Generator().manual_seed(21))
+        host = _stream_family(name, "cpu", torch.Generator().manual_seed(21))
+        rng = np.random.default_rng(22)
+        audio = (rng.standard_normal(4 * card[2]) * card[3]).astype(np.float32)
+        assert card[0].transcribe(audio).token_ids == host[0].transcribe(audio).token_ids
+        chunks = (rng.standard_normal((3, 3, card[2])) * card[3]).astype(np.float32)
+        for t in range(3):
+            active = np.array([True, t != 1, True])
+            before = qm.LAUNCHES
+            a, b = card[1].step(chunks[t], active), host[1].step(chunks[t], active)
+            assert qm.LAUNCHES > before
+            for key in a:
+                np.testing.assert_array_equal(a[key][active], b[key][active])
+        leaves = []
+        ms.tree_map(lambda x, y: leaves.append((x.cpu(), y)), card[1].states, host[1].states)
+        for x, y in leaves:
+            if y.is_floating_point():
+                assert (x - y).abs().max().item() <= 1e-3 * max(y.abs().max().item(), 1e-6)
+            else:
+                assert torch.equal(x, y)
+    finally:
+        qm._CONFIG["mm"] = prev

@@ -3,7 +3,9 @@
 package ``asr_tpu``; the host modules the port keeps its own copies of (metadata, audio ingest, the
 FLAC decoder, mel banks, window-text joining, RoPE tables, Qwen output
 parsing, the tokenizers and the demo-audio registry) agree with the
-originals on the same inputs; the loaders and the command line run on the
+originals on the same inputs; the stream server is the original with one
+named divergence (``sync_latency_max_s``); the streaming sessions, runners
+and server run without JAX; the loaders and the command line run on the
 card unless the caller asks for the CPU, and the command line imports
 neither JAX nor the JAX package.
 
@@ -276,6 +278,89 @@ def test_offline_family_clis_run_without_jax_or_the_jax_package(tmp_path):
     out = proc.stdout.splitlines()
     assert out[-1] == "CLI_OK" and len(out) == 7
     assert all(text.startswith("w") for text in out[1:6:2])  # three decoded text lines
+
+
+_STREAMING = """
+import sys
+import numpy as np, torch
+from asr_tpu_torch.frontend.nemo_mel import NemoMelConfig
+from asr_tpu_torch.models import dolphin as dp, nemotron as nm, paraformer as pf, zipformer as zf
+from asr_tpu_torch.parallel import stream_server
+from asr_tpu_torch.quant.quantize import quantize_pytree
+from asr_tpu_torch.runtime import streaming_session as ss
+from asr_tpu_torch.streaming import dolphin_stream as ds, multistream as ms, nemotron_stream as ns
+from asr_tpu_torch.streaming import paraformer_online as po
+g = torch.Generator().manual_seed(0)
+rng = np.random.default_rng(0)
+pcfg = po.ParaformerStreamConfig(base=pf.ParaformerConfig(vocab_size=50, hidden=32, num_heads=4, head_dim=8,
+                                 ffn_dim=48, num_encoders0=1, num_encoders=1, num_decoders=1, fsmn_kernel=5))
+pp = quantize_pytree(pf.init_params(pcfg.base, g, "cpu"), min_size=1024)
+ss.ParaformerStreamingSession(pp, pcfg).transcribe(rng.standard_normal(17000).astype(np.float32) * 2000)
+ms.paraformer_multistream(pp, pcfg, 2).step_n(np.zeros((2, 2, 8000), np.float32), np.ones((2, 2), bool))
+ncfg = ns.NemotronStreamConfig(base=nm.NemotronConfig(vocab_size=30, d_model=32, num_layers=1, num_heads=4,
+                               ffn_dim=48, sub_channels=8, pred_hidden=32, joint_hidden=32, prompt_hidden=32,
+                               lstm_layers=1, num_prompts=8, left_context=6, right_context=3,
+                               mel=NemoMelConfig(n_mels=80)))
+npar = quantize_pytree(nm.init_params(ncfg.base, g, "cpu"), min_size=1024)
+assert ss.NemotronStreamingSession(npar, ncfg).transcribe(rng.standard_normal(9000).astype(np.float32) * 0.1)
+ms.nemotron_multistream(npar, ncfg, 2).step(np.zeros((2, ncfg.window_samples), np.float32))
+dcfg = ds.DolphinStreamConfig(base=dp.DolphinConfig(vocab_size=64, d_model=64, enc_layers=1, enc_heads=4,
+                              enc_ffn=96, cgmlp_dim=96, csgu_kernel=5, dec_layers=1, dec_heads=4, dec_ffn=96,
+                              sos_id=1, eos_id=2, max_target_positions=16), chunk_frames=8, max_frames=32)
+dpar = quantize_pytree(dp.init_params(dcfg.base, g, "cpu"), min_size=1024)
+ss.DolphinStreamingSession(dpar, dcfg).transcribe(rng.standard_normal(12000).astype(np.float32) * 2000)
+ms.dolphin_multistream(dpar, dcfg, 2).step(np.zeros((2, dcfg.window_samples), np.float32))
+zcfg = zf.ZipformerConfig(vocab_size=40, downsampling_factor=(1, 2), num_encoder_layers=(1, 1),
+                          encoder_dim=(32, 48), query_head_dim=(8, 8), pos_head_dim=(4, 4),
+                          value_head_dim=(8, 8), num_heads=(2, 2), feedforward_dim=(48, 64),
+                          cnn_module_kernel=(7, 7), left_context_frames=16, sub_layer1=4, sub_layer2=8,
+                          sub_layer3=16, decoder_dim=16, joiner_dim=16, decoder_conv_groups=4)
+zpar = quantize_pytree(zf.init_params(zcfg, g, "cpu"), min_size=1024)
+assert ss.XasrStreamingSession(zpar, zcfg).transcribe(rng.standard_normal(9000).astype(np.float32) * 2000)
+runner = ms.zipformer_multistream(zpar, zcfg, 2)
+httpd, srv, _ = stream_server.start_stream_background(runner, zcfg.window_samples, tick_wait_ms=5.0,
+                                                      advance_samples=zcfg.advance_samples)
+evs = stream_server.stream_pcm_over_http("127.0.0.1", httpd.server_address[1],
+                                         (rng.standard_normal(9000) * 2000).astype(np.int16))
+httpd.shutdown()
+srv.close()
+assert evs[-1].get("done"), evs
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
+assert not leaked, leaked
+print("STREAMING_OK")
+"""
+
+
+def test_streaming_runs_without_jax_or_the_jax_package():
+    """The four q8 streaming sessions, each family's multi-stream runner and
+    the stream server answering one X-ASR stream, in a fresh process with
+    neither ``jax`` nor ``asr_tpu`` imported."""
+    proc = subprocess.run([sys.executable, "-c", _STREAMING], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "STREAMING_OK" in proc.stdout
+
+
+_SYNC_LATENCY_LINES = (
+    "+        self._sync_lat_max = 0.0",
+    "+            # the raw per-sync maximum: what a client waits for a K-subtick burst",
+    "+            self._sync_lat_max = max(self._sync_lat_max, dt)",
+    '+            "sync_latency_max_s": round(self._sync_lat_max, 5),',
+)
+
+
+def test_stream_server_is_the_original_with_one_named_divergence():
+    """``parallel/stream_server.py`` is the JAX package's host-only file with
+    exactly one change: ``sync_latency_max_s``, the raw per-sync latency
+    maximum, kept beside the per-subtick ``tick_latency_max_s`` in
+    ``stats()`` (and so in ``/healthz``)."""
+    import difflib
+
+    want = (REPO / "asr_tpu" / "parallel" / "stream_server.py").read_text().splitlines()
+    got = (REPO / "asr_tpu_torch" / "parallel" / "stream_server.py").read_text().splitlines()
+    changed = [line for line in difflib.unified_diff(want, got, lineterm="", n=0)
+               if line[:1] in "+-" and not line.startswith(("+++", "---"))]
+    assert tuple(changed) == _SYNC_LATENCY_LINES, changed
 
 
 @pytest.mark.parametrize("name", ["tokenizer", "examples"])
