@@ -1,5 +1,6 @@
-"""Command line: transcribe, inspect, quantize, align, serve and
-serve-stream over model artifact folders (``python -m asr_tpu_torch``).
+"""Command line: build, transcribe, inspect, quantize, optimize, align,
+serve and serve-stream over model artifact folders (``python -m
+asr_tpu_torch``).
 
 Counterpart of ``asr_tpu/cli.py`` with the same subcommands' flags and
 defaults, for the families the port runs: ``sensevoice``, ``whisper``,
@@ -11,15 +12,18 @@ as for ``nemotron``), ``dolphin_streaming`` (with its language catalog) and
 ``x_asr`` / ``zipformer``. ``serve-stream`` serves a streaming artifact
 over chunked HTTP, N streams as one batched step a tick
 (``parallel/stream_server.py`` over ``streaming/multistream.py``).
-``--platform`` picks the torch device: the CUDA card by default (it raises
-where no card is visible), ``cpu`` when asked for. ``--quant-mm`` sets the
-quantized kernels' matmul mode.
+``build`` turns a source checkpoint (FunASR, HF, espnet, NeMo, icefall,
+FireRed) into an artifact folder on the host (``export.py``);
+``quantize`` (``--algorithm rtn|kquant|hqq|dynamic``, ``--reorder``) and
+``optimize`` (a JSON serving plan, ``quant/plan.py``) rewrite an artifact.
+``--platform`` picks the torch device of every subcommand but ``build``:
+the CUDA card by default (it raises where no card is visible), ``cpu`` when
+asked for. ``--quant-mm`` sets the quantized kernels' matmul mode.
 
-Not here (they wait for later slices of the port): the ``build``,
-``optimize``, ``parity`` and ``bench`` subcommands, ``--profile``,
-``quantize --algorithm kquant|hqq|dynamic`` and ``--reorder``, data and
-tensor parallelism (``--data-parallel``, ``--tensor-parallel``), and the
-XLA / TPU options ``--compile-cache`` and ``--quant-kernel``.
+Not here (they wait for later slices of the port): the ``parity`` and
+``bench`` subcommands, ``--profile``, data and tensor parallelism
+(``--data-parallel``, ``--tensor-parallel``), and the XLA / TPU options
+``--compile-cache`` and ``--quant-kernel``.
 """
 
 from __future__ import annotations
@@ -260,14 +264,76 @@ def cmd_quantize(args) -> int:
     from asr_tpu_torch.runtime.artifact import load_model, save_model
 
     params, meta = load_model(Path(args.model_dir), args.device)
+    if args.reorder:
+        from asr_tpu_torch.quant.reorder import channel_reorder_pytree
+
+        params, n = channel_reorder_pytree(params, stat=args.reorder)
+        print(f"reordered {n} FFN pairs by {args.reorder}")
     qparams = quantize_pytree(params, bits=args.bits, block=args.block,
                               refine_iters=args.refine_iters, pack=args.pack,
-                              min_size=args.min_size, quantize_embeddings=args.quantize_embeddings)
-    meta.extra["quantization"] = {"bits": args.bits, "block": args.block,
+                              objective=args.algorithm, min_size=args.min_size,
+                              quantize_embeddings=args.quantize_embeddings)
+    dyn = args.algorithm == "dynamic"
+    if dyn and (args.bits != 8 or args.pack):
+        print("note: --algorithm dynamic is always 8-bit per-column, unpacked "
+              "(activations quantize at call time); --bits/--pack ignored")
+    # what was applied: dynamic is 8-bit with per-column scales whatever --block says
+    bits = 8 if dyn else args.bits
+    meta.extra["quantization"] = {"bits": bits, "block": "per_column" if dyn else args.block,
                                   "algorithm": args.algorithm}
     save_model(Path(args.out), qparams, meta)
     _copy_artifact_assets(Path(args.model_dir), Path(args.out))
-    print(f"quantized ({args.bits}-bit {args.algorithm}, block {args.block}) -> {args.out}")
+    blk = "per-column" if dyn else f"block {args.block}"
+    print(f"quantized ({bits}-bit {args.algorithm}, {blk}) -> {args.out}")
+    return 0
+
+
+def cmd_optimize(args) -> int:
+    from asr_tpu_torch.quant.plan import OptimizerConfig, apply_plans
+    from asr_tpu_torch.runtime.artifact import load_model, save_model
+
+    cfg = OptimizerConfig.load(args.plan)
+    params, meta = load_model(Path(args.model_dir), args.device)
+    qparams = apply_plans(params, cfg)
+    meta.extra["optimizer_plan"] = json.loads(Path(args.plan).read_text(encoding="utf-8"))
+    save_model(Path(args.out), qparams, meta)
+    _copy_artifact_assets(Path(args.model_dir), Path(args.out))
+    print(f"applied plan {args.plan} -> {args.out}")
+    return 0
+
+
+def cmd_build(args) -> int:
+    """Checkpoint folder or file -> artifact folder, on the host."""
+    from asr_tpu_torch import export as ex
+
+    family = args.family
+    src, out = args.checkpoint, args.out
+    streaming = family.endswith("streaming") or args.streaming
+    if family == "sensevoice":
+        ex.build_sensevoice_artifact(src, out)
+    elif family == "whisper":
+        ex.build_whisper_artifact(src, out)
+    elif family in ("paraformer", "paraformer_streaming"):
+        ex.build_paraformer_artifact(src, out, decode_mode=args.decode_mode, streaming=streaming)
+    elif family in ("dolphin", "dolphin_streaming"):
+        ex.build_dolphin_artifact(src, out, vocab_path=args.vocab, streaming=streaming)
+    elif family in ("nemotron", "nemotron_streaming"):
+        ex.build_nemotron_artifact(src, out, streaming=streaming)
+    elif family in ("x_asr", "zipformer"):
+        ex.build_xasr_artifact(src, out, bpe_model=args.vocab)
+    elif family == "parakeet":
+        ex.build_parakeet_artifact(src, out)
+    elif family == "firered":
+        ex.build_firered_artifact(src, out)
+    elif family == "qwen_asr":
+        ex.build_qwen_asr_artifact(src, out)
+    elif family == "qwen_aligner":
+        ex.build_qwen_aligner_artifact(src, out)
+    elif family in ("fun_asr_nano", "fun_asr_nano_llm"):
+        ex.build_fun_asr_nano_artifact(src, out, head="llm" if family.endswith("llm") else "ctc")
+    else:
+        raise SystemExit(f"no builder wired for family {family!r}")
+    print(f"built {family} artifact -> {out}")
     return 0
 
 
@@ -423,11 +489,35 @@ def main(argv=None) -> int:
                         "(LLM-decoder families)")
     p.add_argument("--min-size", type=int, default=1 << 16,
                    help="skip linear weights with fewer elements than this")
-    p.add_argument("--algorithm", default="rtn", choices=("rtn",),
-                   help="block fit: round-to-nearest")
+    p.add_argument("--algorithm", default="rtn", choices=("rtn", "kquant", "hqq", "dynamic"),
+                   help="block fit: round-to-nearest, importance-weighted grid search, "
+                        "half-quadratic zero points, or dynamic-activation int8")
     p.add_argument("--pack", action="store_true",
                    help="pack 4-bit weights two-per-byte / 2-bit four-per-byte")
+    p.add_argument("--reorder", default=None, choices=("absmean", "rms", "l4", "std"),
+                   help="exact-math FFN channel reordering before quantization")
     p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("optimize", help="apply a declarative serving plan (JSON) to an artifact")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--plan", required=True,
+                   help="JSON with {plans: {name: {...}}, assign: [[glob, name], ...]}")
+    p.set_defaults(fn=cmd_optimize)
+
+    p = sub.add_parser("build", help="build an artifact folder from a source checkpoint")
+    p.add_argument("--family", required=True,
+                   choices=("sensevoice", "whisper", "paraformer", "paraformer_streaming",
+                            "dolphin", "dolphin_streaming", "x_asr", "zipformer", "parakeet",
+                            "firered", "qwen_asr", "qwen_aligner", "fun_asr_nano",
+                            "fun_asr_nano_llm", "nemotron", "nemotron_streaming"))
+    p.add_argument("--checkpoint", required=True, help="source checkpoint dir or file")
+    p.add_argument("--out", required=True)
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--decode-mode", default="zh", choices=("zh", "en"))
+    p.add_argument("--vocab", default=None, help="tokenizer/vocab path for families "
+                   "whose checkpoint file does not bundle one (dolphin, x_asr)")
+    p.set_defaults(fn=cmd_build)
 
     p = sub.add_parser("serve", help="HTTP transcription endpoint (micro-batched)")
     p.add_argument("--model-dir", required=True)
@@ -464,7 +554,7 @@ def main(argv=None) -> int:
         from asr_tpu_torch.ops.quant_matmul import set_quant_config
 
         set_quant_config(mm=args.quant_mm)
-    args.device = _device(args.platform)
+    args.device = None if args.cmd == "build" else _device(args.platform)  # build is host code
     return args.fn(args)
 
 

@@ -17,14 +17,20 @@ import torch.nn.functional as F
 from asr_tpu_torch.layers.attention import NEG_INF, mha
 from asr_tpu_torch.layers.norms import layer_norm
 from asr_tpu_torch.ops.quant_matmul import quant_dense
-from asr_tpu_torch.quant.quantize import QuantizedLinear
+from asr_tpu_torch.quant.quantize import QuantizedLinear, dynamic_quant_dense
 
 
 def dense(x: torch.Tensor, p: dict) -> torch.Tensor:
     """``x @ w (+ b)``; a QuantizedLinear ``w`` goes through :func:`quant_dense`
-    (the int8 kernel on CUDA). Weights are ``(in, out)``."""
+    (the int8 kernel on CUDA), a dynamic one through
+    :func:`dynamic_quant_dense`. Weights are ``(in, out)``."""
     w = p["w"]
-    y = quant_dense(x, w) if isinstance(w, QuantizedLinear) else x @ w
+    if not isinstance(w, QuantizedLinear):
+        y = x @ w
+    elif w.dynamic:
+        y = dynamic_quant_dense(x, w)
+    else:
+        y = quant_dense(x, w)
     if p.get("b") is not None:
         y = y + p["b"]
     return y

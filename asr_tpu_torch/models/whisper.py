@@ -262,10 +262,14 @@ def transcribe_window(
         t_max, tc = layers[0]["self_k"].shape[1], layers[0]["cross_k"].shape[1]
         # (NL, T, D) stacks, made once before the loop; the step writes the
         # fresh self rows into kc / vc in place.
-        kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers])
-        vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers])
-        ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers])
-        cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers])
+        # The kernel reads f32 or bf16 caches: the f16 caches of an artifact
+        # built from an f16 checkpoint widen exactly to f32.
+        cdt = layers[0]["self_k"].dtype
+        cdt = torch.float32 if cdt == torch.float16 else cdt
+        kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers]).to(cdt)
+        vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers]).to(cdt)
+        ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers]).to(cdt)
+        cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers]).to(cdt)
         del state, layers
         dec = params["decoder"]
 

@@ -395,7 +395,9 @@ def quant_dense(x: torch.Tensor, qleaf, mm: str | None = None) -> torch.Tensor:
     kernel."""
     packed = "packed" in qleaf and bool(qleaf["packed"])
     if "dynamic" in qleaf and bool(qleaf["dynamic"]):
-        raise NotImplementedError("dynamic-activation int8 weights have no kernel in the port")
+        raise NotImplementedError("a dynamic-activation int8 leaf takes "
+                                  "quant.quantize.dynamic_quant_dense (layers/transformer.dense "
+                                  "routes it there), not quant_dense")
     bits = int(qleaf["bits"])
     if packed and bits not in (2, 4):
         raise ValueError(f"packed storage exists for 2 and 4 bits only, got bits={bits}")
@@ -403,7 +405,10 @@ def quant_dense(x: torch.Tensor, qleaf, mm: str | None = None) -> torch.Tensor:
     q, scale, zero, block = qleaf["q"], qleaf["scale"], qleaf["zero"], int(qleaf["block"])
     k = x.shape[-1]
     n = q.shape[1]
-    x2 = x.reshape(-1, k).contiguous()
+    # the kernels take f32 rows: f16 / bf16 activations (an artifact built
+    # from a half-precision checkpoint) widen exactly, and the output
+    # returns in their dtype, as the JAX package's product does
+    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     if x2.device.type == "cpu":
         ref = (quant_dense_reference if not packed else
                quant_dense_p4_reference if bits == 4 else quant_dense_p2_reference)
@@ -412,4 +417,4 @@ def quant_dense(x: torch.Tensor, qleaf, mm: str | None = None) -> torch.Tensor:
         launch = (quant_matmul_int8 if not packed else
                   quant_matmul_int4 if bits == 4 else quant_matmul_int2)
         out = launch(x2, q, scale, zero, block, mode)
-    return out.reshape(*x.shape[:-1], n)
+    return out.reshape(*x.shape[:-1], n).to(x.dtype)

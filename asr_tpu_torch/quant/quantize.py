@@ -25,9 +25,17 @@ package.
 tied-head copy runs the LM head through the quantized kernels
 (:func:`embedding_logits`): centered int8 with V padded to a 512 multiple
 (every width but 4, 2-bit tables included), or, for 4-bit tables,
-nibble-packed to ``(D/2, V_pad)`` with V padded to a 2048 multiple. The
-kquant and hqq objectives and dynamic int8 are not ported yet.
-:func:`cast_pytree` is the serving cast of plain trees.
+nibble-packed to ``(D/2, V_pad)`` with V padded to a 2048 multiple.
+
+Block fits (``objective``): ``rtn`` (the range fit), ``kquant`` (a grid
+search of 16 scale factors around the range fit, scored by x^2-weighted
+error, the first minimum winning) and ``hqq`` (half-quadratic Lp
+optimization of the zero points, 20 steps; the least-squares refine is
+skipped for it). ``dynamic`` is dynamic-activation int8: 8-bit per-column
+weights (block = K) whose product runs as an exact int8 x int8 -> int32
+matmul on activations quantized per row at call time
+(:func:`dynamic_quant_dense`). :func:`cast_pytree` is the serving cast of
+plain trees.
 """
 
 from __future__ import annotations
@@ -35,6 +43,29 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+
+# The kquant grid, ``jnp.linspace(0.6, 1.2, 16)`` in f32 (torch.linspace and
+# numpy round some of these values apart).
+KQUANT_FACTORS = (0.6, 0.64000005, 0.68000007, 0.72, 0.76000005, 0.8, 0.84000003, 0.88000005,
+                  0.9200001, 0.96000004, 1.0, 1.0400001, 1.08, 1.12, 1.1600001, 1.2)
+
+
+# The fits' multiply-adds, block sums and means go through these three, so
+# that a test can run the fits in another rounding order.
+def _mul_add(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """``a * b + c``, each step rounded to f32."""
+    return a * b + c
+
+
+def _block_sum(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum of ``x`` (or of ``x * y``) over B of (NB, B, N) -> (NB, 1, N)."""
+    return (x if y is None else x * y).sum(dim=1, keepdim=True)
+
+
+def _block_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x`` over B of (NB, B, N) -> (NB, 1, N)."""
+    return x.mean(dim=1, keepdim=True)
 
 
 def _fit_rtn(blocks: torch.Tensor, qmax: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -48,8 +79,52 @@ def _fit_rtn(blocks: torch.Tensor, qmax: int) -> tuple[torch.Tensor, torch.Tenso
     return scale, torch.round(-wmin / scale)
 
 
-def quantize_weight(w: torch.Tensor, bits: int = 8, block: int = 128, refine_iters: int = 0):
-    """Quantize a (K, N) weight block-wise along K.
+def _fit_kquant(blocks: torch.Tensor, qmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k-quant fit: each of :data:`KQUANT_FACTORS` scales the range-fit
+    scale, the zero point anchors at the block minimum, and the candidate
+    with the least x^2-weighted squared error wins (the first on a tie, as
+    an argmin over the 16 picks)."""
+    weights = _mul_add(blocks, blocks, 1e-12)
+    scale0, _ = _fit_rtn(blocks, qmax)
+    wmin = blocks.amin(dim=1, keepdim=True)
+    best = None
+    for factor in KQUANT_FACTORS:
+        scale = scale0 * factor
+        zero = torch.clamp(torch.round(-wmin / scale), 0, qmax)
+        q = torch.clamp(torch.round(blocks / scale + zero), 0, qmax)
+        d = _mul_add(zero - q, scale, blocks)
+        err = _block_sum(weights, d * d)
+        if best is None:
+            best = [err, scale, zero]
+            continue
+        better = err < best[0]  # strict: an equal error keeps the earlier factor
+        best = [torch.where(better, new, old) for new, old in zip((err, scale, zero), best)]
+    return best[1], best[2]
+
+
+def _fit_hqq(blocks: torch.Tensor, qmax: int, iters: int = 20, lp_norm: float = 0.7,
+             beta0: float = 10.0, kappa: float = 1.01) -> tuple[torch.Tensor, torch.Tensor]:
+    """Half-quadratic zero-point fit: with the range-fit scale fixed, each
+    step shrinks the residual by the generalized soft threshold of the
+    Lp (p < 1) norm and re-fits the zero points in closed form. ``beta``
+    grows by ``kappa`` a step as an f32 value, as the JAX package carries it."""
+    scale, zero = _fit_rtn(blocks, qmax)
+    beta = torch.tensor(beta0, dtype=torch.float32, device=blocks.device)
+    for _ in range(iters):
+        q = torch.clamp(torch.round(blocks / scale + zero), 0, qmax)
+        err = _mul_add(zero - q, scale, blocks)
+        mag = err.abs()
+        e = torch.sign(err) * torch.relu(mag - (mag + 1e-8) ** (lp_norm - 1.0) / beta)
+        zero = _block_mean(q - (blocks - e) / scale)
+        beta = beta * kappa
+    return scale, torch.clamp(torch.round(zero), 0, qmax)
+
+
+def quantize_weight(w: torch.Tensor, bits: int = 8, block: int = 128, refine_iters: int = 0,
+                    objective: str = "rtn"):
+    """Quantize a (K, N) weight block-wise along K with the ``objective``
+    fit (``rtn``, ``kquant`` or ``hqq``; any other name is the range fit,
+    as in the JAX package).
 
     Returns (q int8 (K, N) centered, scale (NB, N), zero (NB, N) centered)."""
     k, n = w.shape
@@ -57,7 +132,10 @@ def quantize_weight(w: torch.Tensor, bits: int = 8, block: int = 128, refine_ite
         raise ValueError(f"K={k} is not a multiple of block={block}")
     qmax = (1 << bits) - 1
     blocks = w.reshape(k // block, block, n).to(torch.float32)
-    scale, zero = _fit_rtn(blocks, qmax)
+    fit = {"kquant": _fit_kquant, "hqq": _fit_hqq}.get(objective, _fit_rtn)
+    scale, zero = fit(blocks, qmax)
+    if objective == "hqq":
+        refine_iters = 0  # the least-squares refine would discard the Lp-fitted zero points
 
     def quant(scale, zero):
         return torch.clamp(torch.round(blocks / scale + zero), 0, qmax)
@@ -65,11 +143,11 @@ def quantize_weight(w: torch.Tensor, bits: int = 8, block: int = 128, refine_ite
     for _ in range(refine_iters):
         # Least-squares re-fit of the scale on (q - zero) vs w, then of the zero.
         centered = quant(scale, zero) - zero
-        num = (centered * blocks).sum(dim=1, keepdim=True)
-        den = (centered * centered).sum(dim=1, keepdim=True)
+        num = _block_sum(centered, blocks)
+        den = _block_sum(centered, centered)
         scale = torch.where(den > 1e-12, num / torch.clamp(den, min=1e-12), scale)
         scale = torch.where(scale.abs() <= 1e-12, torch.ones_like(scale), scale)
-        zero_f = (quant(scale, zero) - blocks / scale).mean(dim=1, keepdim=True)
+        zero_f = _block_mean(quant(scale, zero) - blocks / scale)
         zero = torch.clamp(torch.round(zero_f), 0, qmax)
     q = (quant(scale, zero) - 128.0).to(torch.int8).reshape(k, n)
     return q, scale[:, 0, :], zero[:, 0, :] - 128.0
@@ -79,8 +157,9 @@ class QuantizedLinear:
     """Block-quantized linear weight with the JAX package's fields.
 
     Dict-style access (``leaf["q"]``) mirrors the JAX class. The port
-    computes with unpacked static leaves of any width and packed 4-bit and
-    2-bit leaves; ``dynamic`` is kept so artifact leaves round-trip."""
+    computes with unpacked static leaves of any width, packed 4-bit and
+    2-bit leaves, and ``dynamic`` leaves (8-bit, block = K), whose product
+    is :func:`dynamic_quant_dense`."""
 
     FIELDS = ("q", "scale", "zero", "bits", "block", "packed", "dynamic")
 
@@ -96,6 +175,19 @@ class QuantizedLinear:
 
     def __getitem__(self, key):
         return getattr(self, key)
+
+    def int_mm_operand(self) -> torch.Tensor:
+        """A dynamic leaf's weight as the card's int8 product takes it: q
+        padded with zeros to multiples of 8 in K and N and laid out
+        column-major, (K_pad, N_pad). Made on the first product and kept
+        with the leaf while ``q`` stays the same tensor."""
+        cached = getattr(self, "_int_mm", None)
+        if cached is None or cached[0] is not self.q:
+            k, n = self.q.shape
+            b = torch.zeros((-(-n // 8) * 8, -(-k // 8) * 8), dtype=torch.int8, device=self.q.device)
+            b[:n, :k] = self.q.t()
+            self._int_mm = cached = (self.q, b.t())
+        return cached[1]
 
     def __contains__(self, key):
         return key in self.FIELDS
@@ -150,21 +242,60 @@ def dequantize_weight(qleaf) -> torch.Tensor:
 
 
 def quantize_linear(w: torch.Tensor, bits: int = 8, block: int = 128,
-                    refine_iters: int = 0, pack: bool = False) -> QuantizedLinear:
+                    refine_iters: int = 0, pack: bool = False,
+                    objective: str = "rtn") -> QuantizedLinear:
     """(K, N) weight -> QuantizedLinear; the block becomes K when it does not
     divide K. ``pack`` packs 4-bit weights whose halves, and 2-bit weights
     whose quarters, stay block-aligned (raw unsigned values, unsigned zero);
-    any other weight stays unpacked."""
+    any other weight stays unpacked. ``objective="dynamic"`` ignores
+    ``bits``, ``block`` and ``pack``: an rtn fit at 8 bits with one block
+    per column, marked ``dynamic``."""
     k = w.shape[0]
+    if objective == "dynamic":
+        q, scale, zero = quantize_weight(w, 8, k, refine_iters, objective="rtn")
+        return QuantizedLinear(q, scale, zero, 8, k, dynamic=True)
     if k % block:
         block = k
-    q, scale, zero = quantize_weight(w, bits, block, refine_iters)
+    q, scale, zero = quantize_weight(w, bits, block, refine_iters, objective=objective)
     for width, parts, packer in ((4, 2, pack4_halves), (2, 4, pack2_quarters)):
         if pack and bits == width and k % parts == 0 and (k // parts) % block == 0:
             q_unsigned = (q.to(torch.int32) + 128).to(torch.uint8)
             return QuantizedLinear(packer(q_unsigned), scale, zero + 128.0, bits, block,
                                    packed=True)
     return QuantizedLinear(q, scale, zero, bits, block)
+
+
+def _int8_matmul(xq: torch.Tensor, qleaf) -> torch.Tensor:
+    """Exact (M, K) int8 rows times a dynamic leaf's (K, N) int8 weight, as
+    int32. On the CPU an f64 matmul, exact for any K below 2^53 / 127^2; on
+    the card ``torch._int_mm`` on the leaf's padded column-major operand
+    (:meth:`QuantizedLinear.int_mm_operand`), with the rows padded to 17
+    and K by zeros (its limits), which add nothing to the sums."""
+    if xq.device.type == "cpu":
+        return (xq.to(torch.float64) @ qleaf["q"].to(torch.float64)).to(torch.int32)
+    b = qleaf.int_mm_operand()
+    m, k = xq.shape
+    mp, kp = max(m, 17), b.shape[0]
+    a = torch.nn.functional.pad(xq, (0, kp - k, 0, mp - m)) if (mp, kp) != (m, k) else xq
+    return torch._int_mm(a.contiguous(), b)[:m, : qleaf["q"].shape[1]]
+
+
+def dynamic_quant_dense(x: torch.Tensor, qleaf) -> torch.Tensor:
+    """Dynamic-activation int8 matmul: each row of ``x`` quantizes
+    symmetrically to int8 by its absmax at call time, the product runs
+    int8 x int8 -> int32 exactly (:func:`_int8_matmul`), and the result
+    rescales by row scale x column scale: ``(acc - rowsum(xq) * zero) * sx
+    * scale`` in f32, in the JAX package's order. (..., K) -> (..., N)."""
+    orig = x.shape
+    x2 = x.reshape(-1, orig[-1]).to(torch.float32)
+    absmax = x2.abs().amax(dim=1, keepdim=True)
+    # / 127 as a multiply by the f32 reciprocal, as XLA folds a constant divisor
+    sx = torch.where(absmax > 0, absmax * (1.0 / 127.0), torch.ones_like(absmax))
+    xq = torch.clamp(torch.round(x2 / sx), -127, 127).to(torch.int8)
+    acc = _int8_matmul(xq, qleaf).to(torch.float32)
+    row_sum = xq.to(torch.int32).sum(dim=1, keepdim=True).to(torch.float32)
+    y = (acc - row_sum * qleaf["zero"]) * sx * qleaf["scale"]
+    return y.reshape(*orig[:-1], qleaf["q"].shape[1]).to(x.dtype)
 
 
 class QuantizedEmbedding:
@@ -260,14 +391,14 @@ def tied_head_arrays(q_t: torch.Tensor, scale_t: torch.Tensor, zero_t: torch.Ten
     return q_t.contiguous(), scale_t.contiguous(), zero_t.contiguous(), pack
 
 
-def quantize_embedding(w: torch.Tensor, bits: int = 8, block: int = 128,
+def quantize_embedding(w: torch.Tensor, bits: int = 8, block: int = 128, objective: str = "rtn",
                        tie_head: bool = True) -> QuantizedEmbedding:
-    """(V, D) table -> per-row block quantization along D (rtn), plus the
-    (D, V_pad) tied-head copy when ``tie_head``."""
+    """(V, D) table -> per-row block quantization along D with the
+    ``objective`` fit, plus the (D, V_pad) tied-head copy when ``tie_head``."""
     v, d = w.shape
     if d % block:
         block = d
-    q, scale, zero = quantize_weight(w.T, bits, block, 0)  # blocks along D
+    q, scale, zero = quantize_weight(w.T, bits, block, 0, objective=objective)  # blocks along D
     q_t = scale_t = zero_t = None
     packed = False
     if tie_head:
@@ -275,6 +406,12 @@ def quantize_embedding(w: torch.Tensor, bits: int = 8, block: int = 128,
     return QuantizedEmbedding(q.T.contiguous(), scale.T.contiguous(), zero.T.contiguous(),
                               bits, block, q_t=q_t, scale_t=scale_t, zero_t=zero_t,
                               q_t_packed=packed)
+
+
+def is_quantized(leaf) -> bool:
+    if isinstance(leaf, QuantizedLinear):
+        return True
+    return isinstance(leaf, dict) and "q" in leaf and "scale" in leaf and "bits" in leaf
 
 
 def quantize_pytree(
@@ -285,14 +422,17 @@ def quantize_pytree(
     min_size: int = 1 << 16,
     predicate: Callable[[str, torch.Tensor], bool] | None = None,
     pack: bool = False,
+    objective: str = "rtn",
     quantize_embeddings: bool = False,
 ):
     """Quantize every 2-D ``w``/``w1``/``w2`` linear weight of at least
     ``min_size`` elements, with the JAX package's defaults and walk;
-    ``pack`` packs 4-bit and 2-bit linears (:func:`quantize_linear`);
-    ``quantize_embeddings`` also turns ``embed`` tables of that size into
-    :class:`QuantizedEmbedding` leaves (4-bit tables carry the
-    nibble-packed tied head, every other width a centered one)."""
+    ``pack`` packs 4-bit and 2-bit linears and ``objective`` picks the fit
+    (:func:`quantize_linear`); ``quantize_embeddings`` also turns ``embed``
+    tables of that size into :class:`QuantizedEmbedding` leaves (4-bit
+    tables carry the nibble-packed tied head, every other width a centered
+    one; under ``dynamic`` the tables take an rtn fit at ``max(bits, 8)``
+    bits, as gathers have no activation to quantize)."""
     # 2-D kernels under these parents are consumed elementwise, not by dense().
     non_matmul_parents = ("dw", "dw1", "dw2", "conv", "fusion")
 
@@ -310,7 +450,8 @@ def quantize_pytree(
                     and value.numel() >= min_size
                     and (predicate is None or predicate(p, value))
                 ):
-                    out[key] = quantize_linear(value, bits, block, refine_iters, pack=pack)
+                    out[key] = quantize_linear(value, bits, block, refine_iters, pack=pack,
+                                               objective=objective)
                 elif (
                     quantize_embeddings
                     and key == "embed"
@@ -318,7 +459,9 @@ def quantize_pytree(
                     and value.ndim == 2
                     and value.numel() >= min_size
                 ):
-                    out[key] = quantize_embedding(value, bits, block)
+                    dyn = objective == "dynamic"
+                    out[key] = quantize_embedding(value, max(bits, 8) if dyn else bits, block,
+                                                  objective="rtn" if dyn else objective)
                 else:
                     out[key] = walk(value, p)
             return out
@@ -328,6 +471,13 @@ def quantize_pytree(
         return node
 
     return walk(params, "")
+
+
+def quantization_error(w: torch.Tensor, qleaf) -> float:
+    """Relative Frobenius error of the quantized representation."""
+    w = w.to(torch.float32)
+    deq = dequantize_weight(qleaf).to(w.device)
+    return float(torch.linalg.norm(w - deq) / torch.clamp(torch.linalg.norm(w), min=1e-9))
 
 
 def dequantize_pytree(params):

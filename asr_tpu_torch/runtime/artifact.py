@@ -60,7 +60,7 @@ def write_safetensors(path: str | Path, tensors: dict[str, np.ndarray]) -> None:
     chunks = []
     offset = 0
     for name, arr in tensors.items():
-        arr = np.ascontiguousarray(arr)
+        arr = np.ascontiguousarray(arr) if np.ndim(arr) else np.asarray(arr)  # 0-d stays 0-d
         little = arr.dtype.newbyteorder("<")
         code = _CODES.get(little.str)
         if code is None:
@@ -99,9 +99,10 @@ def flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
         for i, v in enumerate(tree):
             out.update(flatten_pytree(v, f"{prefix}{i}/"))
     elif isinstance(tree, torch.Tensor):
-        out[prefix[:-1]] = tree.detach().cpu().numpy()
+        # at least 1-d, as the JAX package's np.ascontiguousarray stores a 0-d leaf
+        out[prefix[:-1]] = np.ascontiguousarray(tree.detach().cpu().numpy())
     else:
-        out[prefix[:-1]] = np.asarray(tree)
+        out[prefix[:-1]] = np.ascontiguousarray(np.asarray(tree))
     return out
 
 

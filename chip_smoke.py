@@ -142,13 +142,13 @@ artifact (Nemotron with ``--language``), its text the decode of
 (``ParaformerStreamConfig()``, ``NemotronStreamConfig()``,
 ``DolphinStreamConfig()``, ``ZipformerConfig()``) through an artifact
 folder and ``_build_session``: in mm=f32, the first 32 windows of 30 s
-(Dolphin 32 s) chunk by chunk from the session's state, each window's
+(Dolphin 32 s, X-ASR 12 s) chunk by chunk from the session's state, each window's
 encoder output and every decision's logits against
 plain matmuls on the dequantized weights within 1e-3 of max|plain| and the
 ids the plain argmax above the margin, a window's int8 calls recorded
 against ``stream_int8_calls``; in the serving mode the main path's
 launches over 30 s (Dolphin's 32 s past its 752-frame history,
-Paraformer's 60 chunks past its position table), per-chunk latency p50 /
+Paraformer's 60 chunks past its position table, X-ASR's 12 s), per-chunk latency p50 /
 p95 against the chunk's duration, RTF and peak memory, and the first 10 s
 with f32 weights; (41) each family's
 runner at 8 slots: staggered starts and a reset, every slot's ids against
@@ -156,8 +156,26 @@ the session alone (bitwise, or the state rule), inactive slots bitwise
 untouched, ``step_n`` at K = 4 = K = 1, the tick latency at N = 1 and 8
 (Dolphin also with f32 weights); (42) ``serve-stream`` through the command
 line: a ninth connection 503, 8 concurrent chunked-HTTP connections of
-8-10 s, each bitwise its windows replayed in its slot and against the
-session, ``/healthz``'s ``tick_latency_max_s`` and ``sync_latency_max_s``.
+4-5 s, each bitwise its windows replayed in its slot and against the
+session, ``/healthz``'s ``tick_latency_max_s`` and ``sync_latency_max_s``;
+(43) SenseVoiceSmall from a FunASR checkpoint folder (``model.pt`` in
+FunASR names, ``am.mvn``, a SentencePiece file the port reads) through
+``python -m asr_tpu_torch build``, then six quantized artifacts made at
+once, each by its own process on the card: ``quantize --algorithm rtn``,
+``kquant``, ``hqq --bits 4 --pack``, ``dynamic``, ``optimize --plan``
+(encoder q8 kquant, the CTC head q8 rtn) and ``quantize --reorder
+absmean --algorithm kquant``; the built tree bitwise the checkpoint under
+the FunASR layout, sampled leaves of every shape class bitwise the same
+fit made on the card and, block by block, the CPU's fit up to rounding
+boundaries (``fit_gap``), each artifact's batch-8 x 8 s forward through
+``load_session`` against plain matmuls on its dequantized weights (a
+dynamic artifact's every product against the plain dynamic route on its
+rows), its launches, and ``transcribe``'s text the decode of the
+session's ids; (44)
+Whisper-Large-v3-Turbo from an HF snapshot in F16 through ``build`` and
+``quantize --algorithm kquant --quantize-embeddings``: the fused route of
+``load_whisper_session``, its ids on a 30 s window bitwise a session from
+the same quantization made in memory, the metadata's tables.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -192,6 +210,10 @@ transducer loops read ``all(done)`` on the host once every 8 steps.
 A streaming chunk launches it as ``stream_int8_calls`` counts: Paraformer
 200 (+ 83 on a fire), Nemotron 243 + 2 a greedy step, Dolphin 146 (+ 48 a
 rescoring pass), X-ASR 261 (257 encoder calls and 4 decoder projections).
+A built q8 SenseVoice artifact's forward launches the int8 kernel 281
+times, the hqq 4-bit one the int4 kernel 280 times and the int8 kernel
+once (the first block's K = 560 leaf does not pack), the dynamic one
+neither.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -2578,6 +2600,10 @@ def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
     audio20 = (rng.standard_normal(20 * 16000) * 0.1).astype(np.float32)
     session.transcribe(audio20[:16000])  # warm-up
     torch.cuda.synchronize()
+    # the checked window decodes the serving phases' budget (the run-time limit); the 30 s
+    # window's numbers below take the session's own
+    decode_cfg = session.decode_cfg
+    session.decode_cfg = dataclasses.replace(decode_cfg, max_new_tokens=QWEN_SERVE_BUDGET)
 
     qm.LAUNCHES = qm.LAUNCHES_INT4 = qm.LAUNCHES_INT2 = fd.LAUNCHES = fdm.LAUNCHES = 0  # the q2 path starts here
     res = session.transcribe(audio20)
@@ -2633,6 +2659,7 @@ def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
 
     out = {"int8": int8, "int2": int2, "steps": steps}
     qm.set_quant_config(mm="bf16")  # the serving mode for the window's numbers
+    session.decode_cfg = decode_cfg
     out.update(qwen_window_numbers(torch, np, session, "22", "per-weight", card))
     # Where a per-weight step's time goes: one step at the 30 s window's last position.
     with torch.inference_mode():
@@ -2871,11 +2898,12 @@ def phase_cli(torch, np, qm, folder: str, card: str) -> dict:
         path = Path(folder) / f"cli_{i}.wav"
         path.write_bytes(wav_bytes(np.round(rng.standard_normal(int(secs * 16000)) * 2000)))
         files.append(str(path))
-    out, t_inspect = run_cli("inspect", "--model-dir", folder)
+    runs = wait_cli({"inspect": start_cli("inspect", "--model-dir", folder),  # three processes at once
+                     "alone": start_cli("transcribe", "--model-dir", folder, files[0]),
+                     "both": start_cli("transcribe", "--model-dir", folder, *files)})
+    (out, t_inspect), alone, (both, t_both) = runs["inspect"], [runs["alone"]], runs["both"]
     info = json.loads(out)
     check(info["family"] == "sensevoice" and info["weights_bytes"] > 0, f"inspect printed {info}")
-    alone = [run_cli("transcribe", "--model-dir", folder, f) for f in files[:1]]  # one file (run time)
-    both, t_both = run_cli("transcribe", "--model-dir", folder, *files)
 
     qm.set_quant_config(mm="bf16")  # the command line's default mode
     session = load_session(folder, DEV)
@@ -4030,6 +4058,15 @@ def phase_offline(torch, np, qm, name: str, folder: str, card: str) -> dict:
     params = session.params
     print(f"[{label}] q8 (config {type(cfg).__name__}() at full width): init + quantize + artifact "
           f"({size_mb:.1f} MB) round trip in {time.perf_counter() - t0:.2f} s")
+    # [26 cli] the command line on this artifact, in its own process beside the mm=f32 checks
+    # (a); its file is the draw that follows the window's and the batch's below
+    draws = np.random.default_rng(34)
+    draws.standard_normal(int(OFFLINE_WINDOW_S[name] * 16000))
+    draws.standard_normal((OFFLINE_BENCH[0], int(OFFLINE_BENCH[1] * 16000)))
+    wav = Path(folder) / "cli.wav"
+    wav.write_bytes(wav_bytes(np.round(draws.standard_normal(5 * 16000) * 2000)))
+    lang = ["--language", NEMOTRON_LANGUAGE[0]] if name == "nemotron" else []
+    cli_run = start_cli("transcribe", *lang, "--model-dir", folder, str(wav))
     rng = np.random.default_rng(34)
     win = OFFLINE_WINDOW_S[name]
     audio = (rng.standard_normal(int(win * 16000)) * OFFLINE_PCM[name]).astype(np.float32)
@@ -4093,6 +4130,8 @@ def phase_offline(torch, np, qm, name: str, folder: str, card: str) -> dict:
     del plain, enc_p
     gc.collect()
     torch.cuda.empty_cache()
+    # the command line ran beside the checks above; the timed parts below run alone
+    text_out, secs_cli = wait_cli({"26 cli": cli_run})["26 cli"]
 
     # (c) batch 8 x 8 s: f32 weights, q8 in both modes (before (b), whose peak counts the session alone).
     bsz, secs, tokens = OFFLINE_BENCH
@@ -4188,11 +4227,6 @@ def phase_offline(torch, np, qm, name: str, folder: str, card: str) -> dict:
               f"RTF {out['rtf']:.5f}, {out['window_syncs']} syncs, peak memory {out['peak_mib']:.0f} MiB; int8 "
               f"launches {out['int8']}  [{card}]")
 
-    # [26 cli] the command line on this artifact.
-    wav = Path(folder) / "cli.wav"
-    wav.write_bytes(wav_bytes(np.round(rng.standard_normal(5 * 16000) * 2000)))
-    lang = ["--language", NEMOTRON_LANGUAGE[0]] if name == "nemotron" else []
-    text_out, secs_cli = run_cli("transcribe", *lang, "--model-dir", folder, str(wav))
     cli_session = _build_session(Path(folder), language=lang[1] if lang else None, device=DEV)
     if name == "nemotron":
         check(cli_session.prompt_id == NEMOTRON_LANGUAGE[1], f"--language gave prompt {cli_session.prompt_id}")
@@ -4213,14 +4247,14 @@ STREAM_ARTIFACT = {"paraformer": "paraformer_streaming", "nemotron": "nemotron_s
                    "dolphin": "dolphin_streaming", "zipformer": "x_asr"}
 STREAM_PHASE = {"paraformer": 37, "nemotron": 38, "dolphin": 39, "zipformer": 40}
 # Dolphin's 30 s fill 736 of its 752 history frames: 32 s take the last windows past the clamp.
-STREAM_SECONDS = {"paraformer": 30.0, "nemotron": 30.0, "dolphin": 32.0, "zipformer": 30.0}
+STREAM_SECONDS = {"paraformer": 30.0, "nemotron": 30.0, "dolphin": 32.0, "zipformer": 12.0}
 STREAM_PCM = {"paraformer": 2000.0, "nemotron": 0.1, "dolphin": 2000.0, "zipformer": 2000.0}
 STREAM_SLOTS = 8
 STREAM_WINDOWS = 6       # windows of each slot's stream in phase 41
 STREAM_RESET = (3, 4)    # phase 41: slot 3 is reset before tick 4 and restarts its stream
 STREAM_TIMED_TICKS = 10  # timed ticks at N = 1 and N = 8
 STREAM_K = 4             # ticks a host read in step_n (phase 41) and --ticks-per-sync (phase 42)
-STREAM_SERVE_SECONDS = (8.0, 10.0)
+STREAM_SERVE_SECONDS = (4.0, 5.0)
 STREAM_CHECK_WINDOWS = 32  # windows of the mm=f32 check (the run-time limit)
 STREAM_F32_SECONDS = 10.0  # audio of the f32-weights session run (the run-time limit)
 
@@ -4953,7 +4987,7 @@ def phase_stream_serve(torch, np, qm, name: str, folder: str, run: dict, card: s
     family's artifact, 8 slots, ``--ticks-per-sync 4``, ``--quant-mm f32``
     (as phase 41's ids): a ninth connection
     gets 503 while 8 hold their slots; then 8 concurrent chunked-HTTP
-    connections of 8-10 s each through ``stream_pcm_over_http``, each
+    connections of 4-5 s each through ``stream_pcm_over_http``, each
     connection's events bitwise its windows (those the server forms)
     replayed in its slot of an 8-slot runner, and the session's ids on the
     same windows (:func:`compare_alone`); ``/healthz`` reports
@@ -5085,6 +5119,624 @@ def phase_stream_serve(torch, np, qm, name: str, folder: str, run: dict, card: s
           f"{health['tick_latency_max_s'] * 1e3:.2f} ms, max per sync {health['sync_latency_max_s'] * 1e3:.2f} ms"
           f"  [{card}]")
     return out
+
+
+# ── 43-44. checkpoint -> artifact -> quantized artifact on the card ────────
+CLI_PLATFORM: tuple = ()  # the card; a CPU rehearsal sets ("--platform", "cpu")
+SV_PLAN = {"plans": {"encoder": {"method": "q8", "algorithm": "kquant"},
+                     "rest": {"method": "q8", "algorithm": "rtn"}},
+           "assign": [["*encoders*", "encoder"], ["*", "rest"]]}
+SV_QUANTIZED = {  # artifact -> its command line after --model-dir / --out ("PLAN": SV_PLAN's file)
+    "rtn": ("quantize", "--algorithm", "rtn"),
+    "kquant": ("quantize", "--algorithm", "kquant"),
+    "hqq4": ("quantize", "--algorithm", "hqq", "--bits", "4", "--pack"),
+    "dynamic": ("quantize", "--algorithm", "dynamic"),
+    "plan": ("optimize", "--plan", "PLAN"),
+    "reorder": ("quantize", "--reorder", "absmean", "--algorithm", "kquant"),
+}
+SV_CTC_COLUMNS = 2048  # the fits are column-independent: the head's first and last 2048 columns
+
+
+def sv_sample(cfg) -> tuple:
+    """One leaf of each SenseVoiceSmall shape class: (K, N) = (560, 1536),
+    (512, 1536), (512, 512), (512, 2048), (2048, 512), the last tp-encoder's
+    FFN, and the CTC head (512, 25055)."""
+    return ("encoders0/0/qkv/w", "encoders/0/qkv/w", "encoders/0/out/w", "encoders/0/ffn/w1",
+            "encoders/0/ffn/w2", f"tp_encoders/{cfg.num_tp_encoders - 1}/ffn/w1", "ctc/w")
+FIT_SCALE_ULPS = 8  # a scale from f32 sums over at most 2048 rows, rounded in another order
+FIT_MOVED_MAX = 1e-2  # blocks a rounding boundary moved on, as a share of a leaf's blocks
+
+
+def leaf_codes(np, leaf: dict, k: int):
+    """A quantized linear's codes ``q - zero`` (K, N) as int64, unpacking
+    4-bit halves and 2-bit quarters; ``leaf`` holds numpy q, zero, bits,
+    block, packed."""
+    q = leaf["q"]
+    if leaf["packed"]:
+        u = q.view(np.uint8).astype(np.int64)
+        width = int(leaf["bits"])
+        q = np.concatenate([(u >> (width * j)) & ((1 << width) - 1) for j in range(8 // width)])
+    return q.astype(np.int64) - np.repeat(leaf["zero"].astype(np.int64), int(leaf["block"]), axis=0)[:k]
+
+
+def fit_gap(np, w, got: dict, want: dict, kquant: bool) -> dict:
+    """Two fits of one (K, N) weight ``w`` made in two rounding orders (two
+    devices, or two packages), block by block. A block is the same fit when
+    its zero point is equal, its scale within FIT_SCALE_ULPS and its codes
+    equal but where ``w / scale`` lies on a rounding boundary (there one
+    apart). Otherwise it is counted as moved by such a boundary: a code that
+    a refine step rounded the other way re-fits the least-squares scale
+    (within 1e-3) and may move the zero point by one step and a few codes by
+    one; or, under kquant, counted as a neighbouring pick of the grid (the
+    scales' ratio that of two grid factors, within 1e-3). Any other block
+    fails.
+    Returns the counts."""
+    from asr_tpu_torch.quant.quantize import KQUANT_FACTORS
+
+    k, n = w.shape
+    b = int(got["block"])
+    cg, cw = (leaf_codes(np, x, k).reshape(k // b, b, n) for x in (got, want))
+    sg, sw = got["scale"].astype(np.float32), want["scale"].astype(np.float32)
+    zg, zw = got["zero"].astype(np.int64), want["zero"].astype(np.int64)
+    ulps = np.abs(sg.view(np.int32).astype(np.int64) - sw.view(np.int32))
+    x = w.astype(np.float64).reshape(k // b, b, n) / sg.astype(np.float64)[:, None, :]
+    boundary = np.abs(np.abs(x - np.round(x)) - 0.5) <= (FIT_SCALE_ULPS + 2) * 2.0 ** -23 * (np.abs(x) + 256)
+    dc = np.abs(cg - cw)
+    same = (zg == zw) & (ulps <= FIT_SCALE_ULPS) & ((dc == 0) | (boundary & (dc == 1))).all(axis=1)
+    ratio = sg.astype(np.float64) / sw.astype(np.float64)
+    moved = ~same & (np.abs(zg - zw) <= 1) & (np.abs(ratio - 1) <= 1e-3) & (dc.max(axis=1) <= 1) & (
+        (dc > 0).sum(axis=1) <= max(4, b // 16))
+    grid = np.asarray(KQUANT_FACTORS, np.float64)
+    pairs = (grid[:, None] / grid[None, :])[~np.eye(len(grid), dtype=bool)]
+    picks = ~same & ~moved & kquant & (np.abs(ratio[..., None] / pairs - 1) <= 1e-3).any(axis=-1)
+    bad = ~(same | moved | picks)
+    check(not bad.any(), f"{int(bad.sum())} of {bad.size} blocks differ beyond a rounding boundary")
+    return {"blocks": int(same.size), "same": int(same.sum()), "moved": int(moved.sum()), "picks": int(picks.sum())}
+WHISPER_HF_DTYPE = "float16"  # the published model.safetensors
+WHISPER_WINDOW_S = 30.0
+
+
+def write_spm(path: Path, n: int) -> None:
+    """A SentencePiece model file of ``n`` pieces (the port's decoder is pure
+    Python): ``<unk>``, ``<s>``, ``</s>``, then ``▁w<i>``."""
+    import struct
+
+    def varint(v: int) -> bytes:
+        out = b""
+        while True:
+            b7, v = v & 0x7F, v >> 7
+            out += bytes([b7 | (0x80 if v else 0)])
+            if not v:
+                return out
+
+    def piece(text: str, ptype: int) -> bytes:
+        raw = text.encode()
+        body = b"\x0a" + varint(len(raw)) + raw + b"\x15" + struct.pack("<f", 0.0) + b"\x18" + varint(ptype)
+        return b"\x0a" + varint(len(body)) + body
+
+    specials = [("<unk>", 2), ("<s>", 3), ("</s>", 3)]
+    path.write_bytes(b"".join(piece(t, k) for t, k in specials)
+                     + b"".join(piece(f"▁w{i}", 1) for i in range(len(specials), n)))
+
+
+def funasr_state_dict(torch, params: dict, embed) -> dict:
+    """The port's SenseVoice tree in FunASR ``model.pt`` names and layouts
+    (torch Linear (out, in), FSMN (hidden, 1, K)), with the prompt table
+    ``embed`` (16, 560)."""
+    sd = {"embed.weight": embed}
+    for name in ("encoders0", "encoders", "tp_encoders"):
+        for i, b in enumerate(params[name]):
+            p = f"encoder.{name}.{i}"
+            sd.update({
+                f"{p}.norm1.weight": b["norm1"]["scale"], f"{p}.norm1.bias": b["norm1"]["bias"],
+                f"{p}.self_attn.linear_q_k_v.weight": b["qkv"]["w"].T,
+                f"{p}.self_attn.linear_q_k_v.bias": b["qkv"]["b"],
+                f"{p}.self_attn.fsmn_block.weight": b["fsmn_w"].T[:, None, :],
+                f"{p}.self_attn.linear_out.weight": b["out"]["w"].T,
+                f"{p}.self_attn.linear_out.bias": b["out"]["b"],
+                f"{p}.norm2.weight": b["norm2"]["scale"], f"{p}.norm2.bias": b["norm2"]["bias"],
+                f"{p}.feed_forward.w_1.weight": b["ffn"]["w1"].T, f"{p}.feed_forward.w_1.bias": b["ffn"]["b1"],
+                f"{p}.feed_forward.w_2.weight": b["ffn"]["w2"].T, f"{p}.feed_forward.w_2.bias": b["ffn"]["b2"]})
+    for name in ("after_norm", "tp_norm"):
+        sd[f"encoder.{name}.weight"] = params[name]["scale"]
+        sd[f"encoder.{name}.bias"] = params[name]["bias"]
+    sd["ctc.ctc_lo.weight"], sd["ctc.ctc_lo.bias"] = params["ctc"]["w"].T, params["ctc"]["b"]
+    return {k: v.detach().to("cpu").contiguous() for k, v in sd.items()}
+
+
+def read_artifact_flat(folder) -> dict:
+    """An artifact's weights, aliases expanded (numpy, host)."""
+    from asr_tpu_torch.runtime.artifact import WEIGHTS_FILENAME, read_safetensors
+    from asr_tpu_torch.runtime.metadata import ModelMetadata
+
+    flat = read_safetensors(Path(folder) / WEIGHTS_FILENAME)
+    for alias, canon in ModelMetadata.load(folder).extra.get("weight_aliases", {}).items():
+        flat[alias] = flat[canon]
+    return flat
+
+
+def start_cli(*argv) -> tuple:
+    """``python -m asr_tpu_torch argv`` started in its own process: (the
+    process, its start time)."""
+    return (subprocess.Popen([sys.executable, "-m", "asr_tpu_torch", *argv], cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+
+def wait_cli(runs: dict) -> dict:
+    """{name: (stdout, seconds from its start to its exit)} of started
+    command lines, each waited for in its own thread; a non-zero exit fails
+    the phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def finish(run):
+        proc, t0 = run
+        o, e = proc.communicate(timeout=600)
+        return o, e, proc.returncode, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        done = dict(zip(runs, pool.map(finish, runs.values())))
+    for name, (_, e, rc, _) in done.items():
+        check(rc == 0, f"[{name}] python -m asr_tpu_torch exited {rc}: {e[-3000:]}")
+    return {name: (o, secs) for name, (o, _, _, secs) in done.items()}
+
+
+def sv_refit_check(torch, np, name: str, flat: dict, built, reordered, sample: tuple) -> dict:
+    """Gate (b): each sampled leaf of artifact ``name`` (quantized on the
+    card by the command line) against the same fit of the built f32 weights
+    made here: bitwise the card's, and, against the CPU's, the same fit in
+    every block apart from blocks a rounding boundary moved on
+    (:func:`fit_gap`; the two devices sum a block in different orders), at
+    most FIT_MOVED_MAX of them."""
+    from asr_tpu_torch.quant.quantize import quantize_linear
+
+    counts = {"blocks": 0, "same": 0, "moved": 0, "picks": 0}
+    for key in sample:
+        src = reordered if name == "reorder" else built
+        w = src[key]
+        kw = dict(bits=8, block=128, refine_iters=2, pack=False, objective="rtn")
+        if name in ("kquant", "reorder") or (name == "plan" and "encoders" in key):
+            kw["objective"] = "kquant"
+        elif name == "hqq4":
+            kw.update(bits=4, pack=True, objective="hqq")
+        elif name == "dynamic":
+            kw["objective"] = "dynamic"
+        card = quantize_linear(torch.from_numpy(w).to(DEV), **kw)
+        stored = {f: flat[f"{key}/__quant__/{f}"] for f in ("q", "scale", "zero")}
+        check(int(flat[f"{key}/__quant__/bits"]) == card.bits and int(flat[f"{key}/__quant__/block"]) == card.block
+              and bool(int(flat[f"{key}/__quant__/packed"])) == card.packed
+              and bool(int(flat[f"{key}/__quant__/dynamic"])) == card.dynamic,
+              f"[43 {name}] {key}: the stored bits/block/packed/dynamic differ from the fit")
+        check(all(np.array_equal(stored[f], getattr(card, f).cpu().numpy()) for f in stored),
+              f"[43 {name}] {key}: the command line's leaf differs from the same fit on the card")
+        n = w.shape[1]
+        cols = ((0, min(n, SV_CTC_COLUMNS)), (max(0, n - SV_CTC_COLUMNS), n)) if key == "ctc/w" else ((0, n),)
+        for c0, c1 in cols:
+            wc = np.ascontiguousarray(w[:, c0:c1])
+            cpu = quantize_linear(torch.from_numpy(wc), **kw)
+            meta = {"bits": cpu.bits, "block": cpu.block, "packed": cpu.packed}
+            gap = fit_gap(np, wc, {**{f: v[:, c0:c1] for f, v in stored.items()}, **meta},
+                          {**{f: getattr(cpu, f).numpy() for f in stored}, **meta}, kw["objective"] == "kquant")
+            counts = {c: counts[c] + gap[c] for c in counts}
+    check(counts["moved"] + counts["picks"] <= FIT_MOVED_MAX * counts["blocks"],
+          f"[43 {name}] {counts['moved'] + counts['picks']} of {counts['blocks']} blocks moved from the CPU's fit")
+    return counts
+
+
+DYN_TOL = 1e-5  # a dynamic product's f32 epilogue against the f64 plain route, of max|plain|
+
+
+def plain_dynamic(torch, x2, leaf):
+    """The dynamic route's plain version on rows ``x2`` (M, K): each row's
+    int8 values as the route forms them (absmax / 127 in f32), both sides
+    dequantized, one f64 matmul; and, as the witness of the bound, the same
+    product without the activation quantization. Returns both (M, N) f64."""
+    x2 = x2.float()
+    absmax = x2.abs().amax(dim=1, keepdim=True)
+    sx = torch.where(absmax > 0, absmax * (1.0 / 127.0), torch.ones_like(absmax))
+    xq = torch.clamp(torch.round(x2 / sx), -127, 127)
+    w = (leaf.q.double() - leaf.zero.double()) * leaf.scale.double()  # block = K: one scale row
+    return (xq.double() * sx.double()) @ w, x2.double() @ w
+
+
+def sv_forward_check(torch, np, qm, name: str, folder, batch, ref_logits) -> dict:
+    """Gates (c) and (d) on one artifact through ``load_session``: the batch-8
+    x 8 s forward in mm=f32 against plain matmuls on the dequantized weights
+    within 1e-3 of max|logit|, argmax equal above the margin, the kernel
+    launches a forward (int8, and int4 on the q4 artifact); a dynamic
+    artifact's every product (the CTC head's logits the last) within
+    DYN_TOL of the plain dynamic route on its rows, one of each width
+    bitwise the CPU's on the same rows, no weight-only launch; the logit
+    error against the f32 model."""
+    from asr_tpu_torch.layers import transformer
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.quant.quantize import QuantizedLinear, dequantize_pytree, dynamic_quant_dense
+    from asr_tpu_torch.runtime.session import load_session
+
+    session = load_session(folder, DEV, window_seconds=WINDOW_S)
+    params, cfg = session.params, session.cfg
+    leaves = [v["w"] for b in params["encoders0"] + params["encoders"] + params["tp_encoders"]
+              for v in (b["qkv"], b["out"])] + [b["ffn"][k] for b in params["encoders0"] + params["encoders"]
+                                                 + params["tp_encoders"] for k in ("w1", "w2")] + [params["ctc"]["w"]]
+    check(all(isinstance(w, QuantizedLinear) for w in leaves), f"[43 {name}] a linear is not quantized")
+    packed = sum(w.packed for w in leaves)
+    dyn = sum(w.dynamic for w in leaves)
+    qm.set_quant_config(mm="f32")
+    calls = {}  # N -> (two input rows, the leaf, their two output rows): one product of each width
+    gaps = {"plain": 0.0, "calls": 0}  # every product against the plain dynamic route on its rows
+    real = transformer.dynamic_quant_dense
+
+    def recorded(x, leaf):
+        y = real(x, leaf)
+        n = leaf["q"].shape[1]
+        x2, y2 = x.reshape(-1, x.shape[-1]), y.reshape(-1, n)
+        ref, unquantized = plain_dynamic(torch, x2, leaf)
+        gaps["plain"] = max(gaps["plain"], ((y2 - ref).abs().max() / ref.abs().max()).item())
+        gaps.setdefault("unquantized", ((unquantized - ref).abs().max() / ref.abs().max()).item())
+        gaps["calls"] += 1
+        if n not in calls:
+            calls[n] = (x2[:2].clone(), leaf, y2[:2].clone())
+        return y
+
+    audio, valid, lang = batch
+    i8, i4 = qm.LAUNCHES, qm.LAUNCHES_INT4
+    transformer.dynamic_quant_dense = recorded
+    try:
+        with torch.inference_mode():
+            lq, vs = sv.encode_logits(params, cfg, audio, valid, lang)
+    finally:
+        transformer.dynamic_quant_dense = real
+    n8, n4 = qm.LAUNCHES - i8, qm.LAUNCHES_INT4 - i4
+    want8, want4 = len(leaves) - packed - dyn, packed
+    check((n8, n4) == (want8, want4), f"[43 {name}] launches int8 {n8} int4 {n4}, not {want8} / {want4}")
+    scale = lq.abs().max().item()
+    err_f32 = (lq - ref_logits).abs().max().item() / ref_logits.abs().max().item()
+    out = {"int8": n8, "int4": n4, "logit_err_vs_f32": err_f32}
+    if dyn:
+        widths = {w.q.shape[1] for w in leaves}
+        check(dyn == len(leaves) and set(calls) == widths, f"[43 {name}] {dyn} of {len(leaves)} linears "
+              f"dynamic, products of widths {sorted(calls)} recorded, not {sorted(widths)}")
+        for x, leaf, y in calls.values():  # the same rows on the CPU: the exact f64 product
+            cpu_leaf = QuantizedLinear(leaf.q.cpu(), leaf.scale.cpu(), leaf.zero.cpu(), 8, leaf.block, dynamic=True)
+            check(torch.equal(dynamic_quant_dense(x.cpu(), cpu_leaf), y.cpu()),
+                  f"[43 {name}] a dynamic product on the card differs from the CPU's on the same rows")
+        # every product of the forward, the CTC head's logits (before the bias) the last
+        check(gaps["calls"] == len(leaves) and gaps["plain"] <= DYN_TOL,
+              f"[43 {name}] {gaps['calls']} dynamic products, the worst {gaps['plain']:.2e} of max|plain| off "
+              f"the plain dynamic route (bound {DYN_TOL})")
+        check(gaps["unquantized"] > 10 * DYN_TOL, f"[43 {name}] a product without the activation quantization "
+              f"lies only {gaps['unquantized']:.2e} from the plain dynamic route: the bound cannot tell them apart")
+        out.update(checked_products=len(calls), plain_gap=gaps["plain"], unquantized_gap=gaps["unquantized"])
+    else:
+        dense = dequantize_pytree(params)
+        with torch.inference_mode():
+            before = (qm.LAUNCHES, qm.LAUNCHES_INT4)
+            lp, _ = sv.encode_logits(dense, cfg, audio, valid, lang)
+        check((qm.LAUNCHES, qm.LAUNCHES_INT4) == before, f"[43 {name}] the plain forward launched a kernel")
+        diff = (lq - lp).abs().max().item()
+        check(bool(torch.isfinite(lq).all()) and diff <= 1e-3 * scale,
+              f"[43 {name}] logits vs plain: {diff} > 1e-3 * {scale}")
+        frames = torch.arange(lq.shape[1], device=DEV)[None, :] < vs[:, None]
+        sure = frames & (logits_margin(lp) > MARGIN)
+        check(bool((lq.argmax(-1) == lp.argmax(-1))[sure].all()), f"[43 {name}] argmax differs above the margin")
+        out.update(max_abs_err=diff, rel_err=diff / scale, under_margin=int((frames & ~sure).sum()))
+        del dense, lp
+    del session, params, lq
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_build_sensevoice(torch, np, qm, folder: str, card: str, cfg=None) -> dict:
+    """[43] SenseVoiceSmall from a FunASR checkpoint folder to six quantized
+    artifacts through the command line: ``build`` (host), then ``quantize
+    --algorithm rtn | kquant | hqq --bits 4 --pack | dynamic``, ``optimize
+    --plan`` (encoder q8 kquant, the rest q8 rtn) and ``quantize --reorder
+    absmean --algorithm kquant``, each on the card in its own process, run
+    together. Gates: (a) the built tree is bitwise the seeded weights under
+    the FunASR layout; (b) sampled leaves against the same fit on the card
+    and on the CPU (:func:`sv_refit_check`); (c, d) each
+    artifact's batch-8 forward against plain matmuls and its launches; (e)
+    ``transcribe`` prints the decode of the session's ids."""
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.quant.quantize import quantization_error
+    from asr_tpu_torch.quant.reorder import channel_reorder_pytree
+    from asr_tpu_torch.runtime.artifact import flatten_pytree, params_from_flat
+    from asr_tpu_torch.runtime.session import load_session
+
+    cfg = cfg or sv.SenseVoiceConfig()
+    root = Path(folder)
+    src, built = root / "SenseVoiceSmall", root / "built"
+    src.mkdir()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(43)
+    params = sv.init_params(cfg, g)
+    embed = torch.randn((16, cfg.feature_size), generator=g, device=DEV) * 0.02
+    sd = funasr_state_dict(torch, params, embed)
+    del params
+    torch.save(sd, src / "model.pt")
+    rng = np.random.default_rng(43)
+    neg = (rng.standard_normal(cfg.feature_size) * 3 - 8).astype(np.float32)
+    istd = rng.uniform(0.2, 0.5, cfg.feature_size).astype(np.float32)
+    f = cfg.feature_size
+    (src / "am.mvn").write_text(
+        f"<Nnet>\n<AddShift> {f} {f}\n<LearnRateCoef> 0 [ {' '.join(repr(float(v)) for v in neg)} ]\n"
+        f"<Rescale> {f} {f}\n<LearnRateCoef> 0 [ {' '.join(repr(float(v)) for v in istd)} ]\n</Nnet>\n")
+    write_spm(src / "chn_jpn_yue_eng_ko_spectok.bpe.model", cfg.vocab_size)
+    size_gb = (src / "model.pt").stat().st_size / 1e9
+    t_write = time.perf_counter() - t0
+    out, t_build = run_cli("build", "--family", "sensevoice", "--checkpoint", str(src), "--out", str(built))
+    check("built sensevoice artifact" in out, f"build printed {out!r}")
+
+    # (a) the built tree against the checkpoint under the FunASR layout and the loader's folds
+    flat = read_artifact_flat(built)
+    scale = cfg.hidden ** 0.5
+    e = sd["embed.weight"].numpy()
+    want = {"cmvn_means": neg, "cmvn_istd": istd * scale,
+            "language_embed": np.stack([e[tok] for _, _, _, tok in sv.LANGUAGE_PROFILES]) * scale,
+            "system_embed": np.stack([e[t] for t in cfg.system_prompt_ids]) * scale,
+            "ctc/w": sd["ctc.ctc_lo.weight"].numpy().T, "ctc/b": sd["ctc.ctc_lo.bias"].numpy()}
+    for name in ("after_norm", "tp_norm"):
+        want[f"{name}/scale"], want[f"{name}/bias"] = (sd[f"encoder.{name}.weight"].numpy(),
+                                                       sd[f"encoder.{name}.bias"].numpy())
+    for name, n in (("encoders0", cfg.num_encoders0), ("encoders", cfg.num_encoders),
+                    ("tp_encoders", cfg.num_tp_encoders)):
+        for i in range(n):
+            p, k = f"encoder.{name}.{i}", f"{name}/{i}"
+            g_ = lambda s: sd[f"{p}.{s}"].numpy()
+            want.update({f"{k}/norm1/scale": g_("norm1.weight"), f"{k}/norm1/bias": g_("norm1.bias"),
+                         f"{k}/qkv/w": g_("self_attn.linear_q_k_v.weight").T,
+                         f"{k}/qkv/b": g_("self_attn.linear_q_k_v.bias"),
+                         f"{k}/fsmn_w": g_("self_attn.fsmn_block.weight")[:, 0, :].T,
+                         f"{k}/out/w": g_("self_attn.linear_out.weight").T,
+                         f"{k}/out/b": g_("self_attn.linear_out.bias"),
+                         f"{k}/norm2/scale": g_("norm2.weight"), f"{k}/norm2/bias": g_("norm2.bias"),
+                         f"{k}/ffn/w1": g_("feed_forward.w_1.weight").T, f"{k}/ffn/b1": g_("feed_forward.w_1.bias"),
+                         f"{k}/ffn/w2": g_("feed_forward.w_2.weight").T, f"{k}/ffn/b2": g_("feed_forward.w_2.bias")})
+    check(sorted(flat) == sorted(want), f"[43 build] keys differ: {sorted(set(flat) ^ set(want))[:6]}")
+    for k, v in want.items():
+        v = np.ascontiguousarray(v, dtype=np.float32)
+        check(flat[k].dtype == np.float32 and flat[k].shape == v.shape and flat[k].tobytes() == v.tobytes(),
+              f"[43 build] {k} is not the checkpoint's tensor under the FunASR layout")
+    del sd, want
+    n_params = sum(v.size for v in flat.values())
+    print(f"[43 build] FunASR folder: model.pt {size_gb:.3f} GB ({n_params} params) + am.mvn + a {cfg.vocab_size}-piece "
+          f"SentencePiece model written in {t_write:.2f} s; python -m asr_tpu_torch build in {t_build:.2f} s "
+          f"(a subprocess, host); the built tree is bitwise the checkpoint under the FunASR layout (gate a)  [{card}]")
+
+    # the six quantized artifacts: one process each, on the card, run together
+    (root / "plan.json").write_text(json.dumps(SV_PLAN))
+    t0 = time.perf_counter()
+    cmds = {name: [*CLI_PLATFORM, argv[0], "--model-dir", str(built), "--out", str(root / name),
+                   *[a if a != "PLAN" else str(root / "plan.json") for a in argv[1:]]]
+            for name, argv in SV_QUANTIZED.items()}
+    done = wait_cli({name: start_cli(*argv) for name, argv in cmds.items()})
+    texts = {name: done[name][0] for name in SV_QUANTIZED}
+    secs = {name: done[name][1] for name in SV_QUANTIZED}
+    t_all = time.perf_counter() - t0
+    reorder_pairs = int(texts["reorder"].split("reordered ")[1].split()[0])
+    check(reorder_pairs == cfg.num_blocks, f"[43 reorder] {reorder_pairs} FFN pairs, not {cfg.num_blocks}")
+    meta_dyn = json.loads((root / "dynamic" / "metadata.json").read_text())["extra"]["quantization"]
+    check(meta_dyn == {"bits": 8, "block": "per_column", "algorithm": "dynamic"}, f"dynamic metadata {meta_dyn}")
+    print(f"[43 quantize] six processes at once on one card: "
+          + ", ".join(f"{n} {s:.2f} s" for n, s in secs.items())
+          + f" (wall {t_all:.2f} s); reorder permuted {reorder_pairs} FFN pairs  [{card}]")
+
+    # (b) sampled leaves against the CPU's fit of the built weights
+    reordered = flatten_pytree(channel_reorder_pytree(params_from_flat(flat, "cpu"), "absmean")[0])
+    refit, qerr = {}, {}
+    for name in SV_QUANTIZED:
+        qflat = read_artifact_flat(root / name)
+        refit[name] = sv_refit_check(torch, np, name, qflat, flat, reordered, sv_sample(cfg))
+        src_w = reordered if name == "reorder" else flat
+        qerr[name] = {key: quantization_error(torch.from_numpy(src_w[key]), {
+            f: torch.from_numpy(qflat[f"{key}/__quant__/{f}"]) for f in ("q", "scale", "zero")}
+            | {f: int(qflat[f"{key}/__quant__/{f}"]) for f in ("bits", "block", "packed")})
+            for key in ("encoders/0/ffn/w1", "ctc/w")}
+    print("[43 refit] sampled leaves (7 shape classes) bitwise the same fit on the card; against the CPU's "
+          "(the CTC head in two column runs), blocks the same fit / moved on a rounding boundary / another "
+          "kquant pick: " + ", ".join(f"{n} {r['same']}/{r['moved']}/{r['picks']} of {r['blocks']}"
+                                     for n, r in refit.items())
+          + "; quantization_error (ffn w1 / ctc): "
+          + ", ".join(f"{n} {e['encoders/0/ffn/w1']:.5f}/{e['ctc/w']:.5f}" for n, e in qerr.items()))
+    del reordered, flat, qflat
+
+    # (e) runs in its own process beside (c, d): the command line's text against the session's ids
+    qm.set_quant_config(mm="bf16")
+    wav = root / "clip.wav"
+    wav.write_bytes(wav_bytes(np.round(np.random.default_rng(44).standard_normal(6 * 16000) * 2000)))
+    cli_run = start_cli(*CLI_PLATFORM, "transcribe", "--model-dir", str(root / "kquant"), str(wav))
+
+    # (c, d) each artifact's batch-8 forward; the f32 model's logits are the yardstick
+    samples = int(WINDOW_S * cfg.sample_rate)
+    batch = (torch.from_numpy((rng.standard_normal((BATCH, samples)) * 2000).astype(np.float32)).to(DEV),
+             torch.full((BATCH,), samples, dtype=torch.int64, device=DEV),
+             torch.zeros(BATCH, dtype=torch.int64, device=DEV))
+    f32_session = load_session(built, DEV, window_seconds=WINDOW_S)
+    with torch.inference_mode():
+        ref, _ = sv.encode_logits(f32_session.params, cfg, *batch)
+    del f32_session
+    fwd = {}
+    for name in SV_QUANTIZED:
+        fwd[name] = sv_forward_check(torch, np, qm, name, root / name, batch, ref)
+        r = fwd[name]
+        print(f"[43 forward] {name}: int8 {r['int8']}, int4 {r['int4']} launches a batch-{BATCH} x "
+              f"{WINDOW_S:.0f} s forward; " + (f"every dynamic product within {r['plain_gap']:.3e} of max|plain| "
+                                               f"of the plain dynamic route (without the activation quantization "
+                                               f"{r['unquantized_gap']:.3e}), {r['checked_products']} bitwise the "
+                                               f"CPU's"
+                                               if "checked_products" in r else
+                                               f"logits vs plain max diff {r['max_abs_err']:.3e} "
+                                               f"({r['rel_err']:.3e} of max|logit|), {r['under_margin']} frames "
+                                               "under the margin")
+              + f"; logit error vs the f32 model {r['logit_err_vs_f32']:.4e} of max|logit|  [{card}]")
+    del ref, batch
+
+    # (e) the command line's text is the decode of the session's ids
+    qm.set_quant_config(mm="bf16")
+    printed, t_tr = wait_cli({"transcribe": cli_run})["transcribe"]
+    session = load_session(root / "kquant", DEV)
+    res = session.transcribe(str(wav))
+    text = printed.strip().splitlines()[1]
+    check(bool(res.token_ids) and text == session.tokenizer.decode(res.token_ids),
+          f"[43 cli] printed {text[:80]!r}, not the decode of the session's {len(res.token_ids)} ids")
+    print(f"[43 cli] transcribe on the kquant artifact: {len(res.token_ids)} ids, the printed text is the "
+          f"SentencePiece decode of session.transcribe's ids ({t_tr:.2f} s in a subprocess)  [{card}]")
+    del session
+    torch.cuda.empty_cache()
+    return {"int8": sum(r["int8"] for r in fwd.values()), "int4": sum(r["int4"] for r in fwd.values()),
+            "build_s": t_build, "quantize_s": secs, "quantize_wall_s": t_all, "reorder_pairs": reorder_pairs,
+            "quantization_error": qerr, "forward": fwd}
+
+
+def whisper_hf_state_dict(torch, params: dict, dtype) -> dict:
+    """The port's Whisper tree in HF ``WhisperForConditionalGeneration``
+    names and layouts (Linear (out, in), Conv1d (Cout, Cin, K)), cast to
+    ``dtype``."""
+    def lin(p, prefix, out):
+        out[f"{prefix}.weight"] = p["w"].T
+        if "b" in p:
+            out[f"{prefix}.bias"] = p["b"]
+
+    def ln(p, prefix, out):
+        out[f"{prefix}.weight"], out[f"{prefix}.bias"] = p["scale"], p["bias"]
+
+    def attn(p, prefix, out):
+        for ours, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            lin(p[ours], f"{prefix}.{hf}", out)
+
+    sd: dict = {}
+    enc, dec = params["encoder"], params["decoder"]
+    for i in (1, 2):
+        sd[f"model.encoder.conv{i}.weight"] = enc[f"conv{i}"]["w"].permute(2, 1, 0)
+        sd[f"model.encoder.conv{i}.bias"] = enc[f"conv{i}"]["b"]
+    sd["model.encoder.embed_positions.weight"] = enc["pos"]
+    for i, b in enumerate(enc["blocks"]):
+        p = f"model.encoder.layers.{i}"
+        ln(b["ln1"], f"{p}.self_attn_layer_norm", sd)
+        attn(b["attn"], f"{p}.self_attn", sd)
+        ln(b["ln2"], f"{p}.final_layer_norm", sd)
+        lin(b["mlp"]["fc1"], f"{p}.fc1", sd)
+        lin(b["mlp"]["fc2"], f"{p}.fc2", sd)
+    ln(enc["ln_post"], "model.encoder.layer_norm", sd)
+    sd["model.decoder.embed_tokens.weight"] = dec["embed"]
+    sd["model.decoder.embed_positions.weight"] = dec["pos"]
+    for i, b in enumerate(dec["blocks"]):
+        p = f"model.decoder.layers.{i}"
+        ln(b["ln1"], f"{p}.self_attn_layer_norm", sd)
+        attn(b["attn"], f"{p}.self_attn", sd)
+        ln(b["ln_cross"], f"{p}.encoder_attn_layer_norm", sd)
+        attn(b["cross"], f"{p}.encoder_attn", sd)
+        ln(b["ln2"], f"{p}.final_layer_norm", sd)
+        lin(b["mlp"]["fc1"], f"{p}.fc1", sd)
+        lin(b["mlp"]["fc2"], f"{p}.fc2", sd)
+    ln(dec["ln"], "model.decoder.layer_norm", sd)
+    return {k: v.detach().to(dtype).cpu().contiguous().numpy() for k, v in sd.items()}
+
+
+WHISPER_LANGS = {"en": 0, "zh": 1, "de": 2, "es": 3, "ja": 11}  # code -> index after first_language_id
+WHISPER_SUPPRESS = [1, 2, 7, 8, 9, 10, 14, 25, 26, 27, 28, 29, 31, 58, 59, 60, 61, 62, 63, 90, 91, 92, 93, 359,
+                    503, 522, 542, 873, 893, 902, 918, 922, 931, 1350, 1853, 1982, 2460, 2627]
+
+
+def write_whisper_snapshot(torch, folder: str, cfg=None) -> dict:
+    """[44, first part] An HF Whisper-Large-v3-Turbo snapshot from random
+    weights (seeded): config.json, generation_config.json (suppress,
+    language and task tables) and model.safetensors in F16, HF names,
+    written by the port's own writer (the card has no ``transformers``).
+    Returns the paths, the tables and the write's numbers."""
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.runtime.artifact import write_safetensors
+
+    cfg = cfg or wh.WhisperConfig()
+    src = Path(folder) / "whisper-large-v3-turbo"
+    src.mkdir()
+    t0 = time.perf_counter()
+    params = wh.init_params(cfg, torch.Generator(device=DEV).manual_seed(44))
+    sd = whisper_hf_state_dict(torch, params, getattr(torch, WHISPER_HF_DTYPE))
+    del params
+    write_safetensors(src / "model.safetensors", sd)
+    n_params = sum(v.size for v in sd.values())
+    del sd
+    torch.cuda.empty_cache()
+    (src / "config.json").write_text(json.dumps({
+        "vocab_size": cfg.vocab_size, "d_model": cfg.d_model, "encoder_layers": cfg.encoder_layers,
+        "decoder_layers": cfg.decoder_layers, "encoder_attention_heads": cfg.num_heads,
+        "decoder_attention_heads": cfg.num_heads, "encoder_ffn_dim": cfg.ffn_dim, "decoder_ffn_dim": cfg.ffn_dim,
+        "num_mel_bins": cfg.n_mels, "max_source_positions": cfg.max_source_positions,
+        "max_target_positions": cfg.max_target_positions, "decoder_start_token_id": cfg.sot_id,
+        "eos_token_id": cfg.eot_id, "torch_dtype": WHISPER_HF_DTYPE}))
+    gen = {"suppress_tokens": WHISPER_SUPPRESS, "begin_suppress_tokens": [220, cfg.eot_id],
+           "lang_to_id": {f"<|{c}|>": cfg.first_language_id + i for c, i in WHISPER_LANGS.items()},
+           "task_to_id": {"transcribe": cfg.transcribe_id, "translate": cfg.translate_id},
+           "no_timestamps_token_id": cfg.no_timestamps_id, "no_speech_token_id": cfg.no_speech_id}
+    (src / "generation_config.json").write_text(json.dumps(gen))
+    return {"src": src, "built": src.parent / "built", "gen": gen, "n_params": n_params,
+            "size_gb": (src / "model.safetensors").stat().st_size / 1e9, "write_s": time.perf_counter() - t0}
+
+
+def phase_build_whisper(torch, np, qm, fs, snap: dict, card: str, cfg=None) -> dict:
+    """[44] The snapshot of :func:`write_whisper_snapshot`, built by
+    ``build`` (host), through ``quantize
+    --algorithm kquant --quantize-embeddings`` to ``load_whisper_session``:
+    the fused batch-1 route, ids on a 30 s window bitwise those of a session
+    made in memory from the same quantization of the built tree, and the
+    metadata's suppress and language tables."""
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime.artifact import load_model
+    from asr_tpu_torch.runtime.metadata import ModelMetadata
+    from asr_tpu_torch.runtime.whisper_session import WhisperSession, WhisperSessionConfig, load_whisper_session
+
+    cfg = cfg or wh.WhisperConfig()
+    built, q, gen = snap["built"], snap["src"].parent / "kquant", snap["gen"]
+    n_params, size_gb, t_write = snap["n_params"], snap["size_gb"], snap["write_s"]
+    out, t_build = run_cli("build", "--family", "whisper", "--checkpoint", str(snap["src"]), "--out", str(built))
+    check("built whisper artifact" in out, f"build printed {out!r}")
+    _, t_quant = run_cli(*CLI_PLATFORM, "quantize", "--model-dir", str(built), "--out", str(q),
+                         "--algorithm", "kquant", "--quantize-embeddings")
+    meta = ModelMetadata.load(q)
+    check(meta.extra["suppress_tokens"] == gen["suppress_tokens"]
+          and meta.extra["begin_suppress_tokens"] == gen["begin_suppress_tokens"],
+          "[44] the suppress tables differ from generation_config.json")
+    check({p.code: p.prompt_token_id for p in meta.supported_languages}
+          == {c: cfg.first_language_id + i for c, i in WHISPER_LANGS.items()}, "[44] the language table differs")
+    check(meta.tokenizer.get("file", "") == "", "[44] a tokenizer file was copied where none was written")
+    print(f"[44 build] HF folder: model.safetensors {size_gb:.3f} GB ({n_params} params, {WHISPER_HF_DTYPE}) "
+          f"written in {t_write:.2f} s; build {t_build:.2f} s (a subprocess, host), "
+          f"quantize --algorithm kquant "
+          f"--quantize-embeddings {t_quant:.2f} s (a subprocess, on the card); suppress and language tables "
+          f"as written  [{card}]")
+
+    qm.set_quant_config(mm="bf16")  # the serving mode: the session stacks the q8 decoder
+    session = load_whisper_session(q, DEV)
+    check(session.stacked is not None, "[44] the session did not stack the q8 decoder for the fused step")
+    built_params, _ = load_model(built, DEV)
+    dtypes = sorted({str(v.dtype) for v in built_params["encoder"]["ln_post"].values()})
+    t0 = time.perf_counter()
+    mem_params = quantize_pytree(built_params, objective="kquant", quantize_embeddings=True)
+    t_mem = time.perf_counter() - t0
+    del built_params
+    mem = WhisperSession(mem_params, cfg, session_cfg=WhisperSessionConfig(
+        suppress_ids=tuple(gen["suppress_tokens"]), begin_suppress_ids=tuple(gen["begin_suppress_tokens"])))
+    rng = np.random.default_rng(44)
+    audio = (rng.standard_normal(int(WHISPER_WINDOW_S * 16000)) * 0.1).astype(np.float32)
+    session.transcribe(audio[:16000])
+    torch.cuda.synchronize()
+    qm.LAUNCHES = fs.LAUNCHES = 0  # the path starts here
+    res = session.transcribe(audio)
+    int8, fused = qm.LAUNCHES, fs.LAUNCHES  # and ends here
+    ids = res.token_ids
+    counts = len(ids) if len(ids) == session.scfg.max_new_tokens + 1 else len(ids) + 1  # + the EOT dropped
+    check(fused > 0 and fused == counts - 1, f"[44] {fused} fused launches for {counts} generated tokens")
+    want = mem.transcribe(audio)
+    check(res.token_ids == want.token_ids, "[44] the artifact session's ids differ from the in-memory session's")
+    print(f"[44 whisper] the built tree's plain leaves stay {dtypes} (the loader keeps the checkpoint's dtype); "
+          f"a {WHISPER_WINDOW_S:.0f} s window -> {len(res.token_ids)} ids in {res.elapsed_seconds * 1e3:.1f} ms on the fused "
+          f"route (fused launches {fused}, int8 {int8}), bitwise the ids of a session from the same kquant "
+          f"quantization made in memory ({t_mem:.2f} s on the card)  [{card}]")
+    del session, mem, mem_params
+    torch.cuda.empty_cache()
+    return {"int8": int8, "fused": fused, "build_s": t_build, "quantize_s": t_quant,
+            "quantize_in_memory_s": t_mem, "ids": len(res.token_ids)}
 
 
 def main() -> int:
@@ -5365,6 +6017,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"[t] phases 37-42 {name}: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
+    # ── 43-44. checkpoint -> artifact -> quantized artifact, through the command line ──
+    with tempfile.TemporaryDirectory() as b_dir:
+        sv43 = phase_build_sensevoice(torch, np, qm, b_dir, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as w_dir:
+        wh44 = phase_build_whisper(torch, np, qm, fs, write_whisper_snapshot(torch, w_dir), card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[t] phases 43-44: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     k_ms, p_ms = kern["per_forward"]["bf16"]
@@ -5382,7 +6045,8 @@ def main() -> int:
                      + fcont["ctc_int8"] + fcont["int8"] + arun["int8"]
                      + sum(fam_run[n]["int8"] + fam_cont[n]["int8"] for n in fam_run)
                      + fam_run["dolphin"]["ctc_int8"] + sum(r["int8"] for r in off_run.values())
-                     + sum(r[n]["int8"] for r in (st_run, st_multi, st_serve) for n in STREAM_FAMILIES)),
+                     + sum(r[n]["int8"] for r in (st_run, st_multi, st_serve) for n in STREAM_FAMILIES)
+                     + sv43["int8"] + wh44["int8"]),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
@@ -5396,7 +6060,8 @@ def main() -> int:
                              **{name: r["int8"] for name, r in off_run.items()},
                              **{f"{name}_stream": r["int8"] for name, r in st_run.items()},
                              **{f"{name}_stream_runner": r["int8"] for name, r in st_multi.items()},
-                             **{f"{name}_serve_stream": r["int8"] for name, r in st_serve.items()}},
+                             **{f"{name}_serve_stream": r["int8"] for name, r in st_serve.items()},
+                             "sensevoice_built_artifacts": sv43["int8"], "whisper_built_kquant": wh44["int8"]},
         "streaming_paths": "Paraformer (M = 13 encoder, 10 decoder rows a stream), Nemotron (14 query, 84 "
                            "key/value, 16 pre-encode rows, greedy M = 1), Dolphin (16; rescoring M = 3 and 1) and "
                            "X-ASR Zipformer2 (8, 4, 2, 1 rows by stack) streaming q8, at 1 and 8 streams "
@@ -5423,9 +6088,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_aed_step.cu",
         "replaces": "asr_tpu/ops/fused_aed_step.py:302",
-        "launches": wrun_fused + sum(r["fused"] for r in fam_run.values()),
+        "launches": wrun_fused + sum(r["fused"] for r in fam_run.values()) + wh44["fused"],
         "launches_by_path": {"whisper": wrun_fused, "firered": fam_run["firered"]["fused"],
-                             "dolphin": fam_run["dolphin"]["fused"]},
+                             "dolphin": fam_run["dolphin"]["fused"], "whisper_built_kquant": wh44["fused"]},
         "max_abs_err": fused["max_abs_err"],
         "ms": f_t["ms"],
         "plain_ms": f_t["plain_ms"],
@@ -5480,11 +6145,11 @@ def main() -> int:
         "source": "asr_tpu_torch/csrc/quant_matmul_int4.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:493",
         "launches": (qrun["int4"] + qserve["int4"] + qcont["int4"] + frun["int4"] + frun["batch_int4"]
-                     + fcont["int4"] + arun["int4"]),
+                     + fcont["int4"] + arun["int4"] + sv43["int4"]),
         "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"],
                              "qwen_continuous": qcont["int4"], "fun_llm": frun["int4"],
                              "fun_llm_batch": frun["batch_int4"], "fun_continuous": fcont["int4"],
-                             "aligner": arun["int4"]},
+                             "aligner": arun["int4"], "sensevoice_built_hqq4": sv43["int4"]},
         "max_abs_err": p4["max_abs_err"],
         "ms": p4["per_prefill"]["bf16"]["ms"],
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],

@@ -621,8 +621,8 @@ def test_module_help_runs():
     proc = subprocess.run([sys.executable, "-m", "asr_tpu_torch", "--help"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    for word in ("transcribe", "inspect", "quantize", "align", "serve", "serve-stream", "--platform",
-                 "--quant-mm"):
+    for word in ("transcribe", "inspect", "quantize", "align", "serve", "serve-stream", "build",
+                 "optimize", "--platform", "--quant-mm"):
         assert word in proc.stdout
-    for word in ("build", "parity", "bench", "--compile-cache", "--quant-kernel"):
+    for word in ("parity", "bench", "--compile-cache", "--quant-kernel"):
         assert word not in proc.stdout

@@ -1401,3 +1401,52 @@ def test_streaming_session_on_the_card_matches_the_cpu(name):
                 assert torch.equal(x, y)
     finally:
         qm._CONFIG["mm"] = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 16, 17])
+@pytest.mark.parametrize("k,n", [(512, 25055), (560, 1536), (2048, 512)])
+def test_dynamic_quant_dense_on_the_card_is_the_cpu_product(m, k, n):
+    """The dynamic int8 product on the card (``torch._int_mm`` with rows
+    padded to 17, K and N to multiples of 8) against the same function on the
+    CPU (an exact f64 product): bitwise, at a decode row, at the padding
+    edge and at the SenseVoice CTC head's N = 25055."""
+    _need_card()
+    from asr_tpu_torch.quant.quantize import QuantizedLinear, dynamic_quant_dense
+
+    g = torch.Generator().manual_seed(m * 7 + n)
+    w = torch.randn((k, n), generator=g) * 0.05
+    x = torch.randn((m, k), generator=g) * 2
+    x[0, :7] = 0.0
+    leaf = quantize_linear(w, objective="dynamic")
+    card = QuantizedLinear(leaf.q.cuda(), leaf.scale.cuda(), leaf.zero.cuda(), 8, k, dynamic=True)
+    got = dynamic_quant_dense(x.cuda(), card).cpu()
+    assert torch.equal(got, dynamic_quant_dense(x, leaf))
+    got3 = dynamic_quant_dense(x.cuda().reshape(1, m, k), card).cpu()
+    assert torch.equal(got3.reshape(m, n), got)
+    assert card.int_mm_operand() is card.int_mm_operand()  # laid out once, kept with the leaf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("objective,bits", [("rtn", 8), ("kquant", 8), ("kquant", 4), ("hqq", 4),
+                                            ("hqq", 8), ("dynamic", 8)])
+def test_fits_on_the_card_are_the_cpu_fits(objective, bits):
+    """Each fit on the card against the same fit on the CPU, at a
+    SenseVoiceSmall FFN shape with refine 2: the two devices sum a block
+    in different orders, so each block must be the same fit up to that
+    rounding or one a rounding boundary moved on, at most
+    ``chip_smoke.FIT_MOVED_MAX`` of them (``chip_smoke.fit_gap``, gate (b)
+    of phase 43)."""
+    _need_card()
+    import numpy as np
+
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(bits)
+    w = torch.randn((2048, 512), generator=g) * 0.05
+    cpu = quantize_linear(w, bits, 128, 2, objective=objective)
+    card = quantize_linear(w.cuda(), bits, 128, 2, objective=objective)
+    arrays = lambda leaf: {f: getattr(leaf, f).cpu().numpy() for f in ("q", "scale", "zero")} | {
+        "bits": leaf.bits, "block": leaf.block, "packed": leaf.packed}
+    gap = chip_smoke.fit_gap(np, w.numpy(), arrays(card), arrays(cpu), objective == "kquant")
+    assert gap["moved"] + gap["picks"] <= chip_smoke.FIT_MOVED_MAX * gap["blocks"]

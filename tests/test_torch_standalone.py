@@ -168,6 +168,16 @@ nmcfg = nm.NemotronConfig(vocab_size=30, d_model=32, num_layers=1, num_heads=4, 
 nms = NemotronSession(quantize_pytree(nm.init_params(nmcfg, g, "cpu"), min_size=1024), nmcfg, prompt_id=3,
                       window_seconds=0.5)
 assert nms.transcribe(np.random.default_rng(3).standard_normal(9000).astype(np.float32) * 0.1).token_ids
+from asr_tpu_torch import export
+from asr_tpu_torch.quant.plan import OptimizerConfig, Plan, apply_plans
+from asr_tpu_torch.quant.reorder import channel_reorder_pytree
+assert export.dolphin_language_catalog(["<asr>", "<zh>", "<notimestamp>"])["languages"] == {"zh": 1}
+svp, n_ffn = channel_reorder_pytree(sv.init_params(cfg, g, "cpu"))
+assert n_ffn == 3
+for obj in ("kquant", "hqq", "dynamic"):
+    dq = quantize_pytree(svp, min_size=1024, objective=obj)
+    sv.forward(dq, cfg, torch.zeros(1, 8000), torch.tensor([8000]), torch.tensor([0]))
+apply_plans(svp, OptimizerConfig(plans={"p": Plan(method="q4", algorithm="hqq", block=32)}, assign=(("*", "p"),)))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "asr_tpu"))
 assert not leaked, leaked
 print("STANDALONE_OK", len(out["token_ids"]))
@@ -179,8 +189,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     transcription, the continuous server, a q4 Qwen3-ASR transcription, a
     packed-int2 product, a (native, where g++ builds it) resample, both
     Fun-ASR-Nano sessions, a forced alignment, the q8 FireRed and Dolphin
-    sessions (Dolphin probing its language) and the q8 Paraformer, Parakeet
-    and Nemotron sessions, in a fresh process."""
+    sessions (Dolphin probing its language), the q8 Paraformer, Parakeet
+    and Nemotron sessions, and the reorder, kquant / hqq / dynamic fits (a
+    dynamic forward) and a serving plan, in a fresh process."""
     proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -361,6 +372,41 @@ def test_stream_server_is_the_original_with_one_named_divergence():
     changed = [line for line in difflib.unified_diff(want, got, lineterm="", n=0)
                if line[:1] in "+-" and not line.startswith(("+++", "---"))]
     assert tuple(changed) == _SYNC_LATENCY_LINES, changed
+
+
+_PORT_RULES = (
+    ("    import jax\n\n    return jax.tree.map(jnp.asarray, params)", "    return tree_asarray(params)"),
+    ("import jax.numpy as jnp\n", "from asr_tpu.loaders._common import asarray\n"),
+    ("jnp.asarray(", "asarray("),
+    ("from safetensors.numpy import load_file",
+     "from asr_tpu.runtime.artifact import read_safetensors as load_file"),
+    ("asr_tpu pytrees", "asr_tpu_torch pytrees"),
+    ("asr_tpu.", "asr_tpu_torch."),
+)
+
+
+def port_rewrite(text: str) -> str:
+    """A JAX-package loader or ``export.py`` as the port keeps it: arrays
+    through the port's ``asarray`` (a tree map through ``tree_asarray``),
+    safetensors through the port's reader, imports inside the port."""
+    for a, b in _PORT_RULES:
+        text = text.replace(a, b)
+    if "tree_asarray(params)" in text:
+        text = text.replace("import asarray\n", "import tree_asarray\n")
+    return text
+
+
+_LOADERS = ("funasr", "whisper_hf", "qwen3_hf", "qwen_asr_hf", "firered", "dolphin_espnet",
+            "parakeet_hf", "nemotron_nemo", "zipformer_icefall")
+
+
+@pytest.mark.parametrize("name", [f"loaders/{n}" for n in _LOADERS] + ["export"])
+def test_loaders_and_export_are_the_originals(name):
+    """The nine loaders and ``export.py`` are the JAX package's files under
+    :func:`port_rewrite`, byte for byte; ``loaders/_common.py`` is the
+    port's own (``asarray`` stands in for ``jnp.asarray``)."""
+    got = (REPO / "asr_tpu_torch" / f"{name}.py").read_text()
+    assert got == port_rewrite((REPO / "asr_tpu" / f"{name}.py").read_text())
 
 
 @pytest.mark.parametrize("name", ["tokenizer", "examples"])
