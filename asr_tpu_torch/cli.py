@@ -1,5 +1,5 @@
 """Command line: build, transcribe, inspect, quantize, optimize, align,
-serve and serve-stream over model artifact folders (``python -m
+parity, serve and serve-stream over model artifact folders (``python -m
 asr_tpu_torch``).
 
 Counterpart of ``asr_tpu/cli.py`` with the same subcommands' flags and
@@ -16,14 +16,19 @@ over chunked HTTP, N streams as one batched step a tick
 FireRed) into an artifact folder on the host (``export.py``);
 ``quantize`` (``--algorithm rtn|kquant|hqq|dynamic``, ``--reorder``) and
 ``optimize`` (a JSON serving plan, ``quant/plan.py``) rewrite an artifact.
+``parity`` transcribes the registered fixtures under ``--examples``
+(``runtime/examples.py``) in the exact f32 matmul mode and captures or
+compares goldens with stage probes (``runtime/probe.py``); its goldens are
+the JAX package's, either way. ``transcribe --profile LOGDIR`` writes a
+``torch.profiler`` Chrome trace of the run (``runtime/profiling.py``).
 ``--platform`` picks the torch device of every subcommand but ``build``:
 the CUDA card by default (it raises where no card is visible), ``cpu`` when
 asked for. ``--quant-mm`` sets the quantized kernels' matmul mode.
 
-Not here (they wait for later slices of the port): the ``parity`` and
-``bench`` subcommands, ``--profile``, data and tensor parallelism
-(``--data-parallel``, ``--tensor-parallel``), and the XLA / TPU options
-``--compile-cache`` and ``--quant-kernel``.
+Not here (they wait for later slices of the port): the ``bench``
+subcommand, data and tensor parallelism (``--data-parallel``,
+``--tensor-parallel``), and the XLA / TPU options ``--compile-cache`` and
+``--quant-kernel``.
 """
 
 from __future__ import annotations
@@ -223,6 +228,8 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
 
 
 def cmd_transcribe(args) -> int:
+    import contextlib
+
     sess = _build_session(Path(args.model_dir), language=args.language, dtype=args.dtype,
                           device=args.device)
 
@@ -231,14 +238,22 @@ def cmd_transcribe(args) -> int:
             return {"language": args.language}
         return {}
 
-    if len(args.audio) > 1 and hasattr(sess, "transcribe_batch"):
-        # many files -> one batched forward
-        pairs = zip(args.audio, sess.transcribe_batch(args.audio, **kwargs(sess.transcribe_batch)))
-    else:
-        pairs = ((audio, sess.transcribe(audio, **kwargs(sess.transcribe))) for audio in args.audio)
-    for audio, res in pairs:
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from asr_tpu_torch.runtime.profiling import trace
+
+        profile_ctx = trace(args.profile, cuda=args.device.type == "cuda")
+    with profile_ctx as prof:
+        if len(args.audio) > 1 and hasattr(sess, "transcribe_batch"):
+            # many files -> one batched forward
+            results = sess.transcribe_batch(args.audio, **kwargs(sess.transcribe_batch))
+        else:
+            results = [sess.transcribe(audio, **kwargs(sess.transcribe)) for audio in args.audio]
+    for audio, res in zip(args.audio, results):
         print(f"{audio}\t({res.audio_seconds:.2f}s, RTF {res.rtf:.4f})")
         print(res.text if res.text else res.token_ids)
+    if args.profile:
+        print(f"trace written to {prof.path} (open it in https://ui.perfetto.dev or chrome://tracing)")
     return 0
 
 
@@ -355,6 +370,87 @@ def cmd_align(args) -> int:
     return 0
 
 
+def cmd_parity(args) -> int:
+    """One-command correctness harness: transcribe the family's registered
+    fixtures (``runtime/examples.py``; ``--examples`` is their root) and
+    print, capture (``--save-golden``) or compare (``--golden``, rc 1 on
+    drift) goldens, with stage probes riding them.
+
+    Goldens are JSON ``{"golden_schema": 2, "fixtures": {fixture:
+    {"language", "text", "token_ids", "probe"}}}``; a bare v1 fixture dict
+    reads too. The quantized kernels run their exact f32 mode for the run
+    (``set_quant_config(mm="f32")``), as in the JAX package, and the earlier
+    mode comes back on exit, on an exception too: a mode left at f32 would
+    turn off the bf16 routes (the fused decode steps) for the rest of the
+    process."""
+    from asr_tpu_torch.ops import quant_matmul as qm
+
+    prior_mm = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="f32")
+    try:
+        return _cmd_parity_impl(args)
+    finally:
+        qm._CONFIG["mm"] = prior_mm
+
+
+def _cmd_parity_impl(args) -> int:
+    from asr_tpu_torch.runtime.examples import model_audio_cases
+    from asr_tpu_torch.runtime.metadata import ModelMetadata
+    from asr_tpu_torch.runtime.probe import capture_probe, compare_probes
+
+    meta = ModelMetadata.load(Path(args.model_dir))
+    sess = _build_session(Path(args.model_dir), device=args.device)
+    cases = model_audio_cases(args.family or meta.family, Path(args.examples) if args.examples else None)
+    if not cases:
+        raise SystemExit(f"no registered fixtures for family {meta.family!r}")
+    # --save-golden wins when both flags name the same (possibly not yet
+    # existing) file: capture mode never reads --golden
+    golden = (json.loads(Path(args.golden).read_text())
+              if args.golden and not args.save_golden else None)
+    if golden is not None and "golden_schema" in golden:  # v2; v1 is the bare fixture dict
+        golden = golden["fixtures"]
+    # probes are captured with --save-golden, and recomputed on compare only
+    # when the golden carries them (transcript-only goldens keep working)
+    want_probes = args.save_golden or (
+        golden is not None and any("probe" in w for w in golden.values()))
+    results = {}
+    for lang, path in cases:
+        kwargs = {}
+        if "language" in inspect.signature(sess.transcribe).parameters:
+            kwargs["language"] = lang
+        res = sess.transcribe(str(path), **kwargs)
+        results[path.name] = {"language": lang, "text": res.text, "token_ids": res.token_ids}
+        if want_probes:
+            probe = capture_probe(sess, str(path))
+            if probe is not None:
+                results[path.name]["probe"] = probe
+        print(f"{path.name}\t[{lang}]\tRTF {res.rtf:.4f}\t{res.text}")
+    if args.save_golden:
+        Path(args.save_golden).write_text(json.dumps(
+            {"golden_schema": 2, "fixtures": results}, ensure_ascii=False, indent=2))
+        print(f"goldens captured -> {args.save_golden}")
+        return 0
+    if golden is not None:
+        failures = []
+        for name, want in golden.items():
+            got = results.get(name)
+            if got is None:
+                failures.append(f"{name}: fixture missing from run")
+                continue
+            # probe drift first: it names the first drifting stage
+            for msg in compare_probes(got.get("probe"), want.get("probe")):
+                failures.append(f"{name}: {msg}")
+            if want.get("token_ids") and got["token_ids"] != want["token_ids"]:
+                failures.append(f"{name}: token ids drifted")
+            elif got["text"] != want["text"]:
+                failures.append(f"{name}: text {got['text']!r} != {want['text']!r}")
+        if failures:
+            print("PARITY FAIL:\n  " + "\n  ".join(failures))
+            return 1
+        print(f"PARITY OK: {len(golden)} fixtures token-for-token")
+    return 0
+
+
 def cmd_serve(args) -> int:
     """HTTP serving: the micro-batched endpoint, or with ``--continuous`` the
     continuous-batching one (LLM and AED families)."""
@@ -463,6 +559,9 @@ def main(argv=None) -> int:
     p.add_argument("--language", default=None)
     p.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
                    help="serving cast of the plain weights (norms/softmax stay f32)")
+    p.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="write a torch.profiler Chrome trace of the run (CPU and, on the card, "
+                        "CUDA activity) into LOGDIR")
     p.add_argument("audio", nargs="+")
     p.set_defaults(fn=cmd_transcribe)
 
@@ -504,6 +603,14 @@ def main(argv=None) -> int:
     p.add_argument("--plan", required=True,
                    help="JSON with {plans: {name: {...}}, assign: [[glob, name], ...]}")
     p.set_defaults(fn=cmd_optimize)
+
+    p = sub.add_parser("parity", help="transcribe registered fixtures; capture/compare goldens")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--family", default=None, help="override the artifact's family for fixture lookup")
+    p.add_argument("--examples", default=None, help="Test_Examples root (default: reference fixtures)")
+    p.add_argument("--golden", default=None, help="compare against a goldens JSON (rc!=0 on drift)")
+    p.add_argument("--save-golden", default=None, help="write transcripts as goldens JSON")
+    p.set_defaults(fn=cmd_parity)
 
     p = sub.add_parser("build", help="build an artifact folder from a source checkpoint")
     p.add_argument("--family", required=True,

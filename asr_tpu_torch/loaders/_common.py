@@ -10,7 +10,9 @@ linear/layernorm/conv conversions so every loader agrees on dtype coercion
 :func:`asarray` is the port's stand-in for the JAX package's
 ``jnp.asarray``: it keeps each dtype the JAX package keeps and narrows the
 64-bit ones as JAX does with 64-bit types off (f64 -> f32, int64 -> int32,
-uint64 -> uint32), so both packages' trees hold the same bytes.
+uint64 -> uint32), so both packages' trees hold the same bytes. A bf16
+array (as ``runtime/artifact.read_safetensors`` gives a BF16 tensor) stays
+bf16, as ``jnp.asarray`` keeps an ml_dtypes bfloat16 array.
 """
 
 from __future__ import annotations
@@ -26,12 +28,14 @@ _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
 
 def asarray(a) -> torch.Tensor:
     """Array-like (numpy array, torch tensor, Python scalar) -> a CPU tensor
-    of its own memory, 64-bit types narrowed to 32 bits."""
+    of its own memory, 64-bit types narrowed to 32 bits, bf16 kept."""
+    from asr_tpu_torch.runtime.artifact import tensor_from_numpy, tensor_to_numpy
+
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = tensor_to_numpy(a)
     arr = np.asarray(a)
     arr = arr.astype(_NARROW.get(arr.dtype, arr.dtype), copy=False)
-    return torch.from_numpy(np.array(arr, order="C", copy=True))
+    return tensor_from_numpy(arr)
 
 
 def tree_asarray(tree):

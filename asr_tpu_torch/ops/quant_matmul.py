@@ -13,7 +13,9 @@ nibble = rows ``[0, K/2)``, high nibble = rows ``[K/2, K)``) and
 pair ``2j:2j+2`` = rows ``[jK/4, (j+1)K/4)``). On a CPU tensor it runs the
 plain PyTorch versions, :func:`quant_dense_reference`,
 :func:`quant_dense_p4_reference` and :func:`quant_dense_p2_reference`.
-Dynamic-activation int8 leaves are not ported and raise.
+Dynamic-activation int8 leaves do not come here: ``layers/transformer.dense``
+routes them to ``quant/quantize.dynamic_quant_dense``, and ``quant_dense``
+raises on one given to it directly.
 
 Matmul mode, as in the JAX package:
   ``"f32"``:  the exact f32 product of x and the dequantized weight;

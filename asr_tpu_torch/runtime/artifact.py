@@ -10,7 +10,11 @@ tensors of at least 1 KiB stored once, with the other keys listed in
 
 The safetensors format is parsed and written here with numpy: an 8-byte
 little-endian header length, a JSON header mapping each name to its dtype,
-shape and byte range, then the raw little-endian bytes.
+shape and byte range, then the raw little-endian bytes. numpy has no
+bfloat16 of its own, so a BF16 tensor travels through numpy as its raw
+16-bit patterns (:data:`BF16_BITS`, which no numpy cast or arithmetic
+accepts) and becomes a ``torch.bfloat16`` tensor through an int16 view:
+leaves keep BF16 where the JAX package keeps it, bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +38,33 @@ _DTYPES = {
     "U8": np.uint8, "BOOL": np.bool_,
 }
 _CODES = {np.dtype(v).str: k for k, v in _DTYPES.items()}
+# BF16 as raw little-endian 16-bit patterns. ml_dtypes' bfloat16 (what the
+# JAX package's arrays hold) is also a two-byte void type and is taken alike.
+BF16_BITS = np.dtype("V2")
+
+
+def is_bf16_bits(a) -> bool:
+    """Whether a numpy array holds bfloat16 values as two-byte voids
+    (:data:`BF16_BITS`, or ml_dtypes' ``bfloat16``)."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and a.dtype.names is None
+
+
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A C-contiguous CPU tensor of its own memory; bfloat16 bits become
+    ``torch.bfloat16``."""
+    a = np.array(a, order="C", copy=True)
+    if is_bf16_bits(a):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A contiguous host copy; a ``torch.bfloat16`` tensor comes out as
+    :data:`BF16_BITS`."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return np.ascontiguousarray(t.view(torch.int16).numpy()).view(BF16_BITS)
+    return np.ascontiguousarray(t.numpy())
 
 
 def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
@@ -46,35 +77,51 @@ def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
     for name, info in header.items():
         if name == "__metadata__":
             continue
+        begin, end = info["data_offsets"]
+        if info["dtype"] == "BF16":
+            out[name] = np.frombuffer(data, dtype=BF16_BITS, count=(end - begin) // 2,
+                                      offset=base + begin).reshape(info["shape"])
+            continue
         if info["dtype"] not in _DTYPES:
             raise ValueError(f"{name}: dtype {info['dtype']} is not supported")
-        begin, end = info["data_offsets"]
         dtype = np.dtype(_DTYPES[info["dtype"]]).newbyteorder("<")
         arr = np.frombuffer(data, dtype=dtype, count=(end - begin) // dtype.itemsize, offset=base + begin)
         out[name] = arr.reshape(info["shape"]).astype(dtype.newbyteorder("="), copy=False)
     return out
 
 
+# The safetensors library writes tensors by descending dtype rank, then by
+# name; the same order here makes both packages' files byte-identical.
+_RANK = {code: i for i, code in enumerate(("BOOL", "U8", "I8", "I16", "F16", "BF16", "I32", "F32",
+                                           "F64", "I64"))}
+
+
 def write_safetensors(path: str | Path, tensors: dict[str, np.ndarray]) -> None:
-    header: dict[str, Any] = {}
-    chunks = []
-    offset = 0
+    """Write ``tensors`` as the safetensors library's ``save_file`` would."""
+    items = []
     for name, arr in tensors.items():
         arr = np.ascontiguousarray(arr) if np.ndim(arr) else np.asarray(arr)  # 0-d stays 0-d
-        little = arr.dtype.newbyteorder("<")
-        code = _CODES.get(little.str)
-        if code is None:
-            raise ValueError(f"{name}: dtype {arr.dtype} is not supported")
-        raw = arr.astype(little, copy=False).tobytes()
-        header[name] = {"dtype": code, "shape": list(arr.shape), "data_offsets": [offset, offset + len(raw)]}
-        chunks.append(raw)
+        if is_bf16_bits(arr):
+            code, raw = "BF16", arr.tobytes()
+        else:
+            little = arr.dtype.newbyteorder("<")
+            code = _CODES.get(little.str)
+            if code is None:
+                raise ValueError(f"{name}: dtype {arr.dtype} is not supported")
+            raw = arr.astype(little, copy=False).tobytes()
+        items.append((name, code, list(arr.shape), raw))
+    items.sort(key=lambda it: (-_RANK[it[1]], it[0]))
+    header: dict[str, Any] = {}
+    offset = 0
+    for name, code, shape, raw in items:
+        header[name] = {"dtype": code, "shape": shape, "data_offsets": [offset, offset + len(raw)]}
         offset += len(raw)
-    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob = json.dumps(header, separators=(",", ":"), ensure_ascii=False).encode("utf-8")
     blob += b" " * (-len(blob) % 8)  # the data starts 8-byte aligned
     with open(path, "wb") as fh:
         fh.write(struct.pack("<Q", len(blob)))
         fh.write(blob)
-        for raw in chunks:
+        for *_, raw in items:
             fh.write(raw)
 
 
@@ -83,12 +130,12 @@ def flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     if isinstance(tree, QuantizedLinear):
         for k in ("q", "scale", "zero"):
-            out[f"{prefix}__quant__/{k}"] = tree[k].detach().cpu().numpy()
+            out[f"{prefix}__quant__/{k}"] = tensor_to_numpy(tree[k])
         for k in ("bits", "block", "packed", "dynamic"):
             out[f"{prefix}__quant__/{k}"] = np.asarray(int(tree[k]), np.int32)
     elif isinstance(tree, QuantizedEmbedding):
         for k in ("q", "scale", "zero"):
-            out[f"{prefix}__qembed__/{k}"] = getattr(tree, k).detach().cpu().numpy()
+            out[f"{prefix}__qembed__/{k}"] = tensor_to_numpy(getattr(tree, k))
         out[f"{prefix}__qembed__/bits"] = np.asarray(tree.bits, np.int32)
         out[f"{prefix}__qembed__/block"] = np.asarray(tree.block, np.int32)
         out[f"{prefix}__qembed__/tied"] = np.asarray(int(tree.q_t is not None), np.int32)
@@ -100,7 +147,7 @@ def flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
             out.update(flatten_pytree(v, f"{prefix}{i}/"))
     elif isinstance(tree, torch.Tensor):
         # at least 1-d, as the JAX package's np.ascontiguousarray stores a 0-d leaf
-        out[prefix[:-1]] = np.ascontiguousarray(tree.detach().cpu().numpy())
+        out[prefix[:-1]] = tensor_to_numpy(tree)
     else:
         out[prefix[:-1]] = np.ascontiguousarray(np.asarray(tree))
     return out
@@ -109,13 +156,14 @@ def flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
 def params_from_flat(flat: dict[str, np.ndarray], device) -> Any:
     """Flat ``{key: numpy array}`` (from either package's ``flatten_pytree``
     or an artifact) -> the port's parameter tree on ``device``. Arrays that
-    are the same numpy object become one device tensor."""
+    are the same numpy object become one device tensor; bfloat16 bits
+    (:func:`is_bf16_bits`) become ``torch.bfloat16`` tensors."""
     device = torch.device(device)
     memo: dict[int, torch.Tensor] = {}
 
     def put(a: np.ndarray) -> torch.Tensor:
         if id(a) not in memo:
-            memo[id(a)] = torch.from_numpy(np.array(a, copy=True)).to(device)
+            memo[id(a)] = tensor_from_numpy(a).to(device)
         return memo[id(a)]
 
     root: dict = {}

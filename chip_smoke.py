@@ -46,7 +46,7 @@ the two AED steps' shared tensor-core int8 matvec alone at the seven
 turbo shapes, B = 1 and 8, against its plain version, rows bitwise alone,
 device time of a CUDA graph beside its bound, and the plan's
 shared-memory formulas against the kernels'; (13) continuous serving of
-phase 9's artifact over HTTP: 17 concurrent requests (18 windows) with
+phase 9's artifact over HTTP: 9 concurrent requests (10 windows) with
 staggered starts on 8 slots, every decode step through the multi-slot
 kernel, each request's ids bitwise equal to it alone through the batcher
 and against ``session.transcribe`` (a teacher-forced replay where they
@@ -67,8 +67,8 @@ and packed tied head) through an artifact folder and ``load_qwen_session``:
 20 s on the fused route, a teacher-forced replay through the per-weight
 step, one 30 s window's tower, prefill and per-token times, RTF and peak
 memory, and the q4 logits against plain matmuls on dequantized weights;
-(17) the same session behind the HTTP micro-batcher, 5 concurrent requests
-in batches of 4 (the per-weight route, int4 kernel at M = 4), each
+(17) the same session behind the HTTP micro-batcher, 4 concurrent requests
+in a batch of 4 (the per-weight route, int4 kernel at M = 4), each
 request's ids against the per-weight route alone; (18) the multi-slot Qwen3
 decode step against its plain version at full width (B = 2 and 8, f32 and
 bf16 caches, the head in the kernel and separate, mixed positions up to 700
@@ -76,7 +76,7 @@ and one parked slot; phase 15's limits) and, slot by slot, bitwise against
 the batch-1 kernel; (19) its time at B = 2, 4, 8 against the plain
 version's, in turns, with its bound and, for each B and cache type, a
 profile by part, launches a step and graph device time; (20)
-continuous serving of phase 16's artifact over HTTP: 17 concurrent requests
+continuous serving of phase 16's artifact over HTTP: 9 concurrent requests
 of 5-30 s (a 96-token budget) with staggered starts on 8 slots, every decode step through the
 multi-slot kernel, each request's ids against the same request alone
 through the batcher (bitwise) and against ``session.transcribe`` (a
@@ -89,9 +89,9 @@ and a 2-bit tied head through an artifact folder and ``load_qwen_session``
 (the per-weight route): 20 s with its launch counts and its ids against a
 replay with plain matmuls on the dequantized weights, one 30 s window's
 numbers, and the q2 logits against plain matmuls; (23) the q2 session
-behind the HTTP micro-batcher, 5 requests in batches of 4 (the int2 kernel
+behind the HTTP micro-batcher, 4 requests in a batch of 4 (the int2 kernel
 at M = 4); (24) continuous serving of the q2 artifact on the rowwise route,
-5 concurrent requests on 8 slots with a 96-token budget, each request's ids
+3 concurrent requests on 8 slots with a 96-token budget, each request's ids
 bitwise equal to it alone through the batcher and against
 ``session.transcribe``; (25) the int8, int4 and int2 sources each built under
 two cache keys and both libraries loaded in this process, a bf16 call
@@ -175,7 +175,21 @@ session's ids; (44)
 Whisper-Large-v3-Turbo from an HF snapshot in F16 through ``build`` and
 ``quantize --algorithm kquant --quantize-embeddings``: the fused route of
 ``load_whisper_session``, its ids on a 30 s window bitwise a session from
-the same quantization made in memory, the metadata's tables.
+the same quantization made in memory, the metadata's tables; (45)
+``parity`` through ``cli.main`` with a seeded ``--examples`` folder on
+phase 9's Whisper, phase 16's Qwen3-ASR, phase 4's SenseVoiceSmall and
+phase 40's X-ASR artifact folders (Qwen3-ASR and X-ASR on one fixture): ``--save-golden``, ``--golden`` on the
+same file (rc 0: the card run repeats itself), a moved stage snapshot (rc
+1 naming the stage), the matmul mode given back, and a SenseVoice golden
+captured by ``--platform cpu`` (the plain versions) held on the card;
+(46) ``transcribe --profile`` on phase 4's folder: the Chrome trace holds
+CUDA kernel events, one forward's 281 int8 kernels; (47) 16 chunks of one
+stream of each streaming family under ``runtime/profiling.trace``: kernel
+launches and device busy time a chunk, the device's idle share, beside
+the chunk p50; (48) a BF16 Qwen3-ASR HF snapshot at the published widths
+(2 tower and 2 LLM layers) through ``build``: every leaf on the card
+bitwise the snapshot's, a window transcribed with the serving cast
+``float32``, ``optimize`` with a ``bf16`` plan reloading bitwise.
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -908,7 +922,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 MULTI_B = (2, 5, 8, 17, 32)  # one and two m16 tiles of the matvec
 MULTI_TIMED_B = (2, 4, 8)
 SERVE_SLOTS = 8
-SERVE_SECONDS = (5.0, 30.0)  # 16 requests of one window each, lengths drawn from this range
+SERVE_SECONDS = (5.0, 30.0)  # SERVE_WINDOWED requests of one window each, lengths drawn from this range
+SERVE_WINDOWED = 8  # the run-time limit: 8 slots still see 10 windows join and leave
 SERVE_LONG = 45.0  # and one of two windows
 ROWWISE_BUDGET = 64  # new tokens a window on the rowwise route
 
@@ -1364,7 +1379,7 @@ def phase_continuous(torch, np, qm, fs, fm, folder: str, numbers: dict, card: st
     check(session.stacked is not None, "the session did not stack the q8 decoder")
     cfg, params = session.cfg, session.params
     rng = np.random.default_rng(13)
-    seconds = list(rng.uniform(*SERVE_SECONDS, size=16)) + [SERVE_LONG]
+    seconds = list(rng.uniform(*SERVE_SECONDS, size=SERVE_WINDOWED)) + [SERVE_LONG]
     clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16) for s in seconds]
     delays = rng.uniform(0.0, 0.2, size=len(clips))
     w = session.window_samples
@@ -1510,7 +1525,7 @@ QWEN_P4_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1
 QWEN_HEAD = (9, 1, 6)  # prompt ids before the audio, between, after (chat-template sized)
 QWEN_DECODE_POS = ((5, 0), (200, 3), (440, 17))  # (pos, shift) of the step checks
 QWEN_SERVE_SECONDS = (5.0, 20.0)
-QWEN_SERVE_REQUESTS = 5
+QWEN_SERVE_REQUESTS = 4  # one batch of QWEN_SERVE_BATCH (the run-time limit)
 QWEN_SERVE_BATCH = 4
 QWEN_SERVE_BUDGET = 96  # new tokens a window on the served, per-weight route
 # The step rounds every matvec input to bf16, and a last-bit difference can
@@ -2108,8 +2123,8 @@ def qwen_pass_launches(session) -> tuple[str, int, int]:
 
 
 def phase_qwen_serve(torch, np, qm, fd, folder: str, card: str, label: str = "17") -> dict:
-    """[17] The Qwen session behind the micro-batched HTTP server: 5
-    concurrent requests of 5-20 s in batches of 4 (p4 at M = 4 on the
+    """[17] The Qwen session behind the micro-batched HTTP server: 4
+    concurrent requests of 5-20 s in a batch of 4 (p4 at M = 4 on the
     per-weight route); each request's ids against the per-weight route for
     that request alone, with a teacher-forced replay where they differ.
     [23] The same for the q2 artifact (p2 at M = 4, the 2-bit head through
@@ -2214,8 +2229,8 @@ QWEN_MULTI_T = 712
 QWEN_MULTI_TIMED_B = (2, 4, 8)
 QWEN_MULTI_TIMED_POS = 440
 QWEN_CONT_SLOTS = 8
-QWEN_CONT_SECONDS = (5.0, 30.0)  # 17 requests of one window each, lengths drawn from this range
-QWEN_CONT_REQUESTS = 17
+QWEN_CONT_SECONDS = (5.0, 30.0)  # QWEN_CONT_REQUESTS requests of one window each, lengths drawn from this range
+QWEN_CONT_REQUESTS = 9  # the run-time limit: more requests than slots
 QWEN_CONT_BUDGET = 96  # new tokens a window on the continuous server (the run-time limit: each
 #                        request differing from session.transcribe is replayed on the per-weight route)
 HEAD_KEYS = ("wh", "h_s", "h_zs")
@@ -2408,7 +2423,7 @@ def qwen_replay_gap(torch, session, audio, ids: list) -> float:
 
 def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, card: str) -> dict:
     """[20] Continuous Qwen3-ASR-0.6B q4 serving over HTTP (phase 16's
-    artifact, 8 slots, bf16 caches, a QWEN_CONT_BUDGET-token budget): 17 concurrent
+    artifact, 8 slots, bf16 caches, a QWEN_CONT_BUDGET-token budget): 9 concurrent
     requests of 5-30 s with staggered starts, every decode step of every
     slot one multi-slot kernel launch; then two requests on the rowwise
     route."""
@@ -2556,7 +2571,7 @@ def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, ca
 # calls have it: q|k|v, o, gate|up and down in each of the 28 layers. The
 # 2-bit tied head stays centered int8 and runs through the int8 kernel.
 QWEN_P2_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1024): 28}
-Q2_CONT_REQUESTS = 5
+Q2_CONT_REQUESTS = 3  # the run-time limit
 Q2_CONT_SECONDS = (5.0, 30.0)
 Q2_CONT_BUDGET = 96  # new tokens a window on the continuous rowwise route
 
@@ -2687,7 +2702,7 @@ def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
 
 def phase_qwen_q2_continuous(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
     """[24] Continuous serving of the q2 artifact over HTTP on the rowwise
-    route (8 slots, bf16 caches, a 96-token budget): 5 concurrent requests
+    route (8 slots, bf16 caches, a 96-token budget): 3 concurrent requests
     of 5-30 s with staggered starts, every step's linears through the int2
     kernel at M = 8; each request's ids against the same request alone
     through the batcher (bitwise) and against session.transcribe (a
@@ -5739,6 +5754,343 @@ def phase_build_whisper(torch, np, qm, fs, snap: dict, card: str, cfg=None) -> d
             "quantize_in_memory_s": t_mem, "ids": len(res.token_ids)}
 
 
+# ── 45-48. parity, --profile, streaming under the profiler, BF16 on the card ──
+PARITY_FIXTURES = ("en/test_sample.wav", "zh/zh-Shanghai.wav")  # the registry's two files
+PARITY_SECONDS = 8.0
+PARITY_ONE_FIXTURE = "whisper"  # a registry key with one fixture, en/test_sample.wav (the long decodes' cut)
+PROFILE_CHUNKS = 16  # chunks of one stream in phase 47's trace
+INT8_KERNEL = "int8_mma_kernel"  # the int8 kernel's name in the trace, bf16 mode
+BF16_DEPTH = (2, 2)  # phase 48's tower and LLM layers (widths are the published ones)
+
+
+def write_examples(root: Path) -> Path:
+    """[45] A ``--examples`` folder: the registry's two fixtures as 16 kHz
+    mono int16 noise from a seed, PARITY_SECONDS each."""
+    import numpy as np
+
+    rng = np.random.default_rng(45)
+    for rel in PARITY_FIXTURES:
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_bytes(wav_bytes(np.round(rng.standard_normal(int(PARITY_SECONDS * 16000)) * 3000)))
+    return root
+
+
+def add_parity_languages(folder: str) -> None:
+    """[45] Give an artifact's metadata the fixtures' two languages where its
+    session resolves them: Whisper's language table, Qwen3-ASR's prompt
+    catalog (ids beside its ``en`` prompt's)."""
+    from asr_tpu_torch.runtime.metadata import LanguageProfile, ModelMetadata
+
+    meta = ModelMetadata.load(folder)
+    if meta.family == "whisper":
+        first = meta.extra["config"]["first_language_id"]
+        meta.supported_languages = [LanguageProfile(c, c, prompt_token_id=first + WHISPER_LANGS[c])
+                                    for c in ("en", "zh")]
+    elif meta.family == "qwen_asr":
+        catalog = meta.extra["language_prompt_ids"]
+        catalog.setdefault("zh", [i + 2 for i in catalog["en"]])
+    meta.save(folder)
+
+
+def run_main(*argv) -> tuple[int, str, float]:
+    """``cli.main(argv)`` in this process: (its code, its stdout, seconds)."""
+    import contextlib
+
+    from asr_tpu_torch import cli
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    return rc, buf.getvalue(), time.perf_counter() - t
+
+
+def phase_parity(torch, np, qm, fs, fd, name: str, folder: str, examples: Path, card: str,
+                 family: str | None = None, cpu_golden=None) -> dict:
+    """[45 <name>] ``parity`` through ``cli.main`` on an artifact folder with
+    ``--examples``: ``--save-golden`` gives rc 0 and a probe for every
+    fixture; ``--golden`` on that file gives rc 0 (the card run repeats
+    itself); a golden whose encoder snapshot (SenseVoice: its logits; its
+    CTC runs in one graph) has its head moved gives rc 1 naming that stage;
+    the matmul mode comes back after each run. ``cpu_golden``: (the started
+    ``--platform cpu`` capture, its golden file), compared on the card: the
+    probes within ``compare_probes``' defaults and the ids equal."""
+    golden = Path(folder) / "parity_golden.json"
+    base = ["parity", "--model-dir", folder, "--examples", examples] + (["--family", family] if family else [])
+    qm.set_quant_config(mm="bf16")  # the serving mode, which parity must give back
+    qm.LAUNCHES = qm.LAUNCHES_INT4 = fs.LAUNCHES = fd.LAUNCHES = 0  # the path starts here
+    rc, out, t_save = run_main(*base, "--save-golden", golden)
+    check(rc == 0 and f"goldens captured -> {golden}" in out, f"[45 {name}] --save-golden gave {rc}: {out[-500:]}")
+    check(qm._CONFIG["mm"] == "bf16", f"[45 {name}] parity left the matmul mode at {qm._CONFIG['mm']}")
+    fixtures = json.loads(golden.read_text())["fixtures"]
+    for fx, g in fixtures.items():
+        check("probe" in g and all(np.isfinite([s["mean"], s["std"], *s["head"]]).all() for s in g["probe"].values()),
+              f"[45 {name}] {fx}: no probe or a non-finite snapshot")
+    rc, out, t_cmp = run_main(*base, "--golden", golden)
+    check(rc == 0 and f"PARITY OK: {len(fixtures)} fixtures" in out,
+          f"[45 {name}] the card run does not repeat itself: rc {rc}: {out[-800:]}")
+    fx = sorted(fixtures)[-1]
+    stage = "encoder" if "encoder" in fixtures[fx]["probe"] else "logits"
+    snap = fixtures[fx]["probe"][stage]
+    snap["head"][0] += 10.0 * (abs(snap["mean"]) + snap["std"]) + 1.0
+    moved = Path(folder) / "parity_moved.json"
+    moved.write_text(json.dumps({"golden_schema": 2, "fixtures": fixtures}))
+    rc, out, t_moved = run_main(*base, "--golden", moved)
+    check(rc == 1 and f"{fx}: first drift at stage '{stage}'" in out,
+          f"[45 {name}] a moved {stage} head gave rc {rc}: {out[-800:]}")
+    counts = {"int8": qm.LAUNCHES, "int4": qm.LAUNCHES_INT4, "fused_aed": fs.LAUNCHES,
+              "fused_decode": fd.LAUNCHES}  # and ends here
+    check(qm._CONFIG["mm"] == "bf16", f"[45 {name}] parity left the matmul mode at {qm._CONFIG['mm']}")
+    check(counts["int8"] + counts["int4"] > 0, f"[45 {name}] parity launched no quantized kernel: {counts}")
+    ids = {f: len(g["token_ids"]) for f, g in fixtures.items()}
+    print(f"[45 {name} parity] {len(fixtures)} fixtures ({ids} ids): --save-golden {t_save:.2f} s, --golden on "
+          f"the same file rc 0 in {t_cmp:.2f} s, a moved {stage} head rc 1 naming '{stage}' in {t_moved:.2f} s; "
+          f"launches over the three runs {counts}  [{card}]")
+    out_d = {"counts": counts, "save_s": t_save, "golden_s": t_cmp, "fixtures": len(fixtures)}
+    if cpu_golden is not None:
+        run, cpu_path = cpu_golden
+        (_, cpu_s), = wait_cli({"cpu parity": run}).values()
+        rc, out, t_cpu = run_main(*base, "--golden", cpu_path)
+        if rc != 0:
+            print(f"[45 {name} parity] the CPU golden on the card: {out.strip()[-1500:]}")
+            from asr_tpu_torch.models import sensevoice as sv
+            from asr_tpu_torch.runtime.audio import load_audio
+            from asr_tpu_torch.runtime.session import load_session
+
+            session = load_session(folder, DEV)
+            for fxp in sorted(fixtures):
+                audio = torch.from_numpy(load_audio(examples / next(r for r in PARITY_FIXTURES if r.endswith(fxp)),
+                                                    16000))[: session.window_samples].to(DEV)[None]
+                with torch.inference_mode():
+                    logits, vs = sv.encode_logits(session.params, session.cfg, audio,
+                                                  torch.tensor([audio.shape[1]], device=DEV),
+                                                  torch.zeros(1, dtype=torch.int64, device=DEV))
+                gap = (logits_margin(logits[0, : int(vs[0])]).min() / logits.abs().max()).item()
+                print(f"[45 {name} parity] {fxp}: smallest top-2 logit gap {gap:.3e} of max|logit|")
+        check(rc == 0, f"[45 {name}] the CPU's golden (the plain versions) drifts on the card")
+        print(f"[45 {name} parity] a golden captured by `--platform cpu parity` (the plain versions, {cpu_s:.1f} s "
+              f"in a subprocess) holds on the card: probes within compare_probes' defaults (rtol 2e-3, atol 1e-4 "
+              f"of scale), ids equal ({t_cpu:.2f} s)  [{card}]")
+        out_d["cpu_s"] = cpu_s
+    return out_d
+
+
+def phase_profile(torch, np, qm, folder: str, examples: Path, card: str) -> dict:
+    """[46] ``transcribe --profile LOGDIR`` through ``cli.main`` on phase 4's
+    SenseVoiceSmall q8 folder, one 8 s file (one window, one forward) in the
+    serving mode: the Chrome trace exists, holds CUDA kernel events, and
+    counts the int8 kernel LINEARS_PER_FORWARD times, as its launch counter
+    does."""
+    from asr_tpu_torch.runtime.profiling import device_summary
+
+    logdir = Path(folder) / "profile"
+    wav = examples / PARITY_FIXTURES[0]
+    qm.LAUNCHES = 0  # the path starts here
+    rc, out, secs = run_main("--quant-mm", "bf16", "transcribe", "--model-dir", folder, "--profile", logdir, wav)
+    launches = qm.LAUNCHES  # and ends here
+    traces = sorted(logdir.glob("*.pt.trace.json"))
+    check(rc == 0 and len(traces) == 1 and f"trace written to {traces[0]}" in out,
+          f"[46] transcribe --profile gave rc {rc}, traces {traces}: {out[-500:]}")
+    s = device_summary(traces[0], INT8_KERNEL)
+    kernels = s["kernels"]
+    check(launches == LINEARS_PER_FORWARD and s["launches"] == launches,
+          f"[46] the trace holds {s['launches']} int8 kernels, the counter {launches}, a forward "
+          f"{LINEARS_PER_FORWARD}")
+    print(f"[46 profile] transcribe --profile: {traces[0].name} ({traces[0].stat().st_size / 1e6:.1f} MB) holds "
+          f"{kernels} CUDA kernel events, {s['launches']} of them the int8 kernel ({INT8_KERNEL}: one "
+          f"forward's {LINEARS_PER_FORWARD}); device busy {s['busy_us'] / 1e3:.2f} ms of a {s['window_us'] / 1e3:.2f} "
+          f"ms traced window (idle share {s['idle_share']:.3f}); {secs:.2f} s with the session build  [{card}]")
+    return {"int8": launches, **s}
+
+
+def phase_stream_profile(torch, np, qm, name: str, session, card: str) -> dict:
+    """[47 <name>] PROFILE_CHUNKS chunks of one stream through a streaming
+    session in the serving mode under ``runtime/profiling.trace``: kernel
+    launches a chunk, device busy time a chunk (the union of the device
+    events' intervals), the device's idle share of the traced window, the
+    int8 kernel's launches (the trace's against the counter's: the profiler
+    may drop a record, at most one in a hundred), beside the chunk p50 on
+    the host clock, traced and untraced."""
+    from asr_tpu_torch.runtime.profiling import annotate, device_summary, trace
+
+    cfg = session.cfg
+    w, adv = stream_window(name, cfg)
+    rng = np.random.default_rng(47)
+    audio = (rng.standard_normal(adv * (PROFILE_CHUNKS + 4) + w) * STREAM_PCM[name]).astype(np.float32)
+    windows = stream_audio_windows(name, cfg, audio)[:PROFILE_CHUNKS]
+    check(len(windows) == PROFILE_CHUNKS, f"[47 {name}] {len(windows)} windows")
+    qm.set_quant_config(mm="bf16")
+
+    def pushes() -> list:
+        session.reset()
+        times = []
+        for i, win in enumerate(windows):
+            t = time.perf_counter()
+            with annotate(f"chunk {i}"):  # a named range in the trace
+                stream_push(name, session, win)  # ends in its host read of the ids
+            times.append((time.perf_counter() - t) * 1e3)
+        return times
+
+    untraced = pushes()  # also the warm-up
+    with tempfile.TemporaryDirectory() as logdir:
+        qm.LAUNCHES = 0  # the path starts here
+        with trace(logdir, cuda=True) as tr:
+            traced = pushes()
+        int8 = qm.LAUNCHES  # and ends here
+        s = device_summary(tr.path, INT8_KERNEL)
+        allk = s["kernels"]
+    lost = int8 - s["launches"]
+    # the profiler drops a record now and then (0-2 of 2336-5168 int8 kernels in the runs that found
+    # it): at most one in a hundred, never one too many
+    check(int8 > 0 and 0 <= lost <= int8 // 100, f"[47 {name}] the trace holds {s['launches']} int8 kernels, "
+          f"the counter {int8}")
+    n = PROFILE_CHUNKS
+    out = {"launches_per_chunk": allk / n, "int8_per_chunk": int8 / n, "int8_lost": lost,
+           "busy_ms_per_chunk": s["busy_us"] / 1e3 / n,
+           "idle_share": s["idle_share"], "p50_ms_traced": float(np.percentile(traced, 50)),
+           "p50_ms": float(np.percentile(untraced, 50)), "chunk_ms": adv / 16.0, "int8": int8}
+    print(f"[47 {name} stream profile] {n} chunks of {out['chunk_ms']:.0f} ms, one stream, serving mode: "
+          f"{out['launches_per_chunk']:.1f} kernel launches a chunk ({out['int8_per_chunk']:.1f} int8; the trace "
+          f"holds {int8 - lost} of the counter's {int8}), device "
+          f"busy {out['busy_ms_per_chunk']:.3f} ms a chunk, idle share {out['idle_share']:.3f} of the traced window; "
+          f"chunk p50 on the host {out['p50_ms']:.2f} ms ({out['p50_ms_traced']:.2f} ms traced)  [{card}]")
+    return out
+
+
+def qwen_asr_hf_state_dict(tower: dict, llm: dict) -> dict:
+    """A Qwen3-ASR tree (the port's layout) -> the HF snapshot's tensors
+    (``thinker.audio_tower.*`` and ``thinker.model.*``, torch layouts), the
+    inverse of ``loaders/qwen_asr_hf`` and ``loaders/qwen3_hf``."""
+    sd = {}
+
+    def lin(key, p):
+        sd[f"{key}.weight"] = p["w"].T
+        if "b" in p:
+            sd[f"{key}.bias"] = p["b"]
+
+    def ln(key, p):
+        sd[f"{key}.weight"] = p["scale"]
+        if "bias" in p:
+            sd[f"{key}.bias"] = p["bias"]
+
+    a = "thinker.audio_tower."
+    for i in (1, 2, 3):
+        sd[f"{a}conv2d{i}.weight"] = tower[f"conv{i}"]["w"].permute(3, 2, 0, 1)  # HWIO -> OIHW
+        sd[f"{a}conv2d{i}.bias"] = tower[f"conv{i}"]["b"]
+    lin(f"{a}conv_out", tower["conv_out"])
+    for i, b in enumerate(tower["blocks"]):
+        p = f"{a}layers.{i}."
+        ln(p + "self_attn_layer_norm", b["ln1"])
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            lin(p + "self_attn." + theirs, b["attn"][ours])
+        ln(p + "final_layer_norm", b["ln2"])
+        lin(p + "fc1", b["mlp"]["fc1"])
+        lin(p + "fc2", b["mlp"]["fc2"])
+    ln(f"{a}ln_post", tower["ln_post"])
+    lin(f"{a}proj1", tower["proj1"])
+    lin(f"{a}proj2", tower["proj2"])
+    m = "thinker.model."
+    sd[f"{m}embed_tokens.weight"] = llm["embed"]
+    for i, lay in enumerate(llm["layers"]):
+        p = f"{m}layers.{i}."
+        ln(p + "input_layernorm", lay["input_norm"])
+        for k in ("q", "k", "v", "o"):
+            lin(f"{p}self_attn.{k}_proj", lay["attn"][k])
+        for k in ("q_norm", "k_norm"):
+            if k in lay["attn"]:
+                ln(f"{p}self_attn.{k}", lay["attn"][k])
+        ln(p + "post_attention_layernorm", lay["post_norm"])
+        for k in ("gate", "up", "down"):
+            lin(f"{p}mlp.{k}_proj", lay["mlp"][k])
+    ln(f"{m}norm", llm["final_norm"])
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def phase_bf16(torch, np, folder: str, card: str, cfg=None) -> dict:
+    """[48] A synthetic BF16 Qwen3-ASR HF snapshot at the published widths
+    and BF16_DEPTH layers (random weights from a seed, written by the port's
+    safetensors writer), through ``build --family qwen_asr`` on the host:
+    the artifact loads on the card with every leaf bitwise the snapshot's in
+    the loaders' layout (bf16, as the JAX package keeps it); one window
+    transcribes through ``_build_session`` with the serving cast
+    ``float32`` (an exact widening: neither package's tower convolves bf16
+    weights with f32 features) and its stage probes are finite; ``optimize``
+    with a ``bf16`` plan writes an artifact whose leaves reload bitwise."""
+    import dataclasses as dc
+
+    from asr_tpu_torch.cli import _build_session
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.runtime.artifact import flatten_pytree, load_model, tensor_to_numpy, write_safetensors
+    from asr_tpu_torch.runtime.probe import capture_probe
+
+    cfg = cfg or qa.QwenAsrConfig()
+    cfg = dc.replace(cfg, tower_layers=BF16_DEPTH[0], llm=dc.replace(cfg.llm, num_layers=BF16_DEPTH[1]))
+    lc = cfg.llm
+    g = torch.Generator(device=DEV).manual_seed(48)
+    tower = qa.init_tower_params(cfg, g, DEV, torch.bfloat16)
+    llm = qwen3.init_params(lc, g, DEV, torch.bfloat16)
+    src, art, opt = Path(folder) / "snapshot", Path(folder) / "built", Path(folder) / "bf16_plan"
+    src.mkdir()
+    t0 = time.perf_counter()
+    sd = qwen_asr_hf_state_dict(tower, llm)
+    write_safetensors(src / "model.safetensors", {k: tensor_to_numpy(v) for k, v in sd.items()})
+    hf_text = {"vocab_size": lc.vocab_size, "hidden_size": lc.hidden, "intermediate_size": lc.ffn_dim,
+               "num_hidden_layers": lc.num_layers, "num_attention_heads": lc.num_heads,
+               "num_key_value_heads": lc.num_kv_heads, "head_dim": lc.head_dim, "rope_theta": lc.rope_theta,
+               "rms_norm_eps": lc.rms_eps, "tie_word_embeddings": lc.tie_embeddings}
+    (src / "config.json").write_text(json.dumps({"thinker_config": {"audio_config": {
+        "num_mel_bins": cfg.n_mels, "d_model": cfg.tower_dim, "encoder_layers": cfg.tower_layers,
+        "encoder_attention_heads": cfg.tower_heads, "encoder_ffn_dim": cfg.tower_ffn,
+        "downsample_hidden_size": cfg.downsample_hidden, "n_window": cfg.chunk_frames // 2,
+        "n_window_infer": cfg.chunk_frames * cfg.chunks_per_window, "output_dim": cfg.output_dim},
+        "text_config": hf_text}}))
+    size_gb = (src / "model.safetensors").stat().st_size / 1e9
+    t_write = time.perf_counter() - t0
+    del sd
+    rc, out, t_build = run_main("build", "--family", "qwen_asr", "--checkpoint", src, "--out", art)
+    check(rc == 0 and "built qwen_asr artifact" in out, f"[48] build gave rc {rc}: {out[-500:]}")
+    want = flatten_pytree({"tower": tower, "llm": llm})
+    check({str(v.dtype) for v in want.values()} == {"|V2"}, "[48] the generated tree is not all bf16")
+
+    def same_leaves(folder_, what):
+        params, _ = load_model(folder_, DEV)
+        leaf = params["llm"]["embed"]
+        check(leaf.device.type == torch.device(DEV).type and leaf.dtype == torch.bfloat16, f"[48] {what}: embed is {leaf.dtype}")
+        got = flatten_pytree(params)
+        check(sorted(got) == sorted(want), f"[48] {what}: the leaves' keys differ")
+        bad = [k for k in want if got[k].dtype != want[k].dtype or got[k].shape != want[k].shape
+               or got[k].tobytes() != want[k].tobytes()]
+        check(not bad, f"[48] {what}: {len(bad)} leaves are not bitwise the snapshot's, e.g. {bad[:3]}")
+
+    same_leaves(art, "the built artifact")
+    sess = _build_session(art, dtype="float32", device=DEV)
+    check(sess.tower_params["conv1"]["w"].dtype == torch.float32, "[48] the serving cast did not widen")
+    rng = np.random.default_rng(48)
+    audio = (rng.standard_normal(int(PARITY_SECONDS * 16000)) * 0.1).astype(np.float32)
+    t0 = time.perf_counter()
+    res = sess.transcribe(audio)
+    t_tr = time.perf_counter() - t0
+    probe = capture_probe(sess, audio)
+    check(set(probe) == {"frontend", "encoder", "logits"}
+          and all(np.isfinite([s["mean"], s["std"]]).all() for s in probe.values()),
+          "[48] the widened session's stage snapshots are not finite")
+    check(len(res.token_ids) > 0, "[48] the window gave no ids")
+    del sess
+    plan = Path(folder) / "plan.json"
+    plan.write_text(json.dumps({"plans": {"half": {"method": "bf16"}}, "assign": [["*", "half"]]}))
+    rc, out, t_opt = run_main("optimize", "--model-dir", art, "--out", opt, "--plan", plan)
+    check(rc == 0, f"[48] optimize gave rc {rc}: {out[-500:]}")
+    same_leaves(opt, "the bf16-plan artifact")
+    print(f"[48 bf16] a BF16 Qwen3-ASR HF snapshot ({cfg.tower_layers} tower + {lc.num_layers} LLM layers at the "
+          f"published widths, {size_gb:.3f} GB) written in {t_write:.2f} s; build (host) {t_build:.2f} s: "
+          f"{len(want)} leaves load on the card bitwise the snapshot's, all bf16; one {PARITY_SECONDS:.0f} s window "
+          f"with the serving cast float32 -> {len(res.token_ids)} ids in {t_tr:.2f} s, finite stage probes; "
+          f"optimize (a bf16 plan, on the card) {t_opt:.2f} s: its leaves reload bitwise  [{card}]")
+    torch.cuda.empty_cache()
+    return {"leaves": len(want), "build_s": t_build, "optimize_s": t_opt, "ids": len(res.token_ids)}
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -5932,6 +6284,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[t] phases 4-6: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
+    examples_dir = tempfile.TemporaryDirectory()  # phase 45's fixtures, for every family's parity
+    examples = write_examples(Path(examples_dir.name))
+    par = {}
+
     # ── 8-10. Whisper-Large-v3-Turbo q8, the fused decode-step kernel ─────
     fused = phase_fused_vs_plain(torch, fs, wh, quantize_pytree, card)
     with tempfile.TemporaryDirectory() as whisper_dir:
@@ -5944,7 +6300,9 @@ def main() -> int:
         multi = phase_multi(torch, fs, fm, wh, quantize_pytree, fused, card)
         aed_mv = phase_aed_matvec(torch, fs, card)
         serve = phase_continuous(torch, np, qm, fs, fm, whisper_dir, wnum, card)
-    print(f"[t] phases 8-13: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+        add_parity_languages(whisper_dir)
+        par["whisper"] = phase_parity(torch, np, qm, fs, fd, "whisper", whisper_dir, examples, card)
+    print(f"[t] phases 8-13, 45 whisper: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # ── 14-17. Qwen3-ASR-0.6B q4, the int4 kernel, the fused Qwen3 step ────
     from asr_tpu_torch.models.qwen_asr import QwenAsrConfig
@@ -5961,7 +6319,11 @@ def main() -> int:
         mtimes = phase_decode_multi_times(torch, fd, fdm, mdec.pop("stacked"), mdec.pop("cfg"),
                                           {c: dec["times"][c]["ms"] for c in dec["times"]}, card)
         qcont = phase_qwen_continuous(torch, np, qm, fd, fdm, qwen_dir, qrun, card)
-    print(f"[t] phases 14-20: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+        add_parity_languages(qwen_dir)
+        # one fixture: 257 tokens a fixture on the per-weight route
+        par["qwen_asr"] = phase_parity(torch, np, qm, fs, fd, "qwen_asr", qwen_dir, examples, card,
+                                       family=PARITY_ONE_FIXTURE)
+    print(f"[t] phases 14-20, 45 qwen_asr: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # ── 21-24. Qwen3-ASR-0.6B with a packed-int2 LLM, the int2 kernel ──────
     p2 = phase_packed(torch, qm, quantize_linear, 2, qwen_prefill_rows(QwenAsrConfig()), card)
@@ -5977,8 +6339,16 @@ def main() -> int:
 
     # ── 26-29. the command line, Fun-ASR-Nano, the forced aligner ───────────
     phase_cli(torch, np, qm, sv_dir.name, card)
-    sv_dir.cleanup()
     print(f"[t] phase 26: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    # ── 45-46. parity (the CPU's golden held on the card) and --profile on phase 4's folder ──
+    cpu_golden = Path(sv_dir.name) / "parity_cpu.json"
+    cpu_run = start_cli("--platform", "cpu", "parity", "--model-dir", sv_dir.name, "--examples", str(examples),
+                        "--save-golden", str(cpu_golden))
+    par["sensevoice"] = phase_parity(torch, np, qm, fs, fd, "sensevoice", sv_dir.name, examples, card,
+                                     cpu_golden=(cpu_run, cpu_golden))
+    prof = phase_profile(torch, np, qm, sv_dir.name, examples, card)
+    sv_dir.cleanup()
+    print(f"[t] phases 45-46 sensevoice: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
     with tempfile.TemporaryDirectory() as fun_dir, tempfile.TemporaryDirectory() as ctc_dir:
         frun, fun_session = phase_fun_llm(torch, np, qm, fd, fun_dir, card)
         fcont = phase_fun_ctc_continuous(torch, np, qm, fd, fdm, ctc_dir, fun_session, card)
@@ -6006,13 +6376,19 @@ def main() -> int:
     print(f"[t] phases 34-36: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # ── 37-42. streaming: the four families, their runners at 8 slots, serve-stream ──
-    st_run, st_multi, st_serve = {}, {}, {}
+    st_run, st_multi, st_serve, st_prof = {}, {}, {}, {}
     for name in STREAM_FAMILIES:
         with tempfile.TemporaryDirectory() as st_dir:
             st_run[name] = phase_stream(torch, np, qm, name, st_dir, card)
             st_multi[name] = phase_stream_multi(torch, np, qm, name, st_run[name], card)
             st_serve[name] = phase_stream_serve(torch, np, qm, name, st_dir, st_run[name], card)
+            # ── 47. the stream under the profiler; 45 on the X-ASR folder ──
+            st_prof[name] = phase_stream_profile(torch, np, qm, name, st_run[name]["session"], card)
             del st_run[name]["session"]
+            if name == "zipformer":
+                # one fixture: 404 ids a fixture, chunk by chunk
+                par["x_asr"] = phase_parity(torch, np, qm, fs, fd, "x_asr", st_dir, examples, card,
+                                            family=PARITY_ONE_FIXTURE)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[t] phases 37-42 {name}: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
@@ -6027,6 +6403,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[t] phases 43-44: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
+    # ── 48. a BF16 Qwen3-ASR snapshot -> build -> the card -> a bf16 plan ──
+    with tempfile.TemporaryDirectory() as bf_dir:
+        bf = phase_bf16(torch, np, bf_dir, card)
+    examples_dir.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[t] phase 48: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    print(f"[45-48] " + json.dumps({"parity": {k: {"launches": v["counts"], "save_s": round(v["save_s"], 3),
+                                                  "golden_s": round(v["golden_s"], 3)} for k, v in par.items()},
+                                   "profile": prof, "stream_profile": st_prof, "bf16": bf}))
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -6046,7 +6433,8 @@ def main() -> int:
                      + sum(fam_run[n]["int8"] + fam_cont[n]["int8"] for n in fam_run)
                      + fam_run["dolphin"]["ctc_int8"] + sum(r["int8"] for r in off_run.values())
                      + sum(r[n]["int8"] for r in (st_run, st_multi, st_serve) for n in STREAM_FAMILIES)
-                     + sv43["int8"] + wh44["int8"]),
+                     + sv43["int8"] + wh44["int8"] + sum(r["counts"]["int8"] for r in par.values())
+                     + prof["int8"] + sum(r["int8"] for r in st_prof.values())),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
@@ -6061,7 +6449,10 @@ def main() -> int:
                              **{f"{name}_stream": r["int8"] for name, r in st_run.items()},
                              **{f"{name}_stream_runner": r["int8"] for name, r in st_multi.items()},
                              **{f"{name}_serve_stream": r["int8"] for name, r in st_serve.items()},
-                             "sensevoice_built_artifacts": sv43["int8"], "whisper_built_kquant": wh44["int8"]},
+                             "sensevoice_built_artifacts": sv43["int8"], "whisper_built_kquant": wh44["int8"],
+                             **{f"{name}_parity": r["counts"]["int8"] for name, r in par.items()},
+                             "sensevoice_profile": prof["int8"],
+                             **{f"{name}_stream_profile": r["int8"] for name, r in st_prof.items()}},
         "streaming_paths": "Paraformer (M = 13 encoder, 10 decoder rows a stream), Nemotron (14 query, 84 "
                            "key/value, 16 pre-encode rows, greedy M = 1), Dolphin (16; rescoring M = 3 and 1) and "
                            "X-ASR Zipformer2 (8, 4, 2, 1 rows by stack) streaming q8, at 1 and 8 streams "
@@ -6088,9 +6479,11 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_aed_step.cu",
         "replaces": "asr_tpu/ops/fused_aed_step.py:302",
-        "launches": wrun_fused + sum(r["fused"] for r in fam_run.values()) + wh44["fused"],
+        "launches": (wrun_fused + sum(r["fused"] for r in fam_run.values()) + wh44["fused"]
+                     + par["whisper"]["counts"]["fused_aed"]),
         "launches_by_path": {"whisper": wrun_fused, "firered": fam_run["firered"]["fused"],
-                             "dolphin": fam_run["dolphin"]["fused"], "whisper_built_kquant": wh44["fused"]},
+                             "dolphin": fam_run["dolphin"]["fused"], "whisper_built_kquant": wh44["fused"],
+                             "whisper_parity": par["whisper"]["counts"]["fused_aed"]},
         "max_abs_err": fused["max_abs_err"],
         "ms": f_t["ms"],
         "plain_ms": f_t["plain_ms"],
@@ -6145,11 +6538,12 @@ def main() -> int:
         "source": "asr_tpu_torch/csrc/quant_matmul_int4.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:493",
         "launches": (qrun["int4"] + qserve["int4"] + qcont["int4"] + frun["int4"] + frun["batch_int4"]
-                     + fcont["int4"] + arun["int4"] + sv43["int4"]),
+                     + fcont["int4"] + arun["int4"] + sv43["int4"] + par["qwen_asr"]["counts"]["int4"]),
         "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"],
                              "qwen_continuous": qcont["int4"], "fun_llm": frun["int4"],
                              "fun_llm_batch": frun["batch_int4"], "fun_continuous": fcont["int4"],
-                             "aligner": arun["int4"], "sensevoice_built_hqq4": sv43["int4"]},
+                             "aligner": arun["int4"], "sensevoice_built_hqq4": sv43["int4"],
+                             "qwen_parity": par["qwen_asr"]["counts"]["int4"]},
         "max_abs_err": p4["max_abs_err"],
         "ms": p4["per_prefill"]["bf16"]["ms"],
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
@@ -6168,9 +6562,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_decode.cu",
         "replaces": "asr_tpu/ops/fused_decode.py:310",
-        "launches": qrun["fused"] + frun["fused"],
+        "launches": qrun["fused"] + frun["fused"] + par["qwen_asr"]["counts"]["fused_decode"],
         "launches_by_path": {"qwen": qrun["fused"], "qwen_serve": 0, "qwen_continuous": 0,
-                             "fun_llm": frun["fused"]},
+                             "fun_llm": frun["fused"], "qwen_parity": par["qwen_asr"]["counts"]["fused_decode"]},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["times"]["bfloat16"]["ms"],
         "plain_ms": dec["times"]["bfloat16"]["plain_ms"],

@@ -622,7 +622,7 @@ def test_module_help_runs():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     for word in ("transcribe", "inspect", "quantize", "align", "serve", "serve-stream", "build",
-                 "optimize", "--platform", "--quant-mm"):
+                 "optimize", "parity", "--platform", "--quant-mm"):
         assert word in proc.stdout
-    for word in ("parity", "bench", "--compile-cache", "--quant-kernel"):
+    for word in ("bench", "--compile-cache", "--quant-kernel"):
         assert word not in proc.stdout

@@ -199,19 +199,23 @@ def test_whisper_hf_folder_bitwise(tmp_path, dtype):
 
 
 def test_safetensors_bf16_read_by_jax_refused_by_the_port(tmp_path):
-    """A known gap of the port: BF16 safetensors. In a process that has
-    imported JAX, ``safetensors.numpy`` holds BF16 through ml_dtypes, so the
-    JAX package's loaders keep bf16 leaves; the port's reader (numpy has no
-    bf16 of its own) refuses the file by name."""
+    """Once a known gap of the port, now closed: BF16 safetensors. In a
+    process that has imported JAX, ``safetensors.numpy`` holds BF16 through
+    ml_dtypes, so the JAX package's loaders keep bf16 leaves; the port's
+    reader (numpy has no bf16 of its own) no longer refuses the file but
+    keeps the same 16-bit patterns, and they load as ``torch.bfloat16``."""
     from safetensors.numpy import load_file
     from safetensors.torch import save_file
 
     import jax.numpy  # noqa: F401  (ml_dtypes registers bfloat16 with numpy)
 
-    save_file({"w": torch.ones(2, 2, dtype=torch.bfloat16)}, str(tmp_path / "m.safetensors"))
-    assert str(load_file(str(tmp_path / "m.safetensors"))["w"].dtype) == "bfloat16"
-    with pytest.raises(ValueError, match="BF16"):
-        tart.read_safetensors(tmp_path / "m.safetensors")
+    w = torch.randn(2, 3).to(torch.bfloat16)
+    save_file({"w": w}, str(tmp_path / "m.safetensors"))
+    want = load_file(str(tmp_path / "m.safetensors"))["w"]
+    assert str(want.dtype) == "bfloat16"
+    got = tart.read_safetensors(tmp_path / "m.safetensors")["w"]
+    assert got.shape == want.shape and got.tobytes() == want.tobytes()
+    assert torch.equal(tart.params_from_flat({"w": got}, "cpu")["w"], w)
 
 
 # ── HF Qwen3, Qwen3-ASR, Qwen3 forced aligner ───────────────────────────────

@@ -551,3 +551,68 @@ def test_native_source_is_the_reference_source():
         return lines[next(i for i, l in enumerate(lines) if not l.startswith("//")):]
 
     assert body(REPO / "asr_tpu_torch/native/audio_dsp.cc") == body(REPO / "asr_tpu/native/audio_dsp.cc")
+
+
+@pytest.mark.parametrize("module,names", [
+    ("runtime/probe", ("STAGE_ORDER", "summarize", "_drift", "compare_probes", "_pad_row",
+                       "_load_samples", "_chunks_of", "_PROBES")),
+    ("runtime/profiling", ("StageTimer",)),
+])
+def test_probe_and_profiling_host_parts_are_the_originals(module, names):
+    """``runtime/probe.py``'s numpy part (the stage order, the snapshot, the
+    comparison) with its host helpers, and ``runtime/profiling.StageTimer``,
+    are the JAX package's code under the port's rewrite of imports."""
+    def defs(path: Path) -> dict:
+        tree = ast.parse(path.read_text())
+        out = {}
+        for node in tree.body:
+            targets = [t.id for t in getattr(node, "targets", []) if isinstance(t, ast.Name)]
+            for name in [getattr(node, "name", None), *targets]:
+                if name in names:
+                    out[name] = ast.get_source_segment(path.read_text(), node)
+        return out
+
+    got = defs(REPO / "asr_tpu_torch" / f"{module}.py")
+    want = defs(REPO / "asr_tpu" / f"{module}.py")
+    assert sorted(got) == sorted(want) == sorted(names)
+    for name in names:
+        assert got[name] == port_rewrite(want[name]), name
+
+
+def test_new_modules_import_neither_jax_nor_the_jax_package():
+    for rel in ("runtime/probe.py", "runtime/profiling.py", "frontend/stft.py", "cli.py",
+                "runtime/artifact.py", "loaders/_common.py"):
+        bad = _imported_roots(REPO / "asr_tpu_torch" / rel) & {"asr_tpu", "jax", "jaxlib"}
+        assert not bad, f"{rel} imports {sorted(bad)}"
+
+
+def test_parity_runs_without_jax_or_the_jax_package(tmp_path):
+    """``python -m asr_tpu_torch --platform cpu parity`` (capture, then a
+    compare) and a profiled ``transcribe`` in a fresh process, with neither
+    ``jax`` nor ``asr_tpu`` imported."""
+    import torch
+
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.runtime.artifact import ModelMetadata, save_model
+    from tests.test_torch_parity_cli import write_examples
+
+    cfg = sv.SenseVoiceConfig(vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
+                              num_encoders0=1, num_encoders=1, num_tp_encoders=1, fsmn_kernel=5)
+    art = tmp_path / "art"
+    save_model(art, sv.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+               ModelMetadata(family="sensevoice", extra={"config": dataclasses.asdict(cfg)}))
+    examples = write_examples(tmp_path / "examples")
+    golden = tmp_path / "g.json"
+    base = ["--platform", "cpu", "parity", "--model-dir", str(art), "--examples", str(examples)]
+    script = ("import sys; from asr_tpu_torch.cli import main\n"
+              f"assert main({base + ['--save-golden', str(golden)]!r}) == 0\n"
+              f"assert main({base + ['--golden', str(golden)]!r}) == 0\n"
+              f"assert main(['--platform', 'cpu', 'transcribe', '--profile', {str(tmp_path / 'p')!r}, "
+              f"'--model-dir', {str(art)!r}, {str(examples / 'zh' / 'zh-Shanghai.wav')!r}]) == 0\n"
+              "leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'asr_tpu'))\n"
+              "assert not leaked, leaked\nprint('PARITY_OK')\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "PARITY OK: 2 fixtures token-for-token" in proc.stdout and "PARITY_OK" in proc.stdout
+    assert "trace written to" in proc.stdout
