@@ -67,6 +67,13 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.numpy())
 
 
+def read_safetensors_metadata(path: str | Path) -> dict[str, str]:
+    """The ``__metadata__`` strings of a safetensors file's header ({} if none)."""
+    with open(path, "rb") as fh:
+        (n,) = struct.unpack("<Q", fh.read(8))
+        return json.loads(fh.read(n).decode("utf-8")).get("__metadata__", {})
+
+
 def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
     """Every tensor of a safetensors file as a writable numpy array."""
     data = bytearray(Path(path).read_bytes())
@@ -96,8 +103,10 @@ _RANK = {code: i for i, code in enumerate(("BOOL", "U8", "I8", "I16", "F16", "BF
                                            "F64", "I64"))}
 
 
-def write_safetensors(path: str | Path, tensors: dict[str, np.ndarray]) -> None:
-    """Write ``tensors`` as the safetensors library's ``save_file`` would."""
+def write_safetensors(path: str | Path, tensors: dict[str, np.ndarray],
+                      metadata: dict[str, str] | None = None) -> None:
+    """Write ``tensors`` (and ``metadata``, string to string) as the
+    safetensors library's ``save_file`` would."""
     items = []
     for name, arr in tensors.items():
         arr = np.ascontiguousarray(arr) if np.ndim(arr) else np.asarray(arr)  # 0-d stays 0-d
@@ -111,7 +120,7 @@ def write_safetensors(path: str | Path, tensors: dict[str, np.ndarray]) -> None:
             raw = arr.astype(little, copy=False).tobytes()
         items.append((name, code, list(arr.shape), raw))
     items.sort(key=lambda it: (-_RANK[it[1]], it[0]))
-    header: dict[str, Any] = {}
+    header: dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
     offset = 0
     for name, code, shape, raw in items:
         header[name] = {"dtype": code, "shape": shape, "data_offsets": [offset, offset + len(raw)]}

@@ -88,10 +88,10 @@ alone, timed in turns; (22) Qwen3-ASR-0.6B with a q8 tower, a packed-q2 LLM
 and a 2-bit tied head through an artifact folder and ``load_qwen_session``
 (the per-weight route): 20 s with its launch counts and its ids against a
 replay with plain matmuls on the dequantized weights, one 30 s window's
-numbers, and the q2 logits against plain matmuls; (23) the q2 session
+numbers (a 96-token budget), and the q2 logits against plain matmuls; (23) the q2 session
 behind the HTTP micro-batcher, 4 requests in a batch of 4 (the int2 kernel
 at M = 4); (24) continuous serving of the q2 artifact on the rowwise route,
-3 concurrent requests on 8 slots with a 96-token budget, each request's ids
+2 concurrent requests on 8 slots with a 96-token budget, each request's ids
 bitwise equal to it alone through the batcher and against
 ``session.transcribe``; (25) the int8, int4 and int2 sources each built under
 two cache keys and both libraries loaded in this process, a bf16 call
@@ -183,13 +183,29 @@ same file (rc 0: the card run repeats itself), a moved stage snapshot (rc
 1 naming the stage), the matmul mode given back, and a SenseVoice golden
 captured by ``--platform cpu`` (the plain versions) held on the card;
 (46) ``transcribe --profile`` on phase 4's folder: the Chrome trace holds
-CUDA kernel events, one forward's 281 int8 kernels; (47) 16 chunks of one
+CUDA kernel events, one forward's 281 int8 kernels; (47) 8 chunks of one
 stream of each streaming family under ``runtime/profiling.trace``: kernel
 launches and device busy time a chunk, the device's idle share, beside
 the chunk p50; (48) a BF16 Qwen3-ASR HF snapshot at the published widths
 (2 tower and 2 LLM layers) through ``build``: every leaf on the card
 bitwise the snapshot's, a window transcribed with the serving cast
-``float32``, ``optimize`` with a ``bf16`` plan reloading bitwise.
+``float32``, ``optimize`` with a ``bf16`` plan reloading bitwise; (49)
+SenseVoiceSmall CTC fine-tuning at full width (``SenseVoiceConfig()``, 920
+f32 leaves) through ``parallel/train.fit`` and ``train_step``: batch 8 x
+8 s, labels of 24-48 ids, mixed language rows, 5 AdamW steps on one
+batch, the losses finite and falling, ms a step, the AdamW update's share,
+peak memory, kernel launches a step under ``runtime/profiling.trace``, and
+at 1 + 2 + 1 blocks and batch 2 the loss and every leaf's gradient on the
+card against the CPU's; (50) Whisper-Large-v3-Turbo teacher-forced
+cross-entropy at full width (B = 2 x 30 s of mel, 64-token targets,
+label smoothing 0.1, 3 steps; card = CPU at 1 + 1 layers and 400 mel
+frames); (51) Parakeet-TDT-0.6B RNN-T at full width (B = 4 x 8 s, 32
+labels, 3 steps; card = CPU at one conformer block) and ``rnnt_loss`` /
+``tdt_loss`` on a random lattice of the joint's shape, card against CPU in
+NLL and gradient, the wavefront's time, launches and peak memory; (52)
+``save_train_state`` / ``restore_train_state`` of phase 49's parameters
+and AdamW state, bitwise on the card, and ``fit``'s resume (2 steps +
+checkpoint + restore into fresh tensors + 2 against 4 straight).
 
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
@@ -227,7 +243,8 @@ rescoring pass), X-ASR 261 (257 encoder calls and 4 decoder projections).
 A built q8 SenseVoice artifact's forward launches the int8 kernel 281
 times, the hqq 4-bit one the int4 kernel 280 times and the int8 kernel
 once (the first block's K = 560 leaf does not pack), the dynamic one
-neither.
+neither. Training (49-52) launches none of the seven kernels: its leaves
+are f32 and never reach ``quant_dense``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -2571,7 +2588,7 @@ def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, ca
 # calls have it: q|k|v, o, gate|up and down in each of the 28 layers. The
 # 2-bit tied head stays centered int8 and runs through the int8 kernel.
 QWEN_P2_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1024): 28}
-Q2_CONT_REQUESTS = 3  # the run-time limit
+Q2_CONT_REQUESTS = 2  # the run-time limit
 Q2_CONT_SECONDS = (5.0, 30.0)
 Q2_CONT_BUDGET = 96  # new tokens a window on the continuous rowwise route
 
@@ -2674,8 +2691,10 @@ def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
 
     out = {"int8": int8, "int2": int2, "steps": steps}
     qm.set_quant_config(mm="bf16")  # the serving mode for the window's numbers
-    session.decode_cfg = decode_cfg
+    # the 30 s window's numbers decode the serving budget too (the run-time limit), the step
+    # profile below the session's own
     out.update(qwen_window_numbers(torch, np, session, "22", "per-weight", card))
+    session.decode_cfg = decode_cfg
     # Where a per-weight step's time goes: one step at the 30 s window's last position.
     with torch.inference_mode():
         state, shift, lf, t_max, logits = qwen_prefill(torch, session, audio20)
@@ -2702,7 +2721,7 @@ def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
 
 def phase_qwen_q2_continuous(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
     """[24] Continuous serving of the q2 artifact over HTTP on the rowwise
-    route (8 slots, bf16 caches, a 96-token budget): 3 concurrent requests
+    route (8 slots, bf16 caches, a 96-token budget): 2 concurrent requests
     of 5-30 s with staggered starts, every step's linears through the int2
     kernel at M = 8; each request's ids against the same request alone
     through the batcher (bitwise) and against session.transcribe (a
@@ -3882,7 +3901,7 @@ OFFLINE_FAMILIES = ("paraformer", "parakeet", "nemotron")
 OFFLINE_WINDOW_S = {"paraformer": 30.0, "parakeet": 24.0, "nemotron": 30.0}  # each session's window
 OFFLINE_PCM = {"paraformer": 2000.0, "parakeet": 0.1, "nemotron": 0.1}  # int16 range / NeMo's [-1, 1]
 OFFLINE_BENCH = (8, 8.0, 128)  # batch, seconds, max_tokens: tools/bench_matrix.py's geometry
-OFFLINE_TIMED = 3  # timed forwards of each batch-8 variant
+OFFLINE_TIMED = 2  # timed forwards of each batch-8 variant (the run-time limit)
 PARAFORMER_MAX_TOKENS = 256  # ParaformerSession's default
 NEMOTRON_LANGUAGE = ("en", 3)  # a language profile and its prompt id, forced through --language
 
@@ -5758,7 +5777,7 @@ def phase_build_whisper(torch, np, qm, fs, snap: dict, card: str, cfg=None) -> d
 PARITY_FIXTURES = ("en/test_sample.wav", "zh/zh-Shanghai.wav")  # the registry's two files
 PARITY_SECONDS = 8.0
 PARITY_ONE_FIXTURE = "whisper"  # a registry key with one fixture, en/test_sample.wav (the long decodes' cut)
-PROFILE_CHUNKS = 16  # chunks of one stream in phase 47's trace
+PROFILE_CHUNKS = 8  # chunks of one stream in phase 47's trace (the run-time limit)
 INT8_KERNEL = "int8_mma_kernel"  # the int8 kernel's name in the trace, bf16 mode
 BF16_DEPTH = (2, 2)  # phase 48's tower and LLM layers (widths are the published ones)
 
@@ -6091,6 +6110,440 @@ def phase_bf16(torch, np, folder: str, card: str, cfg=None) -> dict:
     return {"leaves": len(want), "build_s": t_build, "optimize_s": t_opt, "ids": len(res.token_ids)}
 
 
+# ── 49-52. training at full width: CTC, AED cross-entropy, RNN-T, checkpoint / resume ──
+TRAIN_LR = 1e-4
+TRAIN_SV = (8, 8.0, (24, 48), 5)  # batch, seconds, label lengths, fit steps (the first is the warm step)
+TRAIN_SV_CUT = (1, 2, 1)  # encoders0, encoders, tp_encoders of the card = CPU checks and the resume (batch 2)
+TRAIN_WH = (2, 3000, 64, (64, 40), 0.1, 3)  # batch, mel frames (30 s), tokens, valid, smoothing, steps
+TRAIN_WH_CUT = (1, 1, 400)  # encoder layers, decoder layers, mel frames of the card = CPU check
+TRAIN_PK = (4, 8.0, 32, (32, 20, 32, 12), 3)  # batch, seconds, labels, valid, steps
+GRAD_REL = 1e-3  # a leaf's gradient, card against CPU, relative to its own max|g| ...
+GRAD_FLOOR = 1e-6  # ... plus this share of the tree's max|g|: a leaf whose gradient is zero in exact
+# arithmetic (the key part of an attention bias: softmax does not see a shift shared by every key) holds
+# rounding noise on both devices, which no bound relative to itself can hold
+LATTICE_TOL = 1e-5
+RESUME_TOL = 1e-5
+RESUME_STEPS = (4, 2)  # uninterrupted steps; steps before the checkpoint
+
+
+def kernel_counts(qm, fs, fm, fd, fdm) -> dict:
+    return {"int8": qm.LAUNCHES, "int4": qm.LAUNCHES_INT4, "int2": qm.LAUNCHES_INT2, "fused_aed": fs.LAUNCHES,
+            "fused_aed_multi": fm.LAUNCHES, "fused_decode": fd.LAUNCHES, "fused_decode_multi": fdm.LAUNCHES}
+
+
+def zero_counts(qm, fs, fm, fd, fdm) -> None:
+    qm.LAUNCHES = qm.LAUNCHES_INT4 = qm.LAUNCHES_INT2 = 0
+    fs.LAUNCHES = fm.LAUNCHES = fd.LAUNCHES = fdm.LAUNCHES = 0
+
+
+def to_dev(torch, tree, dev):
+    from asr_tpu_torch.parallel.checkpoint import tree_leaves, unflatten
+
+    return unflatten(tree, [t.to(dev) for t in tree_leaves(tree)])
+
+
+def grads_gap(torch, want, got) -> dict:
+    """Card gradients ``got`` against CPU ones ``want``, leaf by leaf: the
+    worst |got - want| / (GRAD_REL * max|want leaf| + GRAD_FLOOR * max|want|)
+    (at most 1 to pass), its leaf, and how many leaves need the floor."""
+    from asr_tpu_torch.parallel.checkpoint import named_leaves
+
+    w, g = named_leaves(want), dict(named_leaves(got))
+    top = max(t.abs().max().item() for _, t in w)
+    worst, name, floored = 0.0, "", 0
+    for k, t in w:
+        gap = (g[k].cpu() - t).abs().max().item()
+        own = t.abs().max().item()
+        ratio = gap / (GRAD_REL * own + GRAD_FLOOR * top)
+        floored += gap > GRAD_REL * own
+        if ratio >= worst:
+            worst, name = ratio, k
+    return {"worst": worst, "leaf": name, "floored": floored, "leaves": len(w), "max_g": top}
+
+
+def card_vs_cpu(torch, np, label: str, loss_fn, cpu_params, cfg, batch, dev) -> dict:
+    """``value_and_grad(loss_fn)`` on the CPU and on the card from the same
+    weights and batch (numpy arrays, and other arguments as they are): the
+    loss within 1e-4 relative, every leaf's gradient within GRAD_REL of its
+    own max|g| (+ GRAD_FLOOR of the tree's)."""
+    from asr_tpu_torch.parallel.train import value_and_grad
+
+    loss_c, g_c = value_and_grad(loss_fn, cpu_params, cfg, *batch)
+    card_params = to_dev(torch, cpu_params, dev)
+    on_card = tuple(torch.as_tensor(b).to(dev) if isinstance(b, np.ndarray) else b for b in batch)
+    loss_d, g_d = value_and_grad(loss_fn, card_params, cfg, *on_card)
+    rel = abs(loss_d.item() - loss_c.item()) / abs(loss_c.item())
+    gap = grads_gap(torch, g_c, g_d)
+    check(rel <= 1e-4, f"[{label}] card loss {loss_d.item()} against the CPU's {loss_c.item()}")
+    check(gap["worst"] <= 1.0, f"[{label}] gradient of {gap['leaf']} off the CPU's: {gap}")
+    return {"loss_rel": rel, "grad_worst": gap["worst"], "grad_leaf": gap["leaf"], "floored": gap["floored"],
+            "leaves": gap["leaves"]}
+
+
+def timed_fit(torch, label: str, step_fn, params, optimizer, batch, n_steps: int, ckpt_dir=None):
+    """``fit`` over ``n_steps`` copies of one batch, each step between two
+    CUDA events, its log lines printed. -> (params, opt_state, losses, ms a step)."""
+    import itertools
+
+    from asr_tpu_torch.parallel.train import fit
+
+    events = []
+
+    def timed(params, opt_state, optimizer, *b):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(params, opt_state, optimizer, *b)
+        end.record()
+        events.append((start, end))
+        return out
+
+    params, opt_state, losses = fit(timed, params, optimizer, itertools.repeat(batch, n_steps), n_steps,
+                                    ckpt_dir=ckpt_dir, log_every=1, log_fn=lambda s: print(f"[{label}] {s}"))
+    torch.cuda.synchronize()
+    return params, opt_state, losses, [s.elapsed_time(e) for s, e in events]
+
+
+def traced_run(torch, run) -> dict:
+    """One call of ``run`` under ``runtime/profiling.trace``: kernel
+    launches, device busy ms and the device's idle share of the window."""
+    from asr_tpu_torch.runtime.profiling import device_summary, trace
+
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir, cuda=True) as tr:
+            run()
+        s = device_summary(tr.path)
+    return {"kernels": s["kernels"], "busy_ms": s["busy_us"] / 1e3, "window_ms": s["window_us"] / 1e3,
+            "idle_share": s["idle_share"]}
+
+
+def falling(label: str, losses) -> None:
+    import math
+
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"[{label}] the losses are not finite and falling: {losses}")
+
+
+def phase_train_sensevoice(torch, np, counters, card: str) -> tuple:
+    """[49] SenseVoiceSmall (``SenseVoiceConfig()``: 920 f32 leaves) CTC
+    fine-tuning at full width through ``fit`` and ``train_step``: batch 8 x
+    8 s, labels of 24-48 ids, mixed language rows, TRAIN_SV[3] steps at lr
+    TRAIN_LR on one batch; the losses finite and falling, no launch of the
+    seven kernels (the f32 leaves never reach ``quant_dense``); ms a step
+    (CUDA events, after the warm first), the AdamW update's share, peak
+    memory, kernel launches a step (``runtime/profiling.trace``); then the
+    card = CPU check at the cut depth TRAIN_SV_CUT, batch 2. -> (numbers, the
+    trained parameters and AdamW state for phase 52, the host batch)."""
+    import dataclasses as dc
+
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.parallel.checkpoint import named_leaves
+    from asr_tpu_torch.parallel.train import (apply_updates, make_optimizer, sensevoice_ctc_loss, train_step,
+                                              value_and_grad)
+
+    cfg = sv.SenseVoiceConfig()
+    b, seconds, (lo, hi), n_steps = TRAIN_SV
+    rng = np.random.default_rng(49)
+    n = int(seconds * 16000)
+    label_valid = rng.integers(lo, hi + 1, b).astype(np.int32)
+    host = ((rng.standard_normal((b, n)) * 2000).astype(np.float32), np.full(b, n, np.int32),
+            rng.integers(0, len(sv.LANGUAGE_PROFILES), b).astype(np.int32),
+            rng.integers(1, cfg.vocab_size, (b, hi)).astype(np.int32), label_valid)
+    batch = tuple(torch.as_tensor(a).to(DEV) for a in host)
+    params = sv.init_params(cfg, torch.Generator(device=DEV).manual_seed(49), DEV)
+    n_leaves = len(named_leaves(params))
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    optimizer = make_optimizer(lr=TRAIN_LR)
+
+    def step_fn(params, opt_state, optimizer, *batch):
+        return train_step(params, opt_state, cfg, optimizer, *batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)  # the path starts here
+    params, opt_state, losses, ms = timed_fit(torch, "49 fit", step_fn, params, optimizer, batch, n_steps)
+    counts = kernel_counts(*counters)  # and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    falling("49", losses)
+    check(not any(counts.values()), f"[49] the training step launched a kernel of the seven: {counts}")
+    prof = traced_run(torch, lambda: train_step(params, opt_state, cfg, optimizer, *batch)[2].item())
+    # the AdamW update alone on this step's gradients, after a warm one
+    _, grads = value_and_grad(sensevoice_ctc_loss, params, cfg, *batch)
+
+    def adamw():
+        nonlocal opt_state
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        apply_updates(params, updates)
+
+    adamw_ms = time_ms(adamw, iters=3, warmup=1)
+    del grads
+    step_ms = float(np.median(ms[1:]))
+    cut = dc.replace(cfg, num_encoders0=TRAIN_SV_CUT[0], num_encoders=TRAIN_SV_CUT[1],
+                     num_tp_encoders=TRAIN_SV_CUT[2])
+    cpu_params = sv.init_params(cut, torch.Generator().manual_seed(4901), "cpu")
+    same = card_vs_cpu(torch, np, "49 card = CPU", sensevoice_ctc_loss, cpu_params, cut, tuple(a[:2] for a in host), DEV)
+    out = {"params_m": n_params / 1e6, "leaves": n_leaves, "losses": losses, "ms_steps": ms, "step_ms": step_ms,
+           "adamw_ms": adamw_ms, "adamw_share": adamw_ms / step_ms, "peak_gib": peak, "profile": prof,
+           "counts": counts, "card_vs_cpu": same}
+    print(f"[49 train sensevoice] SenseVoiceSmall at full width ({n_params / 1e6:.3f} M f32 parameters, {n_leaves} "
+          f"leaves), batch {b} x {seconds:.0f} s, labels {lo}-{hi}: fit {n_steps} steps at lr {TRAIN_LR}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; {step_ms:.2f} ms a step (CUDA events, steps 2-{n_steps}: "
+          f"{', '.join(f'{x:.2f}' for x in ms[1:])}), AdamW update {adamw_ms:.2f} ms ({out['adamw_share']:.3f} "
+          f"of a step), peak {peak:.2f} GiB; one step traced: {prof['kernels']} kernel launches, device busy "
+          f"{prof['busy_ms']:.2f} ms of {prof['window_ms']:.2f} (idle {prof['idle_share']:.3f}); the seven kernels "
+          f"0 launches; card = CPU at {TRAIN_SV_CUT} blocks, batch 2: loss {same['loss_rel']:.2e} apart, worst "
+          f"leaf gradient {same['grad_worst']:.3f} of its bound ({same['grad_leaf']}; {same['floored']} of "
+          f"{same['leaves']} leaves inside the floor)  [{card}]")
+    return out, params, opt_state, host
+
+
+def phase_train_whisper(torch, np, counters, card: str) -> dict:
+    """[50] Whisper-Large-v3-Turbo (``WhisperConfig()``) teacher-forced
+    cross-entropy at full width through ``fit`` and
+    ``whisper_train_step``: B = 2 x 30 s of mel, 64-token targets with valid
+    lengths 64 and 40, label smoothing 0.1, TRAIN_WH[-1] steps; the losses
+    finite and falling, none of the seven kernels; ms a step, peak memory;
+    card = CPU at full widths with TRAIN_WH_CUT (layers, mel frames)."""
+    import dataclasses as dc
+
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.parallel.checkpoint import named_leaves
+    from asr_tpu_torch.parallel.train import make_optimizer, whisper_ce_loss, whisper_train_step
+
+    cfg = wh.WhisperConfig()
+    b, frames, s, valid, smoothing, n_steps = TRAIN_WH
+    rng = np.random.default_rng(50)
+    host = ((rng.standard_normal((b, frames, cfg.n_mels)) * 0.3).astype(np.float32),
+            rng.integers(3, cfg.eot_id, (b, s)).astype(np.int32), np.array(valid, np.int32))
+    batch = tuple(torch.as_tensor(a).to(DEV) for a in host)
+    params = wh.init_params(cfg, torch.Generator(device=DEV).manual_seed(50), DEV)
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    optimizer = make_optimizer(lr=TRAIN_LR)
+
+    def step_fn(params, opt_state, optimizer, *batch):
+        return whisper_train_step(params, opt_state, cfg, optimizer, *batch, label_smoothing=smoothing)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    params, opt_state, losses, ms = timed_fit(torch, "50 fit", step_fn, params, optimizer, batch, n_steps)
+    counts = kernel_counts(*counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    falling("50", losses)
+    check(not any(counts.values()), f"[50] the training step launched a kernel of the seven: {counts}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    cut = dc.replace(cfg, encoder_layers=TRAIN_WH_CUT[0], decoder_layers=TRAIN_WH_CUT[1])
+    cpu_params = wh.init_params(cut, torch.Generator().manual_seed(5001), "cpu")
+    cut_batch = (host[0][:, :TRAIN_WH_CUT[2]], host[1], host[2], smoothing)
+    same = card_vs_cpu(torch, np, "50 card = CPU", whisper_ce_loss, cpu_params, cut, cut_batch, DEV)
+    step_ms = float(np.median(ms[1:]))
+    out = {"params_m": n_params / 1e6, "leaves": len(named_leaves(cpu_params)), "losses": losses, "ms_steps": ms,
+           "step_ms": step_ms, "peak_gib": peak, "counts": counts, "card_vs_cpu": same}
+    print(f"[50 train whisper] Whisper-Large-v3-Turbo at full width ({n_params / 1e6:.3f} M f32 parameters), "
+          f"B = {b} x {frames} mel frames, {s} tokens (valid {valid}), smoothing {smoothing}: fit {n_steps} steps: "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}; {step_ms:.2f} ms a step (CUDA events: "
+          f"{', '.join(f'{x:.2f}' for x in ms)}), peak {peak:.2f} GiB; the seven kernels 0 launches; card = CPU "
+          f"at {TRAIN_WH_CUT[0]} + {TRAIN_WH_CUT[1]} layers, {TRAIN_WH_CUT[2]} frames: loss {same['loss_rel']:.2e} "
+          f"apart, worst leaf gradient {same['grad_worst']:.3f} of its bound ({same['grad_leaf']}; "
+          f"{same['floored']} of {same['leaves']} leaves inside the floor)  [{card}]")
+    return out
+
+
+def lattice_check(torch, np, lat_shape: tuple, labels, t_valid, u_valid, blank: int, durations, card: str) -> dict:
+    """``rnnt_loss`` and ``tdt_loss`` on one random lattice of the phase's
+    joint shape, card against CPU: per-sample NLL and the gradient w.r.t.
+    the log-probs within LATTICE_TOL of max|.|; the card's wavefront timed
+    (forward + backward, CUDA events) and its peak memory above the inputs,
+    with the checkpointed steps; the RNN-T wavefront's kernel launches."""
+    from asr_tpu_torch.parallel.rnnt_loss import rnnt_loss, tdt_loss
+
+    g = torch.Generator().manual_seed(51)
+    tok = torch.log_softmax(torch.randn(lat_shape, generator=g), dim=-1)
+    dur = torch.log_softmax(torch.randn(lat_shape[:3] + (len(durations),), generator=g), dim=-1)
+    out = {}
+    for name in ("rnnt", "tdt"):
+        def run(x, y, dev):
+            args = (torch.as_tensor(labels).to(dev), torch.as_tensor(t_valid).to(dev), torch.as_tensor(u_valid).to(dev))
+            if name == "rnnt":
+                return rnnt_loss(x, *args, blank)
+            return tdt_loss(x, y, *args, durations=durations, blank_id=blank)
+
+        got = {}
+        for dev in ("cpu", DEV):
+            x = tok.to(dev).clone().requires_grad_(True)
+            y = dur.to(dev).clone().requires_grad_(True)
+            nll = run(x, y, dev)
+            nll.sum().backward()
+            got[dev] = (nll.detach().cpu(), x.grad.cpu(), y.grad.cpu() if name == "tdt" else None)
+            del x, y, nll
+        gaps = {}
+        for i, what in enumerate(("nll", "d_log_probs", "d_durations")):
+            if got["cpu"][i] is None:
+                continue
+            ref = got["cpu"][i]
+            gaps[what] = ((got[DEV][i] - ref).abs().max() / ref.abs().max()).item()
+            check(gaps[what] <= LATTICE_TOL, f"[51 {name}] {what} on the card {gaps[what]:.2e} off the CPU's")
+        x = tok.to(DEV).clone().requires_grad_(True)
+        y = dur.to(DEV).clone().requires_grad_(True)
+
+        def fwd_bwd():
+            x.grad = y.grad = None
+            run(x, y, DEV).sum().backward()
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        ms = time_ms(fwd_bwd, iters=3, warmup=0)
+        out[name] = {"gaps": gaps, "ms": ms, "peak_mib": peak}
+        traced = ""
+        if name == "rnnt":  # the RNN-T wavefront's launches (the step's loss); TDT's trace costs ~7 s
+            prof = traced_run(torch, fwd_bwd)
+            out[name].update(kernels=prof["kernels"], busy_ms=prof["busy_ms"], idle_share=prof["idle_share"])
+            traced = (f", {prof['kernels']} kernel launches, device busy {prof['busy_ms']:.2f} ms (idle "
+                      f"{prof['idle_share']:.3f})")
+        del x, y
+        print(f"[51 {name} lattice] {name}_loss on a random {tuple(lat_shape)} lattice: card = CPU within "
+              f"{', '.join(f'{k} {v:.2e}' for k, v in gaps.items())} of max|.|; forward + backward {ms:.2f} ms "
+              f"(CUDA events; {lat_shape[1] + lat_shape[2] - 1} wavefront steps, checkpointed){traced}, peak "
+              f"{peak:.1f} MiB above its inputs  [{card}]")
+    return out
+
+
+def phase_train_parakeet(torch, np, counters, card: str) -> dict:
+    """[51] Parakeet-TDT-0.6B (``ParakeetConfig()``) RNN-T fine-tuning at
+    full width through ``fit`` and ``transducer_train_step``: B = 4 x 8 s,
+    32 labels with valid lengths 32, 20, 32, 12, TRAIN_PK[-1] steps; the
+    losses finite and falling, none of the seven kernels; ms a step, peak
+    memory; card = CPU for the step at one conformer block; ``rnnt_loss``
+    and ``tdt_loss`` card = CPU on a random lattice of the joint's shape,
+    the wavefront's time, launches and peak memory."""
+    import dataclasses as dc
+
+    from asr_tpu_torch.models import parakeet as pk
+    from asr_tpu_torch.parallel.checkpoint import named_leaves
+    from asr_tpu_torch.parallel.train import make_optimizer, transducer_loss, transducer_train_step
+
+    cfg = pk.ParakeetConfig()
+    b, seconds, u, valid, n_steps = TRAIN_PK
+    rng = np.random.default_rng(51)
+    n = int(seconds * 16000)
+    host = ((rng.standard_normal((b, n)) * 0.1).astype(np.float32), np.full(b, n, np.int32),
+            rng.integers(0, cfg.blank_id, (b, u)).astype(np.int32), np.array(valid, np.int32))
+    batch = tuple(torch.as_tensor(a).to(DEV) for a in host)
+    params = pk.init_params(cfg, torch.Generator(device=DEV).manual_seed(51), DEV)
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    optimizer = make_optimizer(lr=TRAIN_LR)
+
+    def step_fn(params, opt_state, optimizer, *batch):
+        return transducer_train_step(params, opt_state, cfg, optimizer, *batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    params, opt_state, losses, ms = timed_fit(torch, "51 fit", step_fn, params, optimizer, batch, n_steps)
+    counts = kernel_counts(*counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    falling("51", losses)
+    check(not any(counts.values()), f"[51] the training step launched a kernel of the seven: {counts}")
+    with torch.no_grad():
+        enc, t_valid = pk.encode(params, cfg, batch[0], batch[1])
+    lat_shape = (b, enc.shape[1], u + 1, cfg.vocab_size)
+    del params, opt_state, enc
+    torch.cuda.empty_cache()
+    cut = dc.replace(cfg, num_layers=1)
+    cpu_params = pk.init_params(cut, torch.Generator().manual_seed(5101), "cpu")
+    same = card_vs_cpu(torch, np, "51 card = CPU", transducer_loss, cpu_params, cut, host, DEV)
+    lattice = lattice_check(torch, np, lat_shape, host[2], t_valid.cpu(), host[3], cfg.blank_id,
+                            cfg.durations, card)
+    step_ms = float(np.median(ms[1:]))
+    out = {"params_m": n_params / 1e6, "leaves": len(named_leaves(cpu_params)), "losses": losses,
+           "ms_steps": ms, "step_ms": step_ms, "peak_gib": peak, "counts": counts, "card_vs_cpu": same,
+           "lattice_shape": list(lat_shape), "lattice": lattice}
+    print(f"[51 train parakeet] Parakeet-TDT-0.6B at full width ({n_params / 1e6:.3f} M f32 parameters), "
+          f"B = {b} x {seconds:.0f} s, {u} labels (valid {valid}), joint lattice {lat_shape}: fit {n_steps} steps: "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}; {step_ms:.2f} ms a step (CUDA events: "
+          f"{', '.join(f'{x:.2f}' for x in ms)}), peak {peak:.2f} GiB; the seven kernels 0 launches; card = CPU at "
+          f"one conformer block: loss {same['loss_rel']:.2e} apart, worst leaf gradient {same['grad_worst']:.3f} "
+          f"of its bound ({same['grad_leaf']}; {same['floored']} of {same['leaves']} leaves inside the floor)  "
+          f"[{card}]")
+    return out
+
+
+def phase_train_checkpoint(torch, np, params, opt_state, host, card: str) -> dict:
+    """[52] ``save_train_state`` / ``restore_train_state`` of phase 49's
+    full-width SenseVoiceSmall parameters and AdamW state: every leaf and
+    the step back bitwise on the card, seconds of each; then ``fit``'s
+    resume at phase 49's cut depth (batch 2): RESUME_STEPS[0] steps
+    uninterrupted against RESUME_STEPS[1] steps + a checkpoint + a restore
+    into fresh tensors + the rest, losses and parameters within RESUME_TOL
+    relative."""
+    import dataclasses as dc
+
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.parallel import checkpoint as ckpt
+    from asr_tpu_torch.parallel.train import make_optimizer, train_step
+
+    step = TRAIN_SV[3]
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_train_state(d, params, opt_state, step)
+        t_save = time.perf_counter() - t0
+        size_gb = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file()) / 1e9
+        t0 = time.perf_counter()
+        p2, o2, s2 = ckpt.restore_train_state(d, {"params": params, "opt_state": opt_state})
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    want = ckpt.named_leaves({"params": params, "opt_state": opt_state})
+    got = dict(ckpt.named_leaves({"params": p2, "opt_state": o2}))
+    bad = [k for k, t in want if got[k].device != t.device or got[k].dtype != t.dtype or not torch.equal(got[k], t)]
+    check(s2 == step and not bad, f"[52] the round trip gave step {s2}, {len(bad)} leaves not bitwise: {bad[:3]}")
+    del p2, o2, got
+    torch.cuda.empty_cache()
+
+    # resume: PyTorch promises no bitwise result on the card (its CUDA ctc_loss backward, for one,
+    # accumulates with atomics where 2 x labels + 1 > 2 x vocabulary), so the gate is RESUME_TOL and
+    # bitwise is reported; the CPU tests hold the same check bitwise
+    cfg = sv.SenseVoiceConfig()
+    cut = dc.replace(cfg, num_encoders0=TRAIN_SV_CUT[0], num_encoders=TRAIN_SV_CUT[1],
+                     num_tp_encoders=TRAIN_SV_CUT[2])
+    batch = tuple(torch.as_tensor(a[:2]).to(DEV) for a in host)
+    n_all, n_first = RESUME_STEPS
+    optimizer = make_optimizer(lr=TRAIN_LR)
+
+    def fresh():
+        return sv.init_params(cut, torch.Generator(device=DEV).manual_seed(5201), DEV)
+
+    def step_fn(params, opt_state, optimizer, *b):
+        return train_step(params, opt_state, cut, optimizer, *b)
+
+    p_all, o_all, l_all, _ = timed_fit(torch, "52 straight", step_fn, fresh(), optimizer, batch, n_all)
+    with tempfile.TemporaryDirectory() as d:
+        _, _, l_a, _ = timed_fit(torch, "52 first", step_fn, fresh(), optimizer, batch, n_first, ckpt_dir=d)
+        p_b, o_b, l_b, _ = timed_fit(torch, "52 resumed", step_fn, fresh(), optimizer, batch, n_all, ckpt_dir=d)
+    losses = l_a + l_b
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(losses, l_all))
+    a = ckpt.named_leaves({"params": p_all, "opt_state": o_all})
+    bb = dict(ckpt.named_leaves({"params": p_b, "opt_state": o_b}))
+    leaf_gap = max(((bb[k].double() - t.double()).abs().max() / t.double().abs().max().clamp(min=1e-30)).item()
+                   for k, t in a)
+    bitwise = all(torch.equal(bb[k], t) for k, t in a)
+    check(len(losses) == n_all and loss_gap <= RESUME_TOL and leaf_gap <= RESUME_TOL,
+          f"[52] resumed against straight: losses {losses} / {l_all} ({loss_gap:.2e}), leaves {leaf_gap:.2e}")
+    out = {"size_gb": size_gb, "save_s": t_save, "restore_s": t_restore, "leaves": len(want),
+           "resume_loss_gap": loss_gap, "resume_leaf_gap": leaf_gap, "resume_bitwise": bitwise}
+    print(f"[52 checkpoint] SenseVoiceSmall parameters + AdamW state at full width ({len(want)} leaves, "
+          f"{size_gb:.3f} GB): save {t_save:.2f} s, restore onto the card {t_restore:.2f} s, every leaf and the "
+          f"step bitwise on the card; resume at {TRAIN_SV_CUT} blocks: {n_first} steps + "
+          f"save + restore into fresh tensors + {n_all - n_first} against {n_all} straight: losses "
+          f"{loss_gap:.2e} apart, leaves {leaf_gap:.2e} of their max (bitwise: {bitwise})  [{card}]")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -6414,6 +6867,25 @@ def main() -> int:
     print(f"[45-48] " + json.dumps({"parity": {k: {"launches": v["counts"], "save_s": round(v["save_s"], 3),
                                                   "golden_s": round(v["golden_s"], 3)} for k, v in par.items()},
                                    "profile": prof, "stream_profile": st_prof, "bf16": bf}))
+
+    # ── 49-52. training at full width: CTC, AED cross-entropy, RNN-T; checkpoint / resume ──
+    counters = (qm, fs, fm, fd, fdm)
+    tr49, sv_params, sv_state, sv_host = phase_train_sensevoice(torch, np, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr50 = phase_train_whisper(torch, np, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr51 = phase_train_parakeet(torch, np, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr52 = phase_train_checkpoint(torch, np, sv_params, sv_state, sv_host, card)
+    del sv_params, sv_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[t] phases 49-52: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    print("[49-52] " + json.dumps({"sensevoice_ctc": tr49, "whisper_aed": tr50, "parakeet_rnnt": tr51,
+                                   "checkpoint": tr52}))
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -27,7 +27,9 @@ batch-1 kernel), tiny FireRed and Dolphin sessions' launch counts on
 the batch-1, per-weight and continuous routes, and small q8 Paraformer,
 Parakeet and Nemotron models (encoder and joint / decoder logits against
 plain matmuls on the dequantized weights, int8 launches a forward, one
-host read of the greedy loop's stop flags a chunk of steps), with TF32
+host read of the greedy loop's stop flags a chunk of steps); the three
+training steps, the RNN-T and TDT losses and the training checkpoint on
+the card against the CPU, with TF32
 off. Each test skips where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -1450,3 +1452,124 @@ def test_fits_on_the_card_are_the_cpu_fits(objective, bits):
         "bits": leaf.bits, "block": leaf.block, "packed": leaf.packed}
     gap = chip_smoke.fit_gap(np, w.numpy(), arrays(card), arrays(cpu), objective == "kquant")
     assert gap["moved"] + gap["picks"] <= chip_smoke.FIT_MOVED_MAX * gap["blocks"]
+
+# ── training (parallel/train.py, rnnt_loss.py, checkpoint.py) ────────────
+
+
+def _train_case(name):
+    """(loss function, CPU params, config, numpy batch) at a tiny geometry."""
+    import numpy as np
+
+    from asr_tpu_torch.parallel import train
+
+    rng = np.random.default_rng(17)
+    g = torch.Generator().manual_seed(17)
+    if name == "sensevoice":
+        from asr_tpu_torch.models import sensevoice as sv
+
+        cfg = sv.SenseVoiceConfig(vocab_size=64, hidden=32, num_heads=4, head_dim=8, ffn_dim=64,
+                                  num_encoders0=1, num_encoders=1, num_tp_encoders=1, fsmn_kernel=5)
+        batch = ((rng.standard_normal((4, 4800)) * 2000).astype(np.float32),
+                 np.array([4800, 4000, 4800, 3000], np.int32), np.array([0, 1, 2, 0], np.int32),
+                 rng.integers(1, 64, (4, 6)).astype(np.int32), np.array([6, 4, 6, 3], np.int32))
+        return train.sensevoice_ctc_loss, sv.init_params(cfg, g, "cpu"), cfg, batch
+    if name == "whisper":
+        from asr_tpu_torch.models import whisper as wh
+
+        cfg = wh.WhisperConfig(vocab_size=96, d_model=32, encoder_layers=1, decoder_layers=1, num_heads=4,
+                               n_mels=16, max_source_positions=20, max_target_positions=16, sot_id=1, eot_id=2,
+                               first_language_id=10, num_languages=4, transcribe_id=20, translate_id=21,
+                               no_timestamps_id=22, no_speech_id=30)
+        batch = ((rng.standard_normal((4, 40, 16)) * 0.3).astype(np.float32),
+                 rng.integers(3, 96, (4, 10)).astype(np.int32), np.array([10, 8, 10, 6], np.int32))
+        return train.whisper_ce_loss, wh.init_params(cfg, g, "cpu"), cfg, batch
+    from asr_tpu_torch.frontend.nemo_mel import NemoMelConfig
+    from asr_tpu_torch.models import parakeet as pk
+
+    cfg = pk.ParakeetConfig(vocab_size=24, blank_id=23, d_model=32, num_layers=1, num_heads=4, ffn_dim=48,
+                            sub_channels=8, dec_hidden=16, lstm_layers=1, mel=NemoMelConfig(n_mels=40))
+    batch = ((rng.standard_normal((2, 8000)) * 0.1).astype(np.float32), np.array([8000, 6000], np.int32),
+             rng.integers(0, 23, (2, 5)).astype(np.int32), np.array([5, 3], np.int32))
+    return train.transducer_loss, pk.init_params(cfg, g, "cpu"), cfg, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sensevoice", "whisper", "parakeet"])
+def test_train_step_on_the_card_matches_the_cpu(name):
+    """A training step's loss and every leaf's gradient on the card against
+    the CPU from the same weights (``chip_smoke.card_vs_cpu``, phases
+    49-51's gate: loss within 1e-4, each leaf within 1e-3 of its own
+    max|g| + 1e-6 of the tree's), then three steps of the entry point on
+    the card with the loss falling and none of the seven kernels launched."""
+    _need_card()
+    import numpy as np
+
+    import chip_smoke
+    from asr_tpu_torch.ops import fused_aed_multi as fm
+    from asr_tpu_torch.ops import fused_aed_step as fs
+    from asr_tpu_torch.ops import fused_decode as fd
+    from asr_tpu_torch.ops import fused_decode_multi as fdm
+    from asr_tpu_torch.parallel import train
+
+    loss_fn, params, cfg, batch = _train_case(name)
+    same = chip_smoke.card_vs_cpu(torch, np, name, loss_fn, params, cfg, batch, "cuda")
+    assert same["grad_worst"] <= 1.0
+    step = {"sensevoice": train.train_step, "whisper": train.whisper_train_step,
+            "parakeet": train.transducer_train_step}[name]
+    params = chip_smoke.to_dev(torch, params, "cuda")
+    opt = train.make_optimizer(lr=3e-3)
+    state = opt.init(params)
+    counters = (qm, fs, fm, fd, fdm)
+    chip_smoke.zero_counts(*counters)
+    losses = []
+    for _ in range(3):
+        params, state, loss = step(params, state, cfg, opt, *(torch.as_tensor(b).cuda() for b in batch))
+        losses.append(loss.item())
+    assert not any(chip_smoke.kernel_counts(*counters).values())
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+@pytest.mark.gpu
+def test_rnnt_and_tdt_losses_on_the_card_match_the_cpu():
+    """NLL and the gradient w.r.t. the log-probs (and durations) within 1e-5
+    of max|.| on a padded random lattice (phase 51's gate)."""
+    _need_card()
+    from asr_tpu_torch.parallel.rnnt_loss import rnnt_loss, tdt_loss
+
+    g = torch.Generator().manual_seed(51)
+    tok = torch.log_softmax(torch.randn((3, 19, 7, 30), generator=g), dim=-1)
+    dur = torch.log_softmax(torch.randn((3, 19, 7, 5), generator=g), dim=-1)
+    labels = torch.randint(1, 30, (3, 6), generator=g)
+    tv, uv = torch.tensor([19, 11, 4]), torch.tensor([6, 3, 0])
+    for name in ("rnnt", "tdt"):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            x, y = tok.to(dev).clone().requires_grad_(True), dur.to(dev).clone().requires_grad_(True)
+            args = (labels.to(dev), tv.to(dev), uv.to(dev))
+            nll = rnnt_loss(x, *args) if name == "rnnt" else tdt_loss(x, y, *args, durations=(0, 1, 2, 3, 4))
+            nll.sum().backward()
+            got[dev] = [nll.detach().cpu(), x.grad.cpu()] + ([y.grad.cpu()] if name == "tdt" else [])
+        for want, have in zip(got["cpu"], got["cuda"]):
+            assert (have - want).abs().max() <= 1e-5 * want.abs().max(), name
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card_is_bitwise(tmp_path):
+    """Parameters and AdamW state after a step on the card, saved and
+    restored onto the card: every leaf bitwise, on the template's device."""
+    _need_card()
+    import chip_smoke
+    from asr_tpu_torch.parallel import checkpoint as ckpt
+    from asr_tpu_torch.parallel import train
+
+    _, params, cfg, batch = _train_case("sensevoice")
+    params = chip_smoke.to_dev(torch, params, "cuda")
+    opt = train.make_optimizer()
+    params, state, _ = train.train_step(params, opt.init(params), cfg, opt, *batch)
+    ckpt.save_train_state(tmp_path, params, state, 1)
+    p2, o2, step = ckpt.restore_train_state(tmp_path, {"params": params, "opt_state": state})
+    assert step == 1
+    want = ckpt.named_leaves({"params": params, "opt_state": state})
+    got = dict(ckpt.named_leaves({"params": p2, "opt_state": o2}))
+    for name, t in want:
+        assert got[name].device == t.device and torch.equal(got[name], t), name
