@@ -24,11 +24,14 @@ the JAX package's, either way. ``transcribe --profile LOGDIR`` writes a
 ``--platform`` picks the torch device of every subcommand but ``build``:
 the CUDA card by default (it raises where no card is visible), ``cpu`` when
 asked for. ``--quant-mm`` sets the quantized kernels' matmul mode.
+``transcribe`` / ``serve --data-parallel N --tensor-parallel T`` lay the
+session out on a (data, model) mesh (``parallel/mesh.py``; the mesh's N x T
+positions cycle over the visible cards, so one card holds several);
+``serve --continuous`` builds N replicas with a T-device sub-mesh each
+instead.
 
-Not here (they wait for later slices of the port): the ``bench``
-subcommand, data and tensor parallelism (``--data-parallel``,
-``--tensor-parallel``), and the XLA / TPU options ``--compile-cache`` and
-``--quant-kernel``.
+Not here: the ``bench`` subcommand and the XLA / TPU options
+``--compile-cache`` and ``--quant-kernel``.
 """
 
 from __future__ import annotations
@@ -98,10 +101,16 @@ def _stream_config(family: str, cfg_dict: dict):
 
 
 def _build_session(folder: Path, language: str | None = None, dtype: str | None = None,
-                   device="cuda"):
+                   device="cuda", mesh=None, tensor_parallel: int = 1):
     """Artifact folder -> a ready session on ``device``, for every family the
     port runs. ``dtype``: serving cast of the plain weights (e.g.
-    ``"bfloat16"``; norms and softmax stay f32 inside the models)."""
+    ``"bfloat16"``; norms and softmax stay f32 inside the models).
+
+    ``mesh``: an optional ``parallel.mesh.Mesh``; the offline (windowed) and
+    LLM sessions then run batch data parallel over its ``data`` axis
+    (``parallel/serve.py``). ``tensor_parallel`` > 1: its ``model`` axis
+    also shards the family's wide matmuls (``parallel.mesh.*_param_specs``),
+    wired for sensevoice / whisper / qwen_asr / fun_asr_nano_llm."""
     from asr_tpu_torch.runtime.artifact import load_model
     from asr_tpu_torch.runtime.metadata import config_from_dict
 
@@ -114,12 +123,20 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
     tokenizer = _build_tokenizer(folder, meta)
     cfg_dict = meta.extra.get("config", {})
 
+    tp = int(tensor_parallel or 1)
+    if tp > 1 and family not in ("sensevoice", "whisper", "qwen_asr", "fun_asr_nano_llm"):
+        raise SystemExit(f"--tensor-parallel has no sharding specs for family {family!r} "
+                         "(wired: sensevoice, whisper, qwen_asr, fun_asr_nano_llm)")
+    par = {"mesh": mesh} if mesh is not None else {}
+
     if family == "sensevoice":
         from asr_tpu_torch.models.sensevoice import SenseVoiceConfig
+        from asr_tpu_torch.parallel.mesh import sensevoice_param_specs
         from asr_tpu_torch.runtime.session import SenseVoiceSession
 
         return SenseVoiceSession(params, config_from_dict(SenseVoiceConfig, cfg_dict),
-                                 tokenizer=tokenizer, metadata=meta)
+                                 tokenizer=tokenizer, metadata=meta, **par,
+                                 param_specs=sensevoice_param_specs if tp > 1 else None)
 
     if family == "whisper":
         from asr_tpu_torch.models.whisper import WhisperConfig
@@ -130,14 +147,18 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
             begin_suppress_ids=tuple(meta.extra.get("begin_suppress_tokens", [])))
         lang_map = {p.code: p.prompt_token_id for p in meta.supported_languages
                     if p.prompt_token_id is not None}
+        from asr_tpu_torch.parallel.mesh import whisper_param_specs
+
         return WhisperSession(params, config_from_dict(WhisperConfig, cfg_dict),
-                              tokenizer=tokenizer, session_cfg=scfg, language_id_map=lang_map)
+                              tokenizer=tokenizer, session_cfg=scfg, language_id_map=lang_map,
+                              **par, param_specs=whisper_param_specs if tp > 1 else None)
 
     if family == "paraformer":
         from asr_tpu_torch.models.paraformer import ParaformerConfig
         from asr_tpu_torch.runtime.transducer_session import ParaformerSession
 
-        return ParaformerSession(params, config_from_dict(ParaformerConfig, cfg_dict), tokenizer=tokenizer)
+        return ParaformerSession(params, config_from_dict(ParaformerConfig, cfg_dict), tokenizer=tokenizer,
+                                 **par)
 
     if family == "paraformer_streaming":
         from asr_tpu_torch.runtime.streaming_session import ParaformerStreamingSession
@@ -166,20 +187,22 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
         from asr_tpu_torch.models.parakeet import ParakeetConfig
         from asr_tpu_torch.runtime.transducer_session import ParakeetSession
 
-        return ParakeetSession(params, config_from_dict(ParakeetConfig, cfg_dict), tokenizer=tokenizer)
+        return ParakeetSession(params, config_from_dict(ParakeetConfig, cfg_dict), tokenizer=tokenizer,
+                               **par)
 
     if family == "nemotron":
         from asr_tpu_torch.models.nemotron import NemotronConfig
         from asr_tpu_torch.runtime.transducer_session import NemotronSession
 
         return NemotronSession(params, config_from_dict(NemotronConfig, cfg_dict), tokenizer=tokenizer,
-                               prompt_id=_prompt_id(meta, language))
+                               prompt_id=_prompt_id(meta, language), **par)
 
     if family == "firered":
         from asr_tpu_torch.models.firered import FireRedConfig
         from asr_tpu_torch.runtime.transducer_session import FireRedSession
 
-        return FireRedSession(params, config_from_dict(FireRedConfig, cfg_dict), tokenizer=tokenizer)
+        return FireRedSession(params, config_from_dict(FireRedConfig, cfg_dict), tokenizer=tokenizer,
+                              **par)
 
     if family == "dolphin":
         from asr_tpu_torch.models.dolphin import DolphinConfig
@@ -187,14 +210,14 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
 
         return DolphinSession(params, config_from_dict(DolphinConfig, cfg_dict), tokenizer=tokenizer,
                               language_catalog=meta.extra.get("dolphin_language_catalog") or {},
-                              language=language)
+                              language=language, **par)
 
     if family == "fun_asr_nano":
         from asr_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
         from asr_tpu_torch.runtime.transducer_session import FunAsrNanoCtcSession
 
         return FunAsrNanoCtcSession(params, config_from_dict(FunAsrNanoConfig, cfg_dict),
-                                    tokenizer=tokenizer)
+                                    tokenizer=tokenizer, **par)
 
     if family == "fun_asr_nano_llm":
         from asr_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
@@ -202,7 +225,7 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
 
         return FunAsrNanoLlmSession(params["encoder"], params["llm"],
                                     config_from_dict(FunAsrNanoConfig, cfg_dict),
-                                    tokenizer=tokenizer, template=prompt_template(meta))
+                                    tokenizer=tokenizer, template=prompt_template(meta), **par)
 
     if family == "qwen_asr":
         from asr_tpu_torch.models.qwen_asr import QwenAsrConfig
@@ -211,7 +234,7 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
         return QwenAsrSession(params["tower"], params["llm"], config_from_dict(QwenAsrConfig, cfg_dict),
                               tokenizer=tokenizer, template=prompt_template(meta),
                               language_prompt_ids=meta.extra.get("language_prompt_ids") or {},
-                              metadata=meta)
+                              metadata=meta, **par)
 
     if family == "qwen_aligner":
         from asr_tpu_torch.models.forced_aligner import ForcedAlignerConfig
@@ -227,11 +250,44 @@ def _build_session(folder: Path, language: str | None = None, dtype: str | None 
                      f"{', '.join(FAMILIES)}")
 
 
+def _positions(device, n: int) -> list:
+    """``n`` mesh positions' devices: the CPU repeated, or the visible cards
+    in turn (a card holds several positions where there are fewer cards)."""
+    if device.type != "cuda":
+        return [device] * n
+    from asr_tpu_torch.parallel.mesh import visible_devices
+
+    cards = visible_devices()
+    if n > len(cards):
+        print(f"{n} mesh positions on {len(cards)} card(s): positions share a card",
+              file=sys.stderr)
+    return [cards[i % len(cards)] for i in range(n)]
+
+
+def _mesh_from_args(args):
+    """(--data-parallel, --tensor-parallel) -> (Mesh or None, T). An unset
+    data axis takes every card over T (at least one position)."""
+    dp = getattr(args, "data_parallel", 0) or 0
+    tp = getattr(args, "tensor_parallel", 1) or 1
+    if not dp and tp <= 1:
+        return None, 1
+    from asr_tpu_torch.parallel.mesh import make_mesh, visible_devices
+
+    if not dp:
+        cards = len(visible_devices()) if args.device.type == "cuda" else 1
+        dp = max(cards // tp, 1)
+    return make_mesh(dp * tp, model_parallel=tp, devices=_positions(args.device, dp * tp)), tp
+
+
 def cmd_transcribe(args) -> int:
     import contextlib
 
+    mesh, tp = _mesh_from_args(args)
     sess = _build_session(Path(args.model_dir), language=args.language, dtype=args.dtype,
-                          device=args.device)
+                          device=args.device, mesh=mesh, tensor_parallel=tp)
+    if mesh is not None and getattr(sess, "runner", None) is None:
+        raise SystemExit(f"--data-parallel/--tensor-parallel is not wired for "
+                         f"{type(sess).__name__}; rerun without it")
 
     def kwargs(fn):
         if args.language and "language" in inspect.signature(fn).parameters:
@@ -454,7 +510,16 @@ def _cmd_parity_impl(args) -> int:
 def cmd_serve(args) -> int:
     """HTTP serving: the micro-batched endpoint, or with ``--continuous`` the
     continuous-batching one (LLM and AED families)."""
-    sess = _build_session(Path(args.model_dir), language=args.language, device=args.device)
+    if args.continuous:
+        # --continuous scales out replica per device group: the session
+        # stays unsharded; --data-parallel N builds N batcher replicas behind
+        # one admission queue and --tensor-parallel T gives each a T-device
+        # sub-mesh
+        mesh, tp = None, 1
+    else:
+        mesh, tp = _mesh_from_args(args)
+    sess = _build_session(Path(args.model_dir), language=args.language, device=args.device,
+                          mesh=mesh, tensor_parallel=tp)
     if args.continuous:
         if not (hasattr(sess, "prompt_embeds") or hasattr(sess, "continuous_prefill")):
             raise SystemExit(
@@ -463,13 +528,19 @@ def cmd_serve(args) -> int:
                 "surface — rerun without --continuous")
         from asr_tpu_torch.parallel.llm_server import serve_continuous
 
+        dp = max(args.data_parallel or 1, 1)
+        ctp = max(args.tensor_parallel or 1, 1)
         serve_continuous(sess, host=args.host, port=args.port, n_slots=args.slots,
                          language=args.language, context=args.context, kv_dtype=args.kv_dtype,
-                         steps_per_tick=max(args.steps_per_tick, 1))
+                         steps_per_tick=max(args.steps_per_tick, 1), data_parallel=dp,
+                         tensor_parallel=ctp, devices=_positions(args.device, dp * ctp))
         return 0
     if not hasattr(sess, "_forward"):
         raise SystemExit(f"family {type(sess).__name__} has no batchable window forward; serve "
                          "supports the offline (windowed) and LLM families")
+    if mesh is not None and getattr(sess, "runner", None) is None:
+        raise SystemExit(f"--data-parallel/--tensor-parallel is not wired for "
+                         f"{type(sess).__name__}; rerun without it")
     from asr_tpu_torch.parallel.http_server import serve_forever
 
     serve_forever(sess, host=args.host, port=args.port, max_batch=args.max_batch,
@@ -562,6 +633,12 @@ def main(argv=None) -> int:
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="write a torch.profiler Chrome trace of the run (CPU and, on the card, "
                         "CUDA activity) into LOGDIR")
+    p.add_argument("--tensor-parallel", type=int, default=1, metavar="T",
+                   help="shard the model's wide matmuls over T mesh positions (Megatron TP; "
+                        "sensevoice/whisper/qwen_asr/fun_asr_nano_llm); composes with "
+                        "--data-parallel as a (data, model) mesh")
+    p.add_argument("--data-parallel", type=int, default=0, metavar="N",
+                   help="split window batches over N data positions (0 = one device)")
     p.add_argument("audio", nargs="+")
     p.set_defaults(fn=cmd_transcribe)
 
@@ -633,6 +710,11 @@ def main(argv=None) -> int:
     p.add_argument("--language", default=None)
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
+    p.add_argument("--data-parallel", type=int, default=0, metavar="N",
+                   help="micro-batches over N data positions; with --continuous, N replicas")
+    p.add_argument("--tensor-parallel", type=int, default=1, metavar="T",
+                   help="Megatron TP over T mesh positions (see transcribe); with "
+                        "--continuous, a T-position sub-mesh per LLM replica")
     p.add_argument("--continuous", action="store_true",
                    help="continuous batching for the LLM and AED families: requests join "
                         "and leave one running decode batch mid-flight "

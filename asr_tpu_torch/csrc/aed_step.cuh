@@ -660,8 +660,8 @@ template <int MT, int WN>
 cudaError_t launch_matvec_t(const Mv& a, int pdl, cudaStream_t st) {
   using T = MvTile<MT, WN>;
   auto kernel = q8_matvec<MT, WN>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  static packed::SmemLimit limit;
+  const cudaError_t attr = limit.ensure(kernel, kMaxSmem);
   if (attr != cudaSuccess) return attr;
   const size_t smem = mv_smem<MT, WN>(a.k, a.rows, a.parts);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
@@ -701,8 +701,8 @@ template <typename T, bool kSelf>
 cudaError_t launch_attn(const Attn& a, int t_rows, int heads, int slots, int max_chunks, int pdl,
                         cudaStream_t st) {
   auto kernel = attn_aed<T, kSelf>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnSmem);
+  static packed::SmemLimit limit;
+  const cudaError_t attr = limit.ensure(kernel, kAttnSmem);
   if (attr != cudaSuccess) return attr;
   const size_t smem = attn_smem(a.cap, a.srows, sizeof(T));
   if (max_chunks < 1 || max_chunks > kMaxChunks || a.min_rows < 1 || smem > kAttnSmem ||

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include <cooperative_groups.h>
 
 // Internal linkage in every library that includes this header (the
@@ -61,6 +63,27 @@ namespace packed {
 namespace {
 
 namespace cg = cooperative_groups;
+
+// The dynamic shared-memory limit of one kernel, set once for each device
+// it launches on: the CUDA runtime keeps a function's attributes per device
+// context, so a limit set on one card does not hold on another. One static
+// instance per launch site (inside a function template: per kernel); the
+// calling thread's current device picks the bit.
+struct SmemLimit {
+  std::atomic<unsigned long long> done{0};  // bit d: set on device d
+
+  template <typename Kernel>
+  cudaError_t ensure(Kernel kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (bit != 0 && (done.load(std::memory_order_acquire) & bit) != 0) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+    return err;
+  }
+};
 
 constexpr int KS = 32;      // packed rows a pipeline stage holds (two k16 steps)
 constexpr int NSTAGE = 4;   // depth of the cp.async ring
@@ -439,8 +462,8 @@ template <int P, int NT, int WM, int WN>
 cudaError_t launch_tile(const Args& a, cudaStream_t st) {
   using T = Tile<P, NT, WM, WN>;
   auto kernel = packed_mma_kernel<P, NT, WM, WN>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  static SmemLimit limit;
+  const cudaError_t attr = limit.ensure(kernel, T::SMEM);
   if (attr != cudaSuccess) return attr;
   const long long threads = static_cast<long long>(Layout(a.M, a.K).mpad) * (a.K / KS);
   stage_x_kernel<P><<<static_cast<int>((threads + 127) / 128), 128, 0, st>>>(a.x, a.ws, a.M, a.K);

@@ -579,8 +579,8 @@ cudaError_t launch_tile(const Args& a, cudaStream_t st) {
   using T = Tile<MT, NT, WM, WN>;
   auto kernel = int8_mma_kernel<MT, NT, WM, WN, WALK, W16>;
   constexpr int smem = T::RING + (WALK ? T::BM * T::BN * 4 : 0);
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static packed::SmemLimit limit;
+  const cudaError_t attr = limit.ensure(kernel, smem);
   if (attr != cudaSuccess) return attr;
   const Layout L(a.M, a.K, a.block);
   const long long threads = static_cast<long long>(L.mt) * (L.kp / KS) * 32;

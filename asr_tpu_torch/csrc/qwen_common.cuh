@@ -765,8 +765,8 @@ template <int MT, int WARPS>
 cudaError_t launch_matvec_t(const Mv& a, int pdl, cudaStream_t st) {
   using T = MvTile<MT, WARPS>;
   auto kernel = nibble_matvec<MT, WARPS>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  static packed::SmemLimit limit;
+  const cudaError_t attr = limit.ensure(kernel, kMaxSmem);
   if (attr != cudaSuccess) return attr;
   const size_t smem = mv_smem<MT, WARPS>(a.k, a.rows, a.parts);
   if (smem > static_cast<size_t>(kMaxSmem) || a.k / 2 / kBlock / a.parts > kMaxBlocksPerPart)
@@ -793,8 +793,8 @@ inline cudaError_t launch_matvec(const Mv& a, int bn, int pdl, cudaStream_t st) 
 template <typename T>
 cudaError_t launch_attn(const Attn& a, int nkv, int slots, int max_chunks, int pdl, cudaStream_t st) {
   auto kernel = attn_step<T>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem / 2);
+  static packed::SmemLimit limit;
+  const cudaError_t attr = limit.ensure(kernel, kMaxSmem / 2);
   if (attr != cudaSuccess) return attr;
   const size_t smem = attn_smem(a.cap);
   if (max_chunks < 1 || max_chunks > kMaxChunks || a.min_rows < 1 || smem > kMaxSmem / 2 ||

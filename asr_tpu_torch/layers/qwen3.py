@@ -10,6 +10,11 @@ D)`` caches in place at ``pos`` and returns the same tensors. Linear
 weights are ``(in, out)`` and may be ``QuantizedLinear`` leaves (unpacked
 through the int8 kernel, packed int4 and packed int2 through their own
 kernels); the tied ``embed`` may be a ``QuantizedEmbedding``.
+
+On a tensor-parallel rank (``parallel/mesh.py``) a layer runs on the rank's
+q and kv heads and its share of the FFN, taken from the local widths; the
+caches :func:`make_kv_state` makes hold the rank's kv heads, and the tied
+head stays whole on every rank (an untied ``lm_head`` is gathered).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from asr_tpu_torch.layers.attention import NEG_INF
 from asr_tpu_torch.layers.norms import rms_norm
 from asr_tpu_torch.layers.rope import apply_rope, rope_tables
 from asr_tpu_torch.layers.transformer import dense
+from asr_tpu_torch.parallel import mesh
 from asr_tpu_torch.quant.quantize import QuantizedEmbedding, QuantizedLinear, embedding_logits
 
 
@@ -91,7 +97,9 @@ def init_params(cfg: Qwen3Config, generator: torch.Generator, device=None,
 
 def make_kv_state(cfg: Qwen3Config, batch: int, t_max: int, dtype=torch.float32,
                   device=None) -> dict:
-    shape = (batch, t_max, cfg.num_kv_heads, cfg.head_dim)
+    """Zeroed per-layer caches (B, T_max, Hkv, D); on a tensor-parallel rank
+    Hkv is the rank's share of the kv heads."""
+    shape = (batch, t_max, cfg.num_kv_heads // mesh.model_size(), cfg.head_dim)
     return {"layers": tuple(
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -127,19 +135,21 @@ def _layer(p: dict, cfg: Qwen3Config, x: torch.Tensor, ls: dict, cos: torch.Tens
     """One decoder layer on x (B, S, H): ``write(cache, rows)`` puts the
     fresh k or v rows (B, S, Hkv, D) into the layer's cache before the
     attention reads it."""
-    b, s = x.shape[0], x.shape[1]
-    qd = cfg.num_heads * cfg.head_dim
-    kd = cfg.num_kv_heads * cfg.head_dim
+    b, s, hd = x.shape[0], x.shape[1], cfg.head_dim
     y = rms_norm(x, p["input_norm"]["scale"], cfg.rms_eps)
     if "qkv" in p["attn"]:
         qkv = dense(y, p["attn"]["qkv"])
-        q = qkv[..., :qd].reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = qkv[..., qd : qd + kd].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = qkv[..., qd + kd :].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        # the local width is a 1/T share of q | k | v: T from the widths
+        t = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd // qkv.shape[-1]
+        qd, kd = cfg.num_heads // t * hd, cfg.num_kv_heads // t * hd
+        q = qkv[..., :qd].reshape(b, s, qd // hd, hd)
+        k = qkv[..., qd : qd + kd].reshape(b, s, kd // hd, hd)
+        v = qkv[..., qd + kd :].reshape(b, s, kd // hd, hd)
     else:
-        q = dense(y, p["attn"]["q"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = dense(y, p["attn"]["k"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = dense(y, p["attn"]["v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = dense(y, p["attn"]["q"])
+        k = dense(y, p["attn"]["k"])
+        v = dense(y, p["attn"]["v"])
+        q, k, v = (z.reshape(b, s, z.shape[-1] // hd, hd) for z in (q, k, v))
     if cfg.qk_norm:
         q = rms_norm(q, p["attn"]["q_norm"]["scale"], cfg.rms_eps)
         k = rms_norm(k, p["attn"]["k_norm"]["scale"], cfg.rms_eps)
@@ -152,7 +162,8 @@ def _layer(p: dict, cfg: Qwen3Config, x: torch.Tensor, ls: dict, cos: torch.Tens
     y = rms_norm(x, p["post_norm"]["scale"], cfg.rms_eps)
     if "gateup" in p["mlp"]:
         gu = dense(y, p["mlp"]["gateup"])
-        h = F.silu(gu[..., : cfg.ffn_dim]) * gu[..., cfg.ffn_dim :]
+        f = gu.shape[-1] // 2
+        h = F.silu(gu[..., :f]) * gu[..., f:]
     else:
         h = F.silu(dense(y, p["mlp"]["gate"])) * dense(y, p["mlp"]["up"])
     return x + dense(h, p["mlp"]["down"])

@@ -13,6 +13,10 @@ Counterpart of ``asr_tpu/layers/sanm.py``, the unfolded SANM math:
 The depthwise FSMN conv is K shifted adds over ``v``, zero-masked past the
 valid length so padded batches see the zero padding a variable-length run
 would.
+
+On a tensor-parallel rank (``parallel/mesh.py``) q, k and v are the rank's
+heads and ``fsmn_w`` its share of v's channels; the memory ``mem`` is then
+gathered before it joins the row-parallel ``out`` (whose sum is whole).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from asr_tpu_torch.layers.attention import mha
 from asr_tpu_torch.layers.norms import layer_norm
 from asr_tpu_torch.layers.transformer import dense
+from asr_tpu_torch.parallel import mesh
 
 
 def depthwise_conv1d_time(x: torch.Tensor, weight: torch.Tensor, left_pad: int, right_pad: int) -> torch.Tensor:
@@ -44,10 +49,11 @@ def sanm_block(x: torch.Tensor, p: dict, num_heads: int, head_dim: int,
 
     ``p`` keys: norm1{scale,bias}, qkv{w,b}, fsmn_w (K, hidden), out{w,b},
     norm2{scale,bias}, ffn{w1,b1,w2,b2}. ``key_mask`` (B, T) bool validity."""
-    hidden = num_heads * head_dim
     b, t = x.shape[0], x.shape[1]
     y = layer_norm(x, p["norm1"]["scale"], p["norm1"]["bias"])
     q, k, v = torch.chunk(dense(y, p["qkv"]), 3, dim=-1)
+    hidden = v.shape[-1]  # a rank's own heads under tensor parallelism
+    num_heads = hidden // head_dim
     if key_mask is not None:
         v = torch.where(key_mask[..., None], v, torch.zeros((), dtype=v.dtype, device=v.device))
     ctx = mha(
@@ -58,6 +64,8 @@ def sanm_block(x: torch.Tensor, p: dict, num_heads: int, head_dim: int,
     ).reshape(b, t, hidden)
     pad = (p["fsmn_w"].shape[0] - 1) // 2
     mem = depthwise_conv1d_time(v, p["fsmn_w"], pad, pad) + v
+    if getattr(p["fsmn_w"], "tp_role", None) == "gather":
+        mem = mesh.all_gather(mem)
     branch = dense(ctx, p["out"]) + mem
     a = branch + x if residual else branch
     y2 = layer_norm(a, p["norm2"]["scale"], p["norm2"]["bias"])

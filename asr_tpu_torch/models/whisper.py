@@ -144,13 +144,14 @@ def _cache_dtype(cfg: WhisperConfig, enc: torch.Tensor) -> torch.dtype:
 
 def make_state(params: dict, cfg: WhisperConfig, enc: torch.Tensor) -> dict:
     """Decode state: precomputed cross-KV + zeroed self-KV caches
-    ``(B, T_max, H, Dh)``, stored in ``cfg.kv_dtype`` (compute stays f32)."""
+    ``(B, T_max, H, Dh)``, stored in ``cfg.kv_dtype`` (compute stays f32).
+    On a tensor-parallel rank H is the rank's heads (those of its cross-KV)."""
     b = enc.shape[0]
     dtype = _cache_dtype(cfg, enc)
-    shape = (b, cfg.max_target_positions, cfg.num_heads, cfg.head_dim)
     layers = []
     for p in params["decoder"]["blocks"]:
         ck, cv = cross_kv(enc, p, cfg.num_heads)
+        shape = (b, cfg.max_target_positions, ck.shape[2], cfg.head_dim)
         layers.append({
             "cross_k": ck.to(dtype), "cross_v": cv.to(dtype),
             "self_k": torch.zeros(shape, dtype=dtype, device=enc.device),

@@ -124,10 +124,18 @@ class SessionServer:
 
         def batch_fn(audio: np.ndarray, valid: np.ndarray):
             t0 = time.perf_counter()
-            toks, counts = session._forward(
-                session.params, torch.from_numpy(audio).to(self.device),
-                torch.from_numpy(valid).to(self.device), **self._forward_kw,
-            )
+            runner = getattr(session, "runner", None)
+            if runner is not None:
+                # a session built with mesh=: the micro-batch splits over the
+                # mesh's data axis (serve --data-parallel)
+                toks, counts = runner(
+                    lambda p, a, v: session._forward(p, a, v, **self._forward_kw),
+                    session.params, audio, valid)
+            else:
+                toks, counts = session._forward(
+                    session.params, torch.from_numpy(audio).to(self.device),
+                    torch.from_numpy(valid).to(self.device), **self._forward_kw,
+                )
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0

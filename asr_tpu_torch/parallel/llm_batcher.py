@@ -27,7 +27,14 @@ The slot bookkeeping, sampling streams (each request's own
 ``torch.Generator``; the JAX package's explicit seed N meeting its N-th
 automatic seed is not copied), ticks and the rest of the engine API are
 ``slot_engine.SlotEngine``'s. Per-slot output equals the request run alone.
-Neither ``mesh=`` nor tensor parallelism is ported.
+
+With ``mesh=`` (a (1, T) mesh, ``parallel/mesh.py``) the batcher is
+tensor parallel: the weights shard by ``parallel/mesh.qwen3_param_specs``,
+each rank keeps the caches of its kv heads on its device, and every prefill
+and step runs rowwise on all ranks at once (one thread each, meeting at the
+row-parallel sums); sampling and the argmax happen once, on rank 0's
+gathered logits (bitwise those of every rank), and the tokens feed all
+ranks. The multi-slot kernel is single-device, so ``stacked`` is ignored.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from asr_tpu_torch.decode.strategies import suppress_tokens
 from asr_tpu_torch.layers import qwen3
 from asr_tpu_torch.layers.rope import rope_tables
 from asr_tpu_torch.ops.fused_decode_multi import fused_decode_step_multi, kernel_takes
+from asr_tpu_torch.parallel.mesh import qwen3_param_specs, run_grid, shard_params
 from asr_tpu_torch.parallel.slot_engine import SlotEngine, SlotNoise
 
 
@@ -74,7 +82,8 @@ class ContinuousLlmBatcher(SlotEngine):
       steps_per_tick: decode steps per host fetch.
       noise: optional ``SlotNoise`` hook replacing the generators' draws
         (tests feed the JAX package's own per-slot draws through it).
-      mesh: the JAX package's tensor-parallel engine; not in the port.
+      mesh: a (1, T) mesh: the tensor-parallel engine (T must divide the
+        q and kv head counts).
     """
 
     @torch.inference_mode()
@@ -82,19 +91,33 @@ class ContinuousLlmBatcher(SlotEngine):
                  n_slots: int = 8, t_max: int = 1024, seed: int = 0,
                  kv_dtype: torch.dtype = torch.float32, stacked: dict | None = None,
                  steps_per_tick: int = 1, noise: SlotNoise | None = None, mesh=None):
-        if mesh is not None:
-            raise ValueError("the tensor-parallel continuous engine (mesh=) is not in the port yet")
+        self.mesh = mesh
         self.params = llm_params
         self.cfg = cfg
         self.kv_dtype = kv_dtype
         t_max = -(-int(t_max) // 8) * 8
         self.t_max = t_max
         dev = llm_params["final_norm"]["scale"].device
+        if mesh is not None:
+            tp = mesh.shape["model"]
+            if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+                raise ValueError(f"tensor-parallel size {tp} must divide num_heads={cfg.num_heads} "
+                                 f"and num_kv_heads={cfg.num_kv_heads}")
+            if mesh.shape["data"] != 1:
+                raise ValueError(f"the tensor-parallel engine takes a (1, T) mesh, got {mesh.shape}")
+            self._sharded = shard_params(llm_params, mesh, qwen3_param_specs(llm_params))
+            dev = mesh.devices[0][0]
+            stacked = None  # the multi-slot kernel is single-device
         self._init_slots(n_slots, decode_cfg, t_max, cfg.vocab_size, dev, seed, steps_per_tick,
                          noise)
         self.stacked = (stacked if stacked is not None and kernel_takes(cfg, self.n_slots)
                         else None)
-        if self.stacked is not None:
+        if mesh is not None:
+            # each rank's caches hold its kv heads, on its device
+            self.state = None
+            self._rank_states = run_grid(mesh, lambda d, m: qwen3.make_kv_state(
+                cfg, self.n_slots, t_max, kv_dtype, mesh.devices[d][m]))[0]
+        elif self.stacked is not None:
             kvw = cfg.num_kv_heads * cfg.head_dim
             self.state = {key: torch.zeros((cfg.num_layers, self.n_slots, t_max, kvw),
                                            dtype=kv_dtype, device=dev) for key in ("k", "v")}
@@ -102,8 +125,25 @@ class ContinuousLlmBatcher(SlotEngine):
             self.state = qwen3.make_kv_state(cfg, self.n_slots, t_max, kv_dtype, dev)
         self._rope = torch.from_numpy(rope_tables(t_max, cfg.head_dim, cfg.rope_theta)).to(dev)
 
+    def _on_ranks(self, fn):
+        """``fn(local params, rank state, device)`` on every model rank of
+        the mesh; returns the ranks' results."""
+        mesh = self.mesh
+        return run_grid(mesh, lambda d, m: fn(self._sharded.local(d, m), self._rank_states[m],
+                                              mesh.devices[d][m]))[0]
+
     def _logits(self) -> torch.Tensor:
         cfg = self.cfg
+        if self.mesh is not None:
+            last, pos, active = self.last, self.pos, self.active
+
+            def rank(p, state, dev):
+                emb = p["embed"][last.to(dev)].to(torch.float32)
+                hidden, _ = qwen3.decoder_step_rowwise(p, cfg, emb[:, None], state, pos.to(dev),
+                                                       active.to(dev))
+                return qwen3.logits_from_hidden(p, cfg, hidden[:, -1])
+
+            return self._on_ranks(rank)[0]  # bitwise the same on every rank
         emb = self.params["embed"][self.last].to(torch.float32)  # (B, H)
         if self.stacked is not None:
             logical = torch.clamp(self.pos, 0, self.t_max - 1).to(torch.int64)
@@ -123,11 +163,19 @@ class ContinuousLlmBatcher(SlotEngine):
         first-token logits (1, V), suppressed), the rows at their logical
         positions (compact layout)."""
         cfg = self.cfg
-        state = qwen3.make_kv_state(cfg, 1, self.t_max, self.kv_dtype, self.device)
-        bias = qwen3.causal_prefill_bias(torch.tensor([valid], device=self.device),
-                                         embeds.shape[1], self.t_max)
-        hidden, state = qwen3.decoder_pass(self.params, cfg, embeds, state, 0, bias)
-        logits0 = qwen3.logits_from_hidden(self.params, cfg, hidden[:, valid - 1])
+
+        def prefill(params, dev):
+            state = qwen3.make_kv_state(cfg, 1, self.t_max, self.kv_dtype, dev)
+            bias = qwen3.causal_prefill_bias(torch.tensor([valid], device=dev), embeds.shape[1],
+                                             self.t_max)
+            hidden, state = qwen3.decoder_pass(params, cfg, embeds.to(dev), state, 0, bias)
+            return state, qwen3.logits_from_hidden(params, cfg, hidden[:, valid - 1])
+
+        if self.mesh is not None:  # a list of the ranks' states
+            ranks = self._on_ranks(lambda p, _state, dev: prefill(p, dev))
+            state, logits0 = [r[0] for r in ranks], ranks[0][1]
+        else:
+            state, logits0 = prefill(self.params, self.device)
         return state, suppress_tokens(logits0.to(torch.float32), self.dc.suppress_ids)
 
     @torch.inference_mode()
@@ -162,7 +210,12 @@ class ContinuousLlmBatcher(SlotEngine):
         valid = int(valid_len)
         small, logits0 = self._prefill(embeds, valid)
         first = self._first_token(slot, explicit, seed_i, logits0)
-        if self.stacked is not None:
+        if self.mesh is not None:
+            for big_state, sm_state in zip(self._rank_states, small):
+                for big, sm in zip(big_state["layers"], sm_state["layers"]):
+                    for key in ("k", "v"):
+                        big[key][slot] = sm[key][0]
+        elif self.stacked is not None:
             # the prefill's per-layer state -> this slot's (NL, T, kvw) planes
             for key in ("k", "v"):
                 self.state[key][:, slot] = torch.stack(

@@ -1,7 +1,7 @@
 """Qwen3-ASR session: prompt assembly, context and language prompts.
 
-Counterpart of ``asr_tpu/runtime/qwen_session.py`` (``QwenAsrSession``
-without the ``mesh=`` runner): the chat-style prompt [head | user context
+Counterpart of ``asr_tpu/runtime/qwen_session.py`` (``QwenAsrSession``):
+the chat-style prompt [head | user context
 text | suffix | audio | tail] is tokenized on the host, each utterance is
 cut to ``max_seconds`` and zero-padded, and one call runs the tower, the
 prefill and the decode. Qwen has no language probe: a language comes from
@@ -17,6 +17,11 @@ as one call of the multi-slot kernel (``ops/fused_decode_multi.py``). An LLM
 that does not stack (a q2 LLM: packed 2-bit linears and a centered 2-bit
 tied head) takes the per-weight route everywhere, every linear one
 ``quant_dense`` call (the int2 kernel on a card).
+
+With ``mesh=`` both sessions run through ``parallel/serve.DataParallelRunner``:
+batch data parallel over the mesh's data axis, and the LLM sharded by
+``parallel/mesh.qwen3_param_specs`` over its model axis (the audio tower
+replicates); the batch-1 fused step is not used there.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from asr_tpu_torch.models import fun_asr_nano as fn
 from asr_tpu_torch.models import qwen_asr as qa
 from asr_tpu_torch.ops.fused_decode import stack_decode_params
 from asr_tpu_torch.ops.quant_matmul import _resolve_mm
+from asr_tpu_torch.parallel.mesh import ShardedParams, rank_generator
 from asr_tpu_torch.runtime import audio as audio_io
 from asr_tpu_torch.runtime.artifact import load_model, load_tokenizer
 from asr_tpu_torch.runtime.metadata import config_from_dict
@@ -104,6 +110,25 @@ def _batched_llm_call(items, *, max_samples, sample_rate, pcm_scale, run, eot_id
     return ids_rows, valid, elapsed, b
 
 
+def _shard(sess, mesh, front, llm_params, lcfg):
+    """Lay a session's front end (replicated) and LLM (``qwen3_param_specs``)
+    out on ``mesh``: sets ``runner``, ``device`` and ``_sharded`` (the
+    positions' (front, llm) tuples); returns the sharded (front, llm)."""
+    from asr_tpu_torch.parallel.mesh import qwen3_param_specs, shard_params
+    from asr_tpu_torch.parallel.serve import DataParallelRunner
+
+    tp = mesh.shape["model"]
+    if lcfg.num_heads % tp or lcfg.num_kv_heads % tp:
+        raise ValueError(f"tensor-parallel size {tp} must divide num_heads={lcfg.num_heads} "
+                         f"and num_kv_heads={lcfg.num_kv_heads}")
+    sess.runner = DataParallelRunner(mesh, param_specs=qwen3_param_specs)
+    sess.device = sess.runner.device
+    front = shard_params(front, mesh)
+    llm = sess.runner.shard_params(llm_params)
+    sess._sharded = ShardedParams.zip(front, llm)
+    return front, llm
+
+
 def _params_device(llm_params) -> torch.device:
     if isinstance(llm_params, dict) and "final_norm" in llm_params:
         return llm_params["final_norm"]["scale"].device
@@ -121,19 +146,24 @@ class QwenAsrSession:
                  strategy: str = "greedy", penalty: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0, max_seconds: float = 30.0,
                  language_prompt_ids: dict[str, list[int]] | None = None, metadata=None,
-                 fuse: bool = True):
+                 fuse: bool = True, mesh=None):
         if fuse:
             # q|k|v and gate|up fusion: 7 -> 4 matmuls a layer, bit-exact.
             llm_params = fuse_params(llm_params, cfg.llm)
+        self.runner = None
+        if mesh is not None:
+            tower_params, llm_params = _shard(self, mesh, tower_params, llm_params, cfg.llm)
+        else:
+            self.device = _params_device(llm_params)
         self.tower_params = tower_params
         self.llm_params = llm_params
         self.cfg = cfg
-        self.device = _params_device(llm_params)
         # The stacked copy duplicates the q4 LLM and the packed head: built
-        # only where the fused kernel runs (a CUDA card, bf16 mode). Other
-        # LLMs (q2, q8, f32) do not stack and stay on the per-weight route.
+        # only where the fused kernel runs (a CUDA card, bf16 mode, no
+        # runner). Other LLMs (q2, q8, f32) do not stack and stay on the
+        # per-weight route.
         self.stacked = None
-        if self.device.type == "cuda" and _resolve_mm(None) == "bf16":
+        if self.runner is None and self.device.type == "cuda" and _resolve_mm(None) == "bf16":
             self.stacked = stack_decode_params(llm_params, cfg.llm)
         self.tokenizer = tokenizer
         self.template = template or QwenPromptTemplate()
@@ -173,8 +203,14 @@ class QwenAsrSession:
         return {"head": mk(self.template.head_ids), "query": mk(query),
                 "suffix": mk(self.template.suffix_ids), "tail": mk(tail)}
 
-    def _batch_ids(self, prompt: dict, b: int) -> dict:
-        return {k: v.to(self.device).repeat(b, 1) for k, v in prompt.items()}
+    def _batch_ids(self, prompt: dict, b: int, device=None) -> dict:
+        return {k: v.to(device or self.device).repeat(b, 1) for k, v in prompt.items()}
+
+    def _local(self):
+        """(tower, llm) of the first mesh position, or the unsharded pair."""
+        if self.runner is not None:
+            return self._sharded.local(0, 0)
+        return self.tower_params, self.llm_params
 
     def transcribe(self, audio: np.ndarray | str | Path, context: str = "",
                    language: str | None = None,
@@ -195,6 +231,12 @@ class QwenAsrSession:
         prompt = self._prompt_ids(context, language)
 
         def run(audio, valid, b):
+            if self.runner is not None:
+                return self.runner(
+                    lambda p, a, v: qa.forward(p[0], p[1], self.cfg, a, v,
+                                               self._batch_ids(prompt, a.shape[0], a.device),
+                                               self.decode_cfg, rank_generator(generator)),
+                    self._sharded, audio, valid)
             return qa.forward(self.tower_params, self.llm_params, self.cfg, audio, valid,
                               self._batch_ids(prompt, b), self.decode_cfg, generator,
                               stacked=self.stacked if b == 1 else None)
@@ -221,7 +263,7 @@ class QwenAsrSession:
         buf = np.zeros((1, self.max_samples), np.float32)
         buf[0, : len(s)] = s
         embeds, valid = qa.prompt_embeds(
-            self.tower_params, self.llm_params, self.cfg, torch.from_numpy(buf).to(self.device),
+            *self._local(), self.cfg, torch.from_numpy(buf).to(self.device),
             torch.tensor([len(s)], device=self.device),
             self._batch_ids(self._prompt_ids(context, language), 1))
         return embeds[0], int(valid[0])
@@ -235,7 +277,7 @@ class QwenAsrSession:
 
     @property
     def params(self):
-        return (self.tower_params, self.llm_params)
+        return self._sharded if self.runner is not None else (self.tower_params, self.llm_params)
 
     @property
     def window_samples(self) -> int:
@@ -251,7 +293,7 @@ class QwenAsrSession:
         decode), so a request's ids are ``row[:count]``; a final EOT is
         dropped from the count. ``language`` forces the output language."""
         tower, llm = params
-        ids = self._batch_ids(self._prompt_ids("", language), audio.shape[0])
+        ids = self._batch_ids(self._prompt_ids("", language), audio.shape[0], audio.device)
         with torch.inference_mode():
             tokens, counts, _ = qa.forward(tower, llm, self.cfg, audio, valid, ids,
                                            self.decode_cfg, None,
@@ -272,8 +314,8 @@ class FunAsrNanoLlmSession:
     tail], one call for the encoder, the prefill and the decode.
 
     Counterpart of ``asr_tpu/runtime/qwen_session.py``'s class (without the
-    ``mesh=`` runner), with :class:`QwenAsrSession`'s prompt template, batch
-    routes and continuous serving surface: on a CUDA card in the ``bf16``
+    and its ``mesh=`` runner), with :class:`QwenAsrSession`'s prompt
+    template, batch routes and continuous serving surface: on a CUDA card in the ``bf16``
     mode a q4-packed LLM stacks for the fused step, so batch 1 decodes one
     kernel call a step and the continuous server runs the multi-slot
     kernel."""
@@ -283,15 +325,19 @@ class FunAsrNanoLlmSession:
     def __init__(self, params, llm_params, cfg, tokenizer=None,
                  template: QwenPromptTemplate | None = None, max_new_tokens: int = 256,
                  strategy: str = "greedy", penalty: float = 1.0, top_k: int = 0,
-                 top_p: float = 1.0, max_seconds: float = 30.0, fuse: bool = True):
+                 top_p: float = 1.0, max_seconds: float = 30.0, fuse: bool = True, mesh=None):
         if fuse:
             llm_params = fuse_params(llm_params, cfg.llm)
+        self.runner = None
+        if mesh is not None:
+            params, llm_params = _shard(self, mesh, params, llm_params, cfg.llm)
+        else:
+            self.device = _params_device(llm_params)
         self.params = params
         self.llm_params = llm_params
         self.cfg = cfg
-        self.device = _params_device(llm_params)
         self.stacked = None
-        if self.device.type == "cuda" and _resolve_mm(None) == "bf16":
+        if self.runner is None and self.device.type == "cuda" and _resolve_mm(None) == "bf16":
             self.stacked = stack_decode_params(llm_params, cfg.llm)
         self.tokenizer = tokenizer
         self.template = template or QwenPromptTemplate()
@@ -311,8 +357,14 @@ class FunAsrNanoLlmSession:
                 "query": mk(tuple(query) + tuple(self.template.suffix_ids)),
                 "tail": mk(self.template.tail_ids)}
 
-    def _batch_ids(self, prompt: dict, b: int) -> dict:
-        return {k: v.to(self.device).repeat(b, 1) for k, v in prompt.items()}
+    def _batch_ids(self, prompt: dict, b: int, device=None) -> dict:
+        return {k: v.to(device or self.device).repeat(b, 1) for k, v in prompt.items()}
+
+    def _local(self):
+        """(encoder, llm) of the first mesh position, or the unsharded pair."""
+        if self.runner is not None:
+            return self._sharded.local(0, 0)
+        return self.params, self.llm_params
 
     @property
     def window_samples(self) -> int:
@@ -338,7 +390,7 @@ class FunAsrNanoLlmSession:
         buf = np.zeros((1, self.max_samples), np.float32)
         buf[0, : len(s)] = s
         embeds, valid = fn.prompt_embeds_llm(
-            self.params, self.llm_params, self.cfg, torch.from_numpy(buf).to(self.device),
+            *self._local(), self.cfg, torch.from_numpy(buf).to(self.device),
             torch.tensor([len(s)], device=self.device), self._batch_ids(self._prompt_ids(context), 1))
         return embeds[0], int(valid[0])
 
@@ -353,6 +405,12 @@ class FunAsrNanoLlmSession:
         prompt = self._prompt_ids(context)
 
         def run(audio, valid, b):
+            if self.runner is not None:
+                return self.runner(
+                    lambda p, a, v: fn.forward_llm(p[0], p[1], self.cfg, a, v,
+                                                   self._batch_ids(prompt, a.shape[0], a.device),
+                                                   self.decode_cfg, rank_generator(generator)),
+                    self._sharded, audio, valid)
             return fn.forward_llm(self.params, self.llm_params, self.cfg, audio, valid,
                                   self._batch_ids(prompt, b), self.decode_cfg, generator,
                                   stacked=self.stacked if b == 1 else None)

@@ -1,10 +1,13 @@
 """Inference sessions: file/array in -> tokens and text out, with RTF reporting.
 
-Counterpart of ``asr_tpu/runtime/session.py`` (``SenseVoiceSession``
-without the ``mesh=`` data-parallel runner): long audio is cut into fixed
-windows, the windows run as one padded batch in a single forward, and the
-per-window token ids are concatenated in order; ``transcribe_batch`` runs
-many short files as one padded forward.
+Counterpart of ``asr_tpu/runtime/session.py`` (``SenseVoiceSession``):
+long audio is cut into fixed windows, the windows run as one padded batch
+in a single forward, and the per-window token ids are concatenated in order;
+``transcribe_batch`` runs many short files as one padded forward. With
+``mesh=`` the forward runs through ``parallel/serve.DataParallelRunner``
+(batch data parallel over the mesh's data axis; with ``param_specs``, e.g.
+``parallel/mesh.sensevoice_param_specs``, tensor parallel over its model
+axis).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ class SenseVoiceSession:
 
     def __init__(self, params, cfg: sv.SenseVoiceConfig, tokenizer=None,
                  metadata: ModelMetadata | None = None, window_seconds: float = 8.0,
-                 window_stride_seconds: float | None = None):
+                 window_stride_seconds: float | None = None, mesh=None, param_specs=None):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.metadata = metadata
@@ -68,8 +71,19 @@ class SenseVoiceSession:
         )
         if not 0 < self.stride_samples <= self.window_samples:
             raise ValueError("window stride must be in (0, window]")
+        self.runner = None
+        if mesh is not None:
+            from asr_tpu_torch.parallel.serve import DataParallelRunner
+
+            tp = mesh.shape["model"]
+            if param_specs is not None and cfg.num_heads % tp:
+                raise ValueError(f"tensor-parallel size {tp} must divide num_heads={cfg.num_heads}")
+            self.runner = DataParallelRunner(mesh, param_specs=param_specs)
+            params = self.runner.shard_params(params)
+            self.device = self.runner.device
+        else:
+            self.device = _params_device(params)
         self.params = params
-        self.device = _params_device(params)
 
     def language_index(self, language: str) -> int:
         for i, (code, desc, aliases, _tok) in enumerate(sv.LANGUAGE_PROFILES):
@@ -94,10 +108,7 @@ class SenseVoiceSession:
             valid[i] = len(chunk)
 
         t0 = time.perf_counter()
-        toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
-                                     torch.from_numpy(valid).to(self.device), language)
-        toks = toks.cpu().numpy()  # waits for the device
-        counts = counts.cpu().numpy()
+        toks, counts = self._run(buf, valid, language)
         elapsed = time.perf_counter() - t0
 
         ids: list[int] = []
@@ -116,10 +127,7 @@ class SenseVoiceSession:
                                                n_threads=n_threads)
         valid_clip = np.minimum(valid, self.window_samples)
         t0 = time.perf_counter()
-        toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
-                                     torch.from_numpy(valid_clip).to(self.device), language)
-        toks = toks.cpu().numpy()  # waits for the device
-        counts = counts.cpu().numpy()
+        toks, counts = self._run(buf, valid_clip, language)
         elapsed = time.perf_counter() - t0
         results = []
         for i, path in enumerate(paths):
@@ -135,6 +143,17 @@ class SenseVoiceSession:
 
     def warmup(self) -> None:
         self.transcribe(np.zeros(self.window_samples, dtype=np.float32))
+
+    def _run(self, buf: np.ndarray, valid: np.ndarray, language: str) -> tuple[np.ndarray, np.ndarray]:
+        """One forward over (N, window) windows, through the runner when
+        there is one -> (tokens, counts) on the host."""
+        if self.runner is not None:
+            toks, counts = self.runner(lambda p, a, v: self._forward(p, a, v, language),
+                                       self.params, buf, valid)
+        else:
+            toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
+                                         torch.from_numpy(valid).to(self.device), language)
+        return toks.cpu().numpy(), counts.cpu().numpy()  # waits for the device
 
     def _forward(self, params, audio: torch.Tensor, valid: torch.Tensor, language: str = "auto"):
         lang = torch.full((audio.shape[0],), self.language_index(language), dtype=torch.int64,

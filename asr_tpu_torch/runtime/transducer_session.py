@@ -2,8 +2,9 @@
 decode, RTF.
 
 Counterpart of ``asr_tpu/runtime/transducer_session.py`` for every offline
-windowed family: the shared windowed machinery (``_WindowedSession``,
-without the ``mesh=`` data-parallel runner), the transducers Parakeet-TDT
+windowed family: the shared windowed machinery (``_WindowedSession``;
+``mesh=`` runs its forward through ``parallel/serve.DataParallelRunner``,
+batch data parallel), the transducers Parakeet-TDT
 (``ParakeetSession``, 24 s windows) and Nemotron (``NemotronSession``, a
 prompt id, language tags stripped from the text), the AED families
 FireRed (``FireRedSession``) and Dolphin (``DolphinSession``, with its
@@ -61,7 +62,7 @@ def _aed_stacked(sess, cfg):
     (``ops/fused_aed_step.stack_aed_step_params``), or None: built only where
     the kernel runs (parameters on a CUDA card, the bf16 mode), since the
     stacked copy duplicates the q8 decoder and the (D, V_pad) head."""
-    if sess.device.type != "cuda" or not isinstance(sess.params, dict) \
+    if sess.runner is not None or sess.device.type != "cuda" or not isinstance(sess.params, dict) \
             or "decoder" not in sess.params:
         return None
     from asr_tpu_torch.ops.fused_aed_step import AedGeom, stack_aed_step_params
@@ -91,14 +92,23 @@ class _WindowedSession:
     window_seconds = 30.0
     sample_rate = 16000
 
-    def __init__(self, params, cfg, tokenizer=None, window_seconds=None):
+    def __init__(self, params, cfg, tokenizer=None, window_seconds=None, mesh=None,
+                 param_specs=None):
         self.cfg = cfg
         self.tokenizer = tokenizer
         if window_seconds is not None:
             self.window_seconds = window_seconds
         self.window_samples = int(self.window_seconds * self.sample_rate)
+        self.runner = None
+        if mesh is not None:
+            from asr_tpu_torch.parallel.serve import DataParallelRunner
+
+            self.runner = DataParallelRunner(mesh, param_specs=param_specs)
+            params = self.runner.shard_params(params)
+            self.device = self.runner.device
+        else:
+            self.device = _params_device(params)
         self.params = params
-        self.device = _params_device(params)
 
     def _forward(self, params, audio: torch.Tensor, valid: torch.Tensor):
         raise NotImplementedError
@@ -111,8 +121,12 @@ class _WindowedSession:
         host, and its wall time (the device's work included)."""
         t0 = time.perf_counter()
         with torch.inference_mode():
-            toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
-                                         torch.from_numpy(valid).to(self.device), **kw)
+            if self.runner is not None:
+                toks, counts = self.runner(lambda p, a, v: self._forward(p, a, v, **kw),
+                                           self.params, buf, valid)
+            else:
+                toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
+                                             torch.from_numpy(valid).to(self.device), **kw)
             toks = toks.cpu().numpy()  # waits for the device
             counts = counts.cpu().numpy()
         return toks, counts, time.perf_counter() - t0
@@ -311,11 +325,11 @@ class DolphinSession(_WindowedSession):
                            f"(regions: {sorted(regions)})")
         return langs[code], regions[region]
 
-    def _prompt(self, batch: int, language: str | None = None) -> torch.Tensor:
+    def _prompt(self, batch: int, language: str | None = None, device=None) -> torch.Tensor:
         lang_id, region_id = (self.resolve_language(language) if language
                               else (self.language_id, self.region_id))
         row = torch.tensor([[self.cfg.sos_id, lang_id, region_id]], dtype=torch.int64,
-                           device=self.device)
+                           device=device or self.device)
         return row.expand(batch, -1).contiguous()
 
     def _note_probes(self, out: dict) -> None:
@@ -328,7 +342,7 @@ class DolphinSession(_WindowedSession):
         from asr_tpu_torch.models import dolphin as dp
 
         b = audio.shape[0]
-        prompt = self._prompt(b)
+        prompt = self._prompt(b, device=audio.device)
         out = dp.transcribe(params, self.cfg, audio, valid, prompt, self.decode_cfg,
                             stacked=self.stacked if b == 1 else None)
         self._note_probes(out)

@@ -1,11 +1,13 @@
 """Whisper inference session: file/array -> token ids and text, 30 s windows.
 
-Counterpart of ``asr_tpu/runtime/whisper_session.py`` (without the
-``mesh=`` runner): 30-second
+Counterpart of ``asr_tpu/runtime/whisper_session.py``: 30-second
 zero-padded windows, a per-window [SOT] probe (language + no-speech),
 the prompt [SOT, lang, task, notimestamps], suppress / begin-suppress
 biasing, greedy / penalty / sampling decode, optional repeated-tail
-removal, and RTF reporting.
+removal, and RTF reporting. With ``mesh=`` the window batch runs through
+``parallel/serve.DataParallelRunner`` (data parallel; with ``param_specs``,
+e.g. ``parallel/mesh.whisper_param_specs``, tensor parallel with the caches
+at each rank's heads), on the per-weight decode step.
 
 When the parameters are on a CUDA card and quantized matmuls run in the
 ``bf16`` mode, the session stacks the q8 decoder for the fused step
@@ -31,6 +33,7 @@ from asr_tpu_torch.decode.ar import DecodeConfig
 from asr_tpu_torch.models import whisper as wh
 from asr_tpu_torch.ops.fused_aed_step import stack_whisper_step_params
 from asr_tpu_torch.ops.quant_matmul import _resolve_mm
+from asr_tpu_torch.parallel.mesh import rank_generator
 from asr_tpu_torch.runtime import audio as audio_io
 from asr_tpu_torch.runtime.artifact import load_model, load_tokenizer
 from asr_tpu_torch.runtime.metadata import config_from_dict
@@ -74,18 +77,30 @@ class WhisperSession:
     def __init__(self, params, cfg: wh.WhisperConfig, tokenizer=None,
                  session_cfg: WhisperSessionConfig | None = None,
                  language_id_map: dict[str, int] | None = None,
-                 window_seconds: float = WINDOW_SECONDS):
+                 window_seconds: float = WINDOW_SECONDS, mesh=None, param_specs=None):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.scfg = session_cfg or WhisperSessionConfig()
         self.window_samples = int(window_seconds * cfg.sample_rate)
         self.language_id_map = language_id_map or {}
+        self.runner = None
+        if mesh is not None:
+            from asr_tpu_torch.parallel.serve import DataParallelRunner
+
+            tp = mesh.shape["model"]
+            if param_specs is not None and cfg.num_heads % tp:
+                raise ValueError(f"tensor-parallel size {tp} must divide num_heads={cfg.num_heads}")
+            self.runner = DataParallelRunner(mesh, param_specs=param_specs)
+            params = self.runner.shard_params(params)
+            self.device = self.runner.device
+        else:
+            self.device = params["decoder"]["pos"].device
         self.params = params
-        self.device = params["decoder"]["pos"].device
         # The stacked copy duplicates the q8 decoder and the (D, V_pad) head:
-        # built only where the fused kernel runs (a CUDA card, bf16 mode).
+        # built only where the fused kernel runs (a CUDA card, bf16 mode,
+        # no runner: the sharded route decodes on the per-weight step).
         self.stacked = None
-        if self.device.type == "cuda" and _resolve_mm(None) == "bf16":
+        if self.runner is None and self.device.type == "cuda" and _resolve_mm(None) == "bf16":
             self.stacked = stack_whisper_step_params(params, cfg)
 
     @property
@@ -158,13 +173,23 @@ class WhisperSession:
             buf[i, : len(chunk)] = chunk
 
         t0 = time.perf_counter()
-        prompt = torch.from_numpy(self._prompt(padded, language)).to(self.device)
+        prompt_np = self._prompt(padded, language)
+        prompt = torch.from_numpy(prompt_np)
         with torch.inference_mode():
-            mel = wh.mel_for_audio(self.cfg, torch.from_numpy(buf).to(self.device))
-            out = wh.transcribe_window(
-                self.params, self.cfg, mel, prompt, self.decode_cfg,
-                begin_suppress_ids=self.scfg.begin_suppress_ids, generator=generator,
-                stacked=self.stacked if padded == 1 else None)
+            if self.runner is not None:
+                def window(p, a, pr):
+                    return wh.transcribe_window(
+                        p, self.cfg, wh.mel_for_audio(self.cfg, a), pr, self.decode_cfg,
+                        begin_suppress_ids=self.scfg.begin_suppress_ids,
+                        generator=rank_generator(generator))
+
+                out = self.runner(window, self.params, buf, prompt_np)
+            else:
+                mel = wh.mel_for_audio(self.cfg, torch.from_numpy(buf).to(self.device))
+                out = wh.transcribe_window(
+                    self.params, self.cfg, mel, prompt.to(self.device), self.decode_cfg,
+                    begin_suppress_ids=self.scfg.begin_suppress_ids, generator=generator,
+                    stacked=self.stacked if padded == 1 else None)
             tokens = out["tokens"].cpu().numpy()  # waits for the device
             counts = out["counts"].cpu().numpy()
             nsp = out["no_speech_prob"].cpu().numpy()

@@ -88,7 +88,7 @@ alone, timed in turns; (22) Qwen3-ASR-0.6B with a q8 tower, a packed-q2 LLM
 and a 2-bit tied head through an artifact folder and ``load_qwen_session``
 (the per-weight route): 20 s with its launch counts and its ids against a
 replay with plain matmuls on the dequantized weights, one 30 s window's
-numbers (a 96-token budget), and the q2 logits against plain matmuls; (23) the q2 session
+numbers (a 48-token budget), and the q2 logits against plain matmuls; (23) the q2 session
 behind the HTTP micro-batcher, 4 requests in a batch of 4 (the int2 kernel
 at M = 4); (24) continuous serving of the q2 artifact on the rowwise route,
 2 concurrent requests on 8 slots with a 96-token budget, each request's ids
@@ -207,6 +207,28 @@ NLL and gradient, the wavefront's time, launches and peak memory; (52)
 and AdamW state, bitwise on the card, and ``fit``'s resume (2 steps +
 checkpoint + restore into fresh tensors + 2 against 4 straight).
 
+Then multi-device serving on meshes of card positions (``card_positions``:
+the visible cards in turn, so one card holds several): (53) phase 4's q8
+SenseVoiceSmall, batch 8 x 8 s, through ``DataParallelRunner`` at dp 2 x
+tp 2, tp 4 and dp 4 against the unsharded forward (mm=f32: tp logits
+within 1e-3 of max|logit| and the framewise argmax equal above the margin,
+dp rows bitwise), every position's 281 int8 launches, a column and two
+row shard calls against their plain version, the forwards timed in bf16;
+(57) ``transcribe --data-parallel 2 --tensor-parallel 2`` through
+``cli.main`` on phase 4's artifact against the unsharded command; (58)
+the serving half of ``__graft_entry__.dryrun_multichip`` at its tiny
+widths (a Whisper tp x dp encode, a Qwen3 prefill and step, a continuous
+tp step) against the unsharded runs; (59) the int8 and int4 kernels on a
+second card (only where there is one); (54) phase 9's Whisper at tp 2,
+one 30 s window on the rowwise decode against the unsharded rowwise run,
+ms a token; (56) its continuous server at ``data_parallel=2``, each
+request bitwise it alone on either replica; (55) phase 16's Qwen3-ASR
+through ``ContinuousSessionServer`` at ``tensor_parallel=2`` (ids against
+the unsharded rowwise batcher, a replay where they differ) and at
+``data_parallel=2`` (each request bitwise it alone on either replica).
+Positions that share a card take turns on it (``parallel/mesh.device_lock``),
+so their times are no speed result.
+
 Each path's launch counts are reset just before it and read just after:
 every q8 SenseVoice forward launches the int8 kernel 281 times (70 blocks
 x 4 linears + the CTC head); one Whisper window launches it for the
@@ -244,7 +266,8 @@ A built q8 SenseVoice artifact's forward launches the int8 kernel 281
 times, the hqq 4-bit one the int4 kernel 280 times and the int8 kernel
 once (the first block's K = 560 leaf does not pack), the dynamic one
 neither. Training (49-52) launches none of the seven kernels: its leaves
-are f32 and never reach ``quant_dense``.
+are f32 and never reach ``quant_dense``. A sharded SenseVoice forward
+launches the int8 kernel 281 times at every mesh position.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1544,7 +1567,7 @@ QWEN_DECODE_POS = ((5, 0), (200, 3), (440, 17))  # (pos, shift) of the step chec
 QWEN_SERVE_SECONDS = (5.0, 20.0)
 QWEN_SERVE_REQUESTS = 4  # one batch of QWEN_SERVE_BATCH (the run-time limit)
 QWEN_SERVE_BATCH = 4
-QWEN_SERVE_BUDGET = 96  # new tokens a window on the served, per-weight route
+QWEN_SERVE_BUDGET = 48  # new tokens a window on the served, per-weight route (96 before PR 18)
 # The step rounds every matvec input to bf16, and a last-bit difference can
 # flip one such rounding. One layer of the kernel agrees with its plain
 # version to a bf16 step (QWEN_ONE_LAYER_TOL). Over the 28 random layers the
@@ -6544,6 +6567,519 @@ def phase_train_checkpoint(torch, np, params, opt_state, host, card: str) -> dic
     return out
 
 
+# ── 53-59. multi-device serving: meshes of repeated positions on the card ───
+# (data, model) layouts of the SenseVoice runs; tp is virtual on one card
+# (every position on the same card), so its times are no speed result.
+SHARD_CONFIGS = ((2, 2), (1, 4), (4, 1))
+SHARD_BUDGET = 24  # new tokens a window on the sharded and replicated decodes
+SHARD_REQUESTS = 4
+SHARD_SECONDS = (5.0, 12.0)
+VIRTUAL = "every mesh position on the one card: not a speed result"
+
+
+def card_positions(torch, n: int) -> list:
+    """``n`` mesh positions over the visible cards in turn (one card: repeated)."""
+    k = torch.cuda.device_count()
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
+def shard_vs_plain(torch, qm, leaf, m: int, seed: int) -> float:
+    """One shard's int8 call against its plain version (bf16 mode): max
+    |diff|, checked within 1e-4 * max|plain|."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    k = leaf.scale.shape[0] * leaf.block
+    x = torch.randn((m, k), generator=g, device=DEV)
+    got = qm.quant_matmul_int8(x, leaf.q, leaf.scale, leaf.zero, leaf.block, "bf16")
+    want = qm.quant_dense_reference(x, leaf.q, leaf.scale, leaf.zero, leaf.block, "bf16")
+    err = (got - want).abs().max().item()
+    check(err <= 1e-4 * want.abs().max().item(), f"shard ({k}, {leaf.q.shape[1]}) vs plain: {err}")
+    return err
+
+
+def phase_sensevoice_sharded(torch, np, qm, params, cfg, card: str) -> dict:
+    """[53] SenseVoiceSmall q8, batch 8 x 8 s, through DataParallelRunner at
+    each of SHARD_CONFIGS against the unsharded forward, checked in mm=f32 (in
+    bf16 mode a last-bit gap of a sum flips an activation's bf16 rounding):
+    tp runs' logits within 1e-3 * max|logit| with the framewise argmax equal
+    above the margin, dp-only rows bitwise; the int8 launches on the shards;
+    forwards timed in mm=bf16; a column and two row shard calls held against
+    their plain version in bf16 mode."""
+    from asr_tpu_torch.decode.ctc import ctc_greedy_collapse
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.parallel.serve import DataParallelRunner
+
+    rng = np.random.default_rng(53)
+    samples = int(WINDOW_S * cfg.sample_rate)
+    audio = (rng.standard_normal((BATCH, samples)) * 2000).astype(np.float32)
+    valid = rng.integers(samples // 2, samples + 1, size=BATCH).astype(np.int64)
+    valid[0] = samples
+    lang = np.zeros(BATCH, np.int64)
+
+    def fn(p, a, v, li):
+        return sv.encode_logits(p, cfg, a, v, li)
+
+    def timed(call) -> float:
+        qm.set_quant_config(mm="bf16")
+        call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        qm.set_quant_config(mm="f32")
+        return (time.perf_counter() - t) / 3 * 1e3
+
+    qm.set_quant_config(mm="f32")
+    with torch.inference_mode():
+        args = [torch.from_numpy(x).to(DEV) for x in (audio, valid, lang)]
+        want, vseq = fn(params, *args)
+        base_ms = timed(lambda: fn(params, *args))
+    frames = torch.arange(want.shape[1], device=DEV)[None, :] < vseq[:, None]
+    sure = frames & (logits_margin(want) > MARGIN)
+    want_ids = ctc_greedy_collapse(want.argmax(-1), vseq, cfg.blank_id)
+    scale = want.abs().max().item()
+    out = {"launches": {}, "ms": {"unsharded": base_ms}, "max_abs_err": 0.0}
+    for dp, tp in SHARD_CONFIGS:
+        name = f"sensevoice_dp{dp}_tp{tp}"
+        mesh = pm.make_mesh(dp * tp, model_parallel=tp, devices=card_positions(torch, dp * tp))
+        runner = DataParallelRunner(mesh, pm.sensevoice_param_specs if tp > 1 else None)
+        lay = runner.shard_params(params)
+        runner(fn, lay, audio, valid, lang)  # first call: threads, workspaces
+        torch.cuda.synchronize()
+        qm.LAUNCHES = 0  # the path starts here
+        got, gv = runner(fn, lay, audio, valid, lang)
+        torch.cuda.synchronize()
+        launches = qm.LAUNCHES  # and ends here
+        ms = timed(lambda: runner(fn, lay, audio, valid, lang))
+        check(launches == LINEARS_PER_FORWARD * dp * tp, f"[53] {name}: {launches} int8 launches, not "
+              f"{LINEARS_PER_FORWARD} x {dp * tp} positions")
+        check(bool(torch.isfinite(got).all()) and torch.equal(gv, vseq), f"[53] {name}: bad output")
+        diff = (got - want).abs().max().item()
+        if tp == 1:
+            check(diff == 0.0, f"[53] {name}: data-parallel rows differ from the unsharded rows by {diff}")
+        check(diff <= 1e-3 * scale, f"[53] {name}: logits {diff} > 1e-3 * {scale}")
+        check(bool((got.argmax(-1) == want.argmax(-1))[sure].all()),
+              f"[53] {name}: framewise argmax differs above the {MARGIN} margin")
+        ids = ctc_greedy_collapse(got.argmax(-1), gv, cfg.blank_id)
+        same = torch.equal(ids[1], want_ids[1]) and torch.equal(ids[0], want_ids[0])
+        check(same or int((frames & ~sure).sum()) > 0, f"[53] {name}: ids differ with every frame sure")
+        out["launches"][name] = launches
+        out["ms"][name] = ms
+        print(f"[53 sharded] {name}: {launches} int8 launches ({dp * tp} positions x {LINEARS_PER_FORWARD}), "
+              f"logits vs unsharded max diff {diff:.3e} (max|logit| {scale:.3e}{', bitwise' if diff == 0 else ''}), "
+              f"ids {'equal' if same else 'differ only on frames under the margin'} (mm=f32); forward "
+              f"{ms:.1f} ms vs unsharded {base_ms:.1f} ms (mm=bf16, {VIRTUAL})  [{card}]")
+        if (dp, tp) == SHARD_CONFIGS[0]:
+            blk = lay.local(0, tp - 1)["encoders"][0]
+            m = BATCH // dp * ROWS
+            out["max_abs_err"] = max(shard_vs_plain(torch, qm, blk["qkv"]["w"], m, 1),
+                                     shard_vs_plain(torch, qm, blk["out"]["w"], m, 2),
+                                     shard_vs_plain(torch, qm, blk["ffn"]["w2"], m, 3))
+            print(f"[53 sharded] rank {tp - 1}'s qkv column shard {tuple(blk['qkv']['w'].q.shape)}, out and "
+                  f"ffn.w2 row shards {tuple(blk['out']['w'].q.shape)} {tuple(blk['ffn']['w2'].q.shape)} at "
+                  f"M={m} vs plain: max |diff| {out['max_abs_err']:.3e}")
+        del lay, runner
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli_sharded(torch, np, qm, folder: str, params, cfg, card: str) -> dict:
+    """[57] ``transcribe --data-parallel 2 --tensor-parallel 2`` through
+    ``cli.main`` on phase 4's artifact, both commands in the exact mode
+    (``--quant-mm f32``: in bf16 a last-bit gap of a sum flips a bf16
+    rounding): the unsharded command's printout (or, where ids differ, an
+    unsharded top-2 margin under MARGIN)."""
+    import contextlib
+
+    from asr_tpu_torch import cli
+    from asr_tpu_torch.models import sensevoice as sv
+
+    rng = np.random.default_rng(57)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 2000).astype(np.int16) for s in (8.0, 5.5)]
+    with tempfile.TemporaryDirectory() as d:
+        wavs = []
+        for i, c in enumerate(clips):
+            p = Path(d) / f"c{i}.wav"
+            p.write_bytes(wav_bytes(c))
+            wavs.append(str(p))
+
+        def run(*flags) -> tuple[list, float]:
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["--quant-mm", "f32", "transcribe", "--model-dir", folder, *flags, *wavs])
+            check(rc == 0, f"[57] transcribe {flags} exited {rc}")
+            lines = buf.getvalue().splitlines()
+            return [ln for ln in lines if not ln.startswith(tuple(wavs))], time.perf_counter() - t
+
+        plain, plain_s = run()
+        qm.LAUNCHES = 0  # the path starts here
+        got, got_s = run("--data-parallel", "2", "--tensor-parallel", "2")
+        launches = qm.LAUNCHES  # and ends here
+    check(launches > 0, "[57] the sharded command launched no int8 kernel")
+    if got != plain:
+        qm.set_quant_config(mm="f32")
+        with torch.inference_mode():
+            for c in clips:
+                a = torch.from_numpy(c.astype(np.float32))[None].to(DEV)
+                lg, _ = sv.encode_logits(params, cfg, a, torch.tensor([len(c)], device=DEV),
+                                         torch.zeros(1, dtype=torch.int64, device=DEV))
+                low = logits_margin(lg).min().item()
+                check(low <= MARGIN, f"[57] printouts differ with every top-2 margin above {MARGIN}")
+    print(f"[57 cli] transcribe --data-parallel 2 --tensor-parallel 2: {len(clips)} files "
+          f"{'printed as' if got == plain else 'differ (under the margin) from'} the unsharded command; "
+          f"{launches} int8 launches; {got_s:.2f} s vs {plain_s:.2f} s, artifact load included  [{card}]")
+    return {"int8": launches}
+
+
+def phase_dryrun_serving(torch, np, card: str) -> dict:
+    """[58] The serving half of ``__graft_entry__.dryrun_multichip`` on a
+    dp 4 x tp 2 mesh of card positions, at its tiny f32 widths: a Whisper
+    encode, a Qwen3 prefill and one step, and a continuous tensor-parallel
+    step; each against the unsharded run."""
+    from asr_tpu_torch.decode.ar import DecodeConfig
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.parallel.llm_batcher import ContinuousLlmBatcher
+    from asr_tpu_torch.parallel.serve import DataParallelRunner
+
+    mesh = pm.make_mesh(8, model_parallel=2, devices=card_positions(torch, 8))
+    g = torch.Generator(device=DEV).manual_seed(58)
+    rng = np.random.default_rng(58)
+    batch = 2 * mesh.shape["data"]
+    wcfg = wh.WhisperConfig(vocab_size=128, d_model=32, encoder_layers=1, decoder_layers=1, num_heads=4,
+                            n_mels=16, max_source_positions=20, max_target_positions=16, sot_id=1,
+                            eot_id=2, first_language_id=10, num_languages=4, transcribe_id=20,
+                            translate_id=21, no_timestamps_id=22, no_speech_id=30)
+    wp = wh.init_params(wcfg, g)
+    mel = rng.standard_normal((batch, 40, 16)).astype(np.float32)
+    runner = DataParallelRunner(mesh, pm.whisper_param_specs)
+    enc = runner(lambda p, m: wh.encode(p, wcfg, m), runner.shard_params(wp), mel)
+    with torch.inference_mode():
+        want = wh.encode(wp, wcfg, torch.from_numpy(mel).to(DEV))
+    enc_diff = (enc - want).abs().max().item()
+    check(enc_diff <= 1e-4 * want.abs().max().item(), f"[58] whisper tp x dp encode: {enc_diff}")
+
+    qcfg = qwen3.Qwen3Config(vocab_size=128, hidden=32, num_layers=2, num_heads=4, num_kv_heads=2,
+                             head_dim=8, ffn_dim=48)
+    qp = qwen3.init_params(qcfg, g)
+    s, t_max = 6, 12
+    ids = rng.integers(0, qcfg.vocab_size, (batch, s))
+
+    def prefill_and_step(p, ids):
+        state = qwen3.make_kv_state(qcfg, ids.shape[0], t_max, device=ids.device)
+        full = torch.full((ids.shape[0],), s, device=ids.device)
+        hidden, state = qwen3.decoder_pass(p, qcfg, p["embed"][ids], state, 0,
+                                           qwen3.causal_prefill_bias(full, s, t_max))
+        tok = qwen3.logits_from_hidden(p, qcfg, hidden)[:, -1].argmax(-1)
+        h2, state = qwen3.decoder_pass(p, qcfg, p["embed"][tok[:, None]], state, s,
+                                       qwen3.step_bias(full, s, t_max))
+        return qwen3.logits_from_hidden(p, qcfg, h2)[:, -1]
+
+    qrunner = DataParallelRunner(mesh, pm.qwen3_param_specs)
+    lg = qrunner(prefill_and_step, qrunner.shard_params(qp), ids)
+    with torch.inference_mode():
+        lw = prefill_and_step(qp, torch.from_numpy(ids).to(DEV))
+    q_diff = (lg - lw).abs().max().item()
+    check(q_diff <= 1e-4 * lw.abs().max().item() and torch.equal(lg.argmax(-1), lw.argmax(-1)),
+          f"[58] qwen3 tp x dp prefill + step: {q_diff}")
+
+    bat = ContinuousLlmBatcher(qwen3.init_params(qcfg, g), qcfg, DecodeConfig(max_new_tokens=3, eot_id=-1),
+                               n_slots=2, t_max=40, steps_per_tick=2, mesh=mesh.row(0))
+    slot = bat.try_submit(torch.from_numpy(rng.standard_normal((5, qcfg.hidden)).astype(np.float32)).to(DEV), 5)
+    n_ev = sum(len(bat.step_tick()) for _ in range(2))
+    got = bat.take_result(slot)
+    check(len(got) == 4, f"[58] continuous tp slot gave {got}")
+    print(f"[58 dryrun] dp {mesh.shape['data']} x tp 2 positions: whisper encode {tuple(enc.shape)} within "
+          f"{enc_diff:.2e} of unsharded, qwen3 prefill + step logits within {q_diff:.2e}, continuous tp "
+          f"step: {n_ev} events, ids {got}  [{card}]")
+    return {"enc_diff": enc_diff, "qwen_diff": q_diff}
+
+
+def first_diff(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def phase_whisper_tp(torch, np, qm, fs, folder: str, card: str) -> tuple:
+    """[54] Whisper-Large-v3-Turbo q8 (phase 9's artifact), one 30 s window at
+    tp 2 (10 of the 20 heads a rank) on the rowwise (per-weight) decode,
+    SHARD_BUDGET new tokens: ids against the unsharded rowwise run (equal, or
+    first differing where the unsharded step's top-2 margin is under MARGIN)
+    and ms a token. Returns the numbers and the unsharded session (for 56)."""
+    from asr_tpu_torch.decode.strategies import suppress_tokens
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.runtime.whisper_session import WhisperSession, load_whisper_session
+
+    qm.set_quant_config(mm="bf16")
+    base = load_whisper_session(folder, DEV)
+    base.scfg = dataclasses.replace(base.scfg, max_new_tokens=SHARD_BUDGET, no_speech_threshold=None)
+    cfg = base.cfg
+    kw = dict(session_cfg=base.scfg, language_id_map=base.language_id_map)
+    plain = WhisperSession(base.params, cfg, **kw)
+    plain.stacked = None  # the rowwise route, as the sharded session decodes
+    tp = WhisperSession(base.params, cfg, **kw, mesh=pm.make_mesh(2, 2, devices=card_positions(torch, 2)),
+                        param_specs=pm.whisper_param_specs)
+    check(tp.stacked is None and tp.runner is not None, "[54] the sharded session stacked or has no runner")
+    audio = (np.random.default_rng(54).standard_normal(30 * 16000) * 0.1).astype(np.float32)
+    margins = []  # the unsharded run's top-2 margin at each generated id
+    step, prefill_window = wh.step, wh.prefill_window
+    suppress = base.decode_cfg.suppress_ids
+
+    def recorded_prefill(*a, **k):
+        pre = prefill_window(*a, **k)
+        margins.append(logits_margin(pre["logits0"])[0].item())
+        return pre
+
+    def recorded_step(*a, **k):
+        lg, st = step(*a, **k)
+        margins.append(logits_margin(suppress_tokens(lg.float(), suppress))[0].item())
+        return lg, st
+
+    wh.step, wh.prefill_window = recorded_step, recorded_prefill
+    try:
+        want = plain.transcribe(audio).token_ids
+    finally:
+        wh.step, wh.prefill_window = step, prefill_window
+    qm.LAUNCHES = fs.LAUNCHES = 0  # the path starts here
+    got = tp.transcribe(audio)
+    int8, fused = qm.LAUNCHES, fs.LAUNCHES  # and ends here
+    check(int8 > 0 and fused == 0, f"[54] {int8} int8 and {fused} fused launches on the tp path")
+    j = first_diff(got.token_ids, want)
+    if got.token_ids != want:
+        check(j < len(margins) and margins[j] <= MARGIN,
+              f"[54] tp ids differ at {j} where the unsharded margin is above {MARGIN}")
+    times = {}
+    for label, sess in (("unsharded", plain), ("tp2", tp)):
+        full = sess.transcribe(audio)
+        short = dataclasses.replace(sess.scfg, max_new_tokens=1)
+        keep, sess.scfg = sess.scfg, short
+        head = sess.transcribe(audio)
+        sess.scfg = keep
+        n = max(len(full.token_ids) - len(head.token_ids), 1)
+        times[label] = {"window_s": full.elapsed_seconds,
+                        "ms_per_token": (full.elapsed_seconds - head.elapsed_seconds) / n * 1e3}
+    print(f"[54 whisper tp] 30 s window, tp 2 ({cfg.num_heads // 2} heads a rank), rowwise decode of "
+          f"{len(got.token_ids)} ids: {'equal to' if got.token_ids == want else f'first differing at {j} (margin under {MARGIN}) from'} "
+          f"the unsharded rowwise run; int8 launches {int8}; window {times['tp2']['window_s'] * 1e3:.0f} ms, "
+          f"{times['tp2']['ms_per_token']:.2f} ms a token vs unsharded {times['unsharded']['window_s'] * 1e3:.0f} ms, "
+          f"{times['unsharded']['ms_per_token']:.2f} ms a token ({VIRTUAL})  [{card}]")
+    del plain, tp
+    torch.cuda.empty_cache()
+    return {"int8": int8, "equal": got.token_ids == want, **times}, base
+
+
+def count_submits(srv) -> list:
+    """Per replica, the requests its batcher took."""
+    counts = [0] * len(srv.replicas)
+    for i, rep in enumerate(srv.replicas):
+        orig = rep.batcher.try_submit
+
+        def counted(*a, _i=i, _orig=orig, **k):
+            slot = _orig(*a, **k)
+            counts[_i] += slot is not None
+            return slot
+
+        rep.batcher.try_submit = counted
+    return counts
+
+
+def serve_clips(torch, srv, clips, counters) -> tuple:
+    """POST ``clips`` at once to an HTTP front end over ``srv``; the launch
+    counts ``counters`` name ((module, count name) pairs) over the run. ->
+    (replies, healthz, launches, wall s)."""
+    from asr_tpu_torch.parallel.http_server import make_http_server
+
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: list = [None] * len(clips)
+    try:
+        torch.cuda.synchronize()
+        for mod, name in counters:
+            setattr(mod, name, 0)  # the path starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_clip, args=(base, c, 0.0, results, i))
+                   for i, c in enumerate(clips)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+        launches = [getattr(mod, name) for mod, name in counters]  # and ends here
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"request {i}: {r}")
+    return [r[1]["token_ids"] for r in results], health, launches, wall
+
+
+def phase_whisper_dp(torch, np, qm, fs, fm, session, card: str) -> dict:
+    """[56] Continuous Whisper-Large-v3-Turbo q8 at data_parallel=2 (two
+    replicas, each its own multi-slot kernel; on one card both on it):
+    SHARD_REQUESTS requests, each bitwise the request alone through a
+    replica's batcher, both replicas serving."""
+    from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer, _to
+
+    check(session.stacked is not None, "[56] the session did not stack the q8 decoder")
+    rng = np.random.default_rng(56)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16)
+             for s in rng.uniform(*SHARD_SECONDS, size=SHARD_REQUESTS)]
+    srv = ContinuousSessionServer(session, n_slots=2, kv_dtype="f32", data_parallel=2,
+                                  devices=card_positions(torch, 2))
+    try:
+        taken = count_submits(srv)
+        got, health, (int8, fused, multi), wall = serve_clips(
+            torch, srv, clips, ((qm, "LAUNCHES"), (fs, "LAUNCHES"), (fm, "LAUNCHES")))
+        taken = list(taken)  # the served requests only
+    finally:
+        srv.close()
+    eot = session.decode_cfg.eot_id
+    with torch.inference_mode():  # each request alone on each replica's batcher
+        for r, rep in enumerate(srv.replicas):
+            for i, clip in enumerate(clips):
+                pre = session.continuous_prefill(clip.astype(np.float32) / 32768.0)
+                slot = rep.batcher.try_submit(_to(pre["state"], rep.device), pre["p_len"],
+                                              pre["logits0"].to(rep.device), pre["tc_valid"])
+                while rep.batcher.is_active(slot):
+                    rep.batcher.step()
+                alone = [t for t in rep.batcher.take_result(slot) if t != eot]
+                check(alone == got[i], f"[56] request {i}: served ids differ from it alone on replica {r}")
+    check(health["ok"] and health["replicas"] == 2 and health["step_kernel"] == "fused", f"[56] {health}")
+    check(multi == health["decode_steps"] > 0 and fused == 0, f"[56] {multi} multi-slot launches for "
+          f"{health['decode_steps']} steps, {fused} batch-1")
+    check(all(t > 0 for t in taken), f"[56] a replica served nothing: {taken}")
+    print(f"[56 whisper dp] data_parallel=2 on {', '.join(str(r.device) for r in srv.replicas)}: "
+          f"{len(clips)} requests ({taken} a replica) in {wall:.2f} s, multi-slot launches {multi} "
+          f"(= decode steps), int8 {int8}; each request bitwise it alone on either replica; healthz "
+          f"{json.dumps(health)}  [{card}]")
+    return {"int8": int8, "launches": multi}
+
+
+def phase_qwen_sharded(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
+    """[55] Qwen3-ASR-0.6B (phase 16's artifact: q8 tower, q4 LLM) through
+    ContinuousSessionServer: tensor_parallel=2 (the rowwise tp engine; ids
+    against the unsharded rowwise batcher, differing only under the replay
+    margin) and data_parallel=2 (each request bitwise it alone through a
+    replica's batcher, both replicas serving, healthz 2 replicas)."""
+    from asr_tpu_torch.parallel.llm_batcher import ContinuousLlmBatcher
+    from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer
+    from asr_tpu_torch.runtime.qwen_session import load_qwen_session
+
+    qm.set_quant_config(mm="bf16")
+    session = load_qwen_session(folder, DEV, max_new_tokens=SHARD_BUDGET)
+    cfg, eot = session.cfg, session.cfg.eot_id
+    counters = ((qm, "LAUNCHES"), (qm, "LAUNCHES_INT4"), (fd, "LAUNCHES"), (fdm, "LAUNCHES"))
+    rng = np.random.default_rng(55)
+    clips = [np.round(rng.standard_normal(int(s * 16000)) * 3277).astype(np.int16)
+             for s in rng.uniform(*SHARD_SECONDS, size=SHARD_REQUESTS)]
+    out = {}
+    srv = ContinuousSessionServer(session, n_slots=2, kv_dtype="bf16", tensor_parallel=2,
+                                  devices=card_positions(torch, 2))
+    try:
+        got, health, (int8, int4, fused, multi), wall = serve_clips(torch, srv, clips, counters)
+        t_max = srv.batcher.t_max
+    finally:
+        srv.close()
+    check(health["ok"] and health["tensor_parallel"] == 2 and health["step_kernel"] == "rowwise",
+          f"[55] tp healthz {health}")
+    check(int4 > 0 and int8 > 0 and fused == 0 and multi == 0,
+          f"[55] tp launches: int4 {int4}, int8 {int8}, batch-1 {fused}, multi {multi}")
+    rows = ContinuousLlmBatcher(session.llm_params, cfg.llm, session.decode_cfg, n_slots=2, t_max=t_max,
+                                kv_dtype=torch.bfloat16)
+    import copy
+
+    rows_sess = copy.copy(session)
+    rows_sess.stacked = None
+    equal, gap = 0, 0.0
+    with torch.inference_mode():
+        for i, clip in enumerate(clips):
+            audio = clip.astype(np.float32) / 32768.0
+            emb, valid = session.prompt_embeds(audio)
+            slot = rows.try_submit(emb, valid)
+            while rows.is_active(slot):
+                rows.step()
+            alone = [t for t in rows.take_result(slot) if t != eot]
+            if alone == got[i]:
+                equal += 1
+                continue
+            gap = max(gap, qwen_replay_gap(torch, rows_sess, audio, got[i]))
+            check(gap <= MARGIN, f"[55] tp request {i}: a served id {gap:.2e} of max|logit| below the best")
+    out["tp"] = {"int8": int8, "int4": int4, "wall_s": wall, "step_ms": health["step_latency_avg_s"] * 1e3,
+                 "equal": equal}
+    print(f"[55 qwen tp] tensor_parallel=2: {len(clips)} requests in {wall:.2f} s, {health['decode_steps']} "
+          f"steps at {health['step_latency_avg_s'] * 1e3:.2f} ms; int4 {int4}, int8 {int8}, multi-slot 0; ids "
+          f"equal to the unsharded rowwise batcher for {equal}/{len(clips)} (the rest within {gap:.2e} of "
+          f"max|logit| of the per-weight best) ({VIRTUAL})  [{card}]")
+
+    srv = ContinuousSessionServer(session, n_slots=2, kv_dtype="bf16", data_parallel=2,
+                                  devices=card_positions(torch, 2))
+    try:
+        taken = count_submits(srv)
+        got, health, (int8, int4, fused, multi), wall = serve_clips(torch, srv, clips, counters)
+        taken = list(taken)  # the served requests only
+    finally:
+        srv.close()
+    with torch.inference_mode():  # each request alone on each replica's batcher
+        for r, rep in enumerate(srv.replicas):
+            for i, clip in enumerate(clips):
+                emb, valid = session.prompt_embeds(clip.astype(np.float32) / 32768.0)
+                slot = rep.batcher.try_submit(emb.to(rep.device), valid)
+                while rep.batcher.is_active(slot):
+                    rep.batcher.step()
+                alone = [t for t in rep.batcher.take_result(slot) if t != eot]
+                check(alone == got[i], f"[55] dp request {i}: served ids differ from it alone on replica {r}")
+    check(health["ok"] and health["replicas"] == 2 and health["step_kernel"] == "fused", f"[55] dp {health}")
+    check(multi == health["decode_steps"] > 0 and fused == 0, f"[55] dp: {multi} multi-slot launches for "
+          f"{health['decode_steps']} steps, {fused} batch-1")
+    check(all(t > 0 for t in taken), f"[55] a replica served nothing: {taken}")
+    out["dp"] = {"int8": int8, "int4": int4, "launches": multi, "wall_s": wall}
+    print(f"[55 qwen dp] data_parallel=2: {len(clips)} requests ({taken} a replica) in {wall:.2f} s; "
+          f"multi-slot {multi} (= decode steps), int4 {int4}, int8 {int8}; each bitwise it alone on either "
+          f"replica; healthz replicas {health['replicas']}, slots {health['slots']}  [{card}]")
+    del session, rows, rows_sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_second_device(torch, qm, quantize_linear, card: str) -> dict:
+    """[59] The per-device shared-memory limit: the int8 and int4 kernels
+    launched on cuda:0, then on cuda:1 at shapes above 48 KiB of dynamic
+    shared memory, against their plain versions (kernels 5 and 7 run on
+    cuda:1 as phase 55's and 56's second replicas). Needs two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[59 second device] skipped: {n} card visible, so the per-device shared-memory repair "
+              "is not exercised here (phases 55-56 put both replicas on cuda:0)")
+        return {"ran": False}
+    errs = {}
+    for name, bits in (("int8", 8), ("int4", 4)):
+        w = torch.randn((1024, 4096), generator=torch.Generator(device=DEV).manual_seed(bits), device=DEV)
+        leaf = quantize_linear(w * 1024 ** -0.5, bits, 128, pack=bits == 4)
+        for dev in ("cuda:0", "cuda:1"):
+            x = torch.randn((432, 1024), device=dev)
+            q, s, z = (t.to(dev) for t in (leaf.q, leaf.scale, leaf.zero))
+            if bits == 8:
+                got = qm.quant_matmul_int8(x, q, s, z, leaf.block, "bf16")
+                want = qm.quant_dense_reference(x, q, s, z, leaf.block, "bf16")
+            else:
+                got = qm.quant_matmul_int4(x, q, s, z, leaf.block, "bf16")
+                want = qm.quant_dense_p4_reference(x, q, s, z, leaf.block, "bf16")
+            torch.cuda.synchronize(dev)
+            errs[f"{name} {dev}"] = (got - want).abs().max().item()
+            check(errs[f"{name} {dev}"] <= 1e-4 * want.abs().max().item(), f"[59] {name} on {dev}: {errs}")
+    print(f"[59 second device] int8 and int4 on cuda:0 then cuda:1 vs plain: {errs}  [{card}]")
+    return {"ran": True, "max_abs_err": errs}
+
+
 def main() -> int:
     if not (ROOT / "asr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -6733,9 +7269,18 @@ def main() -> int:
     print(f"[4 check] q8 mm=f32 logits vs plain f32: max diff {diff:.3e} (max|logit| {scale:.3e}), "
           f"argmax equal on {int(sure.sum())} frames, {under} frames under the {MARGIN} margin")
 
-    del dense, lq, lp, session, params, params32
-    torch.cuda.empty_cache()
     print(f"[t] phases 4-6: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
+    # ── 53, 57-59. SenseVoice on a mesh, the command line, the dryrun's serving half, a second card ──
+    del dense, lq, lp, params32
+    torch.cuda.empty_cache()
+    sh53 = phase_sensevoice_sharded(torch, np, qm, params, cfg, card)
+    cli57 = phase_cli_sharded(torch, np, qm, sv_dir.name, params, cfg, card)
+    dry58 = phase_dryrun_serving(torch, np, card)
+    dev59 = phase_second_device(torch, qm, quantize_linear, card)
+    del session, params
+    torch.cuda.empty_cache()
+    print(f"[t] phases 53, 57-59: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     examples_dir = tempfile.TemporaryDirectory()  # phase 45's fixtures, for every family's parity
     examples = write_examples(Path(examples_dir.name))
@@ -6753,6 +7298,11 @@ def main() -> int:
         multi = phase_multi(torch, fs, fm, wh, quantize_pytree, fused, card)
         aed_mv = phase_aed_matvec(torch, fs, card)
         serve = phase_continuous(torch, np, qm, fs, fm, whisper_dir, wnum, card)
+        # ── 54, 56. Whisper at tp 2, continuous Whisper at data_parallel=2 ──
+        wtp54, wbase = phase_whisper_tp(torch, np, qm, fs, whisper_dir, card)
+        wdp56 = phase_whisper_dp(torch, np, qm, fs, fm, wbase, card)
+        del wbase
+        torch.cuda.empty_cache()
         add_parity_languages(whisper_dir)
         par["whisper"] = phase_parity(torch, np, qm, fs, fd, "whisper", whisper_dir, examples, card)
     print(f"[t] phases 8-13, 45 whisper: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
@@ -6772,6 +7322,8 @@ def main() -> int:
         mtimes = phase_decode_multi_times(torch, fd, fdm, mdec.pop("stacked"), mdec.pop("cfg"),
                                           {c: dec["times"][c]["ms"] for c in dec["times"]}, card)
         qcont = phase_qwen_continuous(torch, np, qm, fd, fdm, qwen_dir, qrun, card)
+        # ── 55. continuous Qwen3-ASR at tensor_parallel=2 and data_parallel=2 ──
+        q55 = phase_qwen_sharded(torch, np, qm, fd, fdm, qwen_dir, card)
         add_parity_languages(qwen_dir)
         # one fixture: 257 tokens a fixture on the per-weight route
         par["qwen_asr"] = phase_parity(torch, np, qm, fs, fd, "qwen_asr", qwen_dir, examples, card,
@@ -6887,6 +7439,8 @@ def main() -> int:
     print("[49-52] " + json.dumps({"sensevoice_ctc": tr49, "whisper_aed": tr50, "parakeet_rnnt": tr51,
                                    "checkpoint": tr52}))
 
+    print("[53-59] " + json.dumps({"sensevoice_sharded": sh53, "whisper_tp2": wtp54, "qwen": q55,
+                                   "whisper_dp2": wdp56, "cli": cli57, "dryrun": dry58, "second_device": dev59}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     k_ms, p_ms = kern["per_forward"]["bf16"]
@@ -6906,7 +7460,9 @@ def main() -> int:
                      + fam_run["dolphin"]["ctc_int8"] + sum(r["int8"] for r in off_run.values())
                      + sum(r[n]["int8"] for r in (st_run, st_multi, st_serve) for n in STREAM_FAMILIES)
                      + sv43["int8"] + wh44["int8"] + sum(r["counts"]["int8"] for r in par.values())
-                     + prof["int8"] + sum(r["int8"] for r in st_prof.values())),
+                     + prof["int8"] + sum(r["int8"] for r in st_prof.values())
+                     + sum(sh53["launches"].values()) + cli57["int8"] + wtp54["int8"] + wdp56["int8"]
+                     + q55["tp"]["int8"] + q55["dp"]["int8"]),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
@@ -6924,7 +7480,13 @@ def main() -> int:
                              "sensevoice_built_artifacts": sv43["int8"], "whisper_built_kquant": wh44["int8"],
                              **{f"{name}_parity": r["counts"]["int8"] for name, r in par.items()},
                              "sensevoice_profile": prof["int8"],
-                             **{f"{name}_stream_profile": r["int8"] for name, r in st_prof.items()}},
+                             **{f"{name}_stream_profile": r["int8"] for name, r in st_prof.items()},
+                             **sh53["launches"], "sensevoice_cli_dp2_tp2": cli57["int8"],
+                             "whisper_tp2": wtp54["int8"], "whisper_dp2_continuous": wdp56["int8"],
+                             "qwen_tp2_continuous": q55["tp"]["int8"], "qwen_dp2_continuous": q55["dp"]["int8"]},
+        "mesh_shards_max_abs_err": sh53["max_abs_err"],
+        "mesh_forward_ms": {k: v for k, v in sh53["ms"].items()},
+        "mesh_note": f"phase 53's batch-8 x 8 s forward by (data, model) layout, mm=bf16, host clock; {VIRTUAL}",
         "streaming_paths": "Paraformer (M = 13 encoder, 10 decoder rows a stream), Nemotron (14 query, 84 "
                            "key/value, 16 pre-encode rows, greedy M = 1), Dolphin (16; rescoring M = 3 and 1) and "
                            "X-ASR Zipformer2 (8, 4, 2, 1 rows by stack) streaming q8, at 1 and 8 streams "
@@ -6981,9 +7543,10 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_aed_multi.cu",
         "replaces": "asr_tpu/ops/fused_aed_multi.py:90",
-        "launches": serve["launches"] + sum(r["launches"] for r in fam_cont.values()),
+        "launches": serve["launches"] + sum(r["launches"] for r in fam_cont.values()) + wdp56["launches"],
         "launches_by_path": {"continuous": serve["launches"], "firered_continuous": fam_cont["firered"]["launches"],
-                             "dolphin_continuous": fam_cont["dolphin"]["launches"]},
+                             "dolphin_continuous": fam_cont["dolphin"]["launches"],
+                             "whisper_dp2_continuous": wdp56["launches"]},
         "max_abs_err": multi["max_abs_err"],
         "ms": m_t["ms"],
         "plain_ms": m_t["plain_ms"],
@@ -7010,12 +7573,14 @@ def main() -> int:
         "source": "asr_tpu_torch/csrc/quant_matmul_int4.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:493",
         "launches": (qrun["int4"] + qserve["int4"] + qcont["int4"] + frun["int4"] + frun["batch_int4"]
-                     + fcont["int4"] + arun["int4"] + sv43["int4"] + par["qwen_asr"]["counts"]["int4"]),
+                     + fcont["int4"] + arun["int4"] + sv43["int4"] + par["qwen_asr"]["counts"]["int4"]
+                     + q55["tp"]["int4"] + q55["dp"]["int4"]),
         "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"],
                              "qwen_continuous": qcont["int4"], "fun_llm": frun["int4"],
                              "fun_llm_batch": frun["batch_int4"], "fun_continuous": fcont["int4"],
                              "aligner": arun["int4"], "sensevoice_built_hqq4": sv43["int4"],
-                             "qwen_parity": par["qwen_asr"]["counts"]["int4"]},
+                             "qwen_parity": par["qwen_asr"]["counts"]["int4"],
+                             "qwen_tp2_continuous": q55["tp"]["int4"], "qwen_dp2_continuous": q55["dp"]["int4"]},
         "max_abs_err": p4["max_abs_err"],
         "ms": p4["per_prefill"]["bf16"]["ms"],
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
@@ -7057,8 +7622,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_decode_multi.cu",
         "replaces": "asr_tpu/ops/fused_decode_multi.py:92",
-        "launches": qcont["launches"] + fcont["launches"],
-        "launches_by_path": {"qwen_continuous": qcont["launches"], "fun_continuous": fcont["launches"]},
+        "launches": qcont["launches"] + fcont["launches"] + q55["dp"]["launches"],
+        "launches_by_path": {"qwen_continuous": qcont["launches"], "fun_continuous": fcont["launches"],
+                             "qwen_dp2_continuous": q55["dp"]["launches"]},
         "max_abs_err": mdec["max_abs_err"],
         "ms": q_t["ms"],
         "plain_ms": q_t["plain_ms"],

@@ -165,18 +165,20 @@ def test_refusals(params):
     _, tsess = _sessions(params)
 
     class LlmSession:  # the LLM families' surface, without the AED one
+        device = torch.device("cpu")
+
         def prompt_embeds(self, *a, **k):
             raise AssertionError
 
     # served on the LLM engine (tests/test_torch_llm_server.py), whose
-    # tensor-parallel form is not ported
-    with pytest.raises(ValueError, match="tensor-parallel LLM engine"):
+    # tensor-parallel form takes T devices a replica
+    with pytest.raises(ValueError, match="tensor_parallel=2 needs 2 devices"):
         tls.ContinuousSessionServer(LlmSession(), warmup=False, tensor_parallel=2)
     with pytest.raises(TypeError, match="no continuous serving surface"):
         tls.ContinuousSessionServer(object(), warmup=False)
     with pytest.raises(ValueError, match="data_parallel"):
         tls.ContinuousSessionServer(tsess, warmup=False, data_parallel=2)
-    with pytest.raises(ValueError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="does not compose with the AED continuous engine"):
         tls.ContinuousSessionServer(tsess, warmup=False, tensor_parallel=2)
     with pytest.raises(ValueError, match="kv_dtype"):
         tls.ContinuousSessionServer(tsess, warmup=False, kv_dtype="f16")
@@ -192,3 +194,29 @@ def test_continuous_prefill_matches_jax(params):
     np.testing.assert_allclose(tpre["logits0"].numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
     assert tsess.aed_engine_spec() == AedEngineSpec(**jsess.aed_engine_spec().__dict__)
+
+
+def test_data_parallel_replicas_match_session_and_jax(params):
+    """``data_parallel=2`` for the AED engine on two CPU positions: each
+    replica its own batcher behind one queue, the session's prefill placed
+    on the replica's device; ids equal the session's and JAX's dp 2
+    server's."""
+    jsess, tsess = _sessions(params)
+    rng = np.random.default_rng(21)
+    clips = [(rng.standard_normal(n) * 900).astype(np.int16) for n in (9000, 5000, 12000, 7000)]
+    srv = tls.ContinuousSessionServer(tsess, n_slots=1, warmup=True, data_parallel=2,
+                                      devices=[torch.device("cpu")] * 2)
+    try:
+        outs = _concurrent(srv, clips)
+        st = srv.stats()
+    finally:
+        srv.close()
+    jsrv = JaxServer(jsess, n_slots=1, warmup=False, data_parallel=2)
+    try:
+        jouts = _concurrent(jsrv, clips)
+    finally:
+        jsrv.close()
+    for i, clip in enumerate(clips):
+        solo = tsess.transcribe(clip.astype(np.float32) / 32768.0).token_ids
+        assert outs[i]["token_ids"] == solo == jouts[i]["token_ids"], i
+    assert st["replicas"] == 2 and st["slots"] == 2 and st["requests_served"] == 4

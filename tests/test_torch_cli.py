@@ -356,7 +356,8 @@ def test_serve_dispatch(tmp_path, monkeypatch):
                    "language": None}
     assert k2 == "cont" and type(s2).__name__ == "FunAsrNanoLlmSession"
     assert kw2 == {"host": "127.0.0.1", "port": 8000, "n_slots": 3, "language": None, "context": "",
-                   "kv_dtype": "bf16", "steps_per_tick": 2}
+                   "kv_dtype": "bf16", "steps_per_tick": 2, "data_parallel": 1,
+                   "tensor_parallel": 1, "devices": [torch.device("cpu")]}
     with pytest.raises(SystemExit, match="--continuous serves"):
         cli.main(["--platform", "cpu", "serve", "--model-dir", str(sv), "--continuous"])
 

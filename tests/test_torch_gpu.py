@@ -29,7 +29,11 @@ Parakeet and Nemotron models (encoder and joint / decoder logits against
 plain matmuls on the dequantized weights, int8 launches a forward, one
 host read of the greedy loop's stop flags a chunk of steps); the three
 training steps, the RNN-T and TDT losses and the training checkpoint on
-the card against the CPU, with TF32
+the card against the CPU; the int8 and int4 kernels on the pieces that
+``parallel/mesh.shard_params`` cuts (heads, rows at block boundaries, an
+uneven vocabulary head), a ``data_parallel=2`` and a ``tensor_parallel=2``
+continuous server on a repeated card, and, with two cards, the kernels'
+per-device shared-memory limit; with TF32
 off. Each test skips where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -1573,3 +1577,146 @@ def test_checkpoint_round_trip_on_the_card_is_bitwise(tmp_path):
     got = dict(ckpt.named_leaves({"params": p2, "opt_state": o2}))
     for name, t in want:
         assert got[name].device == t.device and torch.equal(got[name], t), name
+
+
+# ── multi-device serving: shards, replicas, the per-device kernel attribute ──
+# (full K, full N, block, spec, model-axis size T) of sharded SenseVoiceSmall
+# q8 leaves (qkv by heads; out / ffn.w2 by rows at block boundaries; the
+# 25055-column CTC head unevenly), Whisper q8 (q by heads) and Qwen3-ASR
+# q4 (q|k|v by q and kv heads, gate|up); the shard pieces go through the
+# kernels.
+SHARDED_LEAVES = [
+    ("qkv", 512, 1536, 128, 8, 2), ("out", 512, 512, 128, 8, 4), ("ffn/w2", 2048, 512, 128, 8, 2),
+    ("ctc", 512, 25055, 128, 8, 2), ("attn/q", 1280, 1280, 128, 8, 2),
+    ("attn/qkv", 1024, 4096, 128, 4, 2), ("mlp/gateup", 1024, 6144, 128, 4, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", ["f32", "bf16"])
+@pytest.mark.parametrize("name,k,n,block,bits,tp", SHARDED_LEAVES)
+def test_sharded_int8_and_int4_pieces_match_plain(name, k, n, block, bits, tp, mm):
+    """Every rank's piece through its kernel against the plain version,
+    within 1e-4 * max|plain|."""
+    _need_card()
+    from asr_tpu_torch.parallel import mesh as pm
+
+    g = torch.Generator(device="cuda").manual_seed(k + n + tp)
+    leaf = quantize_linear(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, bits, block,
+                           pack=bits == 4)
+    if name == "attn/qkv":  # the fused Qwen3 leaf's o sibling gives q's width
+        tree = {"attn": {"qkv": {"w": leaf}, "o": {"w": quantize_linear(
+            torch.randn((2048, 1024), generator=g, device="cuda"), 4, 128, pack=True)}}}
+        specs = {"attn": {"qkv": {"w": pm.P(None, "model")}, "o": {"w": pm.P()}}}
+        path = ("attn", "qkv", "w")
+    else:
+        spec = pm.P("model", None) if name in ("out", "ffn/w2") else pm.P(None, "model")
+        tree, specs, path = {"x": {"w": leaf}}, {"x": {"w": spec}}, ("x", "w")
+        if name == "ctc":
+            tree, specs, path = {"ctc": {"w": leaf}}, {"ctc": {"w": spec}}, ("ctc", "w")
+    lay = pm.shard_params(tree, pm.make_mesh(tp, tp, devices=["cuda"] * tp), specs)
+    ref = qm.quant_dense_reference if bits == 8 else qm.quant_dense_p4_reference
+    launch = qm.quant_matmul_int8 if bits == 8 else qm.quant_matmul_int4
+    for r in range(tp):
+        piece = lay.local(0, r)
+        for key in path:
+            piece = piece[key]
+        kp = piece.scale.shape[0] * piece.block
+        x = torch.randn((137, kp), generator=g, device="cuda")
+        got = launch(x, piece.q, piece.scale, piece.zero, piece.block, mm)
+        want = ref(x, piece.q, piece.scale, piece.zero, piece.block, mm)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), (name, r)
+
+
+@pytest.mark.gpu
+def test_data_parallel_server_on_a_repeated_card():
+    """``data_parallel=2`` on [cuda:0] * 2: two replicas of a q4 Qwen session,
+    each step one multi-slot launch, every request bitwise it alone through a
+    replica's batcher, both replicas serving; a ``tensor_parallel=2`` server
+    on the same card gives the unsharded rowwise batcher's ids."""
+    _need_card()
+    import numpy as np
+
+    from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import qwen_asr as qa
+    from asr_tpu_torch.ops import fused_decode_multi as fdm
+    from asr_tpu_torch.parallel.llm_batcher import ContinuousLlmBatcher
+    from asr_tpu_torch.parallel.llm_server import ContinuousSessionServer
+    from asr_tpu_torch.quant.quantize import quantize_pytree
+    from asr_tpu_torch.runtime.qwen_session import QwenAsrSession, QwenPromptTemplate
+
+    lcfg = qwen3.Qwen3Config(vocab_size=3000, hidden=512, num_layers=3, num_heads=4,
+                             num_kv_heads=2, ffn_dim=1024)
+    cfg = qa.QwenAsrConfig(tower_dim=256, tower_layers=2, tower_heads=4, tower_ffn=512,
+                           output_dim=512, llm=lcfg, eot_id=-1)
+    tower = quantize_pytree(qa.init_tower_params(cfg, torch.Generator(device="cuda").manual_seed(0)),
+                            bits=8, min_size=0)
+    llm, _ = _qwen_stacked(lcfg, 1)
+    prev = qm._CONFIG["mm"]
+    qm.set_quant_config(mm="bf16")
+    rng = np.random.default_rng(0)
+    clips = [(rng.standard_normal(n) * 0.03).astype(np.float32) for n in (20000, 9000, 30000, 12000)]
+    try:
+        sess = QwenAsrSession(tower, llm, cfg, template=QwenPromptTemplate((1, 2), (3,), (4, 5)),
+                              max_new_tokens=10, max_seconds=4.0)
+        assert sess.stacked is not None
+        cards = [torch.device("cuda", 0)] * 2
+        srv = ContinuousSessionServer(sess, n_slots=2, kv_dtype="bf16", data_parallel=2, devices=cards)
+        try:
+            before = fdm.LAUNCHES
+            reqs = [srv.submit(c) for c in clips]
+            for r in reqs:
+                assert r.event.wait(300) and r.error is None
+            st = srv.stats()
+            served = [r.ids for r in reqs]
+        finally:
+            srv.close()
+        assert st["replicas"] == 2 and st["step_kernel"] == "fused"
+        assert fdm.LAUNCHES - before == st["decode_steps"] > 0
+        for rep in srv.replicas:
+            for c, ids in zip(clips, served):
+                emb, valid = sess.prompt_embeds(c)
+                slot = rep.batcher.try_submit(emb, valid)
+                while rep.batcher.is_active(slot):
+                    rep.batcher.step()
+                assert rep.batcher.take_result(slot) == ids
+        srv = ContinuousSessionServer(sess, n_slots=2, kv_dtype="bf16", tensor_parallel=2, devices=cards)
+        try:
+            reqs = [srv.submit(c) for c in clips]
+            for r in reqs:
+                assert r.event.wait(300) and r.error is None
+            assert srv.stats()["step_kernel"] == "rowwise"
+        finally:
+            srv.close()
+        rows = ContinuousLlmBatcher(sess.llm_params, lcfg, sess.decode_cfg, n_slots=2,
+                                    t_max=srv.batcher.t_max, kv_dtype=torch.bfloat16)
+        for c, r in zip(clips, reqs):
+            emb, valid = sess.prompt_embeds(c)
+            slot = rows.try_submit(emb, valid)
+            while rows.is_active(slot):
+                rows.step()
+            assert rows.take_result(slot) == r.ids
+    finally:
+        qm._CONFIG["mm"] = prev
+
+
+@pytest.mark.gpu
+def test_shared_memory_limit_is_set_on_each_card():
+    """The int8 and int4 kernels above 48 KiB of dynamic shared memory on
+    cuda:0, then on cuda:1: the limit is set per device, so the second card
+    launches too."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (the limit is kept per device)")
+    for bits in (8, 4):
+        leaf = quantize_linear(torch.randn((1024, 4096), device="cuda") * 1024 ** -0.5, bits, 128,
+                               pack=bits == 4)
+        for dev in ("cuda:0", "cuda:1"):
+            x = torch.randn((432, 1024), device=dev)
+            q, s, z = (t.to(dev) for t in (leaf.q, leaf.scale, leaf.zero))
+            launch = qm.quant_matmul_int8 if bits == 8 else qm.quant_matmul_int4
+            ref = qm.quant_dense_reference if bits == 8 else qm.quant_dense_p4_reference
+            got, want = launch(x, q, s, z, 128, "bf16"), ref(x, q, s, z, 128, "bf16")
+            torch.cuda.synchronize(dev)
+            assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), (bits, dev)

@@ -36,6 +36,7 @@ from asr_tpu_torch.ops import fused_decode as tfd
 from asr_tpu_torch.ops import fused_decode_multi as tfm
 from asr_tpu_torch.ops import quant_matmul as tqm
 from asr_tpu_torch.parallel import llm_batcher as tlb
+from asr_tpu_torch.parallel.mesh import make_mesh
 from asr_tpu_torch.runtime import artifact as tart
 
 SIZE = dict(vocab_size=96, hidden=48, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
@@ -44,6 +45,7 @@ JCFG, TCFG = jq3.Qwen3Config(**SIZE), tq3.Qwen3Config(**SIZE)
 EOT = 7
 DC = dict(max_new_tokens=8, eot_id=EOT)
 T_MAX = 64
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -166,8 +168,9 @@ def test_slot_exhaustion_and_reuse(params):
     with pytest.raises(ValueError, match="exceeds t_max"):
         tlb.ContinuousLlmBatcher(tp, TCFG, DecodeConfig(**dict(DC, max_new_tokens=40)),
                                  n_slots=1, t_max=T_MAX).try_submit(emb[0], 5)
-    with pytest.raises(ValueError, match="mesh"):
-        tlb.ContinuousLlmBatcher(tp, TCFG, DecodeConfig(**DC), mesh=object())
+    with pytest.raises(ValueError, match=r"\(1, T\) mesh"):  # the engine takes one data position
+        tlb.ContinuousLlmBatcher(tp, TCFG, DecodeConfig(**DC),
+                                 mesh=make_mesh(4, model_parallel=2, devices=[CPU] * 4))
 
 
 def test_bf16_cache_slot_layout_invariance(params):
@@ -344,3 +347,59 @@ def test_kernel_route_matches_jax_fused_batcher():
     one = tlb.ContinuousLlmBatcher(tp, tcfg, DecodeConfig(**kw), n_slots=1, t_max=40,
                                    stacked=tfd.stack_decode_params(tp, tcfg))
     assert one.stacked is None and "layers" in one.state
+
+
+def test_tensor_parallel_batcher_identity(params):
+    """tp = 2 on a (1, 2) mesh of the CPU: Megatron weight shards and caches
+    at each rank's kv heads give the ids and event stream of the unsharded
+    batcher and of JAX's tensor-parallel batcher, a mid-run join and slot
+    reuse included (JAX: ``test_tensor_parallel_batcher_identity``)."""
+    from asr_tpu.parallel import mesh as jmesh
+
+    prompts = _prompts(11, (4, 7, 5))
+    schedule = [(0, 0), (1, 4), (2, 6)]  # 1 joins mid-run, 2 takes the slot 0 frees
+    (jgot, jstream), (tgot, tstream), tbat = _both(
+        params, prompts, DC, 2, schedule, jax_kw={"mesh": jmesh.make_mesh(2, model_parallel=2)},
+        port_kw={"mesh": make_mesh(2, model_parallel=2, devices=[CPU] * 2)})
+    assert tbat.state is None and tbat.stacked is None
+    assert [s["layers"][0]["k"].shape[2] for s in tbat._rank_states] == [1, 1]  # kv heads 2 / 2
+    assert tgot == jgot and tstream == jstream
+    _, tp = params
+    base = tlb.ContinuousLlmBatcher(tp, TCFG, DecodeConfig(**DC), n_slots=2, t_max=T_MAX)
+    embs = [_embeds(params[0], tp, p)[1] for p in prompts]
+    got, stream = _run(base, [(e, len(p)) for e, p in zip(embs, prompts)], schedule)
+    assert got == tgot and stream == tstream
+
+
+def test_tensor_parallel_requires_divisible_heads(params):
+    _, tp = params
+    with pytest.raises(ValueError, match="divide"):
+        tlb.ContinuousLlmBatcher(tp, TCFG, DecodeConfig(**DC), n_slots=2, t_max=T_MAX,
+                                 mesh=make_mesh(8, model_parallel=8, devices=[CPU] * 8))
+
+
+@pytest.mark.parametrize("strategy", ["greedy", "sampling"])
+def test_tensor_parallel_composes_with_steps_per_tick(params, strategy):
+    """tp = 2 and steps_per_tick = 3: the same event stream as the unsharded
+    per-step engine; under sampling the draws happen once, on rank 0's
+    logits, from the request's own stream (JAX:
+    ``test_tensor_parallel_composes_with_steps_per_tick``)."""
+    _, tp = params
+    jp = params[0]
+    dc = DecodeConfig(**DC, strategy=strategy, temperature=0.9, top_k=12)
+    prompt = [3, 50, 12, 77, 8]
+
+    def run(mesh, k):
+        bat = tlb.ContinuousLlmBatcher(tp, TCFG, dc, n_slots=2, t_max=T_MAX, mesh=mesh,
+                                       steps_per_tick=k, seed=5)
+        bat.try_submit(_embeds(jp, tp, prompt)[1], len(prompt), seed=9)
+        stream = []
+        for _ in range(DC["max_new_tokens"] + 2):
+            evs = bat.step_tick()
+            if not evs:
+                break
+            stream.extend(evs)
+        return stream
+
+    want = run(None, 1)
+    assert want and run(make_mesh(2, model_parallel=2, devices=[CPU] * 2), 3) == want

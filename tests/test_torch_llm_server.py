@@ -231,7 +231,7 @@ def test_refusals(params):
         tls.ContinuousSessionServer(object(), warmup=False)  # neither LLM nor AED
     with pytest.raises(ValueError, match="data_parallel"):
         tls.ContinuousSessionServer(tsess, warmup=False, data_parallel=2)
-    with pytest.raises(ValueError, match="tensor-parallel LLM engine"):
+    with pytest.raises(ValueError, match="tensor_parallel=2 needs 2 devices but only 1"):
         tls.ContinuousSessionServer(tsess, warmup=False, tensor_parallel=2)
     with pytest.raises(ValueError, match="kv_dtype"):
         tls.ContinuousSessionServer(tsess, warmup=False, kv_dtype="f16")
@@ -281,3 +281,99 @@ def test_kernel_route_serves_each_request_as_alone():
         while bat.is_active(slot):
             bat.step()
         assert outs[i]["token_ids"] == bat.take_result(slot), i
+
+
+def _count_submits(srv):
+    """Per replica, the requests its batcher took."""
+    counts = [0] * len(srv.replicas)
+    for i, rep in enumerate(srv.replicas):
+        orig = rep.batcher.try_submit
+
+        def counted(*a, _i=i, _orig=orig, **k):
+            slot = _orig(*a, **k)
+            counts[_i] += slot is not None
+            return slot
+
+        rep.batcher.try_submit = counted
+    return counts
+
+
+def test_continuous_server_data_parallel_identity(params):
+    """``data_parallel=2`` on two CPU positions: two batcher replicas behind
+    one queue; every request's ids equal the session's and JAX's dp 2
+    server's, both replicas serve, ``/healthz`` shows 2 replicas (JAX:
+    ``test_continuous_server_data_parallel_identity``)."""
+    jsess, tsess = _sessions(params)
+    rng = np.random.default_rng(7)
+    clips = [(rng.standard_normal(6000) * 900).astype(np.int16) for _ in range(5)]
+    srv = tls.ContinuousSessionServer(tsess, n_slots=1, warmup=True, data_parallel=2,
+                                      devices=[torch.device("cpu")] * 2)
+    try:
+        st = srv.stats()
+        assert st["replicas"] == 2 and st["slots"] == 2 and st["tensor_parallel"] == 1
+        counts = _count_submits(srv)
+        outs = _concurrent(srv, clips)
+        st = srv.stats()
+    finally:
+        srv.close()
+    jsrv = JaxServer(jsess, n_slots=1, warmup=False, data_parallel=2)
+    try:
+        jouts = _concurrent(jsrv, clips)
+    finally:
+        jsrv.close()
+    for i, clip in enumerate(clips):
+        assert outs[i]["token_ids"] == _solo(tsess, clip) == jouts[i]["token_ids"], i
+    assert all(c > 0 for c in counts), counts
+    assert st["requests_served"] == 5 and st["slots_active"] == 0 and st["queue_depth"] == 0
+    assert set(st) == STATS_KEYS
+
+
+def test_continuous_server_tensor_parallel_identity(params):
+    """``data_parallel=2, tensor_parallel=2`` on four CPU positions: each
+    replica a (1, 2) sub-mesh on the rowwise tensor-parallel engine; the ids
+    equal the session's and JAX's dp 2 x tp 2 server's (JAX:
+    ``test_continuous_server_tensor_parallel_identity``)."""
+    jsess, tsess = _sessions(params)
+    rng = np.random.default_rng(13)
+    clips = [(rng.standard_normal(6000) * 900).astype(np.int16) for _ in range(4)]
+    srv = tls.ContinuousSessionServer(tsess, n_slots=2, warmup=True, data_parallel=2,
+                                      tensor_parallel=2, devices=[torch.device("cpu")] * 4)
+    try:
+        assert all(r.batcher.mesh is not None for r in srv.replicas)
+        outs = _concurrent(srv, clips)
+        st = srv.stats()
+    finally:
+        srv.close()
+    jsrv = JaxServer(jsess, n_slots=2, warmup=False, data_parallel=2, tensor_parallel=2)
+    try:
+        jouts = _concurrent(jsrv, clips)
+    finally:
+        jsrv.close()
+    for i, clip in enumerate(clips):
+        assert outs[i]["token_ids"] == _solo(tsess, clip) == jouts[i]["token_ids"], i
+    assert st["tensor_parallel"] == 2 and st["replicas"] == 2 and st["requests_served"] == 4
+    assert st["step_kernel"] == "rowwise"  # the multi-slot kernel is single-device
+
+
+def test_a_failing_replica_fails_every_request_and_stops(params):
+    """A replica whose step raises: its requests and the queue fail with the
+    error, ``/healthz`` reports it, new submissions are refused, and the
+    sibling replica stops."""
+    _, tsess = _sessions(params)
+    srv = tls.ContinuousSessionServer(tsess, n_slots=1, warmup=False, data_parallel=2,
+                                      devices=[torch.device("cpu")] * 2)
+    try:
+        for rep in srv.replicas:
+            rep.batcher.step_tick = lambda: (_ for _ in ()).throw(RuntimeError("device lost"))
+        rng = np.random.default_rng(1)
+        reqs = [srv.submit((rng.standard_normal(3000) * 0.02).astype(np.float32)) for _ in range(3)]
+        for r in reqs:
+            assert r.event.wait(60)
+            assert isinstance(r.error, RuntimeError)
+        st = srv.stats()
+        assert st["ok"] is False and "device lost" in st["error"]
+        with pytest.raises(RuntimeError, match="device lost"):
+            srv.submit(np.zeros(100, np.float32))
+    finally:
+        srv.close()
+    assert not any(rep.thread.is_alive() for rep in srv.replicas)

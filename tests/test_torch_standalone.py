@@ -581,7 +581,7 @@ def test_probe_and_profiling_host_parts_are_the_originals(module, names):
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():
     for rel in ("runtime/probe.py", "runtime/profiling.py", "frontend/stft.py", "cli.py",
-                "runtime/artifact.py", "loaders/_common.py"):
+                "runtime/artifact.py", "loaders/_common.py", "parallel/mesh.py", "parallel/serve.py"):
         bad = _imported_roots(REPO / "asr_tpu_torch" / rel) & {"asr_tpu", "jax", "jaxlib"}
         assert not bad, f"{rel} imports {sorted(bad)}"
 
@@ -616,3 +616,48 @@ def test_parity_runs_without_jax_or_the_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "PARITY OK: 2 fixtures token-for-token" in proc.stdout and "PARITY_OK" in proc.stdout
     assert "trace written to" in proc.stdout
+
+
+_SHARDED = """
+import sys
+import numpy as np, torch
+from asr_tpu_torch.decode.ar import DecodeConfig
+from asr_tpu_torch.layers import qwen3
+from asr_tpu_torch.models import sensevoice as sv
+from asr_tpu_torch.parallel.llm_batcher import ContinuousLlmBatcher
+from asr_tpu_torch.parallel.mesh import make_mesh, sensevoice_param_specs
+from asr_tpu_torch.quant.quantize import quantize_pytree
+from asr_tpu_torch.runtime.session import SenseVoiceSession
+cpu = torch.device("cpu")
+cfg = sv.SenseVoiceConfig(vocab_size=63, hidden=32, num_heads=4, head_dim=8, ffn_dim=48,
+                          num_encoders0=1, num_encoders=1, num_tp_encoders=1, fsmn_kernel=5)
+params = quantize_pytree(sv.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), min_size=0,
+                         block=16)
+audio = (np.random.default_rng(0).standard_normal(12000) * 2000).astype(np.float32)
+want = SenseVoiceSession(params, cfg, window_seconds=0.3).transcribe(audio).token_ids
+got = SenseVoiceSession(params, cfg, window_seconds=0.3, mesh=make_mesh(4, 2, devices=[cpu] * 4),
+                        param_specs=sensevoice_param_specs).transcribe(audio).token_ids
+assert got == want, (got, want)
+lcfg = qwen3.Qwen3Config(vocab_size=64, hidden=32, num_layers=1, num_heads=4, num_kv_heads=2,
+                         head_dim=8, ffn_dim=48)
+lp = qwen3.init_params(lcfg, torch.Generator().manual_seed(1))
+bat = ContinuousLlmBatcher(lp, lcfg, DecodeConfig(max_new_tokens=4, eot_id=-1), n_slots=2, t_max=40,
+                           mesh=make_mesh(2, 2, devices=[cpu] * 2))
+slot = bat.try_submit(lp["embed"][torch.tensor([3, 4, 5])], 3)
+while bat.is_active(slot):
+    bat.step()
+assert len(bat.take_result(slot)) == 5
+assert not any(m == "jax" or m.startswith(("jax.", "asr_tpu.")) or m == "asr_tpu" for m in sys.modules)
+print("SHARDED_OK")
+"""
+
+
+def test_sharded_serving_runs_without_jax_or_the_jax_package():
+    """A q8 SenseVoice session at dp 2 x tp 2 (int8 row and column shards,
+    the uneven CTC head) equal to the unsharded one, and a tensor-parallel
+    continuous batcher, in a fresh process with neither ``jax`` nor
+    ``asr_tpu`` imported."""
+    proc = subprocess.run([sys.executable, "-c", _SHARDED], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "SHARDED_OK" in proc.stdout
