@@ -10,9 +10,11 @@ Counterpart of ``asr_tpu/parallel/mesh.py`` in one process:
 A :class:`Mesh` is a (data, model) grid of ``torch.device``s, which may
 repeat (``[cuda:0] * 4`` runs dp x tp on one card, as the JAX tests run on
 virtual CPU devices). :func:`shard_params` gives every position its own
-local tree on its device; :func:`run_grid` runs the ordinary model function
-at every position in a thread of its own, and the model-axis ranks of one
-data position meet at :func:`all_reduce` and :func:`all_gather`. Where
+local tree on its device (``own=True``: tensors of its own, for training)
+and :func:`gather_params` joins the pieces back into the whole tree;
+:func:`run_grid` runs the ordinary model function at every position in a
+thread of its own, and the model-axis ranks of one data position meet at
+:func:`all_reduce` and :func:`all_gather`. Where
 GSPMD reshards a sharded JAX array behind the scenes, the port's local
 compute cannot, so :func:`shard_params` splits fused leaves by heads and
 marks each sharded weight with the role that ``layers/transformer.dense``
@@ -30,6 +32,13 @@ honours (``tp_role``):
 
 The spec functions return the JAX package's spec trees leaf for leaf, with
 the port's own :class:`P`.
+
+Under ``run_grid(..., grad=True)`` the collectives are ordinary autograd
+ops across the rank threads' tensors (a sum, a concatenation), so the
+forward of every position is one graph, and its backward, taken once by
+the caller, reaches no collective: on one card every CUDA backward runs on
+that device's single autograd thread, where a collective waiting for
+another rank would wait for ever (``parallel/train.py``).
 """
 
 from __future__ import annotations
@@ -123,6 +132,11 @@ class ModelGroup:
         self._slots = [[None] * self.size, [None] * self.size]
         self._calls = [0] * self.size
 
+    @property
+    def exchanges(self) -> int:
+        """Collectives entered so far, summed over the ranks."""
+        return sum(self._calls)
+
     def _exchange(self, rank: int, t: torch.Tensor) -> list[torch.Tensor]:
         buf = self._slots[self._calls[rank] % 2]
         self._calls[rank] += 1
@@ -208,29 +222,32 @@ def rank_generator(generator: torch.Generator | None) -> torch.Generator | None:
 
 
 @contextlib.contextmanager
-def _at(m: int, device: torch.device, group: ModelGroup | None, lock=None):
+def _at(m: int, device: torch.device, group: ModelGroup | None, lock=None, grad: bool = False):
     prev = (getattr(_ctx, "group", None), getattr(_ctx, "rank", 0), getattr(_ctx, "lock", None))
     _ctx.group, _ctx.rank, _ctx.lock = group, m, lock
     dev_ctx = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+    mode = torch.enable_grad() if grad else torch.inference_mode()
     try:
-        with lock or contextlib.nullcontext(), dev_ctx, torch.inference_mode():
+        with lock or contextlib.nullcontext(), dev_ctx, mode:
             yield
     finally:
         _ctx.group, _ctx.rank, _ctx.lock = prev
 
 
 def run_grid(mesh: Mesh, fn: Callable[[int, int], Any],
-             timeout: float = COLLECTIVE_TIMEOUT_S) -> list[list[Any]]:
+             timeout: float = COLLECTIVE_TIMEOUT_S, grad: bool = False) -> list[list[Any]]:
     """``fn(d, m)`` at every position of ``mesh``, each in a thread of its
     own (in the caller's thread for a 1 x 1 mesh) under
-    ``torch.inference_mode`` with its device current and its turn on the
-    device (:func:`device_lock`); returns the results as a (data, model)
-    grid. A rank that raises aborts its siblings at their next collective;
-    the first error is raised here. Not to be called by a thread that holds
-    one of the mesh's devices' turns (a server replica's driver does not)."""
+    ``torch.inference_mode`` (``grad=True``: with autograd on, the
+    positions' graphs joined at the collectives) with its device current
+    and its turn on the device (:func:`device_lock`); returns the results
+    as a (data, model) grid. A rank that raises aborts its siblings at
+    their next collective; the first error is raised here. Not to be called
+    by a thread that holds one of the mesh's devices' turns (a server
+    replica's driver does not)."""
     n_d, n_m = mesh.shape["data"], mesh.shape["model"]
     if n_d * n_m == 1:
-        with _at(0, mesh.devices[0][0], None):
+        with _at(0, mesh.devices[0][0], None, grad=grad):
             return [[fn(0, 0)]]
     groups = [ModelGroup(n_m, timeout) if n_m > 1 else None for _ in range(n_d)]
     results = [[None] * n_m for _ in range(n_d)]
@@ -239,7 +256,7 @@ def run_grid(mesh: Mesh, fn: Callable[[int, int], Any],
     def target(d, m):
         try:
             dev = mesh.devices[d][m]
-            with _at(m, dev, groups[d], device_lock(dev)):
+            with _at(m, dev, groups[d], device_lock(dev), grad):
                 results[d][m] = fn(d, m)
         except BaseException as exc:  # noqa: BLE001 - re-raised by the caller
             errors.append(exc)
@@ -363,17 +380,57 @@ def qwen3_param_specs(params: Any) -> Any:
 GATHERED = ("ctc/w", "lm_head/w", "fsmn_w")
 
 
+class Split:
+    """How one leaf lies over the model ranks: ``kind`` "whole" (every rank
+    holds all of it), "col" (pieces of the last axis, each part of a fused
+    axis split on its own: ``parts``), "row" (pieces of axis 0), "qcol" /
+    "qrow" (a quantized weight's q / scale / zero cut so); ``role`` the
+    pieces' ``tp_role``."""
+
+    __slots__ = ("kind", "parts", "role")
+
+    def __init__(self, kind: str, parts: tuple[int, ...] = (), role: str | None = None):
+        self.kind, self.parts, self.role = kind, tuple(parts), role
+
+    @property
+    def whole(self) -> bool:
+        return self.kind == "whole"
+
+    def __repr__(self) -> str:
+        return f"Split({self.kind!r}, {self.parts}, {self.role!r})"
+
+
+WHOLE = Split("whole")
+
+
 class ShardedParams:
     """A parameter tree laid out on a mesh: ``local(d, m)`` is position (d,
     m)'s own tree on its device. Positions on one device with the same
-    model rank share their tensors."""
+    model rank share their tensors, unless laid out with ``own=True``.
+    ``layout`` mirrors the tree with each leaf's :class:`Split` (what
+    :func:`gather_params` inverts), ``specs`` is the spec tree it was laid
+    out by (None: replicated)."""
 
-    def __init__(self, mesh: Mesh, trees: list[list[Any]]):
+    def __init__(self, mesh: Mesh, trees: list[list[Any]], layout: Any = None, specs: Any = None,
+                 own: bool = False):
         self.mesh = mesh
         self.trees = trees
+        self.layout = layout
+        self.specs = specs
+        self.own = own
 
     def local(self, d: int, m: int) -> Any:
         return self.trees[d][m]
+
+    def positions(self) -> list[tuple[int, int]]:
+        return [(d, m) for d in range(self.mesh.shape["data"]) for m in range(self.mesh.shape["model"])]
+
+    def map(self, fn: Callable[[int, int], Any]) -> "ShardedParams":
+        """Another tree of this layout (gradients, optimizer moments):
+        ``fn(d, m)`` is position (d, m)'s, in tensors of its own."""
+        return ShardedParams(self.mesh, [[fn(d, m) for m in range(self.mesh.shape["model"])]
+                                         for d in range(self.mesh.shape["data"])],
+                             self.layout, self.specs, own=True)
 
     @staticmethod
     def zip(*parts: "ShardedParams") -> "ShardedParams":
@@ -384,15 +441,16 @@ class ShardedParams:
                                     for d in range(mesh.shape["data"])])
 
 
-def _place(leaf, device: torch.device):
-    """A leaf on ``device``: tensors moved, quantized leaves copied with
-    their tensors moved (cached product operands dropped), others as is."""
+def _place(leaf, device: torch.device, copy: bool = False):
+    """A leaf on ``device`` (``copy``: always in tensors of its own):
+    tensors moved, quantized leaves copied with their tensors moved (cached
+    product operands and the rank role dropped), others as is."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.to(device)
+        return leaf.to(device, copy=copy)
     if isinstance(leaf, (QuantizedLinear, QuantizedEmbedding)):
         new = object.__new__(type(leaf))
-        new.__dict__.update({k: (v.to(device) if isinstance(v, torch.Tensor) else v)
-                             for k, v in vars(leaf).items() if k != "_int_mm"})
+        new.__dict__.update({k: (v.to(device, copy=copy) if isinstance(v, torch.Tensor) else v)
+                             for k, v in vars(leaf).items() if k not in ("_int_mm", "tp_role")})
         return new
     return leaf
 
@@ -401,10 +459,6 @@ def _in_features(leaf) -> int:
     if isinstance(leaf, QuantizedLinear):
         return leaf.scale.shape[0] * leaf.block
     return leaf.shape[0]
-
-
-def _out_features(leaf) -> int:
-    return leaf.shape[-1] if isinstance(leaf, torch.Tensor) else leaf.q.shape[1]
 
 
 def _fused_parts(path: str, ancestors: tuple, n: int) -> tuple[int, ...]:
@@ -423,6 +477,12 @@ def _fused_parts(path: str, ancestors: tuple, n: int) -> tuple[int, ...]:
     return (n,)
 
 
+def _share(n: int, tp: int, r: int) -> int:
+    """Rank r's share of n under ``tensor_split``: the first n % tp ranks
+    take one more."""
+    return n // tp + (1 if r < n % tp else 0)
+
+
 def _col_pieces(t: torch.Tensor, parts: tuple[int, ...], tp: int, axis: int) -> list[torch.Tensor]:
     """Rank r's piece: its share of each part along ``axis``, concatenated
     (``tensor_split``: shares differ by at most one where T does not
@@ -432,12 +492,21 @@ def _col_pieces(t: torch.Tensor, parts: tuple[int, ...], tp: int, axis: int) -> 
     return [torch.cat([p[r] for p in per], dim=axis).contiguous() for r in range(tp)]
 
 
-def _split_leaf(path: str, leaf, spec, ancestors: tuple, tp: int) -> tuple[list, str | None]:
-    """(the T rank pieces of one leaf, its role) under ``spec``."""
+def _join_cols(pieces: list[torch.Tensor], parts: tuple[int, ...], axis: int) -> torch.Tensor:
+    """The inverse of :func:`_col_pieces`: each part's shares in rank order,
+    the parts in order."""
+    tp = len(pieces)
+    shares = [torch.split(p, [_share(n, tp, r) for n in parts], dim=axis) for r, p in enumerate(pieces)]
+    return torch.cat([shares[r][i] for i in range(len(parts)) for r in range(tp)], dim=axis)
+
+
+def _split_leaf(path: str, leaf, spec, ancestors: tuple, tp: int) -> tuple[list, Split]:
+    """(the T rank pieces of one leaf, how they split) under ``spec``."""
     qspec = spec.q if isinstance(spec, QuantizedLinear) else spec
     name = path.split("/")[-1]
     col = qspec == P(None, "model") or (qspec == P("model") and name.startswith("b"))
     row = qspec == P("model", None)
+    role = "gather" if path.endswith(GATHERED) else None
     if isinstance(leaf, QuantizedLinear):
         if col:
             parts = _fused_parts(path, ancestors, leaf.q.shape[1])
@@ -445,7 +514,7 @@ def _split_leaf(path: str, leaf, spec, ancestors: tuple, tp: int) -> tuple[list,
             pieces = [QuantizedLinear(fields["q"][r], fields["scale"][r], fields["zero"][r],
                                       leaf.bits, leaf.block, leaf.packed, leaf.dynamic)
                       for r in range(tp)]
-            return pieces, ("gather" if path.endswith(GATHERED) else None)
+            return pieces, Split("qcol", parts, role)
         k_blocks = leaf.scale.shape[0]
         if row and not leaf.packed and not leaf.dynamic and k_blocks % tp == 0:
             rows = k_blocks // tp
@@ -454,41 +523,44 @@ def _split_leaf(path: str, leaf, spec, ancestors: tuple, tp: int) -> tuple[list,
                                       leaf.zero[r * rows : (r + 1) * rows].contiguous(),
                                       leaf.bits, leaf.block, leaf.packed, leaf.dynamic)
                       for r in range(tp)]
-            return pieces, "row"
-        return [leaf] * tp, None
+            return pieces, Split("qrow", role="row")
+        return [leaf] * tp, WHOLE
     if not isinstance(leaf, torch.Tensor) or not (col or row):
-        return [leaf] * tp, None
+        return [leaf] * tp, WHOLE
     if row:
-        return [p.contiguous() for p in torch.tensor_split(leaf, tp, dim=0)], "row"
+        return [p.contiguous() for p in torch.tensor_split(leaf, tp, dim=0)], Split("row", role="row")
     parts = _fused_parts(path, ancestors, leaf.shape[-1])
-    role = "gather" if path.endswith(GATHERED) else None
-    return _col_pieces(leaf, parts, tp, leaf.ndim - 1), role
+    return _col_pieces(leaf, parts, tp, leaf.ndim - 1), Split("col", parts, role)
 
 
 class _Leaf:
-    """A leaf's rank pieces (one, when it is not split) and its role."""
+    """A leaf's rank pieces (one, when it is not split) and their split."""
 
-    __slots__ = ("pieces", "role", "placed")
+    __slots__ = ("pieces", "split", "placed")
 
-    def __init__(self, pieces: list, role: str | None):
-        self.pieces, self.role, self.placed = pieces, role, {}
+    def __init__(self, pieces: list, split: Split):
+        self.pieces, self.split, self.placed = pieces, split, {}
 
-    def on(self, m: int, device: torch.device):
+    def on(self, m: int, device: torch.device, own: bool):
         r = m if len(self.pieces) > 1 else 0
         key = (r, str(device))
-        if key not in self.placed:
-            leaf = _place(self.pieces[r], device)
-            if self.role is not None:  # a piece of our own, never the caller's leaf
-                leaf.tp_role = self.role
+        if own or key not in self.placed:
+            leaf = _place(self.pieces[r], device, copy=own)
+            if self.split.role is not None:  # a piece of our own, never the caller's leaf
+                leaf.tp_role = self.split.role
+            if own:
+                return leaf
             self.placed[key] = leaf
         return self.placed[key]
 
 
-def shard_params(params: Any, mesh: Mesh, specs: Any | None = None) -> ShardedParams:
+def shard_params(params: Any, mesh: Mesh, specs: Any | None = None, own: bool = False) -> ShardedParams:
     """Lay a parameter tree out on ``mesh``: replicated by default, or per
     ``specs`` (a spec tree from the functions above) over the model axis.
     Each position's local tree lies on its device; a weight sharded by rows,
-    or gathered after its product, carries its ``tp_role``."""
+    or gathered after its product, carries its ``tp_role``. With ``own``
+    every position holds tensors of its own, never the caller's or another
+    position's (training updates each position's leaves in place)."""
     tp = mesh.shape["model"]
 
     def walk(tree, spec, path, ancestors):
@@ -500,10 +572,54 @@ def shard_params(params: Any, mesh: Mesh, specs: Any | None = None) -> ShardedPa
                 return out
             return type(tree)(out[k] for k in keys) if isinstance(tree, tuple) else list(out.values())
         if tp == 1 or spec is None:
-            return _Leaf([tree], None)
+            return _Leaf([tree], WHOLE)
         return _Leaf(*_split_leaf(path, tree, spec, ancestors, tp))
 
     leaves = walk(params, specs, "", ())
-    trees = [[map_tree(lambda _, leaf: leaf.on(m, mesh.devices[d][m]), leaves) for m in range(tp)]
+    trees = [[map_tree(lambda _, leaf: leaf.on(m, mesh.devices[d][m], own), leaves) for m in range(tp)]
              for d in range(mesh.shape["data"])]
-    return ShardedParams(mesh, trees)
+    return ShardedParams(mesh, trees, map_tree(lambda _, leaf: leaf.split, leaves), specs, own)
+
+
+def _zip_layout(fn, layout, trees: list):
+    """``fn(split, [each tree's leaf])`` over ``layout``'s structure."""
+    if isinstance(layout, dict):
+        return {k: _zip_layout(fn, v, [t[k] for t in trees]) for k, v in layout.items()}
+    if isinstance(layout, (list, tuple)):
+        out = [_zip_layout(fn, v, [t[i] for t in trees]) for i, v in enumerate(layout)]
+        return tuple(out) if isinstance(layout, tuple) else out
+    return fn(layout, trees)
+
+
+def _join(split: Split, pieces: list, device: torch.device):
+    """One leaf whole on ``device`` from its rank pieces."""
+    if split.kind == "whole":
+        return _place(pieces[0], device, copy=True)
+    if split.kind in ("col", "row"):
+        on = [p.to(device) for p in pieces]
+        return _join_cols(on, split.parts, on[0].ndim - 1) if split.kind == "col" else torch.cat(on, dim=0)
+    first = pieces[0]
+    fields = [[getattr(p, f).to(device) for p in pieces] for f in ("q", "scale", "zero")]
+    joined = [_join_cols(f, split.parts, 1) if split.kind == "qcol" else torch.cat(f, dim=0) for f in fields]
+    return QuantizedLinear(*joined, first.bits, first.block, first.packed, first.dynamic)
+
+
+def gather_params(sharded: ShardedParams, device=None) -> Any:
+    """The whole tree of a laid-out one (:func:`shard_params`' inverse,
+    bitwise) on ``device`` (default: the first position's), in tensors of
+    its own: row pieces and the shares of every fused column part joined in
+    rank order, a replicated leaf copied from rank 0. Data position 0's
+    pieces are read."""
+    if sharded.layout is None:
+        raise ValueError("this ShardedParams has no layout (made by ShardedParams.zip?)")
+    dev = torch.device(device) if device is not None else sharded.mesh.devices[0][0]
+    ranks = [sharded.local(0, r) for r in range(sharded.mesh.shape["model"])]
+    return _zip_layout(lambda split, pieces: _join(split, pieces, dev), sharded.layout, ranks)
+
+
+def layout_leaves(layout: Any) -> list[Split]:
+    """The :class:`Split`s of a layout tree in its leaves' order (the order
+    of ``parallel/checkpoint.named_leaves``)."""
+    out: list[Split] = []
+    map_tree(lambda _, split: out.append(split), layout)
+    return out

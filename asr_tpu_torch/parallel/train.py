@@ -10,6 +10,21 @@ Where JAX returns new arrays, the port updates the parameter leaves and the
 optimizer's moments in place (under ``torch.no_grad``) and returns the same
 trees: a caller that needs the values before a step clones them.
 
+Over a mesh (``params`` a ``parallel/mesh.ShardedParams`` laid out with
+``own=True``: JAX's dp x tp steps, whose sharding comes from where the
+parameters and the batch lie) a step splits every batch array over the
+data positions (JAX's ``P("data")``), runs the loss at every position in
+``mesh.run_grid(..., grad=True)``, and takes one backward, in the calling
+thread, from ``sum_d w_d * loss(d, rank 0)``, where ``w_d`` is slice d's
+share of what the loss is a mean over (its rows; the AED loss: its target
+positions), so the root is the global loss JAX returns. The backward meets
+no collective: the model ranks' graphs are joined by the forward's
+collectives, which are plain sums and concatenations. The gradients are
+then reduced outside autograd in a fixed order (a replicated leaf summed
+over the model ranks, every leaf over the data positions) and the sum is
+written to every position, so AdamW, run on every position's tree, keeps
+every copy of a leaf bitwise the same.
+
 Parameters and optimizer state come across from the JAX package as numpy
 arrays under ``flatten_pytree``'s names: ``runtime/artifact.params_from_flat``
 for the parameters, :func:`adamw_state_from_numpy` for optax's state.
@@ -17,6 +32,7 @@ for the parameters, :func:`adamw_state_from_numpy` for optax's state.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any
 
 import numpy as np
@@ -25,6 +41,11 @@ import torch.nn.functional as F
 
 from asr_tpu_torch.models import sensevoice as sv
 from asr_tpu_torch.parallel.checkpoint import tree_leaves, unflatten
+from asr_tpu_torch.parallel.mesh import ShardedParams, layout_leaves, run_grid
+
+# seconds a rank of a training grid waits at a collective: a step that hangs
+# fails fast (a serving grid waits mesh.COLLECTIVE_TIMEOUT_S)
+TRAIN_COLLECTIVE_TIMEOUT_S = 60.0
 
 
 def ctc_loss_from_logits(
@@ -63,16 +84,28 @@ class AdamW:
         self.weight_decay = weight_decay
 
     def init(self, params: Any) -> dict:
-        zeros = [torch.zeros_like(p) for p in tree_leaves(params)]
+        """Zero moments shaped as ``params`` (on a mesh: every position's own)."""
+        def zeros(tree):
+            return unflatten(tree, [torch.zeros_like(p) for p in tree_leaves(tree)])
+
         return {"count": torch.zeros((), dtype=torch.int32),
-                "mu": unflatten(params, zeros), "nu": unflatten(params, [torch.zeros_like(z) for z in zeros])}
+                "mu": _per_position(zeros, params), "nu": _per_position(zeros, params)}
 
     def update(self, grads: Any, state: dict, params: Any) -> tuple[Any, dict]:
         """-> (updates, state): the updates are new tensors; ``state``'s
-        moments are updated in place and returned with the next count."""
-        p = tree_leaves(params)
-        g, mu, nu = (tree_leaves(t, like=params) for t in (grads, state["mu"], state["nu"]))
+        moments are updated in place and returned with the next count. On
+        a mesh every position's tree is updated from its own moments."""
         count = int(state["count"]) + 1
+        if isinstance(params, ShardedParams):
+            upd = params.map(lambda d, m: self._update(grads.local(d, m), state["mu"].local(d, m),
+                                                       state["nu"].local(d, m), params.local(d, m), count))
+        else:
+            upd = self._update(grads, state["mu"], state["nu"], params, count)
+        return upd, {"count": torch.tensor(count, dtype=torch.int32), "mu": state["mu"], "nu": state["nu"]}
+
+    def _update(self, grads: Any, mu: Any, nu: Any, params: Any, count: int) -> Any:
+        p = tree_leaves(params)
+        g, mu, nu = (tree_leaves(t, like=params) for t in (grads, mu, nu))
         with torch.no_grad():
             # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
             torch._foreach_mul_(mu, self.b1)
@@ -92,14 +125,26 @@ class AdamW:
             del den
             torch._foreach_add_(upd, torch._foreach_mul(p, self.weight_decay))
             torch._foreach_mul_(upd, -self.learning_rate)
-        return unflatten(params, upd), {"count": torch.tensor(count, dtype=torch.int32),
-                                        "mu": state["mu"], "nu": state["nu"]}
+        return unflatten(params, upd)
+
+
+def _per_position(fn, params: Any) -> Any:
+    """``fn(tree)`` of a tree, or of every position's tree of a mesh's."""
+    if isinstance(params, ShardedParams):
+        return params.map(lambda d, m: fn(params.local(d, m)))
+    return fn(params)
 
 
 def apply_updates(params: Any, updates: Any) -> Any:
-    """``optax.apply_updates``: ``p + u`` on every leaf, in place."""
+    """``optax.apply_updates``: ``p + u`` on every leaf (on a mesh, of every
+    position), in place."""
     with torch.no_grad():
-        torch._foreach_add_(tree_leaves(params), tree_leaves(updates, like=params))
+        if isinstance(params, ShardedParams):
+            for d, m in params.positions():
+                torch._foreach_add_(tree_leaves(params.local(d, m)),
+                                    tree_leaves(updates.local(d, m), like=params.local(d, m)))
+        else:
+            torch._foreach_add_(tree_leaves(params), tree_leaves(updates, like=params))
     return params
 
 
@@ -128,7 +173,13 @@ def _on(x, device, dtype=None) -> torch.Tensor:
 
 def value_and_grad(loss_fn, params: Any, *args, **kwargs) -> tuple[torch.Tensor, Any]:
     """(``loss_fn(params, *args, **kwargs)``, its gradient w.r.t. every leaf
-    as a tree shaped as ``params``; an unused leaf's gradient is zero)."""
+    as a tree shaped as ``params``; an unused leaf's gradient is zero).
+
+    With ``params`` a :class:`ShardedParams`: the global loss over the
+    mesh's data positions and the reduced gradient, the same on every
+    position (the module docstring says how)."""
+    if isinstance(params, ShardedParams):
+        return _mesh_value_and_grad(loss_fn, params, args, kwargs)
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
@@ -136,6 +187,126 @@ def value_and_grad(loss_fn, params: Any, *args, **kwargs) -> tuple[torch.Tensor,
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), unflatten(params, grads)
+
+
+# ── the mesh branch ──────────────────────────────────────────────────────
+
+
+def _is_batch(a) -> bool:
+    return isinstance(a, (torch.Tensor, np.ndarray)) and a.ndim >= 1
+
+
+def split_batch(args: tuple, kwargs: dict, n_data: int) -> list[tuple[tuple, dict]]:
+    """The (args, kwargs) of each data position: every batch array (a
+    tensor or numpy array of rank >= 1) cut on axis 0 into ``n_data``
+    contiguous slices, other arguments as they are. Refuses a batch the
+    data axis does not divide, as JAX's ``device_put`` on ``P("data")``."""
+    rows = {a.shape[0] for a in (*args, *kwargs.values()) if _is_batch(a)}
+    if len(rows) != 1:
+        raise ValueError(f"the batch arrays disagree on their rows: {sorted(rows)}")
+    b = rows.pop()
+    if b % n_data:
+        raise ValueError(f"a batch of {b} rows does not split over {n_data} data positions")
+    k = b // n_data
+
+    def cut(a, d):
+        return a[d * k : (d + 1) * k] if _is_batch(a) else a
+
+    return [(tuple(cut(a, d) for a in args), {n: cut(v, d) for n, v in kwargs.items()}) for d in range(n_data)]
+
+
+def _rows(bound: dict) -> int:
+    """What a loss that is a mean over its batch rows (CTC, RNN-T) divides
+    by; a data slice's weight in the global loss is its share of this."""
+    return next(a for a in bound.values() if _is_batch(a)).shape[0]
+
+
+def _target_positions(bound: dict) -> int:
+    """:func:`aed_ce_loss`'s denominator: the masked target positions."""
+    s = bound["tokens"].shape[1] - 1
+    valid = np.asarray(torch.as_tensor(bound["token_valid"]).cpu(), np.int64) - 1
+    return int(np.clip(valid, 0, s).sum())
+
+
+def _live(t: torch.Tensor) -> torch.Tensor:
+    """A leaf that requires grad, sharing ``t``'s storage and its rank role."""
+    x = t.detach().requires_grad_(True)
+    role = getattr(t, "tp_role", None)
+    if role is not None:
+        x.tp_role = role
+    return x
+
+
+def _sum_lists(lists: list[list[torch.Tensor]], device: torch.device) -> list[torch.Tensor]:
+    """Elementwise sums of equal-length tensor lists on ``device``, added in
+    list order."""
+    acc = [t.to(device) for t in lists[0]]
+    for more in lists[1:]:
+        acc = torch._foreach_add(acc, [t.to(device) for t in more])
+    return acc
+
+
+def reduce_gradients(sharded: ShardedParams, grads: list[list[list[torch.Tensor]]]) -> list[list[list[torch.Tensor]]]:
+    """Every position's gradient leaves (``grads[d][m]``, in the order of
+    ``tree_leaves``) -> the reduced ones: a replicated leaf's summed over
+    the model ranks in rank order, then over the data positions in order; a
+    sharded leaf's over the data positions; each sum copied to every
+    position holding that leaf (a position on the summing device shares
+    the tensor)."""
+    mesh = sharded.mesh
+    n_d, n_m = mesh.shape["data"], mesh.shape["model"]
+    splits = layout_leaves(sharded.layout)
+    whole = [i for i, s in enumerate(splits) if s.whole]
+    pieces = [i for i, s in enumerate(splits) if not s.whole]
+    out = [[[None] * len(splits) for _ in range(n_m)] for _ in range(n_d)]
+
+    def put(idx, sums, ranks):
+        for d in range(n_d):
+            for m in ranks:
+                for i, t in zip(idx, sums):
+                    out[d][m][i] = t.to(mesh.devices[d][m])
+
+    with torch.no_grad():
+        if whole:
+            per_data = [_sum_lists([[grads[d][m][i] for i in whole] for m in range(n_m)], mesh.devices[d][0])
+                        for d in range(n_d)]
+            put(whole, _sum_lists(per_data, mesh.devices[0][0]), range(n_m))
+        for m in range(n_m) if pieces else ():
+            put(pieces, _sum_lists([[grads[d][m][i] for i in pieces] for d in range(n_d)], mesh.devices[0][m]),
+                [m])
+    return out
+
+
+def _mesh_value_and_grad(loss_fn, sharded: ShardedParams, args: tuple, kwargs: dict):
+    if not sharded.own or sharded.layout is None:
+        raise ValueError("training on a mesh needs every position's own leaves: "
+                         "lay the parameters out with shard_params(..., own=True)")
+    mesh = sharded.mesh
+    n_d, n_m = mesh.shape["data"], mesh.shape["model"]
+    slices = split_batch(args, kwargs, n_d)
+    signature = inspect.signature(loss_fn)
+    count = _target_positions if loss_fn is whisper_ce_loss else _rows
+    counts = [count(signature.bind(None, *a, **k).arguments) for a, k in slices]
+    total = max(sum(counts), 1)
+    live = [[[_live(t) for t in tree_leaves(sharded.local(d, m))] for m in range(n_m)] for d in range(n_d)]
+
+    def forward(d, m):
+        a, k = slices[d]
+        return loss_fn(unflatten(sharded.local(d, m), live[d][m]), *a, **k)
+
+    losses = run_grid(mesh, forward, timeout=TRAIN_COLLECTIVE_TIMEOUT_S, grad=True)
+    dev = mesh.devices[0][0]
+    with torch.enable_grad():
+        root = losses[0][0].to(dev) * (counts[0] / total)
+        for d in range(1, n_d):
+            root = root + losses[d][0].to(dev) * (counts[d] / total)
+        flat = [t for row in live for pos in row for t in pos]
+        got = torch.autograd.grad(root, flat, allow_unused=True)
+    del losses
+    it = iter(torch.zeros_like(t) if g is None else g for t, g in zip(flat, got))
+    grads = [[[next(it) for _ in pos] for pos in row] for row in live]
+    reduced = reduce_gradients(sharded, grads)
+    return root.detach(), sharded.map(lambda d, m: unflatten(sharded.local(d, m), reduced[d][m]))
 
 
 def _apply(params: Any, opt_state: dict, optimizer: AdamW, loss: torch.Tensor, grads: Any):

@@ -91,7 +91,7 @@ replay with plain matmuls on the dequantized weights, one 30 s window's
 numbers (a 48-token budget), and the q2 logits against plain matmuls; (23) the q2 session
 behind the HTTP micro-batcher, 4 requests in a batch of 4 (the int2 kernel
 at M = 4); (24) continuous serving of the q2 artifact on the rowwise route,
-2 concurrent requests on 8 slots with a 96-token budget, each request's ids
+2 concurrent requests on 8 slots with a 48-token budget, each request's ids
 bitwise equal to it alone through the batcher and against
 ``session.transcribe``; (25) the int8, int4 and int2 sources each built under
 two cache keys and both libraries loaded in this process, a bf16 call
@@ -108,7 +108,7 @@ matmuls on the dequantized weights, the prefill logits against plain, a 30
 s window's numbers, and ``transcribe_batch`` of 4 on the lockstep route;
 (28) its CTC head on a 45 s file through a ``fun_asr_nano`` artifact, and
 9 concurrent requests to the continuous server on 8 slots (bf16 caches, a
-96-token budget), each bitwise equal to it alone through the batcher; (29)
+48-token budget), each bitwise equal to it alone through the batcher; (29)
 Qwen3-ForcedAligner-0.6B (q8 tower, packed-q4 LLM, f32 class head) aligning
 a 12-word text to 20 s: monotone timestamps, buckets against a replay with
 plain matmuls on the dequantized weights, ms per call; (30) the fused and
@@ -142,13 +142,13 @@ artifact (Nemotron with ``--language``), its text the decode of
 (``ParaformerStreamConfig()``, ``NemotronStreamConfig()``,
 ``DolphinStreamConfig()``, ``ZipformerConfig()``) through an artifact
 folder and ``_build_session``: in mm=f32, the first 32 windows of 30 s
-(Dolphin 32 s, X-ASR 12 s) chunk by chunk from the session's state, each window's
+(Dolphin 32 s, X-ASR 8 s) chunk by chunk from the session's state, each window's
 encoder output and every decision's logits against
 plain matmuls on the dequantized weights within 1e-3 of max|plain| and the
 ids the plain argmax above the margin, a window's int8 calls recorded
 against ``stream_int8_calls``; in the serving mode the main path's
 launches over 30 s (Dolphin's 32 s past its 752-frame history,
-Paraformer's 60 chunks past its position table, X-ASR's 12 s), per-chunk latency p50 /
+Paraformer's 60 chunks past its position table, X-ASR's 8 s), per-chunk latency p50 /
 p95 against the chunk's duration, RTF and peak memory, and the first 10 s
 with f32 weights; (41) each family's
 runner at 8 slots: staggered starts and a reset, every slot's ids against
@@ -216,9 +216,11 @@ dp rows bitwise), every position's 281 int8 launches, a column and two
 row shard calls against their plain version, the forwards timed in bf16;
 (57) ``transcribe --data-parallel 2 --tensor-parallel 2`` through
 ``cli.main`` on phase 4's artifact against the unsharded command; (58)
-the serving half of ``__graft_entry__.dryrun_multichip`` at its tiny
-widths (a Whisper tp x dp encode, a Qwen3 prefill and step, a continuous
-tp step) against the unsharded runs; (59) the int8 and int4 kernels on a
+``__graft_entry__.dryrun_multichip`` at its tiny widths on a dp 4 x tp 2
+mesh: its SenseVoice CTC train step on the positions' own leaves (loss
+and gathered gradients against the unsharded step), then the serving half
+(a Whisper tp x dp encode, a Qwen3 prefill and step, a continuous tp step)
+against the unsharded runs; (59) the int8 and int4 kernels on a
 second card (only where there is one); (54) phase 9's Whisper at tp 2,
 one 30 s window on the rowwise decode against the unsharded rowwise run,
 ms a token; (56) its continuous server at ``data_parallel=2``, each
@@ -226,6 +228,19 @@ request bitwise it alone on either replica; (55) phase 16's Qwen3-ASR
 through ``ContinuousSessionServer`` at ``tensor_parallel=2`` (ids against
 the unsharded rowwise batcher, a replay where they differ) and at
 ``data_parallel=2`` (each request bitwise it alone on either replica).
+Then training over meshes of card positions at full width, each against
+the unsharded port on the same weights and batch (the loss within JAX's
+bound, every gathered gradient within the card gradient gate or twice the
+unsharded port's own spread under last-bit changes; three ``fit`` steps
+falling; every position's copies of a leaf and its moments bitwise
+alike; ms a step, peak memory, launches of a traced step, the gradient
+reduction's and AdamW's shares): (60) SenseVoiceSmall CTC, phase 49's
+batch, at dp 2 x tp 2 and tp 4; (61) Whisper-Large-v3-Turbo, phase 50's
+batch (slices of 63 and 39 target positions), at dp 2 x tp 2; (62)
+Parakeet-TDT-0.6B, phase 51's batch, at dp 2; (63) ``fit`` with a
+checkpoint on a dp 2 x tp 2 mesh at phase 52's cut depth, the file read
+into the unsharded layout bitwise, resumed on a fresh layout against the
+uninterrupted run and resumed in the unsharded layout.
 Positions that share a card take turns on it (``parallel/mesh.device_lock``),
 so their times are no speed result.
 
@@ -265,8 +280,8 @@ rescoring pass), X-ASR 261 (257 encoder calls and 4 decoder projections).
 A built q8 SenseVoice artifact's forward launches the int8 kernel 281
 times, the hqq 4-bit one the int4 kernel 280 times and the int8 kernel
 once (the first block's K = 560 leaf does not pack), the dynamic one
-neither. Training (49-52) launches none of the seven kernels: its leaves
-are f32 and never reach ``quant_dense``. A sharded SenseVoice forward
+neither. Training (49-52, 58's step, 60-63) launches none of the seven
+kernels: its leaves are f32 and never reach ``quant_dense``. A sharded SenseVoice forward
 launches the int8 kernel 281 times at every mesh position.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2613,7 +2628,7 @@ def phase_qwen_continuous(torch, np, qm, fd, fdm, folder: str, numbers: dict, ca
 QWEN_P2_SHAPES = {(1024, 4096): 28, (2048, 1024): 28, (1024, 6144): 28, (3072, 1024): 28}
 Q2_CONT_REQUESTS = 2  # the run-time limit
 Q2_CONT_SECONDS = (5.0, 30.0)
-Q2_CONT_BUDGET = 96  # new tokens a window on the continuous rowwise route
+Q2_CONT_BUDGET = 48  # new tokens a window on the continuous rowwise route (the run-time limit)
 
 
 def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
@@ -2744,7 +2759,7 @@ def phase_qwen_q2(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
 
 def phase_qwen_q2_continuous(torch, np, qm, fd, fdm, folder: str, card: str) -> dict:
     """[24] Continuous serving of the q2 artifact over HTTP on the rowwise
-    route (8 slots, bf16 caches, a 96-token budget): 2 concurrent requests
+    route (8 slots, bf16 caches, a Q2_CONT_BUDGET-token budget): 2 concurrent requests
     of 5-30 s with staggered starts, every step's linears through the int2
     kernel at M = 8; each request's ids against the same request alone
     through the batcher (bitwise) and against session.transcribe (a
@@ -2856,7 +2871,7 @@ def phase_qwen_q2_continuous(torch, np, qm, fd, fdm, folder: str, card: str) -> 
 CLI_SECONDS = (5.0, 7.0)  # two files shorter than one 8 s SenseVoice window
 FUN_HEAD = (5, 2, 6)  # Fun-ASR-Nano prompt ids: head and suffix before the audio, tail after
 FUN_BATCH = 4  # the lockstep batch of transcribe_batch
-FUN_BUDGET = 96  # new tokens a window in the lockstep batch and on the continuous server
+FUN_BUDGET = 48  # new tokens a window in the lockstep batch and on the continuous server (the run-time limit)
 FUN_CONT_REQUESTS = 9
 FUN_CONT_SECONDS = (5.0, 30.0)
 CONT_PREFILL_ROWS = 1024  # the continuous batcher's prefill bucket of a Fun-ASR-Nano prompt
@@ -4304,7 +4319,7 @@ STREAM_ARTIFACT = {"paraformer": "paraformer_streaming", "nemotron": "nemotron_s
                    "dolphin": "dolphin_streaming", "zipformer": "x_asr"}
 STREAM_PHASE = {"paraformer": 37, "nemotron": 38, "dolphin": 39, "zipformer": 40}
 # Dolphin's 30 s fill 736 of its 752 history frames: 32 s take the last windows past the clamp.
-STREAM_SECONDS = {"paraformer": 30.0, "nemotron": 30.0, "dolphin": 32.0, "zipformer": 12.0}
+STREAM_SECONDS = {"paraformer": 30.0, "nemotron": 30.0, "dolphin": 32.0, "zipformer": 8.0}
 STREAM_PCM = {"paraformer": 2000.0, "nemotron": 0.1, "dolphin": 2000.0, "zipformer": 2000.0}
 STREAM_SLOTS = 8
 STREAM_WINDOWS = 6       # windows of each slot's stream in phase 41
@@ -6165,23 +6180,29 @@ def to_dev(torch, tree, dev):
     return unflatten(tree, [t.to(dev) for t in tree_leaves(tree)])
 
 
-def grads_gap(torch, want, got) -> dict:
-    """Card gradients ``got`` against CPU ones ``want``, leaf by leaf: the
+def grads_gap(torch, want, got, spreads=()) -> dict:
+    """Gradients ``got`` against ``want`` (card against CPU, or two on the card), leaf by leaf: the
     worst |got - want| / (GRAD_REL * max|want leaf| + GRAD_FLOOR * max|want|)
-    (at most 1 to pass), its leaf, and how many leaves need the floor."""
+    (at most 1 to pass), its leaf, and how many leaves need the floor.
+    With ``spreads`` (gradient trees of the same function under changes
+    that move nothing but roundings), ``spread`` is the worst such ratio
+    of any of them: the function's own spread on this input."""
     from asr_tpu_torch.parallel.checkpoint import named_leaves
 
     w, g = named_leaves(want), dict(named_leaves(got))
+    sp = [dict(named_leaves(t)) for t in spreads]
     top = max(t.abs().max().item() for _, t in w)
-    worst, name, floored = 0.0, "", 0
+    worst, name, floored, spread = 0.0, "", 0, 0.0
     for k, t in w:
-        gap = (g[k].cpu() - t).abs().max().item()
+        gap = (g[k].to(t.device) - t).abs().max().item()
         own = t.abs().max().item()
-        ratio = gap / (GRAD_REL * own + GRAD_FLOOR * top)
+        bound = GRAD_REL * own + GRAD_FLOOR * top
+        ratio = gap / bound
         floored += gap > GRAD_REL * own
+        spread = max([spread] + [(x[k].to(t.device) - t).abs().max().item() / bound for x in sp])
         if ratio >= worst:
             worst, name = ratio, k
-    return {"worst": worst, "leaf": name, "floored": floored, "leaves": len(w), "max_g": top}
+    return {"worst": worst, "leaf": name, "floored": floored, "leaves": len(w), "max_g": top, "spread": spread}
 
 
 def card_vs_cpu(torch, np, label: str, loss_fn, cpu_params, cfg, batch, dev) -> dict:
@@ -6734,21 +6755,46 @@ def phase_cli_sharded(torch, np, qm, folder: str, params, cfg, card: str) -> dic
 
 
 def phase_dryrun_serving(torch, np, card: str) -> dict:
-    """[58] The serving half of ``__graft_entry__.dryrun_multichip`` on a
-    dp 4 x tp 2 mesh of card positions, at its tiny f32 widths: a Whisper
-    encode, a Qwen3 prefill and one step, and a continuous tensor-parallel
-    step; each against the unsharded run."""
+    """[58] ``__graft_entry__.dryrun_multichip`` on a dp 4 x tp 2 mesh of
+    card positions, at its tiny f32 widths. The training half: its
+    SenseVoice CTC step (batch 2 x data of 4800 samples, 8 labels, by
+    ``sensevoice_param_specs``) through ``train_step`` on a layout of the
+    positions' own leaves, the loss within 1e-4 of the unsharded one and
+    every gathered gradient within the card gradient gate (``grads_gap``). The serving half: a
+    Whisper encode, a Qwen3 prefill and one step, and a continuous
+    tensor-parallel step; each against the unsharded run."""
     from asr_tpu_torch.decode.ar import DecodeConfig
     from asr_tpu_torch.layers import qwen3
+    from asr_tpu_torch.models import sensevoice as sv
     from asr_tpu_torch.models import whisper as wh
     from asr_tpu_torch.parallel import mesh as pm
     from asr_tpu_torch.parallel.llm_batcher import ContinuousLlmBatcher
     from asr_tpu_torch.parallel.serve import DataParallelRunner
+    from asr_tpu_torch.parallel.train import make_optimizer, sensevoice_ctc_loss, train_step, value_and_grad
 
     mesh = pm.make_mesh(8, model_parallel=2, devices=card_positions(torch, 8))
     g = torch.Generator(device=DEV).manual_seed(58)
     rng = np.random.default_rng(58)
     batch = 2 * mesh.shape["data"]
+
+    scfg = sv.SenseVoiceConfig(vocab_size=128, hidden=64, num_heads=4, head_dim=16, ffn_dim=128,
+                               num_encoders0=1, num_encoders=2, num_tp_encoders=1, fsmn_kernel=5)
+    sp = sv.init_params(scfg, g)
+    samples = 4800
+    sbatch = ((rng.standard_normal((batch, samples)) * 2000).astype(np.float32), np.full(batch, samples, np.int32),
+              np.zeros(batch, np.int32), rng.integers(1, scfg.vocab_size, (batch, 8)).astype(np.int32),
+              np.full(batch, 8, np.int32))
+    loss_u, g_u = value_and_grad(sensevoice_ctc_loss, sp, scfg, *sbatch)
+    lay = pm.shard_params(sp, mesh, pm.sensevoice_param_specs(sp), own=True)
+    loss_g, g_m = value_and_grad(sensevoice_ctc_loss, lay, scfg, *sbatch)
+    optimizer = make_optimizer()
+    _, state, loss_m = train_step(lay, optimizer.init(lay), scfg, optimizer, *sbatch)
+    train_rel = abs(loss_m.item() - loss_u.item()) / abs(loss_u.item())
+    gap = grads_gap(torch, to_dev(torch, g_u, "cpu"), pm.gather_params(g_m, "cpu"))
+    check(train_rel <= 1e-4 and loss_g.item() == loss_m.item() and gap["worst"] <= 1.0,
+          f"[58] sensevoice dp x tp train step: loss {loss_m.item()} vs {loss_u.item()}, gradients {gap}")
+    check(int(state["count"]) == 1 and bool(torch.isfinite(loss_m)), "[58] the train step did not step")
+    del lay, g_m, state
     wcfg = wh.WhisperConfig(vocab_size=128, d_model=32, encoder_layers=1, decoder_layers=1, num_heads=4,
                             n_mels=16, max_source_positions=20, max_target_positions=16, sot_id=1,
                             eot_id=2, first_language_id=10, num_languages=4, transcribe_id=20,
@@ -6792,10 +6838,12 @@ def phase_dryrun_serving(torch, np, card: str) -> dict:
     n_ev = sum(len(bat.step_tick()) for _ in range(2))
     got = bat.take_result(slot)
     check(len(got) == 4, f"[58] continuous tp slot gave {got}")
-    print(f"[58 dryrun] dp {mesh.shape['data']} x tp 2 positions: whisper encode {tuple(enc.shape)} within "
-          f"{enc_diff:.2e} of unsharded, qwen3 prefill + step logits within {q_diff:.2e}, continuous tp "
-          f"step: {n_ev} events, ids {got}  [{card}]")
-    return {"enc_diff": enc_diff, "qwen_diff": q_diff}
+    print(f"[58 dryrun] dp {mesh.shape['data']} x tp 2 positions: sensevoice train step loss "
+          f"{loss_m.item():.6f} within {train_rel:.2e} of unsharded, worst leaf gradient {gap['worst']:.3f} of its "
+          f"bound; whisper encode {tuple(enc.shape)} within {enc_diff:.2e} of unsharded, qwen3 prefill + step "
+          f"logits within {q_diff:.2e}, continuous tp step: {n_ev} events, ids {got}  [{card}]")
+    return {"train_loss_rel": train_rel, "train_grad_worst": gap["worst"], "enc_diff": enc_diff,
+            "qwen_diff": q_diff}
 
 
 def first_diff(a: list, b: list) -> int:
@@ -7078,6 +7126,297 @@ def phase_second_device(torch, qm, quantize_linear, card: str) -> dict:
             check(errs[f"{name} {dev}"] <= 1e-4 * want.abs().max().item(), f"[59] {name} on {dev}: {errs}")
     print(f"[59 second device] int8 and int4 on cuda:0 then cuda:1 vs plain: {errs}  [{card}]")
     return {"ran": True, "max_abs_err": errs}
+
+
+
+# ── 60-63. training over a mesh: dp x tp steps on repeated card positions ──
+# (data, model) layouts; every position on the one card, so the times are virtual
+MESH_TRAIN_SV = ((2, 2), (1, 4))
+MESH_TRAIN_WH = ((2, 2),)
+MESH_TRAIN_PK = ((2, 1),)
+MESH_TRAIN_STEPS = 3  # fit steps a layout (the first is the warm step)
+MESH_LOSS_RTOL = {"sensevoice": 1e-4, "whisper": 2e-5, "parakeet": 1e-4}  # JAX's own bounds
+
+
+def positions_agree(torch, pm, sharded) -> int:
+    """Every position's copy of a leaf bitwise the copy at (0, its model
+    rank) and a replicated leaf's at (0, 0); -> the leaves compared."""
+    from asr_tpu_torch.parallel.checkpoint import tree_leaves
+
+    splits = pm.layout_leaves(sharded.layout)
+    ref = {m: tree_leaves(sharded.local(0, m)) for m in range(sharded.mesh.shape["model"])}
+    n = 0
+    for d, m in sharded.positions():
+        for i, (split, t) in enumerate(zip(splits, tree_leaves(sharded.local(d, m)))):
+            check(torch.equal(t, ref[0 if split.whole else m][i]),
+                  f"position ({d}, {m}) holds another copy of leaf {i} ({split})")
+            n += 1
+    return n
+
+
+def mesh_train(torch, np, counters, label: str, make_params, cfg, loss_fn, step, batch: tuple, layouts,
+               specs_fn, rtol: float, card: str) -> dict:
+    """One family's training over each (dp, tp) of ``layouts`` on card
+    positions, against the unsharded port on the same weights and batch:
+    the global loss within ``rtol``, every leaf's gathered gradient within
+    the card gradient gate (``grads_gap``), or, where the unsharded port's own gradient moves
+    further under changes of roundings alone (the batch rows reversed, one
+    ulp up at every 7th input value: at full depth it does), within twice
+    that spread (``grads_gap``; the repo's rule for depth); then ``fit``
+    MESH_TRAIN_STEPS steps
+    (losses falling, the seven kernels at 0, every position's leaves and
+    moments bitwise alike), ms a step (CUDA events, virtual), peak memory,
+    launches a step (a traced step of the first layout), and the gradient reduction's and the
+    AdamW update's shares of a step (each timed alone, the second moments
+    standing in for the gradients). ``make_params()`` gives the weights on
+    the card, dropped once the last layout holds them. -> the numbers."""
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.parallel import train as tt
+    from asr_tpu_torch.parallel.checkpoint import tree_leaves
+
+    params = make_params()
+    loss_u, g_u = tt.value_and_grad(loss_fn, params, cfg, *batch)
+    # the unsharded port's own spread: the batch rows reversed (the loss is the same function of
+    # them, summed in another order) and one ulp up at every 7th input value
+    moved = batch[0].clone()
+    moved.view(torch.int32).view(-1)[::7] += 1
+    spreads = [tt.value_and_grad(loss_fn, params, cfg, *b)[1]
+               for b in (tuple(a.flip(0) if isinstance(a, torch.Tensor) else a for a in batch),
+                         (moved,) + batch[1:])]
+    del moved
+    torch.cuda.synchronize()
+    out = {"unsharded_loss": loss_u.item(), "layouts": {}}
+    lay = opt_state = None
+    for dp, tp in layouts:
+        name = f"dp{dp}_tp{tp}"
+        del lay, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = pm.make_mesh(dp * tp, model_parallel=tp, devices=card_positions(torch, dp * tp))
+        lay = pm.shard_params(params, mesh, specs_fn(params) if specs_fn and tp > 1 else None, own=True)
+        if (dp, tp) == layouts[-1]:
+            del params  # the last layout's leaves are the only copy on the card from here
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(*counters)  # the path starts here
+        t0 = time.perf_counter()
+        loss_m, g_m = tt.value_and_grad(loss_fn, lay, cfg, *batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        rel = abs(loss_m.item() - loss_u.item()) / abs(loss_u.item())
+        check(rel <= rtol, f"[{label} {name}] mesh loss {loss_m.item()} against the unsharded {loss_u.item()}")
+        gap = grads_gap(torch, g_u, pm.gather_params(g_m), spreads)
+        bound = max(1.0, 2 * gap["spread"])
+        check(gap["worst"] <= bound, f"[{label} {name}] gradient of {gap['leaf']} off the unsharded one's: {gap}")
+        agree = positions_agree(torch, pm, g_m)
+        del g_m
+        if (dp, tp) == layouts[-1]:
+            del g_u, spreads
+        optimizer = tt.make_optimizer(lr=TRAIN_LR)
+        lay, opt_state, losses, ms = timed_fit(torch, f"{label} {name} fit", step, lay, optimizer, batch,
+                                               MESH_TRAIN_STEPS)
+        counts = kernel_counts(*counters)  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        falling(f"{label} {name}", losses)
+        check(not any(counts.values()), f"[{label} {name}] the mesh step launched a kernel of the seven: {counts}")
+        agree += sum(positions_agree(torch, pm, t) for t in (lay, opt_state["mu"], opt_state["nu"]))
+        prof = None  # one traced step a family (a trace of ~70000 launches costs ~15 s of the run)
+        if (dp, tp) == layouts[0]:
+            prof = traced_run(torch, lambda: step(lay, opt_state, optimizer, *batch)[2].item())
+        stand_in = opt_state["nu"]  # shaped as the gradients
+        raw = [[tree_leaves(stand_in.local(d, m)) for m in range(tp)] for d in range(dp)]
+        reduce_ms = time_ms(lambda: tt.reduce_gradients(lay, raw), iters=3, warmup=1)
+        del raw
+
+        def adamw():
+            nonlocal opt_state
+            updates, opt_state = optimizer.update(stand_in, opt_state, lay)
+            tt.apply_updates(lay, updates)
+
+        adamw_ms = time_ms(adamw, iters=2, warmup=1)
+        step_ms = float(np.median(ms[1:]))
+        out["layouts"][name] = {
+            "loss_rel": rel, "grad_worst": gap["worst"], "grad_leaf": gap["leaf"], "floored": gap["floored"],
+            "grad_own_spread": gap["spread"], "grad_bound": bound,
+            "leaves": gap["leaves"], "copies_bitwise": agree, "losses": losses, "ms_steps": ms, "step_ms": step_ms,
+            "first_grad_s": first_s, "peak_gib": peak, "profile": prof, "reduce_ms": reduce_ms,
+            "reduce_share": reduce_ms / step_ms, "adamw_ms": adamw_ms, "adamw_share": adamw_ms / step_ms,
+            "counts": counts}
+        print(f"[{label} mesh train] {name} on {dp * tp} card positions: loss {loss_m.item():.6f} vs unsharded "
+              f"{loss_u.item():.6f} ({rel:.2e} apart, bound {rtol:g}); worst leaf gradient {gap['worst']:.3f} of "
+              f"the card gradient gate ({gap['leaf']}; {gap['floored']} of {gap['leaves']} leaves past "
+              f"1e-3 of their max), "
+              f"the unsharded port's own spread {gap['spread']:.3f} of it, so bound {bound:.3f}; fit "
+              f"{MESH_TRAIN_STEPS} steps: losses {', '.join(f'{x:.4f}' for x in losses)}; {step_ms:.1f} ms a step "
+              f"(CUDA events: {', '.join(f'{x:.1f}' for x in ms)}; {VIRTUAL}); first value_and_grad "
+              f"{first_s:.2f} s; gradient reduction {reduce_ms:.2f} ms ({reduce_ms / step_ms:.3f} of a step), "
+              f"AdamW on every position {adamw_ms:.2f} ms ({adamw_ms / step_ms:.3f}); peak {peak:.2f} GiB; "
+              + (f"one step traced: {prof['kernels']} kernel launches, device busy {prof['busy_ms']:.1f} ms of "
+                 f"{prof['window_ms']:.1f} (idle {prof['idle_share']:.3f}); " if prof else "not traced; ")
+              + f"{agree} position copies bitwise alike; the seven kernels 0 launches  [{card}]")
+    return out
+
+
+def phase_train_sensevoice_mesh(torch, np, counters, card: str) -> tuple:
+    """[60] SenseVoiceSmall (``SenseVoiceConfig()``) CTC at full width, phase
+    49's batch (8 x 8 s, the same draws), at dp 2 x tp 2 and tp 4 by
+    ``sensevoice_param_specs`` (4 heads: one a rank at tp 4; the 25055-wide
+    CTC head split unevenly), through ``mesh_train``. -> (numbers, the host
+    batch for phase 63)."""
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.parallel.train import sensevoice_ctc_loss, train_step
+
+    cfg = sv.SenseVoiceConfig()
+    b, seconds, (lo, hi), _ = TRAIN_SV
+    rng = np.random.default_rng(49)
+    n = int(seconds * 16000)
+    label_valid = rng.integers(lo, hi + 1, b).astype(np.int32)
+    host = ((rng.standard_normal((b, n)) * 2000).astype(np.float32), np.full(b, n, np.int32),
+            rng.integers(0, len(sv.LANGUAGE_PROFILES), b).astype(np.int32),
+            rng.integers(1, cfg.vocab_size, (b, hi)).astype(np.int32), label_valid)
+    batch = tuple(torch.as_tensor(a).to(DEV) for a in host)
+
+    def step(params, opt_state, optimizer, *batch):
+        return train_step(params, opt_state, cfg, optimizer, *batch)
+
+    out = mesh_train(torch, np, counters, "60",
+                     lambda: sv.init_params(cfg, torch.Generator(device=DEV).manual_seed(60), DEV),
+                     cfg, sensevoice_ctc_loss, step, batch, MESH_TRAIN_SV, pm.sensevoice_param_specs,
+                     MESH_LOSS_RTOL["sensevoice"], card)
+    return out, host
+
+
+def phase_train_whisper_mesh(torch, np, counters, card: str) -> dict:
+    """[61] Whisper-Large-v3-Turbo (``WhisperConfig()``) teacher-forced
+    cross-entropy at full width, phase 50's batch (2 x 30 s of mel, 64
+    tokens, valid 64 and 40: the two data slices weigh 63 and 39 target
+    positions), at dp 2 x tp 2 by ``whisper_param_specs`` (20 heads, 10 a
+    rank), through ``mesh_train``."""
+    from asr_tpu_torch.models import whisper as wh
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.parallel.train import whisper_ce_loss, whisper_train_step
+
+    cfg = wh.WhisperConfig()
+    b, frames, s, valid, smoothing, _ = TRAIN_WH
+    rng = np.random.default_rng(50)
+    host = ((rng.standard_normal((b, frames, cfg.n_mels)) * 0.3).astype(np.float32),
+            rng.integers(3, cfg.eot_id, (b, s)).astype(np.int32), np.array(valid, np.int32))
+    batch = tuple(torch.as_tensor(a).to(DEV) for a in host) + (smoothing,)
+
+    def step(params, opt_state, optimizer, *batch):
+        return whisper_train_step(params, opt_state, cfg, optimizer, *batch)
+
+    return mesh_train(torch, np, counters, "61",
+                      lambda: wh.init_params(cfg, torch.Generator(device=DEV).manual_seed(61), DEV),
+                      cfg, whisper_ce_loss, step, batch, MESH_TRAIN_WH, pm.whisper_param_specs,
+                      MESH_LOSS_RTOL["whisper"], card)
+
+
+def phase_train_parakeet_mesh(torch, np, counters, card: str) -> dict:
+    """[62] Parakeet-TDT-0.6B (``ParakeetConfig()``) RNN-T at full width,
+    phase 51's batch (4 x 8 s, 32 labels, valid 32, 20, 32, 12), at dp 2
+    with the parameters replicated (JAX has no Parakeet spec tree), through
+    ``mesh_train``."""
+    from asr_tpu_torch.models import parakeet as pk
+    from asr_tpu_torch.parallel.train import transducer_loss, transducer_train_step
+
+    cfg = pk.ParakeetConfig()
+    b, seconds, u, valid, _ = TRAIN_PK
+    rng = np.random.default_rng(51)
+    n = int(seconds * 16000)
+    host = ((rng.standard_normal((b, n)) * 0.1).astype(np.float32), np.full(b, n, np.int32),
+            rng.integers(0, cfg.blank_id, (b, u)).astype(np.int32), np.array(valid, np.int32))
+    batch = tuple(torch.as_tensor(a).to(DEV) for a in host)
+
+    def step(params, opt_state, optimizer, *batch):
+        return transducer_train_step(params, opt_state, cfg, optimizer, *batch)
+
+    return mesh_train(torch, np, counters, "62",
+                      lambda: pk.init_params(cfg, torch.Generator(device=DEV).manual_seed(62), DEV),
+                      cfg, transducer_loss, step, batch, MESH_TRAIN_PK, None, MESH_LOSS_RTOL["parakeet"], card)
+
+
+def phase_train_mesh_checkpoint(torch, np, host, card: str) -> dict:
+    """[63] ``fit`` with a checkpoint on a dp 2 x tp 2 mesh of SenseVoiceSmall
+    at phase 52's cut depth (TRAIN_SV_CUT blocks at the published widths,
+    phase 49's first 2 rows): RESUME_STEPS[1] steps and a checkpoint, the
+    file read into the unsharded layout bitwise ``gather_params`` of the
+    mesh's parameters and moments; resumed on a fresh layout to
+    RESUME_STEPS[0] steps against as many straight, within RESUME_TOL
+    (bitwise reported, as phase 52); the mesh's last checkpoint resumed in
+    the unsharded layout for one more step."""
+    import dataclasses as dc
+
+    from asr_tpu_torch.models import sensevoice as sv
+    from asr_tpu_torch.parallel import checkpoint as ckpt
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.parallel.train import make_optimizer, train_step
+
+    cut = dc.replace(sv.SenseVoiceConfig(), num_encoders0=TRAIN_SV_CUT[0], num_encoders=TRAIN_SV_CUT[1],
+                     num_tp_encoders=TRAIN_SV_CUT[2])
+    batch = tuple(torch.as_tensor(a[:2]).to(DEV) for a in host)
+    n_all, n_first = RESUME_STEPS
+    optimizer = make_optimizer(lr=TRAIN_LR)
+    mesh = pm.make_mesh(4, model_parallel=2, devices=card_positions(torch, 4))
+    base = sv.init_params(cut, torch.Generator(device=DEV).manual_seed(6301), DEV)
+
+    def fresh_layout():
+        return pm.shard_params(base, mesh, pm.sensevoice_param_specs(base), own=True)
+
+    def step_fn(params, opt_state, optimizer, *b):
+        return train_step(params, opt_state, cut, optimizer, *b)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p_all, o_all, l_all, ms = timed_fit(torch, "63 straight", step_fn, fresh_layout(), optimizer, batch, n_all)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory() as d:
+        p_a, o_a, l_a, _ = timed_fit(torch, "63 first", step_fn, fresh_layout(), optimizer, batch, n_first,
+                                     ckpt_dir=d)
+        size_gb = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file()) / 1e9
+        template = to_dev(torch, base, "cpu")
+        t0 = time.perf_counter()
+        p_w, o_w, s_w = ckpt.restore_train_state(d, {"params": template, "opt_state": optimizer.init(template)})
+        t_read = time.perf_counter() - t0
+        want = dict(ckpt.named_leaves({"params": pm.gather_params(p_a, "cpu"), "mu": pm.gather_params(o_a["mu"], "cpu"),
+                                       "nu": pm.gather_params(o_a["nu"], "cpu")}))
+        got = ckpt.named_leaves({"params": p_w, "mu": o_w["mu"], "nu": o_w["nu"]})
+        bad = [k for k, t in got if not torch.equal(t, want[k])]
+        check(s_w == n_first and len(got) == len(want) and not bad,
+              f"[63] the mesh checkpoint in the unsharded layout: step {s_w}, {len(bad)} leaves not bitwise "
+              f"gather_params: {bad[:3]}")
+        del p_a, o_a, p_w, o_w, want, got
+        p_b, o_b, l_b, _ = timed_fit(torch, "63 resumed", step_fn, fresh_layout(), optimizer, batch, n_all,
+                                     ckpt_dir=d)
+        _, _, l_u, _ = timed_fit(torch, "63 unsharded", step_fn, to_dev(torch, base, DEV), optimizer, batch,
+                                 n_all + 1, ckpt_dir=d)
+    losses = l_a + l_b
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(losses, l_all))
+    leaf_gap, bitwise = 0.0, True
+    for a, b in ((p_all, p_b), (o_all["mu"], o_b["mu"]), (o_all["nu"], o_b["nu"])):
+        for dd, m in a.positions():
+            for x, y in zip(ckpt.tree_leaves(a.local(dd, m)), ckpt.tree_leaves(b.local(dd, m))):
+                bitwise &= torch.equal(x, y)
+                leaf_gap = max(leaf_gap, ((x.double() - y.double()).abs().max()
+                                          / x.double().abs().max().clamp(min=1e-30)).item())
+    check(len(losses) == n_all and loss_gap <= RESUME_TOL and leaf_gap <= RESUME_TOL,
+          f"[63] resumed against straight: losses {losses} / {l_all} ({loss_gap:.2e}), leaves {leaf_gap:.2e}")
+    check(len(l_u) == 1 and np.isfinite(l_u[0]), f"[63] the unsharded resume gave {l_u}")
+    step_ms = float(np.median(ms[1:]))
+    out = {"size_gb": size_gb, "read_unsharded_s": t_read, "resume_loss_gap": loss_gap,
+           "resume_leaf_gap": leaf_gap, "resume_bitwise": bitwise, "unsharded_resume_loss": l_u[0],
+           "step_ms": step_ms, "peak_gib": peak}
+    print(f"[63 mesh checkpoint] SenseVoiceSmall at {TRAIN_SV_CUT} blocks on dp 2 x tp 2 ({step_ms:.1f} ms a "
+          f"step, {VIRTUAL}; peak {peak:.2f} GiB; not traced): {n_first} steps + a "
+          f"checkpoint ({size_gb:.3f} GB, the unsharded layout's file: read unsharded in {t_read:.2f} s, bitwise "
+          f"gather_params of the mesh's parameters and moments) + a restore into a fresh layout + "
+          f"{n_all - n_first} against {n_all} straight: losses {loss_gap:.2e} apart, leaves {leaf_gap:.2e} of "
+          f"their max (bitwise: {bitwise}); the mesh's step-{n_all} checkpoint resumed unsharded: loss "
+          f"{l_u[0]:.4f}  [{card}]")
+    return out
 
 
 def main() -> int:
@@ -7439,6 +7778,26 @@ def main() -> int:
     print("[49-52] " + json.dumps({"sensevoice_ctc": tr49, "whisper_aed": tr50, "parakeet_rnnt": tr51,
                                    "checkpoint": tr52}))
 
+    # ── 60-63. training over a mesh of card positions: dp x tp steps, fit and the checkpoint ──
+    tr60, mesh_host = phase_train_sensevoice_mesh(torch, np, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr61 = phase_train_whisper_mesh(torch, np, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr62 = phase_train_parakeet_mesh(torch, np, counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr63 = phase_train_mesh_checkpoint(torch, np, mesh_host, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[t] phases 60-63: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    print("[60-63] " + json.dumps({"sensevoice_ctc_mesh": tr60, "whisper_aed_mesh": tr61,
+                                   "parakeet_rnnt_mesh": tr62, "mesh_checkpoint": tr63}))
+    # every kernel's launches on the mesh training paths (each checked to be 0)
+    mesh_tr = {k: sum(r["layouts"][n]["counts"][k] for r in (tr60, tr61, tr62) for n in r["layouts"])
+               for k in tr60["layouts"]["dp2_tp2"]["counts"]}
+
     print("[53-59] " + json.dumps({"sensevoice_sharded": sh53, "whisper_tp2": wtp54, "qwen": q55,
                                    "whisper_dp2": wdp56, "cli": cli57, "dryrun": dry58, "second_device": dev59}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -7462,7 +7821,7 @@ def main() -> int:
                      + sv43["int8"] + wh44["int8"] + sum(r["counts"]["int8"] for r in par.values())
                      + prof["int8"] + sum(r["int8"] for r in st_prof.values())
                      + sum(sh53["launches"].values()) + cli57["int8"] + wtp54["int8"] + wdp56["int8"]
-                     + q55["tp"]["int8"] + q55["dp"]["int8"]),
+                     + q55["tp"]["int8"] + q55["dp"]["int8"] + mesh_tr["int8"]),
         "launches_by_path": {"sensevoice": launches, "whisper": wrun_int8, "continuous": serve["int8"],
                              "qwen": qrun["int8"], "qwen_serve": qserve["int8"],
                              "qwen_continuous": qcont["int8"], "qwen_q2": q2run["int8"],
@@ -7483,7 +7842,8 @@ def main() -> int:
                              **{f"{name}_stream_profile": r["int8"] for name, r in st_prof.items()},
                              **sh53["launches"], "sensevoice_cli_dp2_tp2": cli57["int8"],
                              "whisper_tp2": wtp54["int8"], "whisper_dp2_continuous": wdp56["int8"],
-                             "qwen_tp2_continuous": q55["tp"]["int8"], "qwen_dp2_continuous": q55["dp"]["int8"]},
+                             "qwen_tp2_continuous": q55["tp"]["int8"], "qwen_dp2_continuous": q55["dp"]["int8"],
+                             "mesh_training": mesh_tr["int8"]},
         "mesh_shards_max_abs_err": sh53["max_abs_err"],
         "mesh_forward_ms": {k: v for k, v in sh53["ms"].items()},
         "mesh_note": f"phase 53's batch-8 x 8 s forward by (data, model) layout, mm=bf16, host clock; {VIRTUAL}",
@@ -7514,10 +7874,11 @@ def main() -> int:
         "source": "asr_tpu_torch/csrc/fused_aed_step.cu",
         "replaces": "asr_tpu/ops/fused_aed_step.py:302",
         "launches": (wrun_fused + sum(r["fused"] for r in fam_run.values()) + wh44["fused"]
-                     + par["whisper"]["counts"]["fused_aed"]),
+                     + par["whisper"]["counts"]["fused_aed"] + mesh_tr["fused_aed"]),
         "launches_by_path": {"whisper": wrun_fused, "firered": fam_run["firered"]["fused"],
                              "dolphin": fam_run["dolphin"]["fused"], "whisper_built_kquant": wh44["fused"],
-                             "whisper_parity": par["whisper"]["counts"]["fused_aed"]},
+                             "whisper_parity": par["whisper"]["counts"]["fused_aed"],
+                             "mesh_training": mesh_tr["fused_aed"]},
         "max_abs_err": fused["max_abs_err"],
         "ms": f_t["ms"],
         "plain_ms": f_t["plain_ms"],
@@ -7543,10 +7904,12 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_aed_multi.cu",
         "replaces": "asr_tpu/ops/fused_aed_multi.py:90",
-        "launches": serve["launches"] + sum(r["launches"] for r in fam_cont.values()) + wdp56["launches"],
+        "launches": (serve["launches"] + sum(r["launches"] for r in fam_cont.values()) + wdp56["launches"]
+                     + mesh_tr["fused_aed_multi"]),
         "launches_by_path": {"continuous": serve["launches"], "firered_continuous": fam_cont["firered"]["launches"],
                              "dolphin_continuous": fam_cont["dolphin"]["launches"],
-                             "whisper_dp2_continuous": wdp56["launches"]},
+                             "whisper_dp2_continuous": wdp56["launches"],
+                             "mesh_training": mesh_tr["fused_aed_multi"]},
         "max_abs_err": multi["max_abs_err"],
         "ms": m_t["ms"],
         "plain_ms": m_t["plain_ms"],
@@ -7574,13 +7937,14 @@ def main() -> int:
         "replaces": "asr_tpu/ops/quant_matmul.py:493",
         "launches": (qrun["int4"] + qserve["int4"] + qcont["int4"] + frun["int4"] + frun["batch_int4"]
                      + fcont["int4"] + arun["int4"] + sv43["int4"] + par["qwen_asr"]["counts"]["int4"]
-                     + q55["tp"]["int4"] + q55["dp"]["int4"]),
+                     + q55["tp"]["int4"] + q55["dp"]["int4"] + mesh_tr["int4"]),
         "launches_by_path": {"qwen": qrun["int4"], "qwen_serve": qserve["int4"],
                              "qwen_continuous": qcont["int4"], "fun_llm": frun["int4"],
                              "fun_llm_batch": frun["batch_int4"], "fun_continuous": fcont["int4"],
                              "aligner": arun["int4"], "sensevoice_built_hqq4": sv43["int4"],
                              "qwen_parity": par["qwen_asr"]["counts"]["int4"],
-                             "qwen_tp2_continuous": q55["tp"]["int4"], "qwen_dp2_continuous": q55["dp"]["int4"]},
+                             "qwen_tp2_continuous": q55["tp"]["int4"], "qwen_dp2_continuous": q55["dp"]["int4"],
+                             "mesh_training": mesh_tr["int4"]},
         "max_abs_err": p4["max_abs_err"],
         "ms": p4["per_prefill"]["bf16"]["ms"],
         "plain_ms": p4["per_prefill"]["bf16"]["plain_ms"],
@@ -7599,9 +7963,11 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_decode.cu",
         "replaces": "asr_tpu/ops/fused_decode.py:310",
-        "launches": qrun["fused"] + frun["fused"] + par["qwen_asr"]["counts"]["fused_decode"],
+        "launches": (qrun["fused"] + frun["fused"] + par["qwen_asr"]["counts"]["fused_decode"]
+                     + mesh_tr["fused_decode"]),
         "launches_by_path": {"qwen": qrun["fused"], "qwen_serve": 0, "qwen_continuous": 0,
-                             "fun_llm": frun["fused"], "qwen_parity": par["qwen_asr"]["counts"]["fused_decode"]},
+                             "fun_llm": frun["fused"], "qwen_parity": par["qwen_asr"]["counts"]["fused_decode"],
+                             "mesh_training": mesh_tr["fused_decode"]},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["times"]["bfloat16"]["ms"],
         "plain_ms": dec["times"]["bfloat16"]["plain_ms"],
@@ -7622,9 +7988,10 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/fused_decode_multi.cu",
         "replaces": "asr_tpu/ops/fused_decode_multi.py:92",
-        "launches": qcont["launches"] + fcont["launches"] + q55["dp"]["launches"],
+        "launches": qcont["launches"] + fcont["launches"] + q55["dp"]["launches"] + mesh_tr["fused_decode_multi"],
         "launches_by_path": {"qwen_continuous": qcont["launches"], "fun_continuous": fcont["launches"],
-                             "qwen_dp2_continuous": q55["dp"]["launches"]},
+                             "qwen_dp2_continuous": q55["dp"]["launches"],
+                             "mesh_training": mesh_tr["fused_decode_multi"]},
         "max_abs_err": mdec["max_abs_err"],
         "ms": q_t["ms"],
         "plain_ms": q_t["plain_ms"],
@@ -7645,9 +8012,9 @@ def main() -> int:
         "route": "cuda",
         "source": "asr_tpu_torch/csrc/quant_matmul_int2.cu",
         "replaces": "asr_tpu/ops/quant_matmul.py:231",
-        "launches": q2run["int2"] + q2serve["int2"] + q2cont["int2"],
+        "launches": q2run["int2"] + q2serve["int2"] + q2cont["int2"] + mesh_tr["int2"],
         "launches_by_path": {"qwen_q2": q2run["int2"], "qwen_q2_serve": q2serve["int2"],
-                             "qwen_q2_continuous": q2cont["int2"]},
+                             "qwen_q2_continuous": q2cont["int2"], "mesh_training": mesh_tr["int2"]},
         "max_abs_err": p2["max_abs_err"],
         "ms": p2["per_prefill"]["bf16"]["ms"],
         "plain_ms": p2["per_prefill"]["bf16"]["plain_ms"],

@@ -32,8 +32,9 @@ training steps, the RNN-T and TDT losses and the training checkpoint on
 the card against the CPU; the int8 and int4 kernels on the pieces that
 ``parallel/mesh.shard_params`` cuts (heads, rows at block boundaries, an
 uneven vocabulary head), a ``data_parallel=2`` and a ``tensor_parallel=2``
-continuous server on a repeated card, and, with two cards, the kernels'
-per-device shared-memory limit; with TF32
+continuous server on a repeated card, tiny dp x tp training steps on a
+repeated card against the same steps on CPU positions, and, with two
+cards, the kernels' per-device shared-memory limit; with TF32
 off. Each test skips where no card is present.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -1720,3 +1721,49 @@ def test_shared_memory_limit_is_set_on_each_card():
             got, want = launch(x, q, s, z, 128, "bf16"), ref(x, q, s, z, 128, "bf16")
             torch.cuda.synchronize(dev)
             assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), (bits, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sensevoice", "whisper", "parakeet"])
+def test_mesh_train_step_on_a_repeated_card_matches_the_cpu(name):
+    """A tiny training step on ``[cuda:0] * 4`` (dp 2 x tp 2 by the family's
+    spec tree; Parakeet dp 2, replicated) finishes inside the training
+    grid's collective timeout, and its loss and every gathered gradient
+    equal the same step on four CPU positions within phases 49-51's gate
+    (loss 1e-4, each leaf 1e-3 of its own max|g| + 1e-6 of the tree's);
+    after three steps every position's copy of a leaf is bitwise alike."""
+    _need_card()
+    import time
+
+    import numpy as np
+
+    import chip_smoke
+    from asr_tpu_torch.parallel import mesh as pm
+    from asr_tpu_torch.parallel import train
+
+    loss_fn, params, cfg, batch = _train_case(name)
+    dp, tp = (2, 1) if name == "parakeet" else (2, 2)
+    specs = {"sensevoice": pm.sensevoice_param_specs, "whisper": pm.whisper_param_specs}.get(name)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        mesh = pm.make_mesh(dp * tp, model_parallel=tp, devices=[torch.device(dev, 0) if dev == "cuda"
+                                                                  else torch.device(dev)] * (dp * tp))
+        lay = pm.shard_params(params, mesh, specs(params) if specs and tp > 1 else None, own=True)
+        t0 = time.perf_counter()
+        loss, grads = train.value_and_grad(loss_fn, lay, cfg, *batch)
+        got[dev] = (loss.item(), pm.gather_params(grads, "cpu"), time.perf_counter() - t0, lay)
+    assert got["cuda"][2] < train.TRAIN_COLLECTIVE_TIMEOUT_S
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= 1e-4 * abs(got["cpu"][0])
+    assert chip_smoke.grads_gap(torch, got["cpu"][1], got["cuda"][1])["worst"] <= 1.0
+    lay = got["cuda"][3]
+    step = {"sensevoice": train.train_step, "whisper": train.whisper_train_step,
+            "parakeet": train.transducer_train_step}[name]
+    opt = train.make_optimizer(lr=3e-3)
+    state = opt.init(lay)
+    losses = []
+    for _ in range(3):
+        lay, state, loss = step(lay, state, cfg, opt, *batch)
+        losses.append(loss.item())
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    for tree in (lay, state["mu"], state["nu"]):
+        chip_smoke.positions_agree(torch, pm, tree)
