@@ -20,7 +20,12 @@ FireRed) into an artifact folder on the host (``export.py``);
 (``runtime/examples.py``) in the exact f32 matmul mode and captures or
 compares goldens with stage probes (``runtime/probe.py``); its goldens are
 the JAX package's, either way. ``transcribe --profile LOGDIR`` writes a
-``torch.profiler`` Chrome trace of the run (``runtime/profiling.py``).
+``torch.profiler`` Chrome trace of the run (``runtime/profiling.py``); a
+SenseVoice or Whisper run holds the stage spans on the kernels' clock:
+``asr.session.transcribe`` around ``asr.session.pack`` / ``upload`` /
+``download`` / ``collect`` and the model's ``asr.sv.frontend`` /
+``encode`` / ``block`` / ``ctc`` or ``asr.whisper.mel`` / ``encode`` /
+``probe`` / ``prompt`` / ``stack`` and ``asr.decode.token`` a step.
 ``--platform`` picks the torch device of every subcommand but ``build``:
 the CUDA card by default (it raises where no card is visible), ``cpu`` when
 asked for. ``--quant-mm`` sets the quantized kernels' matmul mode.
@@ -632,7 +637,7 @@ def main(argv=None) -> int:
                    help="serving cast of the plain weights (norms/softmax stay f32)")
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="write a torch.profiler Chrome trace of the run (CPU and, on the card, "
-                        "CUDA activity) into LOGDIR")
+                        "CUDA activity, with the sessions' asr.* stage spans) into LOGDIR")
     p.add_argument("--tensor-parallel", type=int, default=1, metavar="T",
                    help="shard the model's wide matmuls over T mesh positions (Megatron TP; "
                         "sensevoice/whisper/qwen_asr/fun_asr_nano_llm); composes with "

@@ -6,7 +6,8 @@ writes into fixed-size buffers (the token buffer, the model's KV caches),
 with JAX's stop rule: run while ``i < max_new_tokens`` and not every row
 has finished. Finished rows write ``eot_id``; buffer slots past the stop
 stay 0, so the whole buffer matches JAX's. The stop test reads
-``finished.all()`` back from the device: one host sync per step.
+``finished.all()`` back from the device: one host sync per step, the last
+thing in the step's ``asr.decode.token`` span.
 
 Works for any ``step(state, tokens (B, 1), pos) -> (logits (B, V), state)``.
 """
@@ -23,6 +24,7 @@ from asr_tpu_torch.decode.strategies import (
     suppress_tokens,
     top_k_top_p_sample,
 )
+from asr_tpu_torch.runtime.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,15 +97,22 @@ def ar_decode(
     finished = first_token == cfg.eot_id
     counts = torch.ones((b,), dtype=torch.int32, device=buf.device)
     i = 0
-    while i < cfg.max_new_tokens and not bool(finished.all()):  # the host sync
-        pos = prompt_len + i
-        logits, state = step(state, buf[:, pos : pos + 1], pos)
-        logits = suppress_tokens(logits.to(torch.float32), cfg.suppress_ids)
-        nxt = select_token(logits, buf, pos + 1, cfg, generator, history_start=prompt_len,
-                           noise=noise)
-        nxt = torch.where(finished, cfg.eot_id, nxt)
-        buf[:, pos + 1] = nxt
-        counts += (~finished).to(torch.int32)
-        finished = finished | (nxt == cfg.eot_id)
-        i += 1
+
+    def going_on() -> bool:  # the host sync, skipped once the budget is spent
+        return i < cfg.max_new_tokens and not bool(finished.all())
+
+    more = going_on()
+    while more:
+        with annotate("asr.decode.token"):  # a token's launches and the sync that reads it back
+            pos = prompt_len + i
+            logits, state = step(state, buf[:, pos : pos + 1], pos)
+            logits = suppress_tokens(logits.to(torch.float32), cfg.suppress_ids)
+            nxt = select_token(logits, buf, pos + 1, cfg, generator, history_start=prompt_len,
+                               noise=noise)
+            nxt = torch.where(finished, cfg.eot_id, nxt)
+            buf[:, pos + 1] = nxt
+            counts += (~finished).to(torch.int32)
+            finished = finished | (nxt == cfg.eot_id)
+            i += 1
+            more = going_on()
     return buf, counts

@@ -25,6 +25,7 @@ from asr_tpu_torch.layers.attention import attention_bias_from_lengths, length_m
 from asr_tpu_torch.layers.norms import layer_norm
 from asr_tpu_torch.layers.sanm import sanm_block
 from asr_tpu_torch.layers.transformer import dense
+from asr_tpu_torch.runtime.profiling import annotate
 
 # (code, description, aliases, prompt_token_id) — table row order is the
 # language_embed row index.
@@ -135,17 +136,23 @@ def init_params(cfg: SenseVoiceConfig, generator: torch.Generator, device=None,
 
 def encode(params: dict, cfg: SenseVoiceConfig, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """SANM encoder over prompt+speech features. x: (B, T, feature_size)."""
-    key_mask = length_mask(valid, x.shape[1])
-    bias = attention_bias_from_lengths(valid, x.shape[1])
-    x = torch.where(key_mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-    for p in params["encoders0"]:
-        x = sanm_block(x, p, cfg.num_heads, cfg.head_dim, bias, key_mask, residual=False)
-    for p in params["encoders"]:
-        x = sanm_block(x, p, cfg.num_heads, cfg.head_dim, bias, key_mask, residual=True)
-    x = layer_norm(x, params["after_norm"]["scale"], params["after_norm"]["bias"])
-    for p in params["tp_encoders"]:
-        x = sanm_block(x, p, cfg.num_heads, cfg.head_dim, bias, key_mask, residual=True)
-    return layer_norm(x, params["tp_norm"]["scale"], params["tp_norm"]["bias"])
+    with annotate("asr.sv.encode"):
+        key_mask = length_mask(valid, x.shape[1])
+        bias = attention_bias_from_lengths(valid, x.shape[1])
+        x = torch.where(key_mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+        def block(x, p, residual=True):
+            with annotate("asr.sv.block"):
+                return sanm_block(x, p, cfg.num_heads, cfg.head_dim, bias, key_mask, residual=residual)
+
+        for p in params["encoders0"]:
+            x = block(x, p, residual=False)
+        for p in params["encoders"]:
+            x = block(x, p)
+        x = layer_norm(x, params["after_norm"]["scale"], params["after_norm"]["bias"])
+        for p in params["tp_encoders"]:
+            x = block(x, p)
+        return layer_norm(x, params["tp_norm"]["scale"], params["tp_norm"]["bias"])
 
 
 def forward(params: dict, cfg: SenseVoiceConfig, audio: torch.Tensor, valid_samples: torch.Tensor,
@@ -153,28 +160,48 @@ def forward(params: dict, cfg: SenseVoiceConfig, audio: torch.Tensor, valid_samp
     """Raw audio ``(B, S)`` (int16 numeric range), valid sample counts
     ``(B,)`` and language rows ``(B,)`` -> (token ids ``(B, T_seq)`` int32
     left-compacted, counts ``(B,)`` int32)."""
-    logits, valid_seq = encode_logits(params, cfg, audio, valid_samples, language_idx)
-    ids = torch.argmax(logits, dim=-1)
-    return ctc_greedy_collapse(ids, valid_seq, cfg.blank_id)
+    x, valid_seq = frontend(params, cfg, audio, valid_samples, language_idx)
+    enc = encode(params, cfg, x, valid_seq)
+    with annotate("asr.sv.ctc"):
+        ids = torch.argmax(dense(enc, params["ctc"]), dim=-1)
+        return ctc_greedy_collapse(ids, valid_seq, cfg.blank_id)
 
 
 def encode_logits(params: dict, cfg: SenseVoiceConfig, audio: torch.Tensor,
                   valid_samples: torch.Tensor, language_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Same as :func:`forward` but returns (logits, valid_seq)."""
-    fb = cfg.fbank
-    n_frames = fb.num_frames(audio.shape[-1])
-    mel = log_mel_fbank(audio, fb, n_frames)
-    valid_samples = valid_samples.to(torch.int64)
-    valid_frames = torch.clamp((valid_samples - fb.win_length) // fb.hop_length + 1, min=0)
-    feats = lfr_stack(mel, cfg.lfr_m, cfg.lfr_n, valid_frames)
-    valid_lfr = (valid_frames + cfg.lfr_n - 1) // cfg.lfr_n
-    return encode_logits_from_lfr(params, cfg, feats, valid_lfr, language_idx)
+    x, valid_seq = frontend(params, cfg, audio, valid_samples, language_idx)
+    return dense(encode(params, cfg, x, valid_seq), params["ctc"]), valid_seq
 
 
 def encode_logits_from_lfr(params: dict, cfg: SenseVoiceConfig, feats: torch.Tensor,
                            valid_lfr: torch.Tensor, language_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """LFR features (B, T, n_mels*lfr_m) -> (ctc_logits, valid_seq): CMVN,
     sinusoid PE, language/system prompt prepend, SANM encoder, CTC head."""
+    x, valid_seq = prompt_rows(params, cfg, feats, valid_lfr, language_idx)
+    return dense(encode(params, cfg, x, valid_seq), params["ctc"]), valid_seq
+
+
+def frontend(params: dict, cfg: SenseVoiceConfig, audio: torch.Tensor, valid_samples: torch.Tensor,
+             language_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw audio -> the encoder's input and valid_seq: Kaldi fbank, LFR,
+    then :func:`prompt_rows`."""
+    with annotate("asr.sv.frontend"):
+        fb = cfg.fbank
+        n_frames = fb.num_frames(audio.shape[-1])
+        mel = log_mel_fbank(audio, fb, n_frames)
+        valid_samples = valid_samples.to(torch.int64)
+        valid_frames = torch.clamp((valid_samples - fb.win_length) // fb.hop_length + 1, min=0)
+        feats = lfr_stack(mel, cfg.lfr_m, cfg.lfr_n, valid_frames)
+        valid_lfr = (valid_frames + cfg.lfr_n - 1) // cfg.lfr_n
+        return prompt_rows(params, cfg, feats, valid_lfr, language_idx)
+
+
+def prompt_rows(params: dict, cfg: SenseVoiceConfig, feats: torch.Tensor, valid_lfr: torch.Tensor,
+                language_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """LFR features (B, T, n_mels*lfr_m) -> the encoder's input (B, prompt_len
+    + T, n_mels*lfr_m) in the parameters' dtype and valid_seq: CMVN,
+    sinusoid PE, language/system prompt prepend."""
     feats = apply_cmvn_addmul(feats, params["cmvn_means"], params["cmvn_istd"])
     b, t_lfr = feats.shape[0], feats.shape[1]
     prompt_len = cfg.prompt_len
@@ -184,6 +211,4 @@ def encode_logits_from_lfr(params: dict, cfg: SenseVoiceConfig, feats: torch.Ten
     system = params["system_embed"] + pe[1:prompt_len]
     x = torch.cat([lang[:, None, :], system[None].expand(b, -1, -1), feats], dim=1)
     valid_seq = valid_lfr + prompt_len
-    dtype = params["ctc"]["b"].dtype
-    enc = encode(params, cfg, x.to(dtype), valid_seq)
-    return dense(enc, params["ctc"]), valid_seq
+    return x.to(params["ctc"]["b"].dtype), valid_seq

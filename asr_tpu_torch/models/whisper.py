@@ -30,6 +30,7 @@ from asr_tpu_torch.frontend.whisper_mel import WhisperMelConfig, log_mel_spectro
 from asr_tpu_torch.layers.norms import layer_norm
 from asr_tpu_torch.layers.transformer import cross_kv, decoder_block, encoder_block
 from asr_tpu_torch.quant.quantize import embedding_logits
+from asr_tpu_torch.runtime.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,13 +130,14 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int) -> to
 def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
     """mel (B, T, n_mels) -> encoder states (B, T // 2, d_model)."""
     e = params["encoder"]
-    mel = mel.to(e["conv1"]["w"].dtype)
-    x = F.gelu(conv1d(mel, e["conv1"]["w"], e["conv1"]["b"], 1), approximate="none")
-    x = F.gelu(conv1d(x, e["conv2"]["w"], e["conv2"]["b"], 2), approximate="none")
-    x = x + e["pos"][: x.shape[1]]
-    for p in e["blocks"]:
-        x = encoder_block(x, p, cfg.num_heads)
-    return layer_norm(x, e["ln_post"]["scale"], e["ln_post"]["bias"])
+    with annotate("asr.whisper.encode"):
+        mel = mel.to(e["conv1"]["w"].dtype)
+        x = F.gelu(conv1d(mel, e["conv1"]["w"], e["conv1"]["b"], 1), approximate="none")
+        x = F.gelu(conv1d(x, e["conv2"]["w"], e["conv2"]["b"], 2), approximate="none")
+        x = x + e["pos"][: x.shape[1]]
+        for p in e["blocks"]:
+            x = encoder_block(x, p, cfg.num_heads)
+        return layer_norm(x, e["ln_post"]["scale"], e["ln_post"]["bias"])
 
 
 def _cache_dtype(cfg: WhisperConfig, enc: torch.Tensor) -> torch.dtype:
@@ -206,17 +208,19 @@ def prefill_window(params: dict, cfg: WhisperConfig, mel: torch.Tensor, prompt: 
     (B,) and ``prompt`` (a lang slot of -1 replaced by the detected id)."""
     enc = encode(params, cfg, mel)
     b = prompt.shape[0]
-    probe_state = make_state(params, cfg, enc)
-    sot = torch.full((b, 1), cfg.sot_id, dtype=torch.int64, device=enc.device)
-    probe_logits, _ = prefill(params, cfg, probe_state, sot)
-    del probe_state
-    language = detect_language(probe_logits, cfg)
-    nsp = no_speech_prob(probe_logits, cfg)
-    prompt = torch.where(prompt == -1, language[:, None], prompt.to(torch.int64))
-    state = make_state(params, cfg, enc)
-    logits0, state = prefill(params, cfg, state, prompt)
-    logits0 = suppress_tokens(logits0.to(torch.float32), decode_cfg.suppress_ids)
-    logits0 = suppress_tokens(logits0, begin_suppress_ids)
+    with annotate("asr.whisper.probe"):
+        probe_state = make_state(params, cfg, enc)
+        sot = torch.full((b, 1), cfg.sot_id, dtype=torch.int64, device=enc.device)
+        probe_logits, _ = prefill(params, cfg, probe_state, sot)
+        del probe_state
+        language = detect_language(probe_logits, cfg)
+        nsp = no_speech_prob(probe_logits, cfg)
+    with annotate("asr.whisper.prompt"):
+        prompt = torch.where(prompt == -1, language[:, None], prompt.to(torch.int64))
+        state = make_state(params, cfg, enc)
+        logits0, state = prefill(params, cfg, state, prompt)
+        logits0 = suppress_tokens(logits0.to(torch.float32), decode_cfg.suppress_ids)
+        logits0 = suppress_tokens(logits0, begin_suppress_ids)
     return {"state": state, "logits0": logits0, "language": language,
             "no_speech_prob": nsp, "prompt": prompt}
 
@@ -267,10 +271,11 @@ def transcribe_window(
         # built from an f16 checkpoint widen exactly to f32.
         cdt = layers[0]["self_k"].dtype
         cdt = torch.float32 if cdt == torch.float16 else cdt
-        kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers]).to(cdt)
-        vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers]).to(cdt)
-        ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers]).to(cdt)
-        cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers]).to(cdt)
+        with annotate("asr.whisper.stack"):
+            kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers]).to(cdt)
+            vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers]).to(cdt)
+            ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers]).to(cdt)
+            cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers]).to(cdt)
         del state, layers
         dec = params["decoder"]
 
@@ -291,4 +296,5 @@ def transcribe_window(
 
 def mel_for_audio(cfg: WhisperConfig, audio: torch.Tensor) -> torch.Tensor:
     """(B, 480000) [-1, 1] audio -> (B, 3000, n_mels)."""
-    return log_mel_spectrogram(audio, cfg.mel_config())
+    with annotate("asr.whisper.mel"):
+        return log_mel_spectrogram(audio, cfg.mel_config())

@@ -8,13 +8,12 @@ Counterpart of ``asr_tpu/runtime/profiling.py``:
   (https://ui.perfetto.dev) or ``chrome://tracing`` opens. It takes the
   place of the JAX package's xprof trace. A trace on the card that holds no
   CUDA event is an error, not a quiet CPU-only file.
-- :func:`annotate` — a named span in the trace (``record_function``), and an
-  NVTX range when CUDA is present.
+- :func:`annotate` — a named span (``record_function``) while a profile
+  runs, and a shared no-op context otherwise. The sessions and models open
+  their stage spans (``asr.*``) with it.
 - :func:`device_events` / :func:`device_summary` — the kernel and copy
   events of a written trace, and their count, busy time (the union of their
   intervals) and idle share of the traced window.
-- :class:`StageTimer` — host-side per-stage wall-clock aggregation with an
-  RTF/decode-rate report, a copy of the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,8 +24,10 @@ import json
 import os
 import re
 import time
-from collections import defaultdict
 from pathlib import Path
+
+import torch
+from torch.autograd import profiler as autograd_profiler
 
 # Chrome-trace categories of work that ran on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -46,7 +47,6 @@ class Trace:
 def trace(logdir: str | Path, cuda: bool | None = None):
     """Profile the enclosed region into ``logdir``. ``cuda``: record CUDA
     activity (default: whenever a card is visible)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     if cuda is None:
@@ -66,15 +66,21 @@ def trace(logdir: str | Path, cuda: bool | None = None):
                            "missing from the torch installation?)")
 
 
-def annotate(name: str):
-    """Named span visible in the trace (and as an NVTX range on the card)."""
-    import torch
+_NO_SPAN = contextlib.nullcontext()
 
-    stack = contextlib.ExitStack()
-    stack.enter_context(torch.profiler.record_function(name))
-    if torch.cuda.is_available():
-        stack.enter_context(torch.cuda.nvtx.range(name))
-    return stack
+
+def annotate(name: str):
+    """A span named ``name`` while a ``torch.profiler`` profile runs: a
+    ``record_function``, which the trace holds as a ``user_annotation``
+    event on the clock of its kernels and copies. Otherwise a shared no-op
+    context: entering a ``record_function`` costs about 10 µs even with no
+    profile running, reading the flag well under 1 µs.
+
+    The flag is the one ``torch.profiler`` sets for the process whenever a
+    profile runs. ``torch.autograd._profiler_enabled()`` reads False under a
+    profile that records every thread (``profile_all_threads``, as the
+    benchmark's traced window runs), even on the thread that started it."""
+    return torch.profiler.record_function(name) if autograd_profiler._is_profiler_enabled else _NO_SPAN
 
 
 def _complete_events(path: str | Path) -> list[dict]:
@@ -114,47 +120,3 @@ def device_summary(path: str | Path, name_filter: str = "") -> dict:
     kernels = [e["name"] for e in dev if e["cat"] == "kernel"]
     return {"kernels": len(kernels), "launches": sum(1 for n in kernels if name_filter in n),
             "busy_us": busy, "window_us": window, "idle_share": 1.0 - busy / window if window else 1.0}
-
-
-class StageTimer:
-    """Accumulate wall-clock per named stage; report totals + rates.
-
-    >>> t = StageTimer()
-    >>> with t("encode"): ...
-    >>> with t("decode", items=n_tokens): ...
-    >>> t.report(audio_seconds=30.0)
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-        self.items: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, stage: str, items: int = 0):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[stage] += time.perf_counter() - t0
-            self.counts[stage] += 1
-            self.items[stage] += items
-
-    @property
-    def total_seconds(self) -> float:
-        return sum(self.totals.values())
-
-    def report(self, audio_seconds: float | None = None) -> str:
-        lines = []
-        for stage in self.totals:
-            sec = self.totals[stage]
-            line = f"{stage}: {sec:.3f}s over {self.counts[stage]} call(s)"
-            if self.items[stage]:
-                line += f", {self.items[stage] / max(sec, 1e-9):.1f} items/s"
-            lines.append(line)
-        if audio_seconds:
-            lines.append(
-                f"total: {self.total_seconds:.3f}s for {audio_seconds:.2f}s audio "
-                f"(RTF {self.total_seconds / audio_seconds:.4f})"
-            )
-        return "\n".join(lines)

@@ -3,7 +3,9 @@
 Counterpart of ``asr_tpu/runtime/session.py`` (``SenseVoiceSession``):
 long audio is cut into fixed windows, the windows run as one padded batch
 in a single forward, and the per-window token ids are concatenated in order;
-``transcribe_batch`` runs many short files as one padded forward. With
+``transcribe_batch`` runs many short files as one padded forward.
+``transcribe`` opens its stage spans (``asr.session.*``,
+``runtime/profiling.annotate``) while a profile records. With
 ``mesh=`` the forward runs through ``parallel/serve.DataParallelRunner``
 (batch data parallel over the mesh's data axis; with ``param_specs``, e.g.
 ``parallel/mesh.sensevoice_param_specs``, tensor parallel over its model
@@ -23,6 +25,7 @@ from asr_tpu_torch.models import sensevoice as sv
 from asr_tpu_torch.runtime import audio as audio_io
 from asr_tpu_torch.runtime.artifact import load_model, load_tokenizer
 from asr_tpu_torch.runtime.metadata import ModelMetadata, config_from_dict
+from asr_tpu_torch.runtime.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -92,31 +95,34 @@ class SenseVoiceSession:
         raise KeyError(f"unsupported language {language!r}")
 
     def transcribe(self, audio: np.ndarray | str | Path, language: str = "auto") -> TranscribeResult:
-        if isinstance(audio, (str, Path)):
-            audio = audio_io.load_audio(audio, self.cfg.sample_rate)
-        audio = np.asarray(audio, dtype=np.float32)
-        n = len(audio)
-        w = self.window_samples
-        starts = audio_io.iter_windows(n, w, self.stride_samples)
-        num_windows = len(starts)
-        padded = bucket_windows(num_windows)
-        buf = np.zeros((padded, w), dtype=np.float32)
-        valid = np.zeros((padded,), dtype=np.int32)
-        for i, s in enumerate(starts):
-            chunk = audio[s : s + w]
-            buf[i, : len(chunk)] = chunk
-            valid[i] = len(chunk)
+        with annotate("asr.session.transcribe"):
+            if isinstance(audio, (str, Path)):
+                audio = audio_io.load_audio(audio, self.cfg.sample_rate)
+            with annotate("asr.session.pack"):
+                audio = np.asarray(audio, dtype=np.float32)
+                n = len(audio)
+                w = self.window_samples
+                starts = audio_io.iter_windows(n, w, self.stride_samples)
+                num_windows = len(starts)
+                padded = bucket_windows(num_windows)
+                buf = np.zeros((padded, w), dtype=np.float32)
+                valid = np.zeros((padded,), dtype=np.int32)
+                for i, s in enumerate(starts):
+                    chunk = audio[s : s + w]
+                    buf[i, : len(chunk)] = chunk
+                    valid[i] = len(chunk)
 
-        t0 = time.perf_counter()
-        toks, counts = self._run(buf, valid, language)
-        elapsed = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            toks, counts = self._run(buf, valid, language)
+            elapsed = time.perf_counter() - t0
 
-        ids: list[int] = []
-        for i in range(num_windows):
-            ids.extend(int(t) for t in toks[i, : counts[i]])
-        text = self.tokenizer.decode(ids) if self.tokenizer is not None else ""
-        return TranscribeResult(text=text, token_ids=ids, audio_seconds=n / self.cfg.sample_rate,
-                                elapsed_seconds=elapsed)
+            with annotate("asr.session.collect"):
+                ids: list[int] = []
+                for i in range(num_windows):
+                    ids.extend(int(t) for t in toks[i, : counts[i]])
+                text = self.tokenizer.decode(ids) if self.tokenizer is not None else ""
+            return TranscribeResult(text=text, token_ids=ids, audio_seconds=n / self.cfg.sample_rate,
+                                    elapsed_seconds=elapsed)
 
     def transcribe_batch(self, paths, language: str = "auto", n_threads: int = 0) -> list[TranscribeResult]:
         """Many short files -> one padded forward: the parallel batch loader
@@ -151,9 +157,12 @@ class SenseVoiceSession:
             toks, counts = self.runner(lambda p, a, v: self._forward(p, a, v, language),
                                        self.params, buf, valid)
         else:
-            toks, counts = self._forward(self.params, torch.from_numpy(buf).to(self.device),
-                                         torch.from_numpy(valid).to(self.device), language)
-        return toks.cpu().numpy(), counts.cpu().numpy()  # waits for the device
+            with annotate("asr.session.upload"):
+                audio = torch.from_numpy(buf).to(self.device)
+                valid = torch.from_numpy(valid).to(self.device)
+            toks, counts = self._forward(self.params, audio, valid, language)
+        with annotate("asr.session.download"):
+            return toks.cpu().numpy(), counts.cpu().numpy()  # waits for the device
 
     def _forward(self, params, audio: torch.Tensor, valid: torch.Tensor, language: str = "auto"):
         lang = torch.full((audio.shape[0],), self.language_index(language), dtype=torch.int64,

@@ -4,7 +4,9 @@ Counterpart of ``asr_tpu/runtime/whisper_session.py``: 30-second
 zero-padded windows, a per-window [SOT] probe (language + no-speech),
 the prompt [SOT, lang, task, notimestamps], suppress / begin-suppress
 biasing, greedy / penalty / sampling decode, optional repeated-tail
-removal, and RTF reporting. With ``mesh=`` the window batch runs through
+removal, and RTF reporting; ``transcribe`` opens its stage spans
+(``asr.session.*``, ``runtime/profiling.annotate``) while a profile
+records. With ``mesh=`` the window batch runs through
 ``parallel/serve.DataParallelRunner`` (data parallel; with ``param_specs``,
 e.g. ``parallel/mesh.whisper_param_specs``, tensor parallel with the caches
 at each rank's heads), on the per-weight decode step.
@@ -37,6 +39,7 @@ from asr_tpu_torch.parallel.mesh import rank_generator
 from asr_tpu_torch.runtime import audio as audio_io
 from asr_tpu_torch.runtime.artifact import load_model, load_tokenizer
 from asr_tpu_torch.runtime.metadata import config_from_dict
+from asr_tpu_torch.runtime.profiling import annotate
 from asr_tpu_torch.runtime.session import TranscribeResult, bucket_windows
 
 WINDOW_SECONDS = 30.0
@@ -159,52 +162,60 @@ class WhisperSession:
 
     def transcribe(self, audio: np.ndarray | str | Path, language: str | None = None,
                    generator: torch.Generator | None = None) -> TranscribeResult:
-        if isinstance(audio, (str, Path)):
-            audio = audio_io.load_audio(audio, self.cfg.sample_rate, pcm_scale=1.0)
-        audio = np.asarray(audio, np.float32)
-        n = len(audio)
-        w = self.window_samples
-        starts = audio_io.iter_windows(n, w, w)
-        num_windows = len(starts)
-        padded = bucket_windows(num_windows)
-        buf = np.zeros((padded, w), np.float32)
-        for i, s in enumerate(starts):
-            chunk = audio[s : s + w]
-            buf[i, : len(chunk)] = chunk
+        with annotate("asr.session.transcribe"):
+            if isinstance(audio, (str, Path)):
+                audio = audio_io.load_audio(audio, self.cfg.sample_rate, pcm_scale=1.0)
+            with annotate("asr.session.pack"):
+                audio = np.asarray(audio, np.float32)
+                n = len(audio)
+                w = self.window_samples
+                starts = audio_io.iter_windows(n, w, w)
+                num_windows = len(starts)
+                padded = bucket_windows(num_windows)
+                buf = np.zeros((padded, w), np.float32)
+                for i, s in enumerate(starts):
+                    chunk = audio[s : s + w]
+                    buf[i, : len(chunk)] = chunk
+                prompt_np = self._prompt(padded, language)
+                prompt = torch.from_numpy(prompt_np)
 
-        t0 = time.perf_counter()
-        prompt_np = self._prompt(padded, language)
-        prompt = torch.from_numpy(prompt_np)
-        with torch.inference_mode():
-            if self.runner is not None:
-                def window(p, a, pr):
-                    return wh.transcribe_window(
-                        p, self.cfg, wh.mel_for_audio(self.cfg, a), pr, self.decode_cfg,
-                        begin_suppress_ids=self.scfg.begin_suppress_ids,
-                        generator=rank_generator(generator))
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                if self.runner is not None:
+                    def window(p, a, pr):
+                        return wh.transcribe_window(
+                            p, self.cfg, wh.mel_for_audio(self.cfg, a), pr, self.decode_cfg,
+                            begin_suppress_ids=self.scfg.begin_suppress_ids,
+                            generator=rank_generator(generator))
 
-                out = self.runner(window, self.params, buf, prompt_np)
-            else:
-                mel = wh.mel_for_audio(self.cfg, torch.from_numpy(buf).to(self.device))
-                out = wh.transcribe_window(
-                    self.params, self.cfg, mel, prompt.to(self.device), self.decode_cfg,
-                    begin_suppress_ids=self.scfg.begin_suppress_ids, generator=generator,
-                    stacked=self.stacked if padded == 1 else None)
-            tokens = out["tokens"].cpu().numpy()  # waits for the device
-            counts = out["counts"].cpu().numpy()
-            nsp = out["no_speech_prob"].cpu().numpy()
-        elapsed = time.perf_counter() - t0
+                    out = self.runner(window, self.params, buf, prompt_np)
+                else:
+                    with annotate("asr.session.upload"):
+                        audio_dev = torch.from_numpy(buf).to(self.device)
+                    mel = wh.mel_for_audio(self.cfg, audio_dev)
+                    with annotate("asr.session.upload"):
+                        prompt_dev = prompt.to(self.device)
+                    out = wh.transcribe_window(
+                        self.params, self.cfg, mel, prompt_dev, self.decode_cfg,
+                        begin_suppress_ids=self.scfg.begin_suppress_ids, generator=generator,
+                        stacked=self.stacked if padded == 1 else None)
+                with annotate("asr.session.download"):
+                    tokens = out["tokens"].cpu().numpy()  # waits for the device
+                    counts = out["counts"].cpu().numpy()
+                    nsp = out["no_speech_prob"].cpu().numpy()
+            elapsed = time.perf_counter() - t0
 
-        p_len = prompt.shape[1]
-        ids: list[int] = []
-        for i in range(num_windows):
-            if self.scfg.no_speech_threshold is not None and nsp[i] > self.scfg.no_speech_threshold:
-                continue
-            win_ids = [int(t) for t in tokens[i, p_len : p_len + counts[i]] if t != self.cfg.eot_id]
-            ids.extend(remove_repeated_tail(win_ids) if self.scfg.remove_repeats else win_ids)
-        text = self.tokenizer.decode(ids) if self.tokenizer is not None else ""
-        return TranscribeResult(text=text, token_ids=ids, audio_seconds=n / self.cfg.sample_rate,
-                                elapsed_seconds=elapsed)
+            with annotate("asr.session.collect"):
+                p_len = prompt.shape[1]
+                ids: list[int] = []
+                for i in range(num_windows):
+                    if self.scfg.no_speech_threshold is not None and nsp[i] > self.scfg.no_speech_threshold:
+                        continue
+                    win_ids = [int(t) for t in tokens[i, p_len : p_len + counts[i]] if t != self.cfg.eot_id]
+                    ids.extend(remove_repeated_tail(win_ids) if self.scfg.remove_repeats else win_ids)
+                text = self.tokenizer.decode(ids) if self.tokenizer is not None else ""
+            return TranscribeResult(text=text, token_ids=ids, audio_seconds=n / self.cfg.sample_rate,
+                                    elapsed_seconds=elapsed)
 
 
 def load_whisper_session(folder: str | Path, device="cuda", tokenizer=None,

@@ -1,6 +1,5 @@
-"""``asr_tpu_torch/runtime/profiling.py``: ``StageTimer`` as the JAX
-package's test drives it; ``trace`` on the CPU writes a Chrome trace that
-holds an ``annotate`` span; a trace asked to record CUDA that holds no CUDA
+"""``asr_tpu_torch/runtime/profiling.py``: ``trace`` on the CPU writes a
+Chrome trace that holds an ``annotate`` span; a trace asked to record CUDA that holds no CUDA
 event raises; ``device_summary`` counts launches, the busy union and the
 idle share of a written trace; ``transcribe --profile`` on the CPU writes a
 trace and prints its path.
@@ -8,7 +7,6 @@ trace and prints its path.
 
 import dataclasses
 import json
-import time
 import warnings
 import wave
 
@@ -17,22 +15,7 @@ import pytest
 import torch
 
 from asr_tpu_torch.runtime import profiling
-from asr_tpu_torch.runtime.profiling import StageTimer, annotate, device_summary, trace
-
-
-def test_stage_timer():
-    t = StageTimer()
-    with t("encode"):
-        time.sleep(0.01)
-    with t("decode", items=50):
-        time.sleep(0.01)
-    with t("decode", items=50):
-        pass
-    assert t.totals["encode"] >= 0.01
-    assert t.counts["decode"] == 2 and t.items["decode"] == 100
-    rep = t.report(audio_seconds=1.0)
-    assert "RTF" in rep and "items/s" in rep and "decode" in rep
-    assert t.total_seconds == pytest.approx(sum(t.totals.values()))
+from asr_tpu_torch.runtime.profiling import annotate, device_summary, trace
 
 
 def test_trace_on_the_cpu_holds_the_annotated_span(tmp_path):

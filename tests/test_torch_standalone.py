@@ -556,12 +556,11 @@ def test_native_source_is_the_reference_source():
 @pytest.mark.parametrize("module,names", [
     ("runtime/probe", ("STAGE_ORDER", "summarize", "_drift", "compare_probes", "_pad_row",
                        "_load_samples", "_chunks_of", "_PROBES")),
-    ("runtime/profiling", ("StageTimer",)),
 ])
 def test_probe_and_profiling_host_parts_are_the_originals(module, names):
     """``runtime/probe.py``'s numpy part (the stage order, the snapshot, the
-    comparison) with its host helpers, and ``runtime/profiling.StageTimer``,
-    are the JAX package's code under the port's rewrite of imports."""
+    comparison) with its host helpers is the JAX package's code under the
+    port's rewrite of imports."""
     def defs(path: Path) -> dict:
         tree = ast.parse(path.read_text())
         out = {}
