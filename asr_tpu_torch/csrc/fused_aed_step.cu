@@ -36,9 +36,13 @@
 // fused_aed_multi.cu) at one slot: 11 chained kernels a layer, the
 // tensor-core int8 matvec with its split-K sum inside a cluster, each
 // attention in one launch, inputs staged once by their producers. This
-// file adds the batch-1 entry (pos and tc_valid from the host loop, which
-// knows them), the matvec alone (aed_matvec) for tests and timing, and what
-// the plan checks of the kernels.
+// file adds the batch-1 entries: fused_aed_step takes pos and tc_valid from
+// the host loop, which knows them; fused_aed_step_dev reads them from device
+// ints, so a CUDA graph of one token (ops/fused_aed_step.py:
+// FusedAedDecoder) replays it at every position, the position advanced on
+// the device. Both run the same kernels with the same plan, so their outputs
+// are bitwise equal. Then the matvec alone (aed_matvec) for tests and
+// timing, and what the plan checks of the kernels.
 
 #include "aed_step.cuh"
 
@@ -79,6 +83,44 @@ extern "C" int fused_aed_step(
     err = run_step<T>(W, P, xf, static_cast<T*>(kself), static_cast<T*>(vself), static_cast<T*>(ck),
                       static_cast<T*>(cv), nullptr, nullptr, pos, tc_valid, lg, scr, nl, 1, d, heads, f,
                       t_self, t_cross, vp, eps, st);
+  }
+  return static_cast<int>(err);
+}
+
+// fused_aed_step with pos and tc_valid read on the device from one int32
+// each (the multi-slot step's path at one slot), so the launches can be
+// captured once and replayed at every position. The caller checks what
+// fused_aed_step's caller checks, and 0 <= *pos < t_self once for the whole
+// loop.
+extern "C" int fused_aed_step_dev(
+    const void* x, const void* ln1_s, const void* ln1_b, const void* lnc_s, const void* lnc_b,
+    const void* ln2_s, const void* ln2_b, const void* lnf_s, const void* lnf_b, const void* ba,
+    const void* bb, const void* wa, const void* a_s, const void* a_zs, const void* wb,
+    const void* b_s, const void* b_zs, const void* wh, const void* h_s, const void* h_zs,
+    void* kself, void* vself, void* ck, void* cv, const void* pos, const void* tc_valid,
+    void* logits, void* scratch, int nl, int d, int heads, int f, int t_self, int t_cross, int vp,
+    int cache_bf16, float eps, const int* plan, void* stream) {
+  using namespace aedstep;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Weights W = make_weights(ln1_s, ln1_b, lnc_s, lnc_b, ln2_s, ln2_b, lnf_s, lnf_b, ba, bb, wa, a_s,
+                                 a_zs, wb, b_s, b_zs, wh, h_s, h_zs);
+  const Plan P(plan);
+  const float* xf = static_cast<const float*>(x);
+  const int* p = static_cast<const int*>(pos);
+  const int* tv = static_cast<const int*>(tc_valid);
+  float* lg = static_cast<float*>(logits);
+  float* scr = static_cast<float*>(scratch);
+  cudaError_t err;
+  if (cache_bf16) {
+    using T = __nv_bfloat16;
+    err = run_step<T>(W, P, xf, static_cast<T*>(kself), static_cast<T*>(vself), static_cast<T*>(ck),
+                      static_cast<T*>(cv), p, tv, 0, 0, lg, scr, nl, 1, d, heads, f, t_self, t_cross, vp,
+                      eps, st);
+  } else {
+    using T = float;
+    err = run_step<T>(W, P, xf, static_cast<T*>(kself), static_cast<T*>(vself), static_cast<T*>(ck),
+                      static_cast<T*>(cv), p, tv, 0, 0, lg, scr, nl, 1, d, heads, f, t_self, t_cross, vp,
+                      eps, st);
   }
   return static_cast<int>(err);
 }

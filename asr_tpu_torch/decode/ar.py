@@ -7,7 +7,10 @@ with JAX's stop rule: run while ``i < max_new_tokens`` and not every row
 has finished. Finished rows write ``eot_id``; buffer slots past the stop
 stay 0, so the whole buffer matches JAX's. The stop test reads
 ``finished.all()`` back from the device: one host sync per step, the last
-thing in the step's ``asr.decode.token`` span.
+thing in the step's ``asr.decode.token`` span. The batch-1 greedy decode
+of the fused AED step (``ops/fused_aed_step.FusedAedDecoder``) does not go
+through this loop: it keeps the loop's state on the device and replays one
+CUDA graph a token, with the same stop rule and the same one sync a step.
 
 Works for any ``step(state, tokens (B, 1), pos) -> (logits (B, V), state)``.
 """

@@ -13,8 +13,9 @@ the argmax over the language span of the [sos] step's logits, then over the
 region span of the step after the language token.
 
 Parameters are the JAX package's pytree; at batch 1 with stacked q8 weights
-the decode runs each step as one ``fused_aed_step`` call
-(``ops.fused_aed_step.fused_ar_decode``).
+the decode runs each step as one fused step
+(``ops.fused_aed_step.fused_ar_decode``; greedy decode replays one CUDA
+graph a token on a card).
 """
 
 from __future__ import annotations
@@ -227,7 +228,7 @@ def prefill_window(params: dict, cfg: DolphinConfig, audio: torch.Tensor,
 
 def transcribe(params: dict, cfg: DolphinConfig, audio: torch.Tensor, valid_samples: torch.Tensor,
                prompt: torch.Tensor, decode_cfg: DecodeConfig,
-               generator: torch.Generator | None = None, stacked: dict | None = None) -> dict:
+               generator: torch.Generator | None = None, stacked=None) -> dict:
     """Raw audio + prompt (B, P) -> ``tokens`` (B, P + max_new + 1, the
     resolved prompt first), ``counts`` and, when probed, ``language`` /
     ``region``. Prompt slots holding -1 / -2 take the probed language /

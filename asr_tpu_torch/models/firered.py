@@ -14,7 +14,8 @@ the encoder output, exact-GELU MLP) whose input is the sqrt(d)-scaled
 embedding plus sinusoid positions, with the tied head (or ``dec["out"]``
 where a checkpoint carries it). Decode is the shared greedy / penalty /
 sampling loop; at batch 1 with stacked q8 weights it runs each step as one
-call of ``ops.fused_aed_step.fused_aed_step`` (``fused_ar_decode``).
+call of the fused step kernel (``ops.fused_aed_step.fused_ar_decode``;
+greedy decode replays one CUDA graph a token on a card).
 
 Parameters are the JAX package's pytree (nested dicts and lists of tensors,
 linear weights ``(in, out)``, conv weights HWIO); positions are Python ints
@@ -269,12 +270,13 @@ def prefill_window(params: dict, cfg: FireRedConfig, audio: torch.Tensor,
 def transcribe(params: dict, cfg: FireRedConfig, audio: torch.Tensor,
                valid_samples: torch.Tensor, decode_cfg: DecodeConfig,
                generator: torch.Generator | None = None,
-               stacked: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               stacked=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Raw audio -> (tokens (B, 1 + max_new + 1) starting from [SOS], counts).
 
-    ``stacked``: q8 step weights from ``ops.fused_aed_step.stack_aed_step_params``;
-    with them a batch-1 decode in the bf16 mode runs each step as one
-    ``fused_aed_step`` call, every other case the per-weight step."""
+    ``stacked``: the session's ``ops.fused_aed_step.FusedAedDecoder`` or q8
+    step weights from ``ops.fused_aed_step.stack_aed_step_params``; with
+    them a batch-1 decode in the bf16 mode runs each step as one fused step
+    (``fused_ar_decode``), every other case the per-weight step."""
     from asr_tpu_torch.ops.fused_aed_step import fused_ar_decode
 
     pre = prefill_window(params, cfg, audio, valid_samples, decode_cfg)

@@ -9,12 +9,15 @@ sampling decode.
 Parameters are the JAX package's pytree as nested dicts and lists of
 tensors with the same keys; linear weights are ``(in, out)`` and may be
 ``QuantizedLinear`` leaves, and the tied ``decoder/embed`` may be a
-``QuantizedEmbedding``. Positions (``pos``) are Python ints: the decode
+``QuantizedEmbedding``. Positions (``pos``) are Python ints on the per-weight route: the decode
 loop runs on the host and the caches are written in place.
 
-At batch 1, ``transcribe_window(stacked=...)`` runs every decode step as
-one call of ``ops.fused_aed_step.fused_whisper_step`` (the hand-written
-CUDA kernel on a card, its plain version on the CPU).
+At batch 1, ``transcribe_window(stacked=...)`` decodes through the
+session's ``ops.fused_aed_step.FusedAedDecoder`` (:func:`fused_decoder`),
+every step one call of the hand-written CUDA step kernel on a card (its
+plain version on the CPU). Greedy decode there keeps the position on the
+device and replays one CUDA graph a token; penalty and sampling run
+``ar_decode`` over the step with the position on the host.
 """
 
 from __future__ import annotations
@@ -233,7 +236,7 @@ def transcribe_window(
     decode_cfg: DecodeConfig,
     begin_suppress_ids: tuple[int, ...] = (),
     generator: torch.Generator | None = None,
-    stacked: dict | None = None,
+    stacked=None,
 ) -> dict:
     """Full window pipeline: encode -> probe([SOT]) -> prefill -> decode loop.
 
@@ -241,9 +244,12 @@ def transcribe_window(
       mel: (B, T, n_mels) log-mel features.
       prompt: (B, P) full prompt, e.g. [SOT, lang, task, notimestamps]; a
         lang slot of -1 is replaced by the detected language.
-      stacked: from ``ops.fused_aed_step.stack_whisper_step_params``. With
-        it, batch-1 decode runs each step as one ``fused_whisper_step``
-        call; otherwise every step runs the per-weight ``step``.
+      stacked: the session's ``ops.fused_aed_step.FusedAedDecoder``
+        (:func:`fused_decoder`), or stacked weights from
+        ``ops.fused_aed_step.stack_whisper_step_params`` (a decoder is made
+        for this call). With it, batch-1 decode runs on the fused step
+        (greedy: one CUDA graph replay a token on a card); otherwise every
+        step runs the per-weight ``step``.
       generator: the sampling strategy's randomness.
 
     Returns dict: tokens (B, T_total), counts (B,), language (B,),
@@ -260,38 +266,31 @@ def transcribe_window(
     first = select_token(logits0, buf, p_len, decode_cfg, generator, history_start=p_len)
 
     if stacked is not None and b == 1:
-        from asr_tpu_torch.ops.fused_aed_step import fused_whisper_step
+        from asr_tpu_torch.ops.fused_aed_step import FusedAedDecoder
 
-        d = cfg.d_model
-        layers = state["layers"]
-        t_max, tc = layers[0]["self_k"].shape[1], layers[0]["cross_k"].shape[1]
-        # (NL, T, D) stacks, made once before the loop; the step writes the
-        # fresh self rows into kc / vc in place.
-        # The kernel reads f32 or bf16 caches: the f16 caches of an artifact
-        # built from an f16 checkpoint widen exactly to f32.
-        cdt = layers[0]["self_k"].dtype
-        cdt = torch.float32 if cdt == torch.float16 else cdt
-        with annotate("asr.whisper.stack"):
-            kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers]).to(cdt)
-            vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers]).to(cdt)
-            ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers]).to(cdt)
-            cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers]).to(cdt)
-        del state, layers
-        dec = params["decoder"]
-
-        def fused_step_fn(st, token, pos):
-            x = dec["embed"][token[:, 0]] + dec["pos"][pos : pos + 1]
-            lg, _, _ = fused_whisper_step(stacked, cfg, x.to(torch.float32), kc, vc, ck, cv,
-                                          pos, tc_valid=tc)
-            return lg[:, : cfg.vocab_size], st
-
-        tokens, counts = ar_decode(fused_step_fn, None, p_len, first, buf, decode_cfg, generator)
+        decoder = stacked if isinstance(stacked, FusedAedDecoder) else fused_decoder(params, cfg, stacked)
+        tokens, counts = decoder.decode(state["layers"], p_len, first, buf, decode_cfg, generator)
     else:
         def step_fn(st, token, pos):
             return step(params, cfg, st, token, pos)
 
         tokens, counts = ar_decode(step_fn, state, p_len, first, buf, decode_cfg, generator)
     return {"tokens": tokens, "counts": counts, "language": language, "no_speech_prob": nsp}
+
+
+def fused_decoder(params: dict, cfg: WhisperConfig, stacked: dict):
+    """The ``ops.fused_aed_step.FusedAedDecoder`` of Whisper's stacked q8
+    decoder: input row ``embed[token] + pos[pos]`` (unscaled embedding,
+    learned positions)."""
+    from asr_tpu_torch.ops.fused_aed_step import AedGeom, FusedAedDecoder, position_rows
+
+    dec = params["decoder"]
+
+    def input_row(token, pos):
+        return dec["embed"][token] + position_rows(dec["pos"], pos)
+
+    return FusedAedDecoder(stacked, AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads), cfg.vocab_size,
+                           input_row, span="asr.whisper.stack")
 
 
 def mel_for_audio(cfg: WhisperConfig, audio: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,16 @@ plus the fresh row (which is written into the cache at ``pos`` in place),
 o-proj, LN + cross-q, cross-attention over the first ``tc_valid`` cross
 rows, cross-o, LN + exact-GELU MLP; then the final LN and the q8 tied head.
 
-:func:`fused_ar_decode` is the batch-1 decode loop of FireRed and Dolphin
-over it (Whisper keeps its own in ``models/whisper.py``).
+:class:`FusedAedDecoder` is the batch-1 decode loop over it, one per
+session, shared by Whisper (``models/whisper.fused_decoder``), FireRed and
+Dolphin (:func:`scaled_embed_decoder`, :func:`fused_ar_decode`), which
+differ only in their input row. Greedy decode keeps the loop's state in
+static device buffers and replays a CUDA graph of one token (the step
+through :func:`fused_aed_step_dev_cuda`, which reads the position from
+the device), one stop-flag read-back a token; penalty and sampling run
+``decode/ar.ar_decode`` over :func:`fused_aed_step`. ``GRAPH_REPLAYS`` and
+``GRAPH_CAPTURES`` count the replayed steps and the captured graphs;
+``LAUNCHES`` counts every step, a replayed one included.
 
 :func:`fused_aed_step` runs it on a CUDA tensor through the hand-written
 Hopper kernel ``asr_tpu_torch/csrc/fused_aed_step.cu`` (nvcc, ``sm_90a``,
@@ -40,20 +48,27 @@ the batch-1 step.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import threading
 from pathlib import Path
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
+from asr_tpu_torch.decode import ar
+from asr_tpu_torch.decode.strategies import NEG_INF
 from asr_tpu_torch.ops import nvcc_build
 from asr_tpu_torch.quant.quantize import QuantizedEmbedding, QuantizedLinear
+from asr_tpu_torch.runtime.profiling import annotate
 
-# Kernel launches since import (or since a caller reset it to 0): one per step.
+# Kernel launches since import (or since a caller reset it to 0): one per
+# step, a replayed step included.
 LAUNCHES = 0
+GRAPH_REPLAYS = 0    # steps run by replaying FusedAedDecoder's graph of one token
+GRAPH_CAPTURES = 0   # graphs FusedAedDecoder captured
 MATVEC_LAUNCHES = 0  # the step's matvec launched alone (aed_matvec_cuda)
 
 SOURCE = nvcc_build.CSRC / "fused_aed_step.cu"
@@ -375,6 +390,10 @@ def _load():
             lib.fused_aed_step.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 10
                                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
             lib.fused_aed_step.restype = ctypes.c_int
+            # x, 19 stacked arrays, 4 caches, pos, tc_valid, logits, scratch; 8 ints, eps, plan, stream
+            lib.fused_aed_step_dev.argtypes = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 8
+                                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+            lib.fused_aed_step_dev.restype = ctypes.c_int
             lib.fused_aed_step_scratch_floats.argtypes = [ctypes.c_int] * 2
             lib.fused_aed_step_scratch_floats.restype = ctypes.c_longlong
             # x, w, s, zs, out, scratch; rows, k, n, bn, parts; stream
@@ -419,18 +438,12 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes, dev: torch.device) 
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def fused_aed_step_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
-                        k_self: torch.Tensor, v_self: torch.Tensor,
-                        cross_k: torch.Tensor, cross_v: torch.Tensor,
-                        pos: int, tc_valid: int | None = None, plan: AedPlan | None = None):
-    """Launch the CUDA kernel; checks every argument and raises on what the
-    kernel does not take (it takes head_dim 64, D and F multiples of 128,
-    block-128 q8 weights, and f32 or bf16 caches of one dtype). ``plan``
-    defaults to :func:`aed_plan`'s."""
-    global LAUNCHES
+def _check_step(stacked: dict, geom: AedGeom, x, k_self, v_self, cross_k, cross_v) -> tuple:
+    """The checks both batch-1 launchers make; returns (NL, T, Tc, V_pad,
+    the stacked arrays' shapes in the C order, the caches' dtype)."""
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"fused_aed_step_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"the fused AED step needs CUDA tensors, got {dev}")
     d, f, h = geom.d_model, geom.ffn_dim, geom.num_heads
     if h * HEAD_DIM != d or d % BLOCK or f % BLOCK:
         raise ValueError(f"the kernel takes head_dim {HEAD_DIM} and D, F multiples of {BLOCK}; "
@@ -451,6 +464,21 @@ def fused_aed_step_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
     for name, t, rows in (("k_self", k_self, t_self), ("v_self", v_self, t_self),
                           ("cross_k", cross_k, t_cross), ("cross_v", cross_v, t_cross)):
         _check(name, t, (nl, rows, d), (cdt,), dev)
+    return nl, t_self, t_cross, vp, shapes, cdt
+
+
+def fused_aed_step_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
+                        k_self: torch.Tensor, v_self: torch.Tensor,
+                        cross_k: torch.Tensor, cross_v: torch.Tensor,
+                        pos: int, tc_valid: int | None = None, plan: AedPlan | None = None):
+    """Launch the CUDA kernel; checks every argument and raises on what the
+    kernel does not take (it takes head_dim 64, D and F multiples of 128,
+    block-128 q8 weights, and f32 or bf16 caches of one dtype). ``plan``
+    defaults to :func:`aed_plan`'s."""
+    global LAUNCHES
+    nl, t_self, t_cross, vp, shapes, cdt = _check_step(stacked, geom, x, k_self, v_self,
+                                                       cross_k, cross_v)
+    dev, d, f, h = x.device, geom.d_model, geom.ffn_dim, geom.num_heads
     tc_valid = t_cross if tc_valid is None else int(tc_valid)
     pos = int(pos)
     if not 0 <= pos < t_self:
@@ -473,6 +501,51 @@ def fused_aed_step_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
         raise RuntimeError(f"fused_aed_step launch failed: CUDA error {err}")
     with _count_lock:
         LAUNCHES += 1
+    return logits, k_self, v_self
+
+
+def step_scratch_floats(geom: AedGeom) -> int:
+    """Floats of the scratch buffer :func:`fused_aed_step_dev_cuda` takes."""
+    return int(_load().fused_aed_step_scratch_floats(geom.d_model, geom.ffn_dim))
+
+
+def fused_aed_step_dev_cuda(stacked: dict, geom: AedGeom, x: torch.Tensor,
+                            k_self: torch.Tensor, v_self: torch.Tensor,
+                            cross_k: torch.Tensor, cross_v: torch.Tensor,
+                            pos: torch.Tensor, tc_valid: torch.Tensor, logits: torch.Tensor,
+                            scratch: torch.Tensor, plan: AedPlan | None = None):
+    """:func:`fused_aed_step_cuda` with ``pos`` and ``tc_valid`` as (1,)
+    int32 device tensors, read by the kernels, and the (1, V_pad) f32
+    ``logits`` and the scratch (:func:`step_scratch_floats`) given by the
+    caller: nothing is allocated, so the launches can be captured in a CUDA
+    graph and replayed while the device advances ``pos``. Makes
+    :func:`fused_aed_step_cuda`'s checks except the range of ``pos``, which
+    the caller makes once for its whole loop (the kernel clamps
+    ``tc_valid`` into [1, Tc]); the logits are bitwise those of the
+    host-``pos`` launch. Counts a launch unless a graph is being captured
+    (the replays count theirs)."""
+    global LAUNCHES
+    nl, t_self, t_cross, vp, shapes, cdt = _check_step(stacked, geom, x, k_self, v_self,
+                                                       cross_k, cross_v)
+    dev, d, f, h = x.device, geom.d_model, geom.ffn_dim, geom.num_heads
+    lib = _load()
+    _check("pos", pos, (1,), (torch.int32,), dev)
+    _check("tc_valid", tc_valid, (1,), (torch.int32,), dev)
+    _check("logits", logits, (1, vp), (torch.float32,), dev)
+    _check("scratch", scratch, (lib.fused_aed_step_scratch_floats(d, f),), (torch.float32,), dev)
+    plan = plan or aed_plan(d, f, vp, t_self, t_cross)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_aed_step_dev(
+            x.data_ptr(), *(stacked[k].data_ptr() for k in shapes),
+            k_self.data_ptr(), v_self.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
+            pos.data_ptr(), tc_valid.data_ptr(), logits.data_ptr(), scratch.data_ptr(),
+            nl, d, h, f, t_self, t_cross, vp, int(cdt == torch.bfloat16), EPS, plan.c_array(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_aed_step_dev launch failed: CUDA error {err}")
+    if not torch.cuda.is_current_stream_capturing():
+        with _count_lock:
+            LAUNCHES += 1
     return logits, k_self, v_self
 
 
@@ -541,46 +614,233 @@ def fused_whisper_step(stacked: dict, cfg, x, k_self, v_self, cross_k, cross_v, 
                           k_self, v_self, cross_k, cross_v, pos, tc_valid=tc_valid)
 
 
+# ── the batch-1 decode loop ─────────────────────────────────────────────
+
+
+def position_rows(table: torch.Tensor, pos) -> torch.Tensor:
+    """Row ``pos`` of a position table as (1, D): a host int slices it, a
+    (1,) device int gathers it (the same values)."""
+    return table[pos : pos + 1] if isinstance(pos, int) else table.index_select(0, pos)
+
+
+class _Static:
+    """The device buffers of one loop shape and the CUDA graph of one token
+    over them (None until captured; never on the CPU)."""
+
+    def __init__(self, nl: int, t: int, tc: int, d: int, vp: int, cdt: torch.dtype,
+                 suppress: tuple, scratch_floats: int, dev: torch.device):
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.kc, self.vc = zeros((nl, t, d), cdt), zeros((nl, t, d), cdt)
+        self.ck, self.cv = zeros((nl, tc, d), cdt), zeros((nl, tc, d), cdt)
+        self.logits = zeros((1, vp), torch.float32)
+        self.scratch = zeros((scratch_floats,), torch.float32) if scratch_floats else None
+        self.pos = zeros((1,), torch.int32)
+        self.tcv = zeros((1,), torch.int32)
+        self.buf = zeros((1, t + 1), torch.int64)  # every write lands at pos + 1 <= t
+        self.counts = zeros((1,), torch.int32)
+        self.finished = zeros((1,), torch.bool)
+        self.suppress = torch.as_tensor(suppress, dtype=torch.int64, device=dev) if suppress else None
+        self.graph = None
+
+
+class FusedAedDecoder:
+    """The batch-1 AR decode of one AED decoder (Whisper, FireRed, Dolphin)
+    over :func:`fused_aed_step`, owned by a session and shared by its calls.
+
+    ``input_row(token (1,) int64, pos)`` gives the family's decoder input
+    (1, D) (``pos`` a host int or a (1,) int32 device tensor: see
+    :func:`position_rows`). :meth:`decode` has ``decode/ar.ar_decode``'s
+    arguments, results and stop rule. Greedy decode whose budget fits the
+    self cache runs on static device buffers: on a card each token is one
+    replay of a CUDA graph of one token (the family's input row, the step
+    through :func:`fused_aed_step_dev_cuda` with the position on the
+    device, suppression, argmax, the token written at ``pos + 1``, counts,
+    stop flags, ``pos + 1``), followed by the one read-back of the stop
+    flag a token that ``ar_decode`` makes; on the CPU the same body runs
+    eagerly. The graph of a shape (cache dtype, T, Tc, EOT, suppress ids) is
+    captured after the first eagerly run step of the first request that
+    needs it, and reused. Penalty and sampling run :meth:`host_loop`:
+    ``ar_decode`` over :func:`fused_aed_step` with the position on the host.
+    A lock keeps one call at a time on the buffers."""
+
+    def __init__(self, stacked: dict, geom: AedGeom, vocab_size: int,
+                 input_row: Callable[[torch.Tensor, object], torch.Tensor],
+                 span: str | None = None):
+        self.stacked, self.geom, self.vocab_size, self.input_row = stacked, geom, vocab_size, input_row
+        self.span = span  # around the caches' stacking or copy
+        self._statics: dict[tuple, _Static] = {}
+        self._lock = threading.Lock()
+
+    def _stack_span(self):
+        return annotate(self.span) if self.span else contextlib.nullcontext()
+
+    def decode(self, layers, prompt_len: int, first: torch.Tensor, buf: torch.Tensor, decode_cfg,
+               generator: torch.Generator | None = None,
+               tc_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Decode from the prefilled per-layer caches ``layers`` (each a
+        dict of ``self_k`` / ``self_v`` (1, T, ...) and ``cross_k`` /
+        ``cross_v`` (1, Tc, ...)), attending to the first ``tc_valid`` cross
+        rows (default Tc, clamped into [1, Tc]). Returns ``ar_decode``'s
+        (tokens (1, T_total) int64, counts (1,) int32). Greedy decode whose
+        last step's position lies in the self cache runs on the static
+        buffers; everything else is :meth:`host_loop`."""
+        t = layers[0]["self_k"].shape[1]
+        if (decode_cfg.strategy != "greedy" or prompt_len + decode_cfg.max_new_tokens > t
+                or buf.shape[1] > t + 1):
+            return self.host_loop(layers, prompt_len, first, buf, decode_cfg, generator, tc_valid)
+        with self._lock:
+            with torch.inference_mode():
+                tokens, counts = self._greedy(layers, prompt_len, first, buf, decode_cfg,
+                                              *self._cross_and_dtype(layers, tc_valid))
+            return tokens[:, : buf.shape[1]].clone(), counts.clone()
+
+    @staticmethod
+    def _cross_and_dtype(layers, tc_valid):
+        """(cross rows attended, the caches' dtype as the kernel takes them)."""
+        tc = layers[0]["cross_k"].shape[1]
+        tc_valid = tc if tc_valid is None else min(max(int(tc_valid), 1), tc)
+        # The kernel reads f32 or bf16 caches: f16 caches (an artifact built
+        # from an f16 checkpoint) widen exactly to f32.
+        cdt = layers[0]["self_k"].dtype
+        return tc_valid, torch.float32 if cdt == torch.float16 else cdt
+
+    def host_loop(self, layers, prompt_len: int, first: torch.Tensor, buf: torch.Tensor, decode_cfg,
+                  generator: torch.Generator | None = None,
+                  tc_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`decode` as ``ar_decode`` over :func:`fused_aed_step`, the
+        position on the host: the route of penalty and sampling, and the
+        reference the greedy route is held to."""
+        d = self.geom.d_model
+        t, tc = layers[0]["self_k"].shape[1], layers[0]["cross_k"].shape[1]
+        tc_valid, cdt = self._cross_and_dtype(layers, tc_valid)
+        # (NL, T, D) stacks, made once before the loop; the step writes the
+        # fresh self rows into kc / vc in place.
+        with self._stack_span():
+            kc = torch.stack([ls["self_k"][0].reshape(t, d) for ls in layers]).to(cdt)
+            vc = torch.stack([ls["self_v"][0].reshape(t, d) for ls in layers]).to(cdt)
+            ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers]).to(cdt)
+            cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers]).to(cdt)
+
+        def step(st, token, pos):
+            x = self.input_row(token[:, 0], pos).to(torch.float32)
+            lg, _, _ = fused_aed_step(self.stacked, self.geom, x, kc, vc, ck, cv, pos,
+                                      tc_valid=tc_valid)
+            return lg[:, : self.vocab_size], st
+
+        return ar.ar_decode(step, None, prompt_len, first, buf, decode_cfg, generator)
+
+    def _greedy(self, layers, prompt_len, first, buf, cfg, tc_valid, cdt):
+        global LAUNCHES, GRAPH_REPLAYS
+        d = self.geom.d_model
+        nl, t, tc = len(layers), layers[0]["self_k"].shape[1], layers[0]["cross_k"].shape[1]
+        dev = first.device
+        suppress = tuple(cfg.suppress_ids)
+        key = (cdt, t, tc, cfg.eot_id, suppress)
+        st = self._statics.get(key)
+        if st is None:
+            floats = step_scratch_floats(self.geom) if dev.type == "cuda" else 0
+            st = _Static(nl, t, tc, d, self.stacked["wh"].shape[-1], cdt, suppress, floats, dev)
+            self._statics[key] = st
+        with self._stack_span():  # the request's caches into the static ones: the same bytes
+            for l, ls in enumerate(layers):
+                st.kc[l].copy_(ls["self_k"][0].reshape(t, d))
+                st.vc[l].copy_(ls["self_v"][0].reshape(t, d))
+                st.ck[l].copy_(ls["cross_k"][0].reshape(tc, d))
+                st.cv[l].copy_(ls["cross_v"][0].reshape(tc, d))
+        st.buf.zero_()
+        st.buf[:, : buf.shape[1]].copy_(buf)
+        st.buf[:, prompt_len] = first
+        st.finished.copy_(first == cfg.eot_id)
+        st.counts.fill_(1)
+        st.pos.fill_(prompt_len)
+        st.tcv.fill_(tc_valid)
+        i = 0
+        more = i < cfg.max_new_tokens and not bool(st.finished.all())  # the host sync
+        while more:
+            with annotate("asr.decode.token"):  # a token's replay and the sync that reads it back
+                if st.graph is not None:
+                    st.graph.replay()
+                    with _count_lock:
+                        LAUNCHES += 1
+                        GRAPH_REPLAYS += 1
+                else:
+                    self._body(st, cfg)
+                i += 1
+                more = i < cfg.max_new_tokens and not bool(st.finished.all())
+            if more and st.graph is None and dev.type == "cuda":
+                self._capture(st, cfg)
+        return st.buf, st.counts
+
+    def _capture(self, st: _Static, cfg) -> None:
+        """Record one token of ``st``'s body (it runs nothing: the buffers
+        keep the state the last eager step left)."""
+        global GRAPH_CAPTURES
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._body(st, cfg)
+        st.graph = graph
+        with _count_lock:
+            GRAPH_CAPTURES += 1
+
+    def _body(self, st: _Static, cfg) -> None:
+        """One token on the static buffers, every value on the device:
+        ``ar_decode``'s greedy iteration."""
+        token = st.buf.index_select(1, st.pos)[:, 0]
+        x = self.input_row(token, st.pos).to(torch.float32)
+        if x.device.type == "cpu":
+            lg, _, _ = fused_aed_step_reference(self.stacked, self.geom, x, st.kc, st.vc, st.ck,
+                                                st.cv, int(st.pos), int(st.tcv))
+        else:
+            lg, _, _ = fused_aed_step_dev_cuda(self.stacked, self.geom, x, st.kc, st.vc, st.ck,
+                                               st.cv, st.pos, st.tcv, st.logits, st.scratch)
+        lg = lg[:, : self.vocab_size]
+        if st.suppress is not None:
+            lg = lg.index_fill(1, st.suppress, NEG_INF)
+        nxt = torch.where(st.finished, cfg.eot_id, torch.argmax(lg, dim=-1))
+        st.buf.index_copy_(1, (st.pos + 1).to(torch.int64), nxt[:, None])
+        st.counts += (~st.finished).to(torch.int32)
+        st.finished |= nxt == cfg.eot_id
+        st.pos += 1
+
+
+def scaled_embed_decoder(params: dict, cfg, stacked: dict) -> FusedAedDecoder:
+    """The :class:`FusedAedDecoder` of the sqrt(d)-scaled-embedding AED
+    families (FireRed, Dolphin: their ``_decoder_pass`` input math
+    ``embed[token] * sqrt(d) + positions[pos]``, tied head)."""
+    from asr_tpu_torch.layers.conformer import absolute_positions
+
+    d = cfg.d_model
+    embed = params["decoder"]["embed"]
+    pos_table = absolute_positions(cfg.max_target_positions, d, stacked["wh"].device)
+
+    def input_row(token, pos):
+        return embed[token] * (d ** 0.5) + position_rows(pos_table, pos)
+
+    return FusedAedDecoder(stacked, AedGeom(d, cfg.dec_ffn, cfg.dec_heads), cfg.vocab_size, input_row)
+
+
 def fused_ar_decode(params: dict, cfg, state: dict, enc: torch.Tensor, enc_valid: torch.Tensor,
                     first: torch.Tensor, buf: torch.Tensor, decode_cfg,
-                    generator: torch.Generator | None = None, stacked: dict | None = None,
-                    start_pos: int = 1):
-    """The batch-1 AR decode loop of the sqrt(d)-scaled-embedding AED
-    families (FireRed, Dolphin: their ``_decoder_pass`` input math
-    ``embed[token] * sqrt(d) + positions[pos]``, tied head), every step one
-    :func:`fused_aed_step` call over the utterance's ``enc_valid[0]`` cross
-    rows (at least one, as the multi-slot step clamps them).
+                    generator: torch.Generator | None = None,
+                    stacked: dict | FusedAedDecoder | None = None, start_pos: int = 1):
+    """The batch-1 AR decode of FireRed and Dolphin over the fused step
+    (:meth:`FusedAedDecoder.decode`), over the utterance's ``enc_valid[0]``
+    cross rows (at least one, as the multi-slot step clamps them).
+    ``stacked``: the session's :class:`FusedAedDecoder`, or stacked weights
+    (a decoder is made for this call).
 
     The route applies to stacked weights at batch 1 in the bf16 mode;
     otherwise this returns None and the caller runs the per-weight step
     (batch > 1, the f32 mode). Else returns ``ar_decode``'s (tokens,
-    counts). Whisper keeps its own loop (``models/whisper.transcribe_window``):
-    its input math differs (unscaled embed + learned positions)."""
-    from asr_tpu_torch.decode.ar import ar_decode
-    from asr_tpu_torch.layers.conformer import absolute_positions
+    counts)."""
     from asr_tpu_torch.ops.quant_matmul import _resolve_mm
 
     if stacked is None or enc.shape[0] != 1 or _resolve_mm(None) != "bf16":
         return None
-    d = cfg.d_model
-    geom = AedGeom(d, cfg.dec_ffn, cfg.dec_heads)
+    decoder = (stacked if isinstance(stacked, FusedAedDecoder)
+               else scaled_embed_decoder(params, cfg, stacked))
     layers = state["layers"]
-    t_max, tc = layers[0]["self_k"].shape[1], layers[0]["cross_k"].shape[1]
-    # (NL, T, D) stacks, made once before the loop; the step writes the
-    # fresh self rows into kc / vc in place.
-    kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers])
-    vc = torch.stack([ls["self_v"][0].reshape(t_max, d) for ls in layers])
-    ck = torch.stack([ls["cross_k"][0].reshape(tc, d) for ls in layers])
-    cv = torch.stack([ls["cross_v"][0].reshape(tc, d) for ls in layers])
-    del state, layers
-    dec = params["decoder"]
-    pos_table = absolute_positions(cfg.max_target_positions, d, enc.device)
-    tc_valid = min(max(int(enc_valid[0]), 1), tc)
-
-    def fused_step_fn(st, token, pos):
-        x = dec["embed"][token[:, 0]] * (d ** 0.5) + pos_table[pos : pos + 1]
-        lg, _, _ = fused_aed_step(stacked, geom, x.to(torch.float32), kc, vc, ck, cv, pos,
-                                  tc_valid=tc_valid)
-        return lg[:, : cfg.vocab_size], st
-
-    return ar_decode(fused_step_fn, None, start_pos, first, buf, decode_cfg, generator)
+    tc_valid = min(max(int(enc_valid[0]), 1), layers[0]["cross_k"].shape[1])
+    return decoder.decode(layers, start_pos, first, buf, decode_cfg, generator, tc_valid=tc_valid)

@@ -14,8 +14,10 @@ CIF + non-AR decoder) and Fun-ASR-Nano's fast CTC head
 with the family's PCM convention; the parameters' device is the session's.
 
 The AED sessions stack their q8 decoder for the fused step kernel
-(``ops/fused_aed_step.py``) where it runs (a CUDA card, the bf16 mode): a
-one-window transcription then runs every decode step as one kernel call.
+(``ops/fused_aed_step.py``) where it runs (a CUDA card, the bf16 mode) and
+keep one ``FusedAedDecoder`` over it: a one-window transcription then runs
+every decode step as one kernel call, greedy decode as one CUDA graph
+replay a token.
 Their continuous-serving surface (``aed_engine_spec``,
 ``continuous_prefill``) feeds ``parallel/llm_server.ContinuousSessionServer``,
 whose batcher steps every slot through the multi-slot kernel with the same
@@ -72,6 +74,21 @@ def _aed_stacked(sess, cfg):
         return None
     return stack_aed_step_params(sess.params["decoder"],
                                  AedGeom(cfg.d_model, cfg.dec_ffn, cfg.dec_heads))
+
+
+def _aed_decoder(sess):
+    """The session's batch-1 decode over ``sess.stacked``
+    (``ops/fused_aed_step.FusedAedDecoder``: its graphs and static buffers),
+    made at first use and again when ``stacked`` is replaced; None without
+    stacked weights."""
+    if sess.stacked is None:
+        return None
+    made = getattr(sess, "_decoder", None)
+    if made is None or made.stacked is not sess.stacked:
+        from asr_tpu_torch.ops.fused_aed_step import scaled_embed_decoder
+
+        made = sess._decoder = scaled_embed_decoder(sess.params, sess.cfg, sess.stacked)
+    return made
 
 
 def _one_window(sess, samples) -> tuple[torch.Tensor, torch.Tensor]:
@@ -226,6 +243,7 @@ class FireRedSession(_WindowedSession):
     the ids)."""
 
     pcm_scale = 32768.0
+    decoder = property(_aed_decoder)
 
     def __init__(self, params, cfg, tokenizer=None, decode_cfg=None, **kw):
         super().__init__(params, cfg, tokenizer, **kw)
@@ -239,7 +257,7 @@ class FireRedSession(_WindowedSession):
         from asr_tpu_torch.models import firered as fr
 
         toks, counts = fr.transcribe(params, self.cfg, audio, valid, self.decode_cfg,
-                                     stacked=self.stacked if audio.shape[0] == 1 else None)
+                                     stacked=self.decoder if audio.shape[0] == 1 else None)
         return toks[:, 1:], counts  # drop the SOS slot
 
     # ---- continuous-batching serving surface (parallel/llm_server.py) ----
@@ -273,6 +291,7 @@ class DolphinSession(_WindowedSession):
     the probes of the last call."""
 
     pcm_scale = 32768.0
+    decoder = property(_aed_decoder)
     window_seconds = 30.0
 
     def __init__(self, params, cfg, tokenizer=None, decode_cfg=None, language_id: int = -1,
@@ -344,7 +363,7 @@ class DolphinSession(_WindowedSession):
         b = audio.shape[0]
         prompt = self._prompt(b, device=audio.device)
         out = dp.transcribe(params, self.cfg, audio, valid, prompt, self.decode_cfg,
-                            stacked=self.stacked if b == 1 else None)
+                            stacked=self.decoder if b == 1 else None)
         self._note_probes(out)
         return out["tokens"][:, prompt.shape[1]:], out["counts"]
 

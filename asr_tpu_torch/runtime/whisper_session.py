@@ -13,8 +13,9 @@ at each rank's heads), on the per-weight decode step.
 
 When the parameters are on a CUDA card and quantized matmuls run in the
 ``bf16`` mode, the session stacks the q8 decoder for the fused step
-kernel (``ops/fused_aed_step.py``); a single-window transcription then
-runs every decode step as one kernel call.
+kernel (``ops/fused_aed_step.py``) and keeps one ``FusedAedDecoder``
+over it; a single-window transcription then runs every decode step as one
+kernel call, greedy decode as one CUDA graph replay a token.
 
 The continuous-serving surface (``aed_engine_spec``, ``continuous_prefill``)
 feeds ``parallel/llm_server.ContinuousSessionServer``, whose batcher steps
@@ -102,9 +103,21 @@ class WhisperSession:
         # The stacked copy duplicates the q8 decoder and the (D, V_pad) head:
         # built only where the fused kernel runs (a CUDA card, bf16 mode,
         # no runner: the sharded route decodes on the per-weight step).
-        self.stacked = None
+        self.stacked = self._decoder = None
         if self.runner is None and self.device.type == "cuda" and _resolve_mm(None) == "bf16":
             self.stacked = stack_whisper_step_params(params, cfg)
+
+    @property
+    def decoder(self):
+        """The batch-1 decode over ``self.stacked``
+        (``ops/fused_aed_step.FusedAedDecoder``: its graphs and static
+        buffers), made at first use and again when ``stacked`` is replaced;
+        None without stacked weights."""
+        if self.stacked is None:
+            return None
+        if self._decoder is None or self._decoder.stacked is not self.stacked:
+            self._decoder = wh.fused_decoder(self.params, self.cfg, self.stacked)
+        return self._decoder
 
     @property
     def sample_rate(self) -> int:
@@ -198,7 +211,7 @@ class WhisperSession:
                     out = wh.transcribe_window(
                         self.params, self.cfg, mel, prompt_dev, self.decode_cfg,
                         begin_suppress_ids=self.scfg.begin_suppress_ids, generator=generator,
-                        stacked=self.stacked if padded == 1 else None)
+                        stacked=self.decoder if padded == 1 else None)
                 with annotate("asr.session.download"):
                     tokens = out["tokens"].cpu().numpy()  # waits for the device
                     counts = out["counts"].cpu().numpy()

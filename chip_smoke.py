@@ -809,6 +809,34 @@ def synced(torch, fn):
     return out, time.perf_counter() - t
 
 
+def graphed_vs_eager(torch, fs, decoder, layers, p_len: int, first, buf, dcfg, tc_valid,
+                     label: str, card: str) -> dict:
+    """Greedy decode of one prefilled window on a session's
+    ``FusedAedDecoder``: one CUDA graph replay a token against the eager
+    loop (``ar_decode``, the position on the host), tokens and counts
+    bitwise; one ``LAUNCHES`` a step on both; ``GRAPH_REPLAYS`` every
+    graphed step but the eager first step of a shape's first request; ms a
+    token of each (host clock, the cache copy included)."""
+    def run(graphed: bool):
+        l0, r0, c0 = fs.LAUNCHES, fs.GRAPH_REPLAYS, fs.GRAPH_CAPTURES
+        loop = decoder.decode if graphed else decoder.host_loop
+        (toks, counts), t = synced(torch, lambda: loop(layers, p_len, first, buf, dcfg, tc_valid=tc_valid))
+        steps = int(counts[0]) - 1
+        check(fs.LAUNCHES - l0 == steps, f"{fs.LAUNCHES - l0} step launches for {steps} steps")
+        replays, captures = fs.GRAPH_REPLAYS - r0, fs.GRAPH_CAPTURES - c0
+        want = steps - captures if graphed else 0
+        check(replays == want, f"{replays} graph replays for {steps} steps ({captures} captures)")
+        return toks, counts, t * 1e3 / max(steps, 1), steps
+
+    run(True)  # the shape's graph, if this is its first request
+    eager, graphed = run(False), run(True)
+    check(torch.equal(eager[0], graphed[0]) and torch.equal(eager[1], graphed[1]),
+          "graphed greedy tokens differ from the eager loop's")
+    print(f"[{label}] graphed vs eager greedy decode: tokens and counts bitwise equal over {eager[3]} "
+          f"steps; {graphed[2]:.3f} ms a token graphed, {eager[2]:.3f} eager  [{card}]")
+    return {"graphed_ms_per_token": graphed[2], "eager_ms_per_token": eager[2], "graphed_steps": eager[3]}
+
+
 def phase_whisper(torch, np, qm, fs, folder: str, card: str) -> dict:
     """Whisper-Large-v3-Turbo q8 through an artifact folder (saved into
     ``folder``, which phase 13 loads again) and WhisperSession."""
@@ -924,14 +952,20 @@ def phase_whisper_numbers(torch, np, qm, fs, wh_run: dict, card: str) -> dict:
         torch.cuda.synchronize()
         out["encoder_ms"] = start.elapsed_time(end) / 3
         _, t_pre = synced(torch, lambda: wh.prefill_window(params, cfg, mel, prompt, dcfg))
-        for route, stacked in (("fused", session.stacked), ("per-weight", None)):
+        for route, stacked in (("fused", session.decoder), ("per-weight", None)):
             res, t_all = synced(torch, lambda: wh.transcribe_window(params, cfg, mel, prompt, dcfg,
                                                                      stacked=stacked))
             steps = int(res["counts"].max()) - 1
             out[f"{route}_ms_per_token"] = (t_all - t_pre) * 1e3 / max(steps, 1)
             out[f"{route}_steps"] = steps
-        # The host sync: the same fused steps with and without a stop test each step.
         pre = wh.prefill_window(params, cfg, mel, prompt, dcfg)
+        p_len = prompt.shape[1]
+        buf = torch.zeros((1, p_len + dcfg.max_new_tokens + 1), dtype=torch.int64, device=DEV)
+        buf[:, :p_len] = pre["prompt"]
+        first = select_token(pre["logits0"], buf, p_len, dcfg)
+        out.update(graphed_vs_eager(torch, fs, session.decoder, pre["state"]["layers"], p_len, first,
+                                    buf, dcfg, None, "10 numbers", card))
+        # The host sync: the same fused steps with and without a stop test each step.
         layers = pre["state"]["layers"]
         d, t_max, tc = cfg.d_model, cfg.max_target_positions, layers[0]["cross_k"].shape[1]
         kc = torch.stack([ls["self_k"][0].reshape(t_max, d) for ls in layers])
@@ -3718,6 +3752,13 @@ def phase_aed_family(torch, np, qm, fs, name: str, folder: str, card: str) -> di
     check(not over, f"fused vs plain above {TEACHER_TOL} of max|logit| at steps {over[:10]}")
     check(flips == 0, f"{flips} argmax differences above the {TEACHER_TOL} top-2 margin")
     check(same == steps, f"the fused argmax is the session's id at only {same}/{steps} steps")
+    with torch.inference_mode():
+        buf = torch.zeros((1, p_len + dcfg.max_new_tokens + 1), dtype=torch.int64, device=DEV)
+        buf[:, :p_len] = pre["prompt"] if "prompt" in pre else cfg.sos_id
+        first = select_token(pre["logits0"], buf, p_len, dcfg)
+        graphed = graphed_vs_eager(torch, fs, session.decoder, pre["state"]["layers"], p_len, first, buf,
+                                   dcfg, tcv, label, card)
+        del pre
 
     # Two windows: batched per-weight decode through the int8 kernel only.
     audio45 = (rng.standard_normal(45 * 16000) * 2000).astype(np.float32)
@@ -3729,7 +3770,7 @@ def phase_aed_family(torch, np, qm, fs, name: str, folder: str, card: str) -> di
           f"2-window run: {dq} int8 launches is not {per_win} + {per_step} per step")
     print(f"[{label}] 45 s (2 windows) -> {len(res45.token_ids)} tokens in {res45.elapsed_seconds * 1e3:.1f} ms; "
           f"int8 launches {dq} ({(dq - per_win) // per_step} per-weight steps of {per_step}), fused 0  [{card}]")
-    out = {"int8": int8, "fused": fused, "steps": steps, "int8_45s": dq}
+    out = {"int8": int8, "fused": fused, "steps": steps, "int8_45s": dq, **graphed}
 
     if name == "dolphin":  # the language forced by name through the catalog
         forced = _build_session(Path(folder), language="Forced", device=DEV)

@@ -4,7 +4,10 @@ plain version at the SenseVoiceSmall q8 shapes and at ragged ones (K = block
 bitwise the row alone across every schedule its plan switches between and
 every tile it has, and the kernel launch count of one full-geometry forward; the fused AED decode-step kernel against its
 plain version at a small and at the Whisper-Large-v3-Turbo geometry, its
-wrapper's checks, and its launch count in a one-window transcription; the
+wrapper's checks, and its launch count in a one-window transcription; its
+device-position entry bitwise the host-position one, and the graphed
+greedy decode (one CUDA graph replay a token) against the eager loop at
+the turbo width, with its replay and capture counts; the
 multi-slot AED decode-step kernel likewise and, slot by slot, bitwise
 against the batch-1 kernel (at B = 2, 5, 8, 17 and 32 with parked slots),
 and its launch count in a continuous-serving run; the two AED steps'
@@ -326,6 +329,99 @@ def test_one_window_transcribe_launches_fused_kernel_once_per_step():
     before_f = fs.LAUNCHES
     sess.transcribe(np.concatenate([audio, audio]))  # 2 windows: the per-weight route
     assert fs.LAUNCHES == before_f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_fused_step_device_pos_entry_is_bitwise_the_host_pos_entry(cache):
+    """Turbo geometry: the entry that reads pos and tc_valid on the device
+    (what the decode graph replays) gives the host-pos entry's logits and
+    cache rows bit for bit, at pos 4, 100 and 447."""
+    _need_card()
+    fs, cfg, params, stacked, g = _fused_setup({"encoder_layers": 0})
+    geom = fs.AedGeom(cfg.d_model, cfg.ffn_dim, cfg.num_heads)
+    nl, d, t, tc = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, cfg.max_source_positions
+    ks, vs = (torch.randn((nl, t, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    ck, cv = (torch.randn((nl, tc, d), generator=g, device="cuda").to(cache) for _ in range(2))
+    logits = torch.empty((1, stacked["wh"].shape[1]), device="cuda")
+    scratch = torch.empty((fs.step_scratch_floats(geom),), device="cuda")
+    for pos in (4, 100, 447):
+        x = torch.randn((1, d), generator=g, device="cuda") * 0.05
+        for tc_valid in (tc, 700):
+            kh, vh, kd, vd = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+            want, _, _ = fs.fused_aed_step_cuda(stacked, geom, x, kh, vh, ck, cv, pos, tc_valid)
+            before = fs.LAUNCHES
+            got, _, _ = fs.fused_aed_step_dev_cuda(
+                stacked, geom, x, kd, vd, ck, cv, torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                torch.tensor([tc_valid], dtype=torch.int32, device="cuda"), logits, scratch)
+            torch.cuda.synchronize()
+            assert fs.LAUNCHES == before + 1 and got.data_ptr() == logits.data_ptr()
+            assert torch.equal(got, want), (pos, tc_valid)
+            assert torch.equal(kd, kh) and torch.equal(vd, vh), (pos, tc_valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_graphed_greedy_decode_equals_eager_at_turbo_width(cache):
+    """A full-width Whisper-Large-v3-Turbo q8 decoder on random prefilled
+    caches: the decoder's greedy route (one CUDA graph replay a token)
+    against the eager ``ar_decode`` loop, tokens and counts equal, to the
+    budget and with EOT in mid-loop; ``LAUNCHES`` one a step, every step of
+    the second request of a shape a replay, one graph for the two."""
+    _need_card()
+    from asr_tpu_torch.decode.ar import DecodeConfig
+    from asr_tpu_torch.models import whisper as wh
+
+    fs, cfg, params, stacked, g = _fused_setup({"encoder_layers": 0})
+    decoder = wh.fused_decoder(params, cfg, stacked)
+    nl, d, t, tc = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions, cfg.max_source_positions
+    p_len, budget = 4, 200
+
+    def layers(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        out = []
+        for _ in range(nl):
+            sk, sv = (torch.zeros((1, t, d), device="cuda") for _ in range(2))
+            sk[0, :p_len] = torch.randn((p_len, d), generator=g, device="cuda")
+            sv[0, :p_len] = torch.randn((p_len, d), generator=g, device="cuda")
+            ck, cv = (torch.randn((1, tc, d), generator=g, device="cuda") for _ in range(2))
+            out.append({k: v.to(cache) for k, v in
+                        (("self_k", sk), ("self_v", sv), ("cross_k", ck), ("cross_v", cv))})
+        return out
+
+    buf = torch.zeros((1, p_len + budget + 1), dtype=torch.int64, device="cuda")
+    buf[0, :p_len] = torch.tensor([50258, 50259, 50360, 50364])
+    first = torch.tensor([220], device="cuda")
+
+    def run(lay, dcfg, graphed):
+        l0, r0, c0 = fs.LAUNCHES, fs.GRAPH_REPLAYS, fs.GRAPH_CAPTURES
+        loop = decoder.decode if graphed else decoder.host_loop
+        toks, counts = loop(lay, p_len, first, buf, dcfg)
+        torch.cuda.synchronize()
+        steps = int(counts[0]) - 1
+        assert fs.LAUNCHES - l0 == steps
+        return toks, counts, steps, fs.GRAPH_REPLAYS - r0, fs.GRAPH_CAPTURES - c0
+
+    to_budget = DecodeConfig(max_new_tokens=budget, eot_id=-1)
+    lay = layers(1)
+    e_toks, e_counts, steps, replays, captures = run(lay, to_budget, False)
+    assert steps == budget and replays == 0 and captures == 0
+    g_toks, g_counts, steps, replays, captures = run(lay, to_budget, True)
+    assert torch.equal(g_toks, e_toks) and torch.equal(g_counts, e_counts)
+    assert captures == 1 and replays == steps - 1  # the first step of a shape's first request is eager
+    seq = e_toks[0, p_len:].tolist()
+    k = next(i for i in range(2, len(seq)) if seq[i] not in seq[:i])
+    mid = DecodeConfig(max_new_tokens=budget, eot_id=seq[k])
+    e_toks, e_counts, steps, _, _ = run(lay, mid, False)
+    assert steps == k
+    g_toks, g_counts, steps, replays, captures = run(lay, mid, True)
+    assert torch.equal(g_toks, e_toks) and torch.equal(g_counts, e_counts)
+    assert captures == 1 and replays == steps - 1  # another EOT: another graph
+    lay2 = layers(2)
+    e_toks, e_counts, _, _, _ = run(lay2, to_budget, False)
+    g_toks, g_counts, steps, replays, captures = run(lay2, to_budget, True)
+    assert torch.equal(g_toks, e_toks) and torch.equal(g_counts, e_counts)
+    assert captures == 0 and replays == steps == budget  # the second request of the shape
 
 
 # ── the multi-slot AED decode step (continuous Whisper serving) ─────────

@@ -110,9 +110,9 @@ def test_sensevoice_session_writes_every_stage_span(sessions, tmp_path):
 
 def test_whisper_session_writes_every_stage_span(sessions, tmp_path, monkeypatch):
     sess, audio = sessions[0]["whisper"], sessions[1]["whisper"]
-    steps = []
-    real = fas.fused_whisper_step
-    monkeypatch.setattr(fas, "fused_whisper_step", lambda *a, **k: steps.append(1) or real(*a, **k))
+    steps = []  # the fused route's steps: the plain step on CPU tensors, whichever loop runs it
+    real = fas.fused_aed_step_reference
+    monkeypatch.setattr(fas, "fused_aed_step_reference", lambda *a, **k: steps.append(1) or real(*a, **k))
     res, spans = _traced(tmp_path, lambda: sess.transcribe(audio))
     counts = _check_nesting(spans, "whisper", requests=1)
     assert steps and counts["asr.decode.token"] == len(steps)
